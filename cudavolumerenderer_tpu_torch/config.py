@@ -4,7 +4,8 @@ ConfigParser.cpp:10-165).
 Port of cudavolumerenderer_tpu/config.py with the same fields and
 defaults, so a configuration means the same render in both packages.
 Options whose code paths are not ported yet raise NotImplementedError
-where the render reaches them (models/fast.py, models/renderer.py).
+where the render reaches them (models/fast.py, models/renderer.py,
+scene/loader.py, cli.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from .scene.types import RenderSettings
 
 class Kernel(enum.Enum):
     """Scheduling strategies (reference: Config.h:87-95 Kernel enum).
-    Only FAST_SK is ported; make_kernel_fn raises for the others."""
+    FAST_SK (models/fast.py) and BRICK_SK (models/brick.py) are ported;
+    make_kernel_fn raises for the others (ROADMAP A10)."""
 
     NAIVE_SK = "naiveSK"
     NAIVE_MK = "naiveMK"
@@ -41,6 +43,12 @@ class Kernel(enum.Enum):
             f"unknown kernel {name!r}; choose from "
             f"{[k.value for k in cls]}"
         )
+
+
+class Algorithm(enum.Enum):
+    """Only one algorithm exists (reference: Config.h:82-85)."""
+
+    CUDA_VOL_PATH = "cudaVolPath"
 
 
 class SceneType(enum.Enum):
@@ -88,14 +96,23 @@ class Config:
 
     scene_file: Optional[str] = None
     scene_type: SceneType = SceneType.AUTO
+    algorithm: Algorithm = Algorithm.CUDA_VOL_PATH
     kernel: Kernel = Kernel.FAST_SK
     iterations: int = 20
     resolution: Tuple[int, int] = (1024, 1024)
     n_tiles: Tuple[int, int] = (1, 1)
+    #: batch-mode trials (cli.run_test); the first is discarded when > 1
+    trials: int = 1
+    #: progressive mode with frame dumps (not ported: ROADMAP A7)
+    interactive: bool = False
+    #: output path stem for .hdr/.png; None = to_string()
+    output_name: Optional[str] = None
     seed: int = 1234
     #: wavefront pool size for the queue-fed schedulers; None = sized
     #: from the work and device memory (utils/occupancy.py)
     n_lanes: Optional[int] = None
+    #: regenerationSK refill granularity (not ported: ROADMAP A10)
+    regeneration_level: int = 0
     #: fastSK two-level (sparse-leap) tracking
     two_level: bool = False
     lanes_per_pixel: int = 1
@@ -108,6 +125,9 @@ class Config:
     #: fastSK single-level spec-K tail pools (not ported: ROADMAP A6)
     tail_single_level: bool = False
     tail_spec: int = 1
+    #: pool width below which the spec/single-level tail modes engage
+    #: (read only by those modes, not ported: ROADMAP A6)
+    spec_width: Optional[int] = None
     #: cascade bottom pool width; None = 4096 (widths quantize to
     #: multiples of 256, so values below 256 equal 256)
     min_width: Optional[int] = None
@@ -140,3 +160,10 @@ class Config:
     @property
     def tiling(self) -> TilingConfig:
         return TilingConfig(resolution=self.resolution, n_tiles=self.n_tiles)
+
+    def to_string(self) -> str:
+        """Default output name (reference: Config.h:237-248)."""
+        return (
+            f"algorithm_{self.algorithm.value}_kernel_{self.kernel.value}"
+            f"_iter_{self.iterations}"
+        )

@@ -180,16 +180,17 @@ class FastState(NamedTuple):
     n_busy: torch.Tensor  # () f32 — sum over iterations of tracking lanes
 
 
-def _take_lanes(s: FastState, idx: torch.Tensor) -> FastState:
-    """The lanes `idx` of every per-lane field (cascade compaction)."""
-    lanes = {
-        k: v.index_select(0, idx)
-        for k, v in s._asdict().items()
-        if k not in ("rng", "n_rays", "n_rows", "n_busy")
-    }
-    rng = RngState(s.rng.state.index_select(0, idx),
-                   s.rng.inc.index_select(0, idx))
-    return s._replace(rng=rng, **lanes)
+def _take_lanes(s, idx: torch.Tensor):
+    """The lanes `idx` of every per-lane field of a state tuple (cascade
+    compaction here, the sort permutation in models/brick.py); 0-d
+    counters stay as they are."""
+    def take(v):
+        if isinstance(v, RngState):
+            return RngState(v.state.index_select(0, idx),
+                            v.inc.index_select(0, idx))
+        return v if v.ndim == 0 else v.index_select(0, idx)
+
+    return type(s)(*(take(v) for v in s))
 
 
 def _stochastic_tap(coord, f_bits):

@@ -20,7 +20,7 @@ from ..config import Config, Kernel
 from ..ops.camera import Camera
 from ..scene.types import Scene
 from ..utils import occupancy
-from . import fast
+from . import brick, fast
 
 
 def _tile_array(
@@ -151,20 +151,31 @@ class ProgressiveTiledRenderer:
                 progress_callback(float(self.iterations_done.sum()) / total)
 
     def _spp_per_launch(self) -> int:
-        # fastSK renders all iterations of a tile in one launch (the
+        # fastSK and brickSK render all iterations of a tile in one call (the
         # naive schedulers' spp_per_launch comes with them, ROADMAP A10)
         return self.config.iterations
 
 
 def make_kernel_fn(config: Config):
     """Scheduler dispatch (reference: RendererFactory::createRenderer,
-    RendererFactory.h:43-113).  Only fastSK is ported."""
+    RendererFactory.h:43-113).  fastSK and brickSK are ported."""
     k = config.kernel
+    if (
+        config.settings.boundary == "variable"
+        and k in (Kernel.FAST_SK, Kernel.FAST_Q, Kernel.BRICK_SK)
+    ):
+        raise ValueError(
+            "--boundary variable is supported by the integrator-family "
+            "schedulers (naiveSK/naiveMK/regenerationSK/streamingSK/"
+            "streamingMK/sortingSK); fastSK/fastQ/brickSK fused tables "
+            "keep the AABB boundary"
+        )
+    if k == Kernel.BRICK_SK:
+        return brick.render_tile
     if k != Kernel.FAST_SK:
-        item = "A12/B2" if k == Kernel.BRICK_SK else "A10"
         raise NotImplementedError(
             f"kernel {k.value} is not ported to the torch package yet "
-            f"(ROADMAP {item}); only fastSK is"
+            "(ROADMAP A10); fastSK and brickSK are"
         )
 
     def fsk(*args):

@@ -1,8 +1,8 @@
 """Scene loading dispatch (reference: ConfigParser::createConfig's scene-type
 selection, ConfigParser.cpp:99-115, with extension auto-detection).
 
-Port of cudavolumerenderer_tpu/scene/loader.py.  MHD/MHA is the only
-scene type ported so far; the others raise (ROADMAP A7).
+Port of cudavolumerenderer_tpu/scene/loader.py.  Mitsuba XML, RAW and
+MHD/MHA scenes load; VDB and NPZ raise (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import torch
 from ..config import Config, SceneType
 from ..ops.camera import Camera
 from .mhd import load_mhd_scene
+from .raw_builder import load_raw_scene
 from .types import Scene
+from .xml_builder import load_xml_scene
 
 
 def load_scene(config: Config, device="cpu") -> Tuple[Scene, Camera]:
@@ -25,12 +27,17 @@ def load_scene(config: Config, device="cpu") -> Tuple[Scene, Camera]:
     stype = config.scene_type
     if stype == SceneType.AUTO:
         stype = SceneType.detect(config.scene_file)
-    if stype != SceneType.MHD:
+    if stype == SceneType.MITSUBA_XML:
+        scene, camera = load_xml_scene(config.scene_file, device=device)
+    elif stype == SceneType.RAW:
+        scene, camera = load_raw_scene(config.scene_file, device=device)
+    elif stype == SceneType.MHD:
+        scene, camera = load_mhd_scene(config.scene_file, device=device)
+    else:  # VDB, NPZ
         raise NotImplementedError(
             f"scene type {stype.value} is not ported to the torch package "
-            "yet (ROADMAP A7); only MHD/MHA scenes load"
+            "yet (ROADMAP A7); Mitsuba XML, RAW and MHD/MHA scenes load"
         )
-    scene, camera = load_mhd_scene(config.scene_file, device=device)
 
     w, h = config.resolution
     camera = override_resolution(camera, w, h)

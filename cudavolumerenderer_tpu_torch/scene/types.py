@@ -79,8 +79,8 @@ class RenderSettings:
     """Static rendering switches (reference: Defines.h's compile-time
     knobs MITSUBA_COMPARABLE, RUSSIAN_ROULETTE, max_path_length).  Field
     meanings as in the JAX package; its interpolation and variable-
-    boundary fields serve the integrator-family schedulers (ROADMAP A10)
-    and are not ported yet."""
+    boundary march fields serve the integrator-family schedulers
+    (ROADMAP A10) and are not ported yet."""
 
     mitsuba_comparable: bool = True
     russian_roulette: bool = True
@@ -88,6 +88,12 @@ class RenderSettings:
     #: 'ggx' — reference boundary BSDF; 'null' — pass-through boundary
     #: (reference: Bsdf.h:6-15), used for white-furnace oracles.
     bsdf_kind: str = "ggx"
+    #: medium boundary model: 'aabb' (the box faces) or 'variable' (the
+    #: density-isosurface march of the integrator-family schedulers;
+    #: fastSK/brickSK refuse it, models/renderer.make_kernel_fn)
+    boundary: str = "aabb"
+    #: gradient-magnitude threshold for the variable boundary
+    boundary_threshold: float = 1e-8
 
     @classmethod
     def from_flags(cls, mitsuba_comparable: bool = True, **kw) -> "RenderSettings":

@@ -1,5 +1,6 @@
-"""The CUDA tail kernel on the card: against its plain torch version, the
-white furnace through it, its launch count and its input checks.
+"""The CUDA kernels on the card (the fastSK tail kernel and the brickSK
+tracking kernel): each against its plain torch version, the white
+furnace through it, its launch count and its input checks.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -14,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from cudavolumerenderer_tpu_torch.models import fast
-from cudavolumerenderer_tpu_torch.ops import tailpk
+from cudavolumerenderer_tpu_torch.models import brick, fast
+from cudavolumerenderer_tpu_torch.ops import tailpk, tracking
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
 from cudavolumerenderer_tpu_torch.scene import procedural
 from cudavolumerenderer_tpu_torch.scene import types
@@ -49,10 +50,21 @@ def kernel_inputs(n_paths, seed, device="cpu", max_path=6, rr=True):
     return tables.tab, brick, params, f, i, rng
 
 
+def track_inputs(n_rows, seed, device):
+    """(tables, row_brick, f, rng, status) for n_rows binned rows on the
+    smoke grid of the brickSK slice, at its scale 800."""
+    d = torch.tensor(procedural.smoke_volume((128, 128, 50)), device=device)
+    tables, major = tracking.build_dilated_bricks(d)
+    inputs = tracking.random_track_state(
+        major, n_rows, seed=seed, scale=800.0, vox_per_unit=(127.0, 127.0, 49.0)
+    )
+    return (tables.reshape(-1, tracking.ROW), *inputs)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the tail kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -101,3 +113,51 @@ def test_wrapper_checks_inputs(cuda):
         tailpk.run_tail_steps(tab, brick, params, f.T.contiguous().T, i, rng, 4)
     with pytest.raises(ValueError, match="on cuda"):
         tailpk.run_tail_steps(tab.cpu(), brick, params, f, i, rng, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows, n_steps", [(8, 8), (1250, 8), (1250, 32)])
+def test_tracking_kernel_matches_plain_version(cuda, n_rows, n_steps):
+    inputs = track_inputs(n_rows, seed=n_rows + n_steps, device=cuda)
+    launches = tracking.KERNEL.launches
+    got = tracking.run_track_steps(*inputs, n_steps=n_steps)
+    torch.cuda.synchronize()
+    assert tracking.KERNEL.launches == launches + 1
+    want = tracking.track_steps(*inputs, n_steps=n_steps)
+    (gt, gs, gtap, gst), (wt, ws, wtap, wst) = (
+        [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want]
+    )
+    agree = (gs == ws) & (gtap == wtap) & (gst == wst)
+    print(f"tracking lanes differing from plain: {int((~agree).sum())}")
+    assert agree.mean() >= 0.999
+    np.testing.assert_allclose(gt[agree], wt[agree], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_white_furnace_through_tracking_kernel(cuda):
+    d = procedural.blob_volume((24, 24, 24), n_blobs=3)
+    scene = types.make_scene(types.make_medium(d, 1.0, scale=8.0,
+                                               max_density=1.0, device=cuda))
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, bsdf_kind="null"
+    )
+    launches = tracking.KERNEL.launches
+    img, _, rounds = brick.render_tile(
+        scene, make_camera(16, 16, device=cuda), settings, (16, 16),
+        torch.zeros(2, device=cuda), (16, 16), 2, 3, 0, with_stats=True,
+    )
+    assert tracking.KERNEL.launches == launches + rounds
+    np.testing.assert_array_equal(img.cpu().numpy(), 2.0)
+
+
+@pytest.mark.cuda
+def test_tracking_wrapper_checks_inputs(cuda):
+    tables, row_brick, f, rng, status = track_inputs(4, seed=3, device=cuda)
+    run = tracking.run_track_steps
+    with pytest.raises(ValueError, match="status must be"):
+        run(tables, row_brick, f, rng, status.long(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(tables, row_brick, f.transpose(1, 2).contiguous().transpose(1, 2),
+            rng, status, 4)
+    with pytest.raises(ValueError, match="on cuda"):
+        run(tables.cpu(), row_brick, f, rng, status, 4)

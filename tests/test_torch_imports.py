@@ -22,6 +22,9 @@ def test_every_module_imports_without_jax():
     mods = port_modules()
     assert "cudavolumerenderer_tpu_torch.models.fast" in mods
     assert "cudavolumerenderer_tpu_torch.ops.tailpk" in mods
+    for name in ("ops.tracking", "models.brick", "cli", "utils.image",
+                 "scene.vol", "scene.xml_builder", "scene.raw_builder"):
+        assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"

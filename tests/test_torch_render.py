@@ -204,7 +204,10 @@ def test_multi_tile_offsets_raise():
 def test_other_kernels_and_scene_types_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         make_kernel_fn(Config(kernel=Kernel.REGENERATION_SK))
-    raw = tmp_path / "v.raw"
-    raw.write_bytes(bytes(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        load_scene(Config(scene_file=str(raw)))
+    # brickSK is ported: its kernel function no longer raises
+    assert callable(make_kernel_fn(Config(kernel=Kernel.BRICK_SK)))
+    for name in ("v.vdb", "v.npz"):
+        path = tmp_path / name
+        path.write_bytes(bytes(8))
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            load_scene(Config(scene_file=str(path)))
