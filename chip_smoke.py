@@ -9,9 +9,10 @@ CPU or to a plain version on a CUDA tensor):
 
 1. identify the card (nvidia-smi name and power limit); refuse to run
    without CUDA;
-2. build both kernels, csrc/tailpk.cu and csrc/tracking.cu, with one nvcc
-   each, started together (into the package's ignored _build/
-   directory); print the build times and ptxas registers and spills;
+2. build the three kernel libraries, csrc/tailpk.cu, csrc/tracking.cu
+   and csrc/pgather.cu, with one nvcc each, started together (into the
+   package's ignored _build/ directory); print the build times and
+   ptxas registers and spills;
 3. the kernel against its plain torch version on the card, on the
    medical 256^3 dilated-brick table with R = 128 and R = 4096 paths at
    K = 16 steps: integer outputs equal on >= 99.9% of paths, floats
@@ -36,7 +37,17 @@ CPU or to a plain version on a CUDA tensor):
    -k brickSK -i 4 -r 400 400, two trials (the first discarded); the
    tracking kernel's launch count must rise; then one timed render
    through brick.render_tile (the function make_kernel_fn returns),
-   image copied to the host, with its round count.
+   image copied to the host, with its round count;
+9. each of the five gather kernels (csrc/pgather.cu) against its plain
+   torch version at the gather benchmark's published shapes (67 MB
+   table, N = 262,144, S = 16): bit-equal outputs; kernel and plain
+   version each timed per call by CUDA events around replays of a CUDA
+   graph of 16 back-to-back calls, so the wrapper's host time stays out;
+10. the gather benchmark's entry point (benchmarks/micro_pgather.main) at
+   its defaults, every variant at 67 MB, then at --table-mb 4300 on
+   xla_big, xla_sorted, xla_packed, xla_packed8f and pallas_binned with 3
+   reps; each variant's M rows/s printed, the JSON checked, and every
+   gather kernel's launch count must rise.
 
 The last lines are a JSON line describing the kernels, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
@@ -56,6 +67,17 @@ import numpy as np
 
 RTOL, ATOL = 1e-5, 1e-6
 N_STEPS = 16
+GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
+GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
+              "pallas_binned")  # the variants run at 4.3 GB
+# each gather kernel's Pallas body (file:line)
+GATHER_REPLACES = {
+    "taa1": "benchmarks/micro_pgather.py:284",
+    "taa0": "benchmarks/micro_pgather.py:310",
+    "vmem": "benchmarks/micro_pgather.py:334",
+    "stream": "benchmarks/micro_pgather.py:354",
+    "binned": "benchmarks/micro_pgather.py:390",
+}
 SLICE_XML = """<scene version="0.5.0">
   <medium type="heterogeneous" id="smoke">
     <volume name="density" type="gridvolume">
@@ -151,6 +173,110 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, calls: int = 16, replays: int = 10) -> float:
+    """Milliseconds per call of fn, CUDA events around `replays` replays
+    of a CUDA graph of `calls` back-to-back calls (no host time per
+    call)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks.micro_pgather import GraphRun
+
+    graphed = GraphRun(lambda: [fn() for _ in range(calls)], ())
+    graphed.run()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graphed.run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
+
+
+def gather_vs_plain(table, name: str):
+    """Phase 9 for one gather kernel: returns (max_abs_err, kernel ms,
+    plain ms)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import pgather as pg
+
+    args = mpg.kernel_args(name, table, GATHER_N, GATHER_S)
+    run, plain = pg.WRAPPERS[name]
+    before = pg.KERNELS[name].launches
+    got = run(*args)
+    torch.cuda.synchronize()
+    check(pg.KERNELS[name].launches == before + 1, f"{name} did not launch")
+    want = plain(*args)
+    check(torch.equal(got, want), f"gather kernel {name} is not bit-equal "
+          "to its plain version")
+    err = float((got - want).abs().max())
+    ms = graph_ms(lambda: run(*args))
+    plain_ms = graph_ms(lambda: plain(*args))
+    log(f"[9] {name}: idx {tuple(args[1].shape)} into tab "
+        f"{tuple(args[0].shape)}: bit-equal, max |err| {err:.3g}; kernel "
+        f"{ms * 1e3:.2f} us, plain torch {plain_ms * 1e3:.2f} us per call")
+    return err, ms, plain_ms
+
+
+def gather_benchmark(tmp: str, card: str):
+    """Phase 10: the gather benchmark's entry point at 67 MB (every
+    variant) and 4.3 GB (the named subset); returns the gather kernels'
+    launch counts over both runs."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import pgather as pg
+
+    runs = (("67", []), ("4300", ["--table-mb", "4300", "--only",
+                                  ",".join(GATHER_BIG), "--reps", "3"]))
+    torch.cuda.synchronize()
+    for kern in pg.KERNELS.values():
+        kern.launches = 0
+    rates = {}
+    for mb, argv in runs:
+        path = os.path.join(tmp, f"pgather_{mb}.json")
+        t0 = time.perf_counter()
+        ret = mpg.main([*argv, "--json-out", path])
+        log(f"[10] micro_pgather at {mb} MB: {time.perf_counter() - t0:.1f} s")
+        with open(path) as f:
+            saved = json.load(f)
+        check(saved == ret, "the benchmark's JSON differs from its result")
+        check(list(saved) == ["V", "N", "S", "inner", "platform", "results"],
+              f"JSON keys {list(saved)}")
+        check(saved["V"] == mpg.table_rows(float(mb), 16)
+              and saved["N"] == GATHER_N and saved["S"] == GATHER_S
+              and saved["inner"] == 16 and saved["platform"] == "cuda",
+              f"JSON header {saved}")
+        for name, res in saved["results"].items():
+            check(sorted(res) == ["mrows_s", "ms_per_gather"]
+                  and all(np.isfinite(v) and v > 0 for v in res.values()),
+                  f"{mb} MB {name}: {res}")
+            rates.setdefault(name, {})[mb] = res
+    names = set(rates)
+    want_67 = {"xla_small_1mb", "xla_small_4mb", "xla_wide_1mb",
+               "xla_wide_8mb", "xla_wide_16mb"} | {
+        v for v in mpg.VARIANTS if v not in ("xla_small", "xla_wide")}
+    check(names == want_67, f"variants run at 67 MB: {sorted(names)}")
+    check({n for n in names if "4300" in rates[n]} == set(GATHER_BIG),
+          "variants run at 4.3 GB")
+    launches = {k: kern.launches for k, kern in pg.KERNELS.items()}
+    check(all(n > 0 for n in launches.values()),
+          f"a gather kernel never launched in the benchmark: {launches}")
+    log(f"[10] gather kernel launches (graph replays x 16 + warm-ups + "
+        f"checks): {launches}")
+    log(f"[10] per gather, card {card}:")
+    order = {v: i for i, v in enumerate(mpg.VARIANTS)}
+    for name in sorted(rates, key=lambda n: order.get(n, order.get(
+            n.rsplit("_", 1)[0]))):
+        cells = "  ".join(
+            f"{mb} MB {r['ms_per_gather'] * 1e3:9.2f} us "
+            f"{r['mrows_s']:10.1f} M rows/s" for mb, r in rates[name].items())
+        log(f"[10]   {name:16s} {cells}")
+    return launches
 
 
 def kernel_vs_plain(tables, params, n_paths: int):
@@ -343,14 +469,17 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.models.renderer import (
         create_renderer, make_kernel_fn,
     )
+    from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build both kernels, one nvcc each, started together ------
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.library) for k in (tpk.KERNEL, tk.KERNEL)]
+    # -- phase 2: build the three libraries, one nvcc each, started together
+    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        builds = [pool.submit(k.library) for k in libraries]
         builds = [b.result() for b in builds]
     for built in builds:
         log(f"[2] built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
@@ -470,8 +599,29 @@ def main() -> int:
         f"{bwall / rounds * 1e3:.2f} ms per round, image mean {bmean:.5f}; "
         f"card {card}")
 
+    # -- phase 9: the gather kernels against their plain versions ----------
+    t0 = time.perf_counter()
+    gtable = torch.from_numpy(
+        mpg.make_table(mpg.table_rows(67.0, GATHER_S))).to("cuda")
+    log(f"[9] gather table {tuple(gtable.shape)} "
+        f"({gtable.numel() * 4 / 2**20:.0f} MB) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gathers = {name: gather_vs_plain(gtable, name) for name in pg.NAMES}
+    del gtable
+
+    # -- phase 10: the gather benchmark's entry point -----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        glaunches = gather_benchmark(tmp, card)
+
     ms, plain_ms = times[128]
     tms, tplain = ttimes[1250, 8]
+    gather_lines = [{
+        "name": f"pgather_{name}", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/pgather.cu",
+        "replaces": GATHER_REPLACES[name], "launches": glaunches[name],
+        "max_abs_err": gathers[name][0], "ms": gathers[name][1],
+        "plain_ms": gathers[name][2],
+    } for name in pg.NAMES]
     print(json.dumps({"kernels": [{
         "name": "tailpk", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tailpk.cu",
@@ -484,7 +634,7 @@ def main() -> int:
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tracking.py:123",
         "launches": track_launches, "max_abs_err": max(terrs),
         "ms": tms, "plain_ms": tplain,
-    }]}))
+    }, *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

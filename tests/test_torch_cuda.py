@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (the fastSK tail kernel and the brickSK
-tracking kernel): each against its plain torch version, the white
-furnace through it, its launch count and its input checks.
+"""The CUDA kernels on the card (the fastSK tail kernel, the brickSK
+tracking kernel and the five gather kernels of the gather
+microbenchmark): each against its plain torch version, the white
+furnace through the render kernels, launch counts and input checks.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather
 from cudavolumerenderer_tpu_torch.models import brick, fast
-from cudavolumerenderer_tpu_torch.ops import tailpk, tracking
+from cudavolumerenderer_tpu_torch.ops import pgather, tailpk, tracking
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
 from cudavolumerenderer_tpu_torch.scene import procedural
 from cudavolumerenderer_tpu_torch.scene import types
@@ -161,3 +163,68 @@ def test_tracking_wrapper_checks_inputs(cuda):
             rng, status, 4)
     with pytest.raises(ValueError, match="on cuda"):
         run(tables.cpu(), row_brick, f, rng, status, 4)
+
+
+# (table MB, N, S): the CPU tests' size and the benchmark's published one
+GATHER_SIZES = {"small": (0.25, 4096, 4), "published": (67.0, 262144, 16)}
+
+
+def gather_args(name, size, device, rep=0):
+    """The gather benchmark's arguments for kernel `name` (see
+    benchmarks/micro_pgather.kernel_args) on `device`."""
+    mb, n, s = GATHER_SIZES[size]
+    V = micro_pgather.table_rows(mb, s)
+    table = torch.from_numpy(micro_pgather.make_table(V)).to(device)
+    return micro_pgather.kernel_args(name, table, n, s, rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", sorted(GATHER_SIZES))
+@pytest.mark.parametrize("name", pgather.NAMES)
+def test_gather_kernel_matches_plain_version(cuda, name, size):
+    args = gather_args(name, size, cuda)
+    run, plain = pgather.WRAPPERS[name]
+    launches = pgather.KERNELS[name].launches
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert pgather.KERNELS[name].launches == launches + 1
+    assert torch.equal(got, plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", pgather.NAMES)
+def test_gather_wrapper_checks_inputs(cuda, name):
+    tab, idx, *rest = gather_args(name, "small", cuda)
+    run = pgather.WRAPPERS[name][0]
+    with pytest.raises(ValueError, match="idx must be"):
+        run(tab, idx.long(), *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(tab, idx.transpose(0, -1).contiguous().transpose(0, -1), *rest)
+    with pytest.raises(ValueError, match="on cuda"):
+        run(tab.cpu(), idx, *rest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", pgather.NAMES)
+def test_graph_replayed_loop_equals_eager_loop(cuda, name):
+    """The benchmark's timed call: a CUDA graph captured over an INNER
+    loop of launches, replayed on fresh indices, gives the eager loop's
+    result, and each replay counts INNER launches."""
+    inner = 4
+    run = pgather.WRAPPERS[name][0]
+    first, fresh = (gather_args(name, "small", cuda, rep) for rep in (0, 1))
+    rest = first[2:]
+
+    def loop(tab, idx):  # rolling along lanes keeps every index valid
+        acc = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+        for k in range(inner):
+            acc = acc + run(tab, idx.roll(k, -1), *rest)
+        return acc
+
+    graphed = micro_pgather.GraphRun(loop, first[:2])
+    launches = pgather.KERNELS[name].launches
+    graphed.load(fresh[:2])
+    got = graphed.run()
+    torch.cuda.synchronize()
+    assert pgather.KERNELS[name].launches == launches + inner
+    assert torch.equal(got, loop(*fresh[:2]))

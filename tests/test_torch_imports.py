@@ -23,7 +23,8 @@ def test_every_module_imports_without_jax():
     assert "cudavolumerenderer_tpu_torch.models.fast" in mods
     assert "cudavolumerenderer_tpu_torch.ops.tailpk" in mods
     for name in ("ops.tracking", "models.brick", "cli", "utils.image",
-                 "scene.vol", "scene.xml_builder", "scene.raw_builder"):
+                 "scene.vol", "scene.xml_builder", "scene.raw_builder",
+                 "ops.pgather", "benchmarks.micro_pgather"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
