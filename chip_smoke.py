@@ -16,7 +16,11 @@ CPU or to a plain version on a CUDA tensor):
 3. the kernel against its plain torch version on the card, on the
    medical 256^3 dilated-brick table with R = 128 and R = 4096 paths at
    K = 16 steps: integer outputs equal on >= 99.9% of paths, floats
-   allclose (rtol 1e-5, atol 1e-6) on those; both timed with CUDA events;
+   allclose (rtol 1e-5, atol 1e-6) on those; the kernel's device time
+   per call from replays of a CUDA graph of 16 calls, the plain version's
+   with CUDA events around eager calls; the bound from the bytes the call
+   moves (state rows, and the table words its taps read, counted from
+   the plain version's taps) and a lower count of its operations;
 4. white furnace through the kernel (every pixel == spp, rtol 2e-5), and
    a small render on the card against the same render on the CPU;
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
@@ -27,8 +31,9 @@ CPU or to a plain version on a CUDA tensor):
 6. the tracking kernel against its plain torch version on the brickSK
    slice's own dilated table (smoke 128x128x50, scale 800) with R = 8
    and R = 1,250 rows at K = 8 and K = 32 steps: integer outputs equal on
-   >= 99.9% of lanes, t allclose (rtol 1e-5, atol 1e-6) on those; both
-   timed with CUDA events;
+   >= 99.9% of lanes, t allclose (rtol 1e-5, atol 1e-6) on those; timed
+   and bounded as in phase 3, and at R = 1,250, K = 8 also timed with cold
+   inputs;
 7. white furnace through brickSK on the card (every pixel == spp), and a
    small brickSK render on the card against the same render on the CPU;
 8. the brickSK slice (the smoke class of benchmarks/micro_smoke_brick.py:
@@ -40,9 +45,14 @@ CPU or to a plain version on a CUDA tensor):
    image copied to the host, with its round count;
 9. each of the five gather kernels (csrc/pgather.cu) against its plain
    torch version at the gather benchmark's published shapes (67 MB
-   table, N = 262,144, S = 16): bit-equal outputs; kernel and plain
-   version each timed per call by CUDA events around replays of a CUDA
-   graph of 16 back-to-back calls, so the wrapper's host time stays out;
+   table, N = 262,144, S = 16): bit-equal outputs; the kernel, its plain
+   version and the one torch call that computes the same function (its
+   yardstick, library_ms) each timed per call by CUDA events around
+   replays of a CUDA graph of 16 back-to-back calls on the same inputs,
+   so the wrapper's host time stays out (kernel and yardstick twice, in
+   turns); for taa0, stream and vmem also cold, a graph of 16 calls on 16
+   fresh index sets; the bound from the bytes the gather moves (indices,
+   the distinct values read, outputs) and the floor at 32-byte sectors;
 10. the gather benchmark's entry point (benchmarks/micro_pgather.main) at
    its defaults, every variant at 67 MB, then at --table-mb 4300 on
    xla_big, xla_sorted, xla_packed, xla_packed8f and pallas_binned with 3
@@ -67,6 +77,10 @@ import numpy as np
 
 RTOL, ATOL = 1e-5, 1e-6
 N_STEPS = 16
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+PEAK_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 T/s
+GRAPH_CALLS = 16  # calls per timed CUDA graph
+COLD = ("taa0", "stream", "vmem")  # gathers also timed on fresh indices
 GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
 GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
               "pallas_binned")  # the variants run at 4.3 GB
@@ -175,15 +189,14 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def graph_ms(fn, calls: int = 16, replays: int = 10) -> float:
-    """Milliseconds per call of fn, CUDA events around `replays` replays
-    of a CUDA graph of `calls` back-to-back calls (no host time per
-    call)."""
+def graph_ms(calls, replays: int = 10) -> float:
+    """Milliseconds per call, CUDA events around `replays` replays of a
+    CUDA graph of the given calls back to back (no host time per call)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks.micro_pgather import GraphRun
 
-    graphed = GraphRun(lambda: [fn() for _ in range(calls)], ())
+    graphed = GraphRun(lambda: [fn() for fn in calls], ())
     graphed.run()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -193,12 +206,30 @@ def graph_ms(fn, calls: int = 16, replays: int = 10) -> float:
         graphed.run()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (replays * calls)
+    return start.elapsed_time(stop) / (replays * len(calls))
 
 
-def gather_vs_plain(table, name: str):
-    """Phase 9 for one gather kernel: returns (max_abs_err, kernel ms,
-    plain ms)."""
+def bound_ms(n_bytes: int, n_ops: int = 0):
+    """(least milliseconds, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / PEAK_OPS_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tap_bound(taps, bytes_of_words, step_ops: int):
+    """(bound ms, bound_by, bytes, distinct table words, taps) of one call
+    of a render kernel whose plain version reported `taps`."""
+    import torch
+
+    pos = torch.cat(taps)
+    words = int(pos.unique().numel())
+    n_bytes = bytes_of_words(words)
+    return (*bound_ms(n_bytes, step_ops * pos.numel()), n_bytes, words,
+            pos.numel())
+
+
+def gather_vs_plain(table, name: str, card: str) -> dict:
+    """Phase 9 for one gather kernel: its error, times and bound."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
@@ -206,6 +237,7 @@ def gather_vs_plain(table, name: str):
 
     args = mpg.kernel_args(name, table, GATHER_N, GATHER_S)
     run, plain = pg.WRAPPERS[name]
+    lib = pg.YARDSTICKS[name]
     before = pg.KERNELS[name].launches
     got = run(*args)
     torch.cuda.synchronize()
@@ -213,13 +245,50 @@ def gather_vs_plain(table, name: str):
     want = plain(*args)
     check(torch.equal(got, want), f"gather kernel {name} is not bit-equal "
           "to its plain version")
+    i64 = args[1].long()
+    check(torch.equal(lib(args[0], i64), want),
+          f"{name}'s yardstick differs from its plain version")
     err = float((got - want).abs().max())
-    ms = graph_ms(lambda: run(*args))
-    plain_ms = graph_ms(lambda: plain(*args))
+
+    def kernel():
+        return run(*args)
+
+    def library():
+        return lib(args[0], i64)
+
+    # in turns: kernel, yardstick, plain, yardstick, kernel
+    ms_a = graph_ms([kernel] * GRAPH_CALLS)
+    lib_a = graph_ms([library] * GRAPH_CALLS)
+    plain_ms = graph_ms([lambda: plain(*args)] * GRAPH_CALLS)
+    lib_b = graph_ms([library] * GRAPH_CALLS)
+    ms_b = graph_ms([kernel] * GRAPH_CALLS)
+    n = args[1].numel()
+    values, sectors = pg.touched(name, args[1])
+    bound, bound_by = bound_ms(pg.gather_bytes(n, values))
+    sector_ms = pg.gather_bytes(n, sectors, 32) / HBM_BYTES_PER_MS
+    res = {"max_abs_err": err, "ms": (ms_a + ms_b) / 2, "plain_ms": plain_ms,
+           "library_ms": (lib_a + lib_b) / 2, "bound_ms": bound,
+           "bound_by": bound_by}
     log(f"[9] {name}: idx {tuple(args[1].shape)} into tab "
-        f"{tuple(args[0].shape)}: bit-equal, max |err| {err:.3g}; kernel "
-        f"{ms * 1e3:.2f} us, plain torch {plain_ms * 1e3:.2f} us per call")
-    return err, ms, plain_ms
+        f"{tuple(args[0].shape)}: bit-equal, max |err| {err:.3g}; per call "
+        f"kernel {ms_a * 1e3:.2f} / {ms_b * 1e3:.2f} us, yardstick "
+        f"{lib_a * 1e3:.2f} / {lib_b * 1e3:.2f} us, plain torch "
+        f"{plain_ms * 1e3:.2f} us; bound {bound * 1e3:.3f} us by {bound_by} "
+        f"({pg.gather_bytes(n, values)} B, {values} distinct values), the "
+        f"kernel at {bound / res['ms']:.1%} of it; 32-byte-sector floor "
+        f"{sector_ms * 1e3:.3f} us ({sectors} sectors); card {card}")
+    if name in COLD:
+        sets = [mpg.kernel_args(name, table, GATHER_N, GATHER_S, rep)
+                for rep in range(GRAPH_CALLS)]
+        wide = [a[1].long() for a in sets]
+        cold_k = graph_ms([lambda a=a: run(*a) for a in sets])
+        cold_l = graph_ms([lambda a=a, w=w: lib(a[0], w)
+                           for a, w in zip(sets, wide)])
+        cold_k2 = graph_ms([lambda a=a: run(*a) for a in sets])
+        log(f"[9] {name} cold (16 fresh index sets per graph): kernel "
+            f"{cold_k * 1e3:.2f} / {cold_k2 * 1e3:.2f} us, yardstick "
+            f"{cold_l * 1e3:.2f} us per call; card {card}")
+    return res
 
 
 def gather_benchmark(tmp: str, card: str):
@@ -279,8 +348,9 @@ def gather_benchmark(tmp: str, card: str):
     return launches
 
 
-def kernel_vs_plain(tables, params, n_paths: int):
-    """Phase 3 at one width: returns (max_abs_err, kernel ms, plain ms)."""
+def kernel_vs_plain(tables, params, n_paths: int, card: str):
+    """Phase 3 at one width: returns (max_abs_err, kernel ms, plain ms,
+    bound ms, bound_by)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
@@ -289,7 +359,8 @@ def kernel_vs_plain(tables, params, n_paths: int):
     args = (tables.tab, *inputs[:1], params, *inputs[1:])
     got = tpk.run_tail_steps(*args, n_steps=N_STEPS)
     torch.cuda.synchronize()
-    want = tpk.tail_steps(*args, n_steps=N_STEPS)
+    taps = []
+    want = tpk.tail_steps(*args, n_steps=N_STEPS, taps=taps)
     (gf, gi, gs), (wf, wi, ws) = (
         [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want]
     )
@@ -305,11 +376,18 @@ def kernel_vs_plain(tables, params, n_paths: int):
           f"R={n_paths}: non-finite outputs differ")
     np.testing.assert_allclose(a[fin], b[fin], rtol=RTOL, atol=ATOL)
     err = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
-    ms = cuda_ms(lambda: tpk.run_tail_steps(*args, n_steps=N_STEPS), 200, 5)
+    ms = graph_ms([lambda: tpk.run_tail_steps(*args, n_steps=N_STEPS)]
+                  * GRAPH_CALLS)
     plain_ms = cuda_ms(lambda: tpk.tail_steps(*args, n_steps=N_STEPS), 10, 2)
-    log(f"[3] R={n_paths}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-        f"per {N_STEPS}-step call; max |err| {err:.3g}")
-    return err, ms, plain_ms
+    bound, bound_by, n_bytes, words, n_taps = tap_bound(
+        taps, lambda w: tpk.tail_bytes(n_paths, w), tpk.STEP_OPS)
+    log(f"[3] R={n_paths}: kernel {ms * 1e3:.2f} us of device time per "
+        f"{N_STEPS}-step call (graph of {GRAPH_CALLS}), plain torch "
+        f"{plain_ms:.4f} ms (eager, host-bound); bound {bound * 1e3:.4f} us "
+        f"by {bound_by} ({n_bytes} B, {words} distinct table words of "
+        f"{n_taps} taps), the kernel at {bound / ms:.2%} of it; max "
+        f"|err| {err:.3g}; card {card}")
+    return err, ms, plain_ms, bound, bound_by
 
 
 def furnace_and_small_render():
@@ -364,8 +442,9 @@ def furnace_and_small_render():
           "small render on the card disagrees with the CPU render")
 
 
-def track_vs_plain(tables, major, n_rows: int, n_steps: int):
-    """Phase 6 at one shape: returns (max_abs_err, kernel ms, plain ms)."""
+def track_vs_plain(tables, major, n_rows: int, n_steps: int, card: str):
+    """Phase 6 at one shape: returns (max_abs_err, kernel ms, plain ms,
+    bound ms, bound_by)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
@@ -377,7 +456,8 @@ def track_vs_plain(tables, major, n_rows: int, n_steps: int):
     args = (tables, *inputs)
     got = tk.run_track_steps(*args, n_steps=n_steps)
     torch.cuda.synchronize()
-    want = tk.track_steps(*args, n_steps=n_steps)
+    taps = []
+    want = tk.track_steps(*args, n_steps=n_steps, taps=taps)
     (gt, gs, gtap, gst), (wt, ws, wtap, wst) = (
         [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want]
     )
@@ -393,11 +473,37 @@ def track_vs_plain(tables, major, n_rows: int, n_steps: int):
           f"R={n_rows}: non-finite outputs differ")
     np.testing.assert_allclose(a[fin], b[fin], rtol=RTOL, atol=ATOL)
     err = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
-    ms = cuda_ms(lambda: tk.run_track_steps(*args, n_steps=n_steps), 200, 5)
+    ms = graph_ms([lambda: tk.run_track_steps(*args, n_steps=n_steps)]
+                  * GRAPH_CALLS)
     plain_ms = cuda_ms(lambda: tk.track_steps(*args, n_steps=n_steps), 10, 2)
-    log(f"[6] R={n_rows} K={n_steps}: kernel {ms:.4f} ms, plain torch "
-        f"{plain_ms:.4f} ms per call; max |err| {err:.3g}")
-    return err, ms, plain_ms
+    bound, bound_by, n_bytes, words, n_taps = tap_bound(
+        taps, lambda w: tk.track_bytes(n_rows, w), tk.STEP_OPS)
+    log(f"[6] R={n_rows} K={n_steps}: kernel {ms * 1e3:.2f} us of device "
+        f"time per call (graph of {GRAPH_CALLS}), plain torch "
+        f"{plain_ms:.4f} ms (eager, host-bound); bound {bound * 1e3:.3f} us "
+        f"by {bound_by} ({n_bytes} B, {words} distinct table words of "
+        f"{n_taps} taps), the kernel at {bound / ms:.1%} of it; max "
+        f"|err| {err:.3g}; card {card}")
+    return err, ms, plain_ms, bound, bound_by
+
+
+def track_cold(tables, major, card: str) -> None:
+    """Phase 6 at the slice's shape (R = 1,250, K = 8): the kernel's device
+    time with its inputs cold (a graph of 16 calls on 16 input sets,
+    16 x 15.4 MB), beside the graph of 16 calls on one input set, whose
+    inputs stay in L2."""
+    from cudavolumerenderer_tpu_torch.ops import tracking as tk
+
+    def inputs(seed):
+        return (tables, *tk.random_track_state(
+            major, 1250, seed=seed, scale=800.0,
+            vox_per_unit=(127.0, 127.0, 49.0)))
+
+    sets = [inputs(1258 + k) for k in range(GRAPH_CALLS)]
+    cold = graph_ms([lambda a=a: tk.run_track_steps(*a, n_steps=8)
+                     for a in sets])
+    log(f"[6] R=1250 K=8: kernel {cold * 1e3:.2f} us per call with cold "
+        f"inputs (16 input sets per graph); card {card}")
 
 
 def brick_furnace_and_small_render():
@@ -506,9 +612,9 @@ def main() -> int:
         f"({tables.tab.numel() * 4 / 1e6:.1f} MB)")
     errs, times = [], {}
     for n_paths in (128, 4096):
-        err, ms, plain_ms = kernel_vs_plain(tables, params, n_paths)
+        err, *timed = kernel_vs_plain(tables, params, n_paths, card)
         errs.append(err)
-        times[n_paths] = (ms, plain_ms)
+        times[n_paths] = timed
 
     # -- phase 4: white furnace and card-vs-CPU render ----------------------
     furnace_and_small_render()
@@ -552,9 +658,12 @@ def main() -> int:
         log(f"[6] dilated brick table {tuple(btables.shape)}")
         terrs, ttimes = [], {}
         for n_rows, n_steps in ((8, 8), (1250, 8), (8, 32), (1250, 32)):
-            err, tms, tplain = track_vs_plain(btables, bmajor, n_rows, n_steps)
+            err, *timed = track_vs_plain(btables, bmajor, n_rows, n_steps,
+                                         card)
             terrs.append(err)
-            ttimes[n_rows, n_steps] = (tms, tplain)
+            ttimes[n_rows, n_steps] = timed
+
+        track_cold(btables, bmajor, card)
 
         # -- phase 7: brickSK white furnace and card-vs-CPU render ---------
         brick_furnace_and_small_render()
@@ -606,34 +715,34 @@ def main() -> int:
     log(f"[9] gather table {tuple(gtable.shape)} "
         f"({gtable.numel() * 4 / 2**20:.0f} MB) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    gathers = {name: gather_vs_plain(gtable, name) for name in pg.NAMES}
+    gathers = {name: gather_vs_plain(gtable, name, card) for name in pg.NAMES}
     del gtable
 
     # -- phase 10: the gather benchmark's entry point -----------------------
     with tempfile.TemporaryDirectory() as tmp:
         glaunches = gather_benchmark(tmp, card)
 
-    ms, plain_ms = times[128]
-    tms, tplain = ttimes[1250, 8]
+    def timed(ms, plain_ms, bound, bound_by):
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None}
+
     gather_lines = [{
         "name": f"pgather_{name}", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/pgather.cu",
         "replaces": GATHER_REPLACES[name], "launches": glaunches[name],
-        "max_abs_err": gathers[name][0], "ms": gathers[name][1],
-        "plain_ms": gathers[name][2],
+        **gathers[name],
     } for name in pg.NAMES]
     print(json.dumps({"kernels": [{
         "name": "tailpk", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tailpk.cu",
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tailpk.py:152",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain_ms,
+        "launches": launches, "max_abs_err": max(errs), **timed(*times[128]),
     }, {
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tracking.py:123",
         "launches": track_launches, "max_abs_err": max(terrs),
-        "ms": tms, "plain_ms": tplain,
+        **timed(*ttimes[1250, 8]),
     }, *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

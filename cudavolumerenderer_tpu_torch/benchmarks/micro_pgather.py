@@ -43,7 +43,7 @@ Variants (--only selects; each runs alone under its own name):
   pallas_taa1    CUDA taa1: per-row 128-entry tables along lanes
   pallas_taa0    CUDA taa0: column gather over all rows
   pallas_vmem    CUDA vmem: flat gather from a table of at most 8 MB
-  pallas_stream  CUDA stream: every lane masked-taken over the whole table
+  pallas_stream  CUDA stream: one read per lane, 0 outside the table
   pallas_binned  CUDA binned: perfectly binned indices, shard by shard
 """
 

@@ -7,8 +7,8 @@
 //   taa0_kernel    kern_taa0 (:310)       out[r, l] = tab[idx[r, l], l]: a column
 //                                         gather over all R rows
 //   vmem_kernel    pallas_vmem kern (:334)   out = tab[idx], table held whole
-//   stream_kernel  pallas_stream kern (:354) out = tab[idx] through a walk over
-//                                         the whole table, every lane masked
+//   stream_kernel  pallas_stream kern (:354) out = tab[idx], 0 outside the table
+//                                         (the masked shard takes' fill)
 //   binned_kernel  pallas_binned kern (:390) out[s, k] = tab[idx[s, k]], where
 //                                         idx[s, .] lies inside shard s
 // ops/pgather.py holds each kernel's plain torch version and its wrapper.
@@ -16,38 +16,34 @@
 // Indices are int32, as in JAX; every offset into a table and every size is
 // 64-bit, since a 1024^3-class table holds 1.1 G floats (4.3 GB).  A kernel
 // reads nothing outside its table: an index outside it gives NaN, as jnp.take's
-// default fill does, except in stream_kernel, whose masked walk leaves 0 there,
-// as the Pallas kernel's where(in shard, ...) does.
+// default fill does, except in stream_kernel, which gives 0 there, as the
+// Pallas kernel's where(in shard, ...) over every shard does.
 //
-// What bounds each one on this card, and what the design does about it (kept
-// simple on purpose: the point of the benchmark is the gather wall, and
-// making these fast is later work):
+// What bounds each one on this card, and what the design does about it.  The
+// least any of them can move is each index read once, each needed value read
+// once and each output written once: 12 bytes per lane, 3.1 MB at the
+// benchmark's N = 262,144 (0.94 us at 3.35 TB/s).  A random 4-byte value costs
+// a whole 32-byte sector, though, so from device memory the floor is 40 bytes
+// per lane (about 3.1 us); from the 50 MB L2 the sectors are cheaper.
 //  * taa1: one block per four rows.  The block stages its rows' 128 floats
 //    each in shared memory with one coalesced load, then every thread reads
-//    smem[idx].  Bound by streaming tab, idx and out once (3 MB at R = 2048):
-//    device-memory bytes, a few microseconds.
-//  * taa0: the gather runs down a column, across all R rows, so a block
-//    stages a strip of up to 16 columns for all R rows in dynamic shared
-//    memory (R x 16 x 4 bytes = 128 KB at R = 2048, past the 48 KB default,
-//    hence the opt-in in pgather_init) and writes the outputs of 128 rows of
-//    the strip.  Every block of a strip re-reads the strip (16 reads of the
-//    1 MB table at R = 2048, from L2): bound by those L2 reads and the
-//    shared-memory reads, which conflict on banks for random rows.
-//  * vmem: on the TPU the table (up to 8 MB) sat whole in VMEM.  This card's
-//    counterpart is the 50 MB L2, which holds the 8 MB table; shared memory
-//    (227 KB per block) cannot.  So it is a flat gather through the read-only
+//    smem[idx].  It streams tab, idx and out once: bound by those bytes.
+//  * taa0 and stream: one thread per 4 consecutive lanes, one 16-byte load of
+//    idx, four independent read-only loads (__ldg) in flight, one 16-byte
+//    store of out (a scalar path where idx or out is not 16-byte aligned or n
+//    is not a multiple of 4).  Bound by one sector per value, from L2 while
+//    the touched sectors fit it.  For taa0 every value of a row's 4 lanes is
+//    tab[q * 128 + l], a distinct sector; the (R, 128) table is 1 MB at
+//    R = 2,048 and sits in L2, which stands in for the TPU's VMEM, so nothing
+//    is staged and R has no cap.  For stream, the TPU walked S shards through
+//    VMEM because a TPU core cannot gather from HBM; Hopper can, so of the
+//    shard walk only its range test is left, and each lane reads its one value.
+//  * vmem: the Pallas kernel held its whole table in VMEM.  This card's
+//    counterpart is the 50 MB L2, which holds the benchmark's table for it
+//    (at most 8 MB, micro_pgather.VMEM_ENTRIES); shared memory (227 KB per
+//    block) cannot.  So it is a flat gather through the read-only
 //    path (__ldg), one thread per index: bound by one 32-byte L2 sector per
 //    4-byte value.
-//  * stream: the Pallas kernel walked S shards of the table through VMEM, one
-//    4.19 MB shard per grid step, and masked-took every lane in each.  A
-//    shard does not fit shared memory, so a chunk of 12,288 floats (48 KB)
-//    stands in for it: each block keeps its 4,096 lanes' indices in
-//    registers, walks the whole table chunk by chunk, loading each chunk
-//    coalesced, and a lane takes its value in the chunk that holds its index.
-//    The output is written once.  Every block reads the whole table (64
-//    blocks x 67 MB at the published size): bound by that traffic, mostly
-//    from L2 since the blocks walk in step.  It is meant to lose, as it did
-//    on the TPU.
 //  * binned: grid over (shard, lane block), shard-major, so the blocks of one
 //    shard are scheduled together and read one shard's part of the table
 //    while it is in L2: a 4.19 MB shard (67 MB table) fits L2, a 269 MB shard
@@ -64,18 +60,49 @@ namespace {
 
 constexpr int W = 128;               // lanes per row
 constexpr int TAA1_ROWS = 4;         // rows per taa1 block
-constexpr int TAA0_COLS = 16;        // widest taa0 column strip
-constexpr int TAA0_ROWS = 128;       // output rows per taa0 block
-constexpr int TAA0_THREADS = 1024;  // one block per SM: all the loads it can keep in flight
-constexpr int MAX_SMEM = 232448;     // 227 KB: the most a block may opt in to
-constexpr int FLAT_THREADS = 256;    // vmem and binned
-constexpr int STREAM_THREADS = 512;
-constexpr int STREAM_LANES = 8;      // lanes per stream thread
-constexpr int STREAM_CHUNK = 12288;  // floats: 48 KB of static shared memory
+constexpr int FLAT_THREADS = 256;    // every kernel but taa1
+constexpr int LANES = 4;             // lanes per taa0 and stream thread
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
+// Lanes i0 .. i0 + 3 of a gather whose lane i reads take(idx[i], i): one
+// 16-byte load of idx, four independent loads, one 16-byte store when vec4
+// (idx and out 16-byte aligned, n a multiple of 4), else lane by lane.
+template <class Take>
+__device__ __forceinline__ void gather4(const Take& take,
+                                        const int32_t* __restrict__ idx,
+                                        float* __restrict__ out, int64_t n,
+                                        int vec4) {
+  const int64_t i0 = ((int64_t)blockIdx.x * FLAT_THREADS + threadIdx.x) * LANES;
+  if (i0 >= n) return;
+  if (vec4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx + i0));
+    float4 v;
+    v.x = take(q.x, i0);
+    v.y = take(q.y, i0 + 1);
+    v.z = take(q.z, i0 + 2);
+    v.w = take(q.w, i0 + 3);
+    *reinterpret_cast<float4*>(out + i0) = v;
+  } else {
+    for (int64_t i = i0; i < i0 + LANES && i < n; ++i) out[i] = take(__ldg(idx + i), i);
+  }
 }
+
+// taa0's lane i = r * 128 + l reads column l at row q.
+struct ColumnTake {
+  const float* tab;
+  int64_t R;
+  __device__ __forceinline__ float operator()(int32_t q, int64_t i) const {
+    return (q >= 0 && q < R) ? __ldg(tab + (int64_t)q * W + (i & (W - 1))) : NAN;
+  }
+};
+
+// stream's lane reads tab[q], 0 outside the table.
+struct MaskedTake {
+  const float* tab;
+  int64_t V;
+  __device__ __forceinline__ float operator()(int32_t q, int64_t) const {
+    return (q >= 0 && q < V) ? __ldg(tab + q) : 0.0f;
+  }
+};
 
 __global__ void __launch_bounds__(W * TAA1_ROWS) taa1_kernel(
     const float* __restrict__ tab, const int32_t* __restrict__ idx,
@@ -92,25 +119,10 @@ __global__ void __launch_bounds__(W * TAA1_ROWS) taa1_kernel(
   }
 }
 
-__global__ void __launch_bounds__(TAA0_THREADS) taa0_kernel(
+__global__ void __launch_bounds__(FLAT_THREADS) taa0_kernel(
     const float* __restrict__ tab, const int32_t* __restrict__ idx,
-    float* __restrict__ out, int64_t R, int cols) {
-  extern __shared__ float strip[];  // (R, cols): columns c0 .. c0 + cols - 1
-  const int c0 = blockIdx.x * cols;
-  const int64_t r0 = (int64_t)blockIdx.y * TAA0_ROWS;
-  for (int64_t e = threadIdx.x; e < R * cols; e += TAA0_THREADS) {
-    const int64_t r = e / cols;
-    strip[e] = tab[r * W + c0 + (e - r * cols)];
-  }
-  __syncthreads();
-  const int64_t n_out = min64(TAA0_ROWS, R - r0) * cols;
-  for (int64_t e = threadIdx.x; e < n_out; e += TAA0_THREADS) {
-    const int64_t dr = e / cols;
-    const int c = (int)(e - dr * cols);
-    const int64_t i = (r0 + dr) * W + c0 + c;
-    const int32_t q = idx[i];
-    out[i] = (q >= 0 && q < R) ? strip[(int64_t)q * cols + c] : NAN;
-  }
+    float* __restrict__ out, int64_t R, int vec4) {
+  gather4(ColumnTake{tab, R}, idx, out, R * W, vec4);
 }
 
 __global__ void __launch_bounds__(FLAT_THREADS) vmem_kernel(
@@ -123,44 +135,10 @@ __global__ void __launch_bounds__(FLAT_THREADS) vmem_kernel(
   }
 }
 
-__global__ void __launch_bounds__(STREAM_THREADS) stream_kernel(
+__global__ void __launch_bounds__(FLAT_THREADS) stream_kernel(
     const float* __restrict__ tab, const int32_t* __restrict__ idx,
     float* __restrict__ out, int64_t V, int64_t n, int vec4) {
-  __shared__ __align__(16) float chunk[STREAM_CHUNK];
-  const int64_t base =
-      (int64_t)blockIdx.x * (STREAM_THREADS * STREAM_LANES) + threadIdx.x;
-  int32_t q[STREAM_LANES];
-  float v[STREAM_LANES];
-#pragma unroll
-  for (int j = 0; j < STREAM_LANES; ++j) {
-    const int64_t i = base + (int64_t)j * STREAM_THREADS;
-    q[j] = i < n ? idx[i] : -1;
-    v[j] = 0.0f;
-  }
-  for (int64_t c0 = 0; c0 < V; c0 += STREAM_CHUNK) {
-    const int len = (int)min64(STREAM_CHUNK, V - c0);
-    int e = threadIdx.x;
-    if (vec4) {  // tab is 16-byte aligned and c0 a multiple of 4
-      const float4* __restrict__ src = reinterpret_cast<const float4*>(tab + c0);
-      float4* dst = reinterpret_cast<float4*>(chunk);
-#pragma unroll 6
-      for (; e < len / 4; e += STREAM_THREADS) dst[e] = __ldg(src + e);
-      e = (len / 4) * 4 + threadIdx.x;
-    }
-    for (; e < len; e += STREAM_THREADS) chunk[e] = tab[c0 + e];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < STREAM_LANES; ++j) {
-      const int64_t d = (int64_t)q[j] - c0;
-      if (d >= 0 && d < len) v[j] = chunk[d];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < STREAM_LANES; ++j) {
-    const int64_t i = base + (int64_t)j * STREAM_THREADS;
-    if (i < n) out[i] = v[j];
-  }
+  gather4(MaskedTake{tab, V}, idx, out, n, vec4);
 }
 
 __global__ void __launch_bounds__(FLAT_THREADS) binned_kernel(
@@ -178,18 +156,19 @@ __global__ void __launch_bounds__(FLAT_THREADS) binned_kernel(
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// gather4's grid over n lanes, and whether it may take the 16-byte path.
+unsigned gather4_blocks(int64_t n) {
+  return (unsigned)ceil_div(n, (int64_t)FLAT_THREADS * LANES);
+}
+int gather4_vec(const int32_t* idx, const float* out, int64_t n) {
+  return ((uintptr_t)idx % 16 == 0) && ((uintptr_t)out % 16 == 0) && n % LANES == 0;
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes (ops/pgather.py).  Every table is
 // float32, every index array int32, every output float32 of the index
 // array's shape; all are contiguous.  Each returns cudaGetLastError().
-
-// Lets taa0_kernel take more than 48 KB of dynamic shared memory.  Called
-// once, when the library is loaded, before any launch or graph capture.
-extern "C" int pgather_init() {
-  return (int)cudaFuncSetAttribute(
-      taa0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-}
 
 // tab, idx, out (R, 128).
 extern "C" int taa1_launch(const float* tab, const int32_t* idx, float* out,
@@ -201,23 +180,12 @@ extern "C" int taa1_launch(const float* tab, const int32_t* idx, float* out,
   return (int)cudaGetLastError();
 }
 
-// The widest strip of at most 16 columns whose R rows fit shared memory; 0
-// when one column of R rows does not (R > 58,112).
-extern "C" int taa0_cols(int64_t R) {
-  int cols = TAA0_COLS;
-  while (cols > 0 && R * cols * (int64_t)sizeof(float) > MAX_SMEM) cols /= 2;
-  return cols;
-}
-
 // tab, idx, out (R, 128).
 extern "C" int taa0_launch(const float* tab, const int32_t* idx, float* out,
                            int64_t R, void* stream) {
-  const int cols = taa0_cols(R);
-  if (cols == 0) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    const dim3 grid(W / cols, (unsigned)ceil_div(R, TAA0_ROWS));
-    taa0_kernel<<<grid, TAA0_THREADS, R * cols * sizeof(float),
-                  (cudaStream_t)stream>>>(tab, idx, out, R, cols);
+    taa0_kernel<<<gather4_blocks(R * W), FLAT_THREADS, 0, (cudaStream_t)stream>>>(
+        tab, idx, out, R, gather4_vec(idx, out, R * W));
   }
   return (int)cudaGetLastError();
 }
@@ -232,14 +200,12 @@ extern "C" int vmem_launch(const float* tab, const int32_t* idx, float* out,
   return (int)cudaGetLastError();
 }
 
-// tab (V,), V = S * C; idx, out n elements.
+// tab (V,); idx, out n elements.
 extern "C" int stream_launch(const float* tab, const int32_t* idx, float* out,
                              int64_t V, int64_t n, void* stream) {
   if (n > 0) {
-    const int vec4 = ((uintptr_t)tab % 16) == 0;
-    stream_kernel<<<(unsigned)ceil_div(n, STREAM_THREADS * STREAM_LANES),
-                    STREAM_THREADS, 0, (cudaStream_t)stream>>>(
-        tab, idx, out, V, n, vec4);
+    stream_kernel<<<gather4_blocks(n), FLAT_THREADS, 0, (cudaStream_t)stream>>>(
+        tab, idx, out, V, n, gather4_vec(idx, out, n));
   }
   return (int)cudaGetLastError();
 }

@@ -24,11 +24,14 @@
 //    and division stay IEEE-accurate and no multiply-add is contracted.
 //    min/max propagate NaN like torch.minimum/maximum.
 //
-// What bounds it on this card: latency and occupancy.  The main path hands
-// it R = 128 paths (tail_pk_width), which is one block on one of the 132
-// SMs; each step is a serial chain of a dependent table read and a few
-// dozen flops.  The launch is cheap next to the torch service round around
-// it.  The kernel allocates nothing and does not synchronise.
+// What bounds it on this card: latency and occupancy, not bytes.  A call
+// moves 196 bytes of state per path plus the table words its taps read
+// (ops/tailpk.tail_bytes: about 25 KB at R = 128), nanoseconds at the
+// memory rate.  The main path hands it R = 128 paths (tail_pk_width), which
+// is one block on one of the 132 SMs; each step is a serial chain of a
+// dependent read into an 82 MB table (medical 256^3) that L2 does not hold,
+// and a few dozen flops.  The kernel allocates nothing and does not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>

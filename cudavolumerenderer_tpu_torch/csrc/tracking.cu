@@ -26,12 +26,14 @@
 //    multiply-add is contracted.  min propagates NaN like torch.minimum.
 //
 // What bounds it on this card: at the brickSK slice's R = 1,250 rows the
-// 1,250 blocks are all resident at once (about 10 per SM), and a call reads
-// about 76 bytes and writes 20 bytes per lane (15 MB in all, under 5 us of
-// device memory time); each step is a short serial chain (three PCG draws,
-// one logf, one shared-memory read).  So a call is a few microseconds of
-// latency plus the launch, small beside the torch round around it.  The
-// kernel allocates nothing and does not synchronise.
+// 1,250 blocks are all resident at once (about 10 per SM).  A call reads 76
+// bytes and writes 20 bytes per lane, 8 per row, and the table words its
+// taps touch (ops/tracking.track_bytes: 15.7 MB, 4.7 us at the memory rate,
+// on random inputs at that size); each step is a short serial chain (three
+// PCG draws, one logf, one shared-memory read).  A call comes within 2x of
+// that bound (PERF.md).  In the slice its inputs are phase A's fresh
+// outputs, which the 50 MB L2 can hold, so it can beat the device-memory
+// bound there.  The kernel allocates nothing and does not synchronise.
 
 #include <cuda_runtime.h>
 #include <math.h>

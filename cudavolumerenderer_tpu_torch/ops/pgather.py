@@ -4,17 +4,27 @@ Port of the Pallas TPU kernels of benchmarks/micro_pgather.py, which
 measure how fast a kernel can read a density table at random indices.
 Each becomes a hand-written CUDA kernel (csrc/pgather.cu, design notes
 there); this module holds each kernel's plain PyTorch version, the
-wrapper `run_*` that picks between them by the tensors' device, and the
-launch counts.
+wrapper `run_*` that picks between them by the tensors' device, the
+launch counts, the bytes each must move, and the one torch call that
+computes the same function (a yardstick for timing, never called here).
 
   kernel   Pallas body (micro_pgather.py)  computes
   taa1     kern_taa1 :284     out[r, l] = tab[r, idx[r, l]]; tab, idx (R, 128)
   taa0     kern_taa0 :310     out[r, l] = tab[idx[r, l], l]; tab, idx (R, 128)
   vmem     pallas_vmem :334   out = tab[idx]; tab (V,), the table held whole
-  stream   pallas_stream :354 out = tab[idx] by a masked take on each of S
+  stream   pallas_stream :354 out = tab[idx], 0 outside the table: the
+                              Pallas kernel's masked take on each of S
                               shards of C = V / S entries, in turn
   binned   pallas_binned :390 out[s, k] = tab[idx[s, k]], idx[s, .] inside
                               shard s; idx (S, K / 128, 128)
+
+What bounds them: each index read once, each needed table value read
+once, each output written once (`gather_bytes`), and in practice one
+32-byte sector per random value.  taa0 and stream give each thread 4
+consecutive lanes (a 16-byte index load, four independent value loads
+in flight, a 16-byte store) and read the table where it lies, in L2 while
+the touched sectors fit it: taa0 stages nothing and takes any R, stream
+walks no shards.
 
 Tables are float32 and indices int32, as in JAX, into the kernels; the
 plain versions widen the indices to int64 because torch's take and
@@ -74,6 +84,43 @@ def binned_gather(tab, idx):
     ])
 
 
+#: the one torch call that computes each kernel's function, given the
+#: indices already widened to int64: the yardstick a kernel is timed
+#: against (chip_smoke.py's library_ms).  The port never calls it.
+YARDSTICKS = {
+    "taa1": lambda tab, i64: torch.gather(tab, 1, i64),
+    "taa0": lambda tab, i64: torch.gather(tab, 0, i64),
+    "vmem": torch.take,
+    "stream": torch.take,
+    "binned": torch.take,  # binned's indices are absolute
+}
+
+
+# -- bytes each kernel must move ---------------------------------------------
+
+def gather_bytes(n: int, values: int | None = None, value_bytes: int = 4) -> int:
+    """The least bytes a gather of n int32 indices into n float32 outputs
+    moves: each index read once, each of `values` distinct table entries
+    read once (n when every output reads its own), each output written
+    once.  With `values` the distinct 32-byte sectors touched and
+    value_bytes=32 it is the floor a random gather from device memory
+    cannot go under."""
+    return 4 * n + value_bytes * (n if values is None else values) + 4 * n
+
+
+def touched(name: str, idx):
+    """(distinct table entries, distinct 32-byte sectors) that kernel
+    `name` reads on these in-range indices, with the table 32-byte
+    aligned."""
+    pos = idx.long()  # the flat table position each output reads
+    if name == "taa1":
+        pos = torch.arange(pos.shape[0], device=pos.device)[:, None] * TABLE_W + pos
+    elif name == "taa0":
+        pos = pos * TABLE_W + torch.arange(TABLE_W, device=pos.device)
+    pos = pos.reshape(-1)
+    return int(pos.unique().numel()), int((pos >> 3).unique().numel())
+
+
 # -- the CUDA kernels -----------------------------------------------------
 
 class GatherLibrary:
@@ -98,12 +145,6 @@ class GatherLibrary:
                 fn = getattr(lib, f"{name}_launch")
                 fn.argtypes = ptrs + [i64] * sizes + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.taa0_cols.argtypes = [i64]
-            lib.taa0_cols.restype = ctypes.c_int
-            lib.pgather_init.restype = ctypes.c_int
-            err = lib.pgather_init()
-            if err != 0:
-                raise RuntimeError(f"pgather_init failed: CUDA error {err}")
             self._built = built
         return self._built
 
@@ -176,13 +217,10 @@ def run_taa1(tab, idx):
 
 
 def run_taa0(tab, idx):
-    """out[r, l] = tab[idx[r, l], l] for (R, 128) tab and idx (R <= 58,112,
-    one column of which fits the kernel's shared memory)."""
+    """out[r, l] = tab[idx[r, l], l] for (R, 128) tab and idx, any R."""
     if idx.device.type == "cpu":
         return taa0_gather(tab, idx)
     R = _rows("taa0", tab, idx)
-    if LIBRARY.library().lib.taa0_cols(R) == 0:
-        raise ValueError(f"taa0: R = {R} rows do not fit shared memory")
     return KERNELS["taa0"].launch((tab, idx), (R,))
 
 
@@ -195,8 +233,8 @@ def run_vmem(tab, idx):
 
 
 def run_stream(tab, idx, shards: int):
-    """out = tab[idx] through S masked shard takes (`stream_gather`); the
-    table must split into S equal shards."""
+    """out = tab[idx], 0 outside the table, as S masked shard takes give
+    it (`stream_gather`); the table must split into S equal shards."""
     if idx.device.type == "cpu":
         return stream_gather(tab, idx, shards)
     V = tab.shape[0]

@@ -141,14 +141,15 @@ def _uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def tail_steps(tab, brick, params, f, i, rng, n_steps: int):
+def tail_steps(tab, brick, params, f, i, rng, n_steps: int, taps=None):
     """Plain PyTorch version of the tail kernel: n_steps masked steps on
     R paths, every lane in lockstep, with the kernel's signature.
 
     tab (NB, TROW) f32; brick (R,) int64; params (N_PARAMS,) f32;
     f (N_F, R) f32; i (N_I, R) int32; rng (2, R) int64 (state, inc) holding
     uint32 words.  Returns (f_out (N_F, R) f32, i_out (2, R) int32 of
-    bounce and status, rng_state_out (R,) int64)."""
+    bounce and status, rng_state_out (R,) int64).  A list given as `taps`
+    receives, per step, the flat table positions that step reads."""
     P = params
     scale, g = P[P_SCALE], P[P_G]
     alb_a = (P[P_AR], P[P_AG], P[P_AB])
@@ -205,6 +206,8 @@ def tail_steps(tab, brick, params, f, i, rng, n_steps: int):
             local.append(torch.clamp(tap - worg[a], 0, TDIL - 1))
         flat = (local[2] * TDIL + local[1]) * TDIL + local[0]
         rho = tab[brick, flat]
+        if taps is not None:
+            taps.append((brick * TROW + flat)[inside])
 
         # ---- acceptance -------------------------------------------------
         bits3, st = next_uint32(st, inside)
@@ -307,12 +310,31 @@ def tail_steps(tab, brick, params, f, i, rng, n_steps: int):
     return f_out, i_out, st.state
 
 
+#: integer and float operations a kernel step that taps the table does at
+#: least (csrc/tailpk.cu): the flight draw, the three-axis tap and the
+#: acceptance draw, each PCG draw 9 operations; a scatter adds more
+STEP_OPS = 60
+
+
+def tail_bytes(n_paths: int, table_words: int) -> int:
+    """The least bytes one kernel call moves: every state row of R paths
+    read (f, i, rng, brick) and written (f_out, i_out, rng_out) once, the
+    parameter vector, and the `table_words` distinct table words its taps
+    read (data-dependent: count them with `tail_steps(..., taps=)`)."""
+    read = (N_F * 4 + N_I * 4 + 2 * 8 + 8) * n_paths + N_PARAMS * 4
+    written = (N_F * 4 + 2 * 4 + 8) * n_paths
+    return read + written + 4 * table_words
+
+
 class TailKernel:
     """The CUDA tail kernel: built from csrc/tailpk.cu at first use,
-    launched through its C entry point, and counted."""
+    launched through its C entry point, and counted.  `launches` counts
+    launches made now; a launch recorded into a CUDA graph being captured
+    counts in `captured` instead."""
 
     def __init__(self):
         self.launches = 0  # CUDA launches; the plain version is not counted
+        self.captured = 0
         self._built = None
 
     def library(self):
@@ -361,7 +383,10 @@ class TailKernel:
             )
         if err != 0:
             raise RuntimeError(f"tailpk launch failed: CUDA error {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return f_out, i_out, rng_out
 
 

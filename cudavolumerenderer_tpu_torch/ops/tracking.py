@@ -91,9 +91,11 @@ def _uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def track_steps(tables, row_brick, f, rng, status, n_steps: int):
+def track_steps(tables, row_brick, f, rng, status, n_steps: int, taps=None):
     """Plain PyTorch version of the tracking kernel, with its signature
-    (module docstring): n_steps masked steps, every lane in lockstep."""
+    (module docstring): n_steps masked steps, every lane in lockstep.  A
+    list given as `taps` receives, per step, the flat table positions that
+    step reads."""
     row_tab = tables[row_brick]  # (R, 256)
     ox, oy, oz, dx, dy, dz, t, max_t, bexit, bx, by, bz, inv_sig, inv_rho = f
     st = RngState(state=rng[0], inc=rng[1])
@@ -123,6 +125,8 @@ def track_steps(tables, row_brick, f, rng, status, n_steps: int):
             ))
         flat = (idx[2] * DILATED[1] + idx[1]) * DILATED[2] + idx[0]
         rho = torch.gather(row_tab, 1, flat)
+        if taps is not None:
+            taps.append((row_brick[:, None] * ROW + flat)[still])
 
         bits3, st = next_uint32(st, still)
         accept = still & ~(rho * inv_rho < _uniform(bits3))
@@ -131,12 +135,33 @@ def track_steps(tables, row_brick, f, rng, status, n_steps: int):
     return t, status, tap, st.state
 
 
+#: integer and float operations a kernel step that taps the table does at
+#: least (csrc/tracking.cu): the flight draw, the three-axis tap and the
+#: acceptance draw, each PCG draw 9 operations
+STEP_OPS = 60
+
+
+def track_bytes(n_rows: int, table_words: int) -> int:
+    """The least bytes one kernel call moves: every input row of R rows of
+    128 lanes read once (row_brick, f, rng, status), every output written
+    once (t, status, tap, rng_state), and the `table_words` distinct table
+    words its taps read (data-dependent: count them with
+    `track_steps(..., taps=)`)."""
+    lanes = n_rows * TABLE_W
+    read = 8 * n_rows + (N_F * 4 + 2 * 8 + 4) * lanes
+    written = (4 + 4 + 4 + 8) * lanes
+    return read + written + 4 * table_words
+
+
 class TrackKernel:
     """The CUDA tracking kernel: built from csrc/tracking.cu at first use,
-    launched through its C entry point, and counted."""
+    launched through its C entry point, and counted.  `launches` counts
+    launches made now; a launch recorded into a CUDA graph being captured
+    counts in `captured` instead."""
 
     def __init__(self):
         self.launches = 0  # CUDA launches; the plain version is not counted
+        self.captured = 0
         self._built = None
 
     def library(self):
@@ -185,7 +210,10 @@ class TrackKernel:
             )
         if err != 0:
             raise RuntimeError(f"tracking launch failed: CUDA error {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return t_out, status_out, tap_out, rng_out
 
 

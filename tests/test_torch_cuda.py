@@ -1,7 +1,9 @@
 """The CUDA kernels on the card (the fastSK tail kernel, the brickSK
 tracking kernel and the five gather kernels of the gather
 microbenchmark): each against its plain torch version, the white
-furnace through the render kernels, launch counts and input checks.
+furnace through the render kernels, launch counts and input checks; for
+the gathers also out-of-range indices, inputs not 16-byte aligned and
+taa0 at 65,536 rows.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -228,3 +230,60 @@ def test_graph_replayed_loop_equals_eager_loop(cuda, name):
     torch.cuda.synchronize()
     assert pgather.KERNELS[name].launches == launches + inner
     assert torch.equal(got, loop(*fresh[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", pgather.NAMES)
+def test_gather_kernel_fills_out_of_range_lanes(cuda, name):
+    """An index outside the table reads nothing: stream gives 0 there (its
+    masked shard takes), every other kernel NaN (jnp.take's fill).  The
+    plain versions cannot take such indices, so the want is theirs on the
+    valid indices with the fill put in."""
+    tab, idx, *rest = gather_args(name, "small", cuda)
+    want = pgather.WRAPPERS[name][1](tab, idx, *rest)
+    bad = torch.zeros(idx.numel(), dtype=torch.bool, device=cuda)
+    bad[::7] = True
+    bad = bad.view(idx.shape)
+    flat = idx.clone().view(-1)
+    flat[::14] = -1
+    flat[7::14] = 1 << 30
+    fill = 0.0 if name == "stream" else float("nan")
+    want = torch.where(bad, torch.full_like(want, fill), want)
+    got = pgather.WRAPPERS[name][0](tab, flat.view(idx.shape), *rest)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def at_4_byte_offset(x):
+    """A contiguous copy of x whose storage starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", pgather.NAMES)
+def test_gather_kernel_takes_unaligned_inputs(cuda, name):
+    tab, idx, *rest = gather_args(name, "small", cuda)
+    run, plain = pgather.WRAPPERS[name]
+    want = plain(tab, idx, *rest)
+    got = run(at_4_byte_offset(tab), at_4_byte_offset(idx), *rest)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_taa0_takes_any_row_count(cuda):
+    """R = 65,536 rows: past what one column of the old design's shared
+    memory held (58,112)."""
+    R = 65536
+    gen = np.random.default_rng(9)
+    tab = torch.from_numpy(gen.random((R, 128), dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy(
+        gen.integers(0, R, (R, 128)).astype(np.int32)).to(cuda)
+    launches = pgather.KERNELS["taa0"].launches
+    got = pgather.run_taa0(tab, idx)
+    torch.cuda.synchronize()
+    assert pgather.KERNELS["taa0"].launches == launches + 1
+    assert torch.equal(got, pgather.taa0_gather(tab, idx))

@@ -94,6 +94,35 @@ def test_plain_version_matches_numpy(name):
     assert pg.KERNELS[name].launches == launches
 
 
+@pytest.mark.parametrize("name", pg.NAMES)
+def test_yardstick_equals_plain_version(name):
+    """The one torch call timed beside each kernel computes its function."""
+    args, ref = numpy_case(name)
+    got = pg.YARDSTICKS[name](args[0], args[1].long())
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, pg.WRAPPERS[name][1](*args))
+
+
+@pytest.mark.parametrize("n, values, value_bytes, want", [
+    (262144, None, 4, 3_145_728),  # the published N: idx + values + out
+    (262144, 262144, 32, 10_485_760),  # a 32-byte sector per value
+    (4096, 1000, 4, 4096 * 8 + 4000),
+])
+def test_gather_bytes_match_hand_count(n, values, value_bytes, want):
+    assert pg.gather_bytes(n, values, value_bytes) == want
+
+
+@pytest.mark.parametrize("name", pg.NAMES)
+def test_touched_counts_distinct_entries_and_sectors(name):
+    args, _ = numpy_case(name)
+    idx = args[1].numpy().astype(np.int64)
+    rows, lanes = np.indices(idx.shape)[0], np.indices(idx.shape)[-1]
+    pos = {"taa1": rows * 128 + idx, "taa0": idx * 128 + lanes}.get(name, idx)
+    want = (len(np.unique(pos)), len(np.unique(pos // 8)))
+    assert pg.touched(name, args[1]) == want
+    assert want[1] <= want[0] <= idx.size
+
+
 def test_stream_mask_leaves_zero_outside_the_table():
     tab = torch.arange(16, dtype=torch.float32) + 1.0
     idx = torch.tensor([[-1, 0, 7, 15, 16, 1 << 30]], dtype=torch.int32)
