@@ -13,21 +13,32 @@ CPU or to a plain version on a CUDA tensor):
    and csrc/pgather.cu, with one nvcc each, started together (into the
    package's ignored _build/ directory); print the build times and
    ptxas registers and spills;
-3. the kernel against its plain torch version on the card, on the
+3. the tail kernel against its plain torch version on the card, on the
    medical 256^3 dilated-brick table with R = 128 and R = 4096 paths at
    K = 16 steps: integer outputs equal on >= 99.9% of paths, floats
-   allclose (rtol 1e-5, atol 1e-6) on those; the kernel's device time
-   per call from replays of a CUDA graph of 16 calls, the plain version's
-   with CUDA events around eager calls; the bound from the bytes the call
-   moves (state rows, and the table words its taps read, counted from
-   the plain version's taps) and a lower count of its operations;
+   allclose (rtol 1e-5, atol 1e-6) on those; the status histogram, and
+   per path the steps and scatters the plain version takes (one step at
+   a time) and the rounds the kernel needs for them; the kernel's device
+   time per call from replays of a CUDA graph of 16 calls, the plain
+   version's with CUDA events around eager calls; the bound from the
+   bytes the call moves (state rows, and the table words its taps read,
+   counted from the plain version's taps) and a lower count of its
+   operations; the step sweep (R = 128, K = 1, 2, 4, 8, 16: the slope is
+   the time of a step); the kernel's ptxas registers, spills and shared
+   memory;
 4. white furnace through the kernel (every pixel == spp, rtol 2e-5), and
    a small render on the card against the same render on the CPU;
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
    scale 100, 512^2 x 4 iterations, one tile) through load_scene and
    create_renderer(...).render() with fastSK two-level and the tail
-   kernel on; one warm-up render, then one timed render including the
-   image copy to the host; the kernel's launch count must rise;
+   kernel on; one warm-up render, with torch.profiler over tail rounds
+   100-159 (the kernel's device time per launch at the slice's own
+   state, and the card's busy share in that window) and the inputs of
+   round 130 kept (the kernel against its plain version on them, their
+   paths traced, and timed as in phase 3), then one timed render
+   including the image copy to the host; the kernel's launch
+   count must rise, and n_rays must be the 6,040,005 of the kernel's
+   first design (the same draws give the same render);
 6. the tracking kernel against its plain torch version on the brickSK
    slice's own dilated table (smoke 128x128x50, scale 800) with R = 8
    and R = 1,250 rows at K = 8 and K = 32 steps: integer outputs equal on
@@ -80,6 +91,10 @@ N_STEPS = 16
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 PEAK_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 T/s
 GRAPH_CALLS = 16  # calls per timed CUDA graph
+SWEEP_STEPS = (1, 2, 4, 8, 16)  # K of phase 3's step sweep, at R = 128
+SLICE_RAYS = 6040005  # n_rays of the fastSK slice (phase 5), first tail kernel
+WINDOW = (100, 60)  # phase 5's profiler window: first tail round, rounds
+NULL, SCATTER, DIED, CROSSED = 1, 2, 3, 4  # what a traced step did
 COLD = ("taa0", "stream", "vmem")  # gathers also timed on fresh indices
 GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
 GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
@@ -387,7 +402,193 @@ def kernel_vs_plain(tables, params, n_paths: int, card: str):
         f"by {bound_by} ({n_bytes} B, {words} distinct table words of "
         f"{n_taps} taps), the kernel at {bound / ms:.2%} of it; max "
         f"|err| {err:.3g}; card {card}")
+    trace_paths(args, n_paths, "[3]")
     return err, ms, plain_ms, bound, bound_by
+
+
+def trace_paths(args, n_paths: int, tag: str) -> None:
+    """What each path does in its N_STEPS steps, from the plain version run
+    one step at a time: steps taken, scatters, and the rounds the kernel
+    needs for them (kernel_rounds)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    tab, brick, params, f, i, rng = args
+    codes = []
+    for _ in range(N_STEPS):
+        active = i[tpk.I_STATUS] == tpk.RUN
+        f, i_out, state = tpk.tail_steps(tab, brick, params, f, i, rng, 1)
+        scatter = i_out[0] != i[tpk.I_BOUNCE]
+        running = i_out[1] == tpk.RUN
+        codes.append(torch.where(~active, 0, torch.where(
+            scatter, torch.where(running, SCATTER, DIED),
+            torch.where(running, NULL, CROSSED))))
+        i = torch.cat([i[:tpk.I_BOUNCE], i_out]).contiguous()
+        rng = torch.stack([state, rng[1]])
+    codes = torch.stack(codes).cpu().numpy()
+    steps = (codes > 0).sum(0)
+    scatters = ((codes == SCATTER) | (codes == DIED)).sum(0)
+    rounds = np.array(kernel_rounds(codes))
+    longest = int(steps.argmax())
+    log(f"{tag} R={n_paths} K={N_STEPS}: paths by steps taken "
+        f"{np.bincount(steps, minlength=N_STEPS + 1).tolist()}; {steps.sum()} "
+        f"steps, {scatters.sum()} scatters in all; the longest path takes "
+        f"{steps[longest]} steps with {scatters[longest]} scatters in "
+        f"{rounds[longest]} kernel rounds; the most scatters on a path "
+        f"{scatters.max()}, the most kernel rounds {rounds.max()}")
+
+
+def kernel_rounds(codes) -> list:
+    """Rounds the tail kernel takes per path, from its steps' codes (K, R):
+    a null run covers up to tpk.LANES null collisions and ends at the first
+    other step (a scatter goes on in a scatter run); a scatter run covers
+    run links (tpk.FIRST_RUN after a null run, twice the last after a run
+    in which every link scattered and survived) and ends at the first link
+    that did not."""
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    out = []
+    for seq in codes.T:
+        seq = [int(x) for x in seq if x]
+        n, i, run, rounds = len(seq), 0, 0, 0
+        while i < n:
+            rounds += 1
+            if run == 0:
+                j = i
+                while j < n and j - i < tpk.LANES and seq[j] == NULL:
+                    j += 1
+                if j == n or j - i == tpk.LANES or seq[j] == CROSSED:
+                    i = j if j == n or j - i == tpk.LANES else n
+                    continue
+                i, run = j, tpk.FIRST_RUN
+                continue
+            c, k = min(run, n - i), 0
+            while k < c and seq[i + k] == SCATTER:
+                k += 1
+            if k == c:
+                i, run = i + c, min(2 * run, tpk.LANES)
+                continue
+            i, run = (i + k + 1, 0) if seq[i + k] == NULL else (n, 0)
+        out.append(rounds)
+    return out
+
+
+def step_sweep(tables, params, card: str) -> dict:
+    """Phase 3: the tail kernel's device time per call at R = 128 for each
+    K in SWEEP_STEPS (graph protocol as kernel_vs_plain); returns
+    {K: ms} and the least-squares slope, ms per step."""
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    inputs = tpk.random_tail_state(tables, params, 128, seed=128)
+    args = (tables.tab, *inputs[:1], params, *inputs[1:])
+    ms = {k: graph_ms([lambda k=k: tpk.run_tail_steps(*args, n_steps=k)]
+                      * GRAPH_CALLS) for k in SWEEP_STEPS}
+    slope, icept = np.polyfit(SWEEP_STEPS, [ms[k] for k in SWEEP_STEPS], 1)
+    log(f"[3] step sweep R=128: " + ", ".join(
+        f"K={k} {v * 1e3:.2f} us" for k, v in ms.items())
+        + f"; slope {slope * 1e3:.3f} us per step, intercept "
+        f"{icept * 1e3:.2f} us; card {card}")
+    return {"ms": ms, "slope_ms": slope}
+
+
+def ptxas_report(log_text: str) -> str:
+    """The ptxas lines (registers, spills, shared memory) of a build log."""
+    return "; ".join(line.split(":", 1)[-1].strip()
+                     for line in log_text.splitlines()
+                     if "Used" in line or "spill" in line)
+
+
+def profile_tail_window(renderer, card: str):
+    """Phase 5: one render (the warm-up) with torch.profiler over the
+    WINDOW of tail rounds, keeping the kernel's inputs of the window's
+    middle round.  Returns the tail kernel's device us per launch there
+    (None if the trace holds no device time) and those inputs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    first, n = WINDOW
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = tpk.run_tail_steps
+    rounds, clock, kept = 0, [], []
+
+    def windowed(*args, **kw):
+        nonlocal rounds
+        if rounds == first + n // 2:
+            kept.extend(x.clone() for x in args[:6])
+        if rounds == first:
+            torch.cuda.synchronize()
+            prof.start()
+            clock.append(time.perf_counter())
+        out = run(*args, **kw)
+        rounds += 1
+        if rounds == first + n:
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            prof.stop()
+        return out
+
+    tpk.run_tail_steps = windowed
+    t0 = time.perf_counter()
+    try:
+        renderer.render()
+    finally:
+        tpk.run_tail_steps = run
+    log(f"[5] warm-up render {time.perf_counter() - t0:.2f} s "
+        f"({rounds} tail rounds, {first}-{first + n - 1} profiled)")
+    check(len(clock) == 2, f"the render ran {rounds} tail rounds, fewer "
+          f"than the window's {first + n}")
+    window_us = (clock[1] - clock[0]) * 1e6
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    tail = [e for e in on_card if "tail_kernel" in e.key]
+    if not tail or busy_us == 0.0:
+        log(f"[5] profiler window: no device time in the trace; the tail "
+            "kernel's in-slice time is not measured")
+        return None, kept
+    launches = sum(e.count for e in tail)
+    per_launch = sum(e.self_device_time_total for e in tail) / launches
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[5] profiler window, tail rounds {first}-{first + n - 1}: "
+        f"{window_us / 1e3:.2f} ms of wall, device busy {busy_us / 1e3:.3f} "
+        f"ms ({busy_us / window_us:.1%}); tail kernel {launches} launches, "
+        f"{per_launch:.2f} us of device time per launch; top device time: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total:.0f} us"
+                    for e in top) + f"; card {card}")
+    return per_launch, kept
+
+
+def slice_round(kept, card: str) -> float:
+    """Phase 5: the tail kernel on one round's inputs kept from the slice
+    (R = tail_pk_width paths at the render's own state): held against the
+    plain version, each path's steps and scatters, and the device time per
+    call in phase 3's graph protocol.  Returns that time in ms."""
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    R = kept[3].shape[1]
+    got = tpk.run_tail_steps(*kept, n_steps=N_STEPS)
+    want = tpk.tail_steps(*kept, n_steps=N_STEPS)
+    (gf, gi, gs), (wf, wi, ws) = (
+        [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want])
+    agree = (gi == wi).all(axis=0) & (gs == ws)
+    check(agree.mean() >= 0.999, f"slice round: {int((~agree).sum())} paths "
+          "differ from the plain version")
+    np.testing.assert_allclose(gf[:, agree], wf[:, agree], rtol=RTOL,
+                               atol=ATOL)
+    statuses = np.bincount(gi[1], minlength=4).tolist()
+    log(f"[5] slice round {WINDOW[0] + WINDOW[1] // 2}: R={R} K={N_STEPS}, "
+        f"paths differing {int((~agree).sum())}; status RUN/NEED_WINDOW/"
+        f"EXIT_BOX/DEAD = {statuses}")
+    trace_paths(kept, R, "[5]")
+    ms = graph_ms([lambda: tpk.run_tail_steps(*kept, n_steps=N_STEPS)]
+                  * GRAPH_CALLS)
+    log(f"[5] slice round: kernel {ms * 1e3:.2f} us of device time per call "
+        f"(graph of {GRAPH_CALLS}); card {card}")
+    return ms
 
 
 def furnace_and_small_render():
@@ -610,20 +811,21 @@ def main() -> int:
     params = fast.tail_params(scene, cfg.settings)
     log(f"[3] dilated table {tuple(tables.tab.shape)} "
         f"({tables.tab.numel() * 4 / 1e6:.1f} MB)")
+    log(f"[3] tail kernel ptxas: {ptxas_report(builds[0].log)}")
     errs, times = [], {}
     for n_paths in (128, 4096):
         err, *timed = kernel_vs_plain(tables, params, n_paths, card)
         errs.append(err)
         times[n_paths] = timed
+    sweep = step_sweep(tables, params, card)
 
     # -- phase 4: white furnace and card-vs-CPU render ----------------------
     furnace_and_small_render()
 
     # -- phase 5: the slice -------------------------------------------------
     renderer = create_renderer(scene, camera, cfg)
-    t0 = time.perf_counter()
-    renderer.render()
-    log(f"[5] warm-up render {time.perf_counter() - t0:.2f} s")
+    in_slice_us, kept = profile_tail_window(renderer, card)
+    slice_ms = slice_round(kept, card)
     torch.cuda.synchronize()
     tpk.KERNEL.launches = 0
     t0 = time.perf_counter()
@@ -640,6 +842,10 @@ def main() -> int:
     log(f"[5] slice 512^2 x 4: {wall:.3f} s wall (incl. image copy), "
         f"{n_rays:.0f} rays, {n_rays / wall / 1e6:.4f} Mrays/s, "
         f"{launches} tail-kernel launches, image mean {mean:.5f}; card {card}")
+    log(f"[5] n_rays {n_rays:.0f} against {SLICE_RAYS} of the first tail kernel: "
+        f"difference {n_rays - SLICE_RAYS:+.0f}")
+    check(abs(n_rays - SLICE_RAYS) <= 1e-4 * SLICE_RAYS,
+          f"the slice traced {n_rays:.0f} rays, not {SLICE_RAYS}")
 
     # -- phase 6: tracking kernel against plain version ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -737,6 +943,11 @@ def main() -> int:
         "source": "cudavolumerenderer_tpu_torch/csrc/tailpk.cu",
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tailpk.py:152",
         "launches": launches, "max_abs_err": max(errs), **timed(*times[128]),
+        "design": "one warp per path; rounds that each take a run of null "
+                  "collisions or of scatters, a lane per step",
+        "ms_r4096": times[4096][0],
+        "step_sweep_ms": sweep["ms"], "in_slice_us": in_slice_us,
+        "slice_round_ms": slice_ms,
     }, {
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",

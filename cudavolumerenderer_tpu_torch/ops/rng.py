@@ -83,6 +83,19 @@ def next_uint32(rng: RngState, active=None) -> Tuple[torch.Tensor, RngState]:
     return out, new_rng
 
 
+def jump_constants(n: int) -> torch.Tensor:
+    """PCG jump-ahead table, (2, n + 1) int64 of uint32 words: row 0 holds
+    A_m = MULT^m and row 1 G_m = sum_{i<m} MULT^i (mod 2^32), so the state
+    after m draws from (state, inc) is A_m * state + G_m * inc (mod 2^32).
+    The tail kernel (csrc/tailpk.cu) reads it to start each lane of a
+    round at its own draw."""
+    a, g, rows = 1, 0, []
+    for _ in range(n + 1):
+        rows.append((a, g))
+        a, g = (a * _MULT) & M32, (g * _MULT + 1) & M32
+    return torch.tensor(rows, dtype=torch.int64).T.contiguous()
+
+
 def next_float(rng: RngState, active=None) -> Tuple[torch.Tensor, RngState]:
     """Uniform float32 in [0, 1) with 24 bits of mantissa entropy."""
     bits, rng = next_uint32(rng, active)

@@ -17,8 +17,13 @@ models/fast.py's service loop handles those.
 
 Layout.  The TPU kernel took per-path (R, 128) lane broadcasts and a
 gathered (R, 39, 128) copy of each path's window.  Here per-path state
-is (rows, R) structure-of-arrays, and the kernel reads the shared
-(NB, 4992) dilated-brick table at a per-path brick index.
+is (rows, R) structure-of-arrays, read and written once per call, and
+the kernel reads the shared (NB, 4992) dilated-brick table at a
+per-path brick index.  One warp works on one path: its lanes make the
+path's next steps at once, as a run of null collisions or as a run of
+scatters, each lane starting at its own draw through the PCG jump table
+`rng.jump_constants(6 * LANES)` that the wrapper passes, and a ballot
+finds where the run ends (design notes in the source).
 
 Per step a path draws, from its own PCG stream: u1 (flight); then for a
 step that stays in its brick the tap bits and u2 (acceptance); then on a
@@ -38,7 +43,7 @@ import torch.nn.functional as F
 
 from ..constants import EPSILON, TWO_PI
 from . import aabb
-from .rng import RngState, next_uint32
+from .rng import RngState, jump_constants, next_uint32
 
 # Tail brick geometry: 16^3 interior, 17^3 dilated, rows of 39 x 128.
 TBRICK = 16
@@ -72,6 +77,14 @@ N_F = 17
 # Int state rows ((N_I, R) int32): brick origin in voxels, bounce, status.
 I_WX, I_WY, I_WZ, I_BOUNCE, I_STATUS = range(5)
 N_I = 5
+
+#: steps one round of the CUDA kernel covers at most: one warp (32 lanes)
+#: per path, a lane per step; a step takes up to 6 draws (u1, tap bits, u2,
+#: e1, e2, RR), so the jump table holds (A_m, G_m) for m = 0 .. 6 * LANES
+LANES = 32
+#: links of the kernel's scatter run after a null run; a run in which every
+#: link scatters and survives is followed by one twice as long
+FIRST_RUN = 16
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tailpk.cu"
 
@@ -336,6 +349,7 @@ class TailKernel:
         self.launches = 0  # CUDA launches; the plain version is not counted
         self.captured = 0
         self._built = None
+        self._jumps = {}  # device -> the PCG jump table on it
 
     def library(self):
         """Build (or reuse) and load the kernel library; returns the
@@ -345,12 +359,20 @@ class TailKernel:
 
             built = cuda_build.build_library(_SOURCE)
             fn = built.lib.tailpk_launch
-            fn.argtypes = [ctypes.c_void_p] * 9 + [
+            fn.argtypes = [ctypes.c_void_p] * 10 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             self._built = built
         return self._built
+
+    def jump_table(self, dev) -> torch.Tensor:
+        """The (2, 6 * LANES + 1) PCG jump table on `dev`, copied there at
+        the first launch on it (so before any CUDA-graph capture that
+        replays an earlier eager call)."""
+        if dev not in self._jumps:
+            self._jumps[dev] = jump_constants(6 * LANES).to(dev)
+        return self._jumps[dev]
 
     def launch(self, tab, brick, params, f, i, rng, n_steps: int):
         R = f.shape[1]
@@ -371,13 +393,14 @@ class TailKernel:
             if not x.is_contiguous():
                 raise ValueError(f"tailpk: {name} must be contiguous")
         fn = self.library().lib.tailpk_launch
+        jump = self.jump_table(dev)
         f_out = torch.empty_like(f)
         i_out = torch.empty((2, R), dtype=torch.int32, device=dev)
         rng_out = torch.empty((R,), dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             err = fn(
                 tab.data_ptr(), brick.data_ptr(), params.data_ptr(),
-                f.data_ptr(), i.data_ptr(), rng.data_ptr(),
+                jump.data_ptr(), f.data_ptr(), i.data_ptr(), rng.data_ptr(),
                 f_out.data_ptr(), i_out.data_ptr(), rng_out.data_ptr(),
                 R, n_steps, torch.cuda.current_stream(dev).cuda_stream,
             )

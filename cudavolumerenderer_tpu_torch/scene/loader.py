@@ -21,7 +21,9 @@ from .types import Scene
 from .xml_builder import load_xml_scene
 
 
-def load_scene(config: Config, device="cpu") -> Tuple[Scene, Camera]:
+def load_scene(config: Config, device="cuda") -> Tuple[Scene, Camera]:
+    """The scene and camera of `config.scene_file` on `device` (the card
+    unless the caller passes device="cpu"; no fallback)."""
     if config.scene_file is None:
         raise ValueError("no scene file provided")
     stype = config.scene_type

@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 
 from ..ops.camera import Camera, make_camera
-from .types import Scene, make_medium, make_scene
+from .types import Scene, loader_device, make_medium, make_scene
 
 _ELEMENT_TYPES = {
     "MET_CHAR": np.int8,
@@ -84,7 +84,8 @@ def read_mhd(path: str) -> np.ndarray:
     return data.astype(np.float32).reshape(nz, ny, nx)
 
 
-def load_mhd_scene(path: str, device="cpu") -> Tuple[Scene, Camera]:
+def load_mhd_scene(path: str, device="cuda") -> Tuple[Scene, Camera]:
+    device = loader_device(device)
     image = read_mhd(path)
     dmin, dmax = float(image.min()), float(image.max())
     normalized = (image - dmin) / max(dmax - dmin, 1e-20)

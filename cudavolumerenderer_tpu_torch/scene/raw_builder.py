@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 
 from ..ops.camera import Camera, make_camera
-from .types import Scene, make_medium, make_scene
+from .types import Scene, loader_device, make_medium, make_scene
 
 
 def transfer_function() -> np.ndarray:
@@ -47,9 +47,10 @@ def albedo_from_density(density01: np.ndarray) -> np.ndarray:
 
 
 def load_raw_scene(
-    path: str, resolution: Tuple[int, int, int] = (32, 32, 32), device="cpu"
+    path: str, resolution: Tuple[int, int, int] = (32, 32, 32), device="cuda"
 ) -> Tuple[Scene, Camera]:
     """Load a raw uchar volume file into a Scene + default Camera."""
+    device = loader_device(device)
     nx, ny, nz = resolution
     n = nx * ny * nz
     with open(path, "rb") as f:

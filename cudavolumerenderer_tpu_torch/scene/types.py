@@ -104,6 +104,20 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def loader_device(device) -> torch.device:
+    """The device a scene loader builds on.  The loaders default to
+    "cuda"; without a card that raises (there is no fallback) and a CPU
+    caller passes device="cpu"."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"scene loader: device {device} needs a CUDA card and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "load the scene on the CPU"
+        )
+    return device
+
+
 def make_medium(
     density_zyx,
     albedo_zyx,

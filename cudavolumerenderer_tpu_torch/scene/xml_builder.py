@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 
 from ..ops.camera import Camera, make_camera
-from .types import Scene, make_medium, make_scene
+from .types import Scene, loader_device, make_medium, make_scene
 from .vol import read_vol
 
 
@@ -26,7 +26,8 @@ def _find_child_by_attr(parent, tag, attr, value):
     return None
 
 
-def load_xml_scene(path: str, device="cpu") -> Tuple[Scene, Camera]:
+def load_xml_scene(path: str, device="cuda") -> Tuple[Scene, Camera]:
+    device = loader_device(device)
     root = ET.parse(path).getroot()
     basedir = os.path.dirname(os.path.abspath(path))
 

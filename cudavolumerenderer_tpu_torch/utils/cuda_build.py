@@ -34,7 +34,7 @@ class BuiltLibrary:
     lib: ctypes.CDLL
     path: Path
     seconds: float  # nvcc wall time; 0.0 when the library was reused
-    log: str  # nvcc's output (ptxas register/spill report)
+    log: str  # nvcc's output (ptxas register/spill report), kept beside it
 
 
 def nvcc_path() -> str:
@@ -54,7 +54,10 @@ def build_library(source: Path) -> BuiltLibrary:
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    log_path = out.with_suffix(".log")
     seconds, log = 0.0, ""
+    if out.exists() and log_path.exists():
+        log = log_path.read_text()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -67,5 +70,6 @@ def build_library(source: Path) -> BuiltLibrary:
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)

@@ -54,6 +54,23 @@ def kernel_inputs(n_paths, seed, device="cpu", max_path=6, rr=True):
     return tables.tab, brick, params, f, i, rng
 
 
+def thin_inputs(n_paths, seed, device="cpu", rr=True):
+    """(tab, brick, params, f, i, rng) for paths in a thin medium under a
+    high majorant: density 0.02 with a 1.0 spike at every brick corner,
+    scale 300, so ~150 flights cross a brick and ~2% of taps accept: runs
+    of 32 and more null collisions."""
+    d = np.full((33, 33, 33), 0.02, np.float32)
+    d[::16, ::16, ::16] = 1.0
+    scene = types.make_scene(types.make_medium(
+        d, 0.8, scale=300.0, max_density=1.0, g=0.3, device=device))
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=rr, max_path_length=1000)
+    tables = tailpk.dilated_tail_bricks(scene.medium.density.data)
+    params = fast.tail_params(scene, settings)
+    brick, f, i, rng = tailpk.random_tail_state(tables, params, n_paths, seed)
+    return tables.tab, brick, params, f, i, rng
+
+
 def track_inputs(n_rows, seed, device):
     """(tables, row_brick, f, rng, status) for n_rows binned rows on the
     smoke grid of the brickSK slice, at its scale 800."""
@@ -73,14 +90,20 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_paths", [128, 4096])
-def test_kernel_matches_plain_version(cuda, n_paths):
-    inputs = kernel_inputs(n_paths, seed=21, device=cuda)
+@pytest.mark.parametrize("medium", ["dense", "thin"])
+@pytest.mark.parametrize("n_steps", [1, 16, 40])
+@pytest.mark.parametrize("n_paths", [1, 31, 128, 4096])
+def test_kernel_matches_plain_version(cuda, n_paths, n_steps, medium):
+    """The dense medium scatters and exits within a few steps; in the thin
+    one K = 40 takes two lookahead rounds (32 + 8 steps) with no event.
+    R = 1 and 31 leave a block's second warp without a path."""
+    make = kernel_inputs if medium == "dense" else thin_inputs
+    inputs = make(n_paths, seed=21, device=cuda)
     launches = tailpk.KERNEL.launches
-    got = tailpk.run_tail_steps(*inputs, n_steps=16)
+    got = tailpk.run_tail_steps(*inputs, n_steps=n_steps)
     torch.cuda.synchronize()
     assert tailpk.KERNEL.launches == launches + 1
-    want = tailpk.tail_steps(*inputs, n_steps=16)
+    want = tailpk.tail_steps(*inputs, n_steps=n_steps)
     (gf, gi, gs), (wf, wi, ws) = (
         [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want]
     )

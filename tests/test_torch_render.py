@@ -150,7 +150,7 @@ def test_create_renderer_agrees_with_render_tile(tmp_path):
         two_level=True, tail_pallas=True, tail_pk_width=16, min_width=32,
         resolution=(8, 8), iterations=3, n_tiles=(1, 1), seed=7,
     )
-    scene, camera = load_scene(cfg)
+    scene, camera = load_scene(cfg, device="cpu")
     assert tfast._albedo_mode(scene) == "affine"
     renderer = create_renderer(scene, camera, cfg)
     img = renderer.render()
@@ -169,7 +169,7 @@ def test_tiled_progressive_passes_match_one_batch(tmp_path):
     per-tile path ids do not depend on how the iterations are split."""
     cfg = Config(scene_file=write_mhd(tmp_path, n=12), two_level=True,
                  resolution=(8, 6), iterations=2, n_tiles=(2, 1))
-    scene, camera = load_scene(cfg)
+    scene, camera = load_scene(cfg, device="cpu")
     batch = create_renderer(scene, camera, cfg).render()
     renderer = create_renderer(scene, camera, cfg)
     while not renderer.image_complete():
@@ -210,4 +210,4 @@ def test_other_kernels_and_scene_types_raise(tmp_path):
         path = tmp_path / name
         path.write_bytes(bytes(8))
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            load_scene(Config(scene_file=str(path)))
+            load_scene(Config(scene_file=str(path)), device="cpu")

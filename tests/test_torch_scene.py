@@ -70,7 +70,8 @@ def test_mhd_scene_matches_jax(tmp_path, kind):
     same(tmhd.read_mhd(path), jmhd.read_mhd(path))
     x = np.linspace(-0.2, 1.2, 29, dtype=np.float32)
     same(tmhd.smooth_step(0.2, 0.6, x), jmhd.smooth_step(0.2, 0.6, x))
-    (ts, tc), (js, jc) = tmhd.load_mhd_scene(path), jmhd.load_mhd_scene(path)
+    ts, tc = tmhd.load_mhd_scene(path, device="cpu")
+    js, jc = jmhd.load_mhd_scene(path)
     tm, jm = ts.medium, js.medium
     for name in ("box_min", "box_max", "scale", "max_density", "g",
                  "albedo_affine"):
@@ -89,7 +90,8 @@ def test_load_scene_camera_overrides_match_jax(tmp_path, mitsuba):
     path = write_volume(tmp_path, "mhd")
     kw = dict(scene_file=path, resolution=(40, 24))
     _, tc = tloader.load_scene(tconfig.Config(
-        **kw, settings=ttypes.RenderSettings.from_flags(mitsuba)))
+        **kw, settings=ttypes.RenderSettings.from_flags(mitsuba)),
+        device="cpu")
     _, jc = jloader.load_scene(jconfig.Config(
         **kw, settings=jtypes.RenderSettings.from_flags(mitsuba)))
     same(tc.inv_view, jc.inv_view)

@@ -1,8 +1,10 @@
 """Scene I/O and image output of the torch port against the JAX package,
 on files written in tmp_path: the .vol reader/writer, the Mitsuba XML
 and RAW builders (transfer function included), the loader's dispatch,
-and the HDR/PNG writers.  Every comparison is exact: both packages run
-the same numpy code on the same bytes."""
+the loaders' default device, and the HDR/PNG writers.  Every comparison
+is exact: both packages run the same numpy code on the same bytes."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ from cudavolumerenderer_tpu.scene import xml_builder as jxml
 from cudavolumerenderer_tpu.scene.types import RenderSettings as JRS
 from cudavolumerenderer_tpu.utils import image as jimage
 from cudavolumerenderer_tpu_torch.config import Config, SceneType
-from cudavolumerenderer_tpu_torch.scene import procedural, raw_builder, vol
+from cudavolumerenderer_tpu_torch.scene import mhd, procedural, raw_builder
+from cudavolumerenderer_tpu_torch.scene import vol
 from cudavolumerenderer_tpu_torch.scene import xml_builder
 from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 from cudavolumerenderer_tpu_torch.scene.types import RenderSettings as TRS
@@ -97,7 +100,7 @@ def test_vol_round_trip_and_jax_reader(tmp_path, channels):
 @pytest.mark.parametrize("scale, film", [(800.0, (24, 12)), (40.0, (16, 16))])
 def test_load_xml_scene_equals_jax(tmp_path, scale, film):
     path = write_xml_scene(tmp_path, scale=scale, w=film[0], h=film[1])
-    ts, tc = xml_builder.load_xml_scene(path)
+    ts, tc = xml_builder.load_xml_scene(path, device="cpu")
     js, jc = jxml.load_xml_scene(path)
     assert_scene_equal(ts, tc, js, jc)
     assert float(ts.medium.scale) == scale
@@ -118,11 +121,12 @@ def test_transfer_function_and_albedo_equal_jax():
 
 def test_load_raw_scene_equals_jax(tmp_path):
     path = write_raw(tmp_path)
-    ts, tc = raw_builder.load_raw_scene(path)
+    ts, tc = raw_builder.load_raw_scene(path, device="cpu")
     js, jc = jraw.load_raw_scene(path)
     assert_scene_equal(ts, tc, js, jc)
     with pytest.raises(ValueError, match="bytes"):
-        raw_builder.load_raw_scene(path, resolution=(64, 64, 64))
+        raw_builder.load_raw_scene(path, resolution=(64, 64, 64),
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["xml", "raw"])
@@ -130,14 +134,54 @@ def test_load_raw_scene_equals_jax(tmp_path):
 def test_loader_dispatch_equals_jax(tmp_path, kind, comparable):
     path = write_xml_scene(tmp_path) if kind == "xml" else write_raw(tmp_path)
     ts, tc = load_scene(Config(scene_file=path, resolution=(32, 16),
-                               settings=TRS.from_flags(comparable)))
+                               settings=TRS.from_flags(comparable)),
+                        device="cpu")
     js, jc = jloader.load_scene(jconfig.Config(
         scene_file=path, resolution=(32, 16),
         settings=JRS.from_flags(comparable)))
     assert_scene_equal(ts, tc, js, jc)
     stype = SceneType.MITSUBA_XML if kind == "xml" else SceneType.RAW
-    ts2, _ = load_scene(Config(scene_file=path, scene_type=stype))
+    ts2, _ = load_scene(Config(scene_file=path, scene_type=stype),
+                        device="cpu")
     assert torch.equal(ts2.medium.density.data, ts.medium.density.data)
+
+
+def write_mhd(tmp_path):
+    """A 4^3 u16 MHD scene (header + raw counts)."""
+    counts = np.arange(64, dtype="<u2").reshape(4, 4, 4) * 60
+    counts.tofile(str(tmp_path / "v.raw"))
+    path = tmp_path / "v.mhd"
+    path.write_text(
+        "ObjectType = Image\nNDims = 3\nBinaryData = True\n"
+        "BinaryDataByteOrderMSB = False\nDimSize = 4 4 4\n"
+        "ElementType = MET_USHORT\nElementDataFile = v.raw\n"
+    )
+    return str(path)
+
+
+# each loader and a scene file it reads
+LOADERS = {
+    "load_scene": (load_scene, write_xml_scene,
+                   lambda p: (Config(scene_file=p),)),
+    "load_mhd_scene": (mhd.load_mhd_scene, write_mhd, lambda p: (p,)),
+    "load_xml_scene": (xml_builder.load_xml_scene, write_xml_scene,
+                       lambda p: (p,)),
+    "load_raw_scene": (raw_builder.load_raw_scene, write_raw, lambda p: (p,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOADERS))
+def test_loaders_default_to_the_card(tmp_path, monkeypatch, name):
+    """Every loader builds on "cuda" unless asked for the CPU; without a
+    card the default raises and names the way out, with no fallback."""
+    loader, write, args = LOADERS[name]
+    assert inspect.signature(loader).parameters["device"].default == "cuda"
+    path = write(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        loader(*args(path))
+    scene, camera = loader(*args(path), device="cpu")
+    assert scene.device.type == "cpu" and camera.inv_view.device.type == "cpu"
 
 
 def test_image_writers_equal_jax(tmp_path):
