@@ -68,7 +68,23 @@ CPU or to a plain version on a CUDA tensor):
    its defaults, every variant at 67 MB, then at --table-mb 4300 on
    xla_big, xla_sorted, xla_packed, xla_packed8f and pallas_binned with 3
    reps; each variant's M rows/s printed, the JSON checked, and every
-   gather kernel's launch count must rise.
+   gather kernel's launch count must rise;
+11. the scheduler family, which has no kernel of its own (naiveSK,
+   naiveMK with and without compaction, regenerationSK at levels 0/1/2,
+   streamingSK, sortingSK, streamingMK, fastQ), each through
+   create_renderer(...).render() on the brickSK slice's scene (thesis
+   Table 6.2: smoke 128x128x50, scale 800, Mitsuba XML + .vol, 400^2)
+   at 1 iteration and one seed: wall seconds with the image copied to
+   the host, the host's wavefront passes (calls of the shared boundary
+   event: one per bounce or streaming step) and Mrays/s per row; every
+   integrator-family row must give naiveSK's n_rays exactly and an image
+   allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays
+   within 2% of naiveSK's; torch.profiler over streamingSK's passes
+   60-119 (the card's busy share); the white furnace exact on the card
+   through naiveSK, streamingSK and fastQ; and each row's 16^2 render on
+   the card against the same render on the CPU;
+12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
+   -i 4 -r 400 400, two trials (the first discarded).
 
 The last lines are a JSON line describing the kernels, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
@@ -99,6 +115,21 @@ COLD = ("taa0", "stream", "vmem")  # gathers also timed on fresh indices
 GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
 GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
               "pallas_binned")  # the variants run at 4.3 GB
+# phase 11's rows: (label, -k kernel, Config fields, render_tile keywords
+# that no Config field sets)
+FAMILY_ROWS = (
+    ("naiveSK", "naiveSK", {}, {}),
+    ("naiveMK", "naiveMK", {}, {}),
+    ("naiveMK no compaction", "naiveMK", {}, {"compaction": False}),
+    ("regenerationSK 0", "regenerationSK", {"regeneration_level": 0}, {}),
+    ("regenerationSK 1", "regenerationSK", {"regeneration_level": 1}, {}),
+    ("regenerationSK 2", "regenerationSK", {"regeneration_level": 2}, {}),
+    ("streamingSK", "streamingSK", {}, {}),
+    ("sortingSK", "sortingSK", {}, {}),
+    ("streamingMK", "streamingMK", {}, {}),
+    ("fastQ", "fastQ", {}, {}),
+)
+FAMILY_WINDOW = (60, 60)  # streamingSK's profiled passes: first, count
 # each gather kernel's Pallas body (file:line)
 GATHER_REPLACES = {
     "taa1": "benchmarks/micro_pgather.py:284",
@@ -759,6 +790,222 @@ def brick_furnace_and_small_render():
           "small brickSK render on the card disagrees with the CPU render")
 
 
+def row_kernel_fn(kernel: str, fields: dict, keywords: dict):
+    """make_kernel_fn's function for the row, with the render_tile
+    keywords no Config field sets (naiveMK's compaction switch)."""
+    import functools
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import wavefront_mk
+    from cudavolumerenderer_tpu_torch.models.renderer import make_kernel_fn
+
+    if keywords:
+        check(kernel == "naiveMK", f"no render_tile keywords for {kernel}")
+        return functools.partial(wavefront_mk.render_tile, **keywords)
+    return make_kernel_fn(Config(kernel=Kernel.from_name(kernel), **fields))
+
+
+class PassCounter:
+    """Counts calls of the shared boundary event, which every scheduler
+    of the family makes once per bounce (naiveSK, naiveMK,
+    regenerationSK) or once per streaming step (streamingSK, sortingSK,
+    streamingMK, fastQ): the host's wavefront passes.  With `window`
+    (first, count) it runs torch.profiler over those passes."""
+
+    def __init__(self, window=None):
+        from cudavolumerenderer_tpu_torch.models import integrator
+
+        self.integrator, self.event = integrator, integrator.boundary_event
+        self.window, self.passes, self.clock = window, 0, []
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.window:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+
+        def counted(*args, **kw):
+            if self.window and self.passes == self.window[0]:
+                torch.cuda.synchronize()
+                self.prof.start()
+                self.clock.append(time.perf_counter())
+            out = self.event(*args, **kw)
+            self.passes += 1
+            if self.window and self.passes == sum(self.window):
+                torch.cuda.synchronize()
+                self.clock.append(time.perf_counter())
+                self.prof.stop()
+            return out
+
+        self.integrator.boundary_event = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.integrator.boundary_event = self.event
+
+
+def family_rows(xml: str, card: str) -> dict:
+    """Phase 11's rows on the slice's scene: each row's image, n_rays,
+    wall and passes."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    base = dict(scene_file=xml, iterations=1, resolution=(400, 400),
+                n_tiles=(1, 1))
+    scene, camera = load_scene(Config(**base), device="cuda")
+    rows = {}
+    for label, kernel, fields, keywords in FAMILY_ROWS:
+        cfg = Config(kernel=Kernel.from_name(kernel), **base, **fields)
+        renderer = create_renderer(scene, camera, cfg)
+        if keywords:
+            renderer.kernel_fn = row_kernel_fn(kernel, fields, keywords)
+        torch.cuda.synchronize()
+        with PassCounter() as passes:
+            t0 = time.perf_counter()
+            img = renderer.render()
+            wall = time.perf_counter() - t0
+        n_rays = renderer.n_rays
+        check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
+              f"{label}: image not finite or wrong shape")
+        rows[label] = dict(img=img, n_rays=n_rays, wall=wall,
+                           passes=passes.passes)
+        log(f"[11] {label:22s} 400^2 x 1: {wall:8.3f} s wall (incl. image "
+            f"copy), {passes.passes:5d} passes, {n_rays:.0f} rays, "
+            f"{n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes "
+            f"{cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
+
+    # streamingSK again, with torch.profiler over a window of passes
+    from torch.autograd import DeviceType
+
+    cfg = Config(kernel=Kernel.STREAMING_SK, **base)
+    renderer = create_renderer(scene, camera, cfg)
+    with PassCounter(FAMILY_WINDOW) as counted:
+        renderer.render()
+    first, n = FAMILY_WINDOW
+    check(len(counted.clock) == 2, f"streamingSK took {counted.passes} "
+          f"passes, fewer than the window's {first + n}")
+    window_us = (counted.clock[1] - counted.clock[0]) * 1e6
+    on_card = [e for e in counted.prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    if busy_us == 0.0:
+        log("[11] streamingSK profiler window: no device time in the trace; "
+            "the busy share is not measured")
+    else:
+        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+        log(f"[11] streamingSK profiler window, passes {first}-{first + n - 1}:"
+            f" {window_us / 1e3:.2f} ms of wall, {window_us / n / 1e3:.3f} ms "
+            f"per pass (the profiler slows the host), device busy "
+            f"{busy_us / 1e3:.3f} ms ({busy_us / window_us:.1%}; "
+            f"{busy_us / n / 1e3:.3f} ms per pass), "
+            f"{sum(e.count for e in on_card) / n:.0f} device kernels per pass;"
+            " top device time: " + "; ".join(
+                f"{e.key[:40]} x{e.count} {e.self_device_time_total:.0f} us"
+                for e in top) + f"; card {card}")
+    return rows
+
+
+def check_family(rows: dict) -> None:
+    """Phase 11's checks: the integrator family gives naiveSK's estimate
+    and ray count, fastQ (stochastic tap: another estimator) is within 2%."""
+    ref = rows["naiveSK"]
+    for label, row in rows.items():
+        if label == "fastQ":
+            rel_mean = abs(row["img"].mean() - ref["img"].mean()) / ref["img"].mean()
+            rel_rays = abs(row["n_rays"] - ref["n_rays"]) / ref["n_rays"]
+            log(f"[11] fastQ against naiveSK: mean {rel_mean:.3%}, n_rays "
+                f"{rel_rays:.3%} apart")
+            check(rel_mean < 0.02 and rel_rays < 0.02,
+                  "fastQ is not within 2% of naiveSK")
+            continue
+        err = float(np.abs(row["img"] - ref["img"]).max())
+        check(row["n_rays"] == ref["n_rays"],
+              f"{label} traced {row['n_rays']:.0f} rays, naiveSK "
+              f"{ref['n_rays']:.0f}")
+        np.testing.assert_allclose(row["img"], ref["img"], rtol=1e-4,
+                                   atol=1e-4, err_msg=label)
+        log(f"[11] {label:22s} n_rays {row['n_rays']:.0f} == naiveSK's; max "
+            f"|image - naiveSK's| {err:.3g}")
+
+
+def family_furnace_and_small_renders() -> None:
+    """Phase 11: the exact white furnace on the card through naiveSK,
+    streamingSK and fastQ, then every row's 16^2 render on the card
+    against the same render on the CPU."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import (
+        RenderSettings, make_medium, make_scene,
+    )
+
+    d = procedural.blob_volume()
+
+    def render(label, device, albedo, settings, res):
+        _, kernel, fields, keywords = next(
+            r for r in FAMILY_ROWS if r[0] == label)
+        fn = row_kernel_fn(kernel, {"n_lanes": 4096, **fields}, keywords)
+        scene = make_scene(make_medium(d, albedo, scale=40.0, max_density=1.0,
+                                       device=device))
+        img, n_rays = fn(scene, make_camera(res, res, device=device),
+                         settings, (res, res), torch.zeros(2, device=device),
+                         (res, res), 2, 9, 0)
+        check(img.device.type == device, f"{label} left the {device}")
+        return img.cpu().numpy() / 2, float(n_rays)
+
+    furnace = RenderSettings.from_flags(True, bsdf_kind="null")
+    for label in ("naiveSK", "streamingSK", "fastQ"):
+        img, n_rays = render(label, "cuda", 1.0, furnace, 64)
+        check(np.array_equal(img, np.ones_like(img)),
+              f"{label}: white furnace not exact on the card "
+              f"(range {img.min()}..{img.max()})")
+        log(f"[11] {label}: white furnace exact on the card (64^2 x 2, "
+            f"{n_rays:.0f} rays)")
+
+    albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    settings = RenderSettings.from_flags(True)
+    for label, *_ in FAMILY_ROWS:
+        (a, ra), (b, rb) = (render(label, dev, albedo, settings, 16)
+                            for dev in ("cuda", "cpu"))
+        share = float(np.mean(np.abs(a - b) < 1e-4))
+        log(f"[11] {label:22s} 16^2 x 2 card vs CPU: means {a.mean():.5f} / "
+            f"{b.mean():.5f}, rays {ra:.0f} / {rb:.0f}, pixels equal within "
+            f"1e-4 {share:.3f}")
+        check(np.isfinite(a).all() and abs(a.mean() - b.mean()) < 0.02
+              and abs(ra - rb) <= 0.01 * rb,
+              f"{label}: the card's render disagrees with the CPU's")
+
+
+def naive_cli(xml: str, tmp: str, card: str) -> None:
+    """Phase 12: naiveSK through the CLI's batch mode."""
+    from cudavolumerenderer_tpu_torch import cli
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    argv = [xml, "-k", "naiveSK", "-i", "4", "-r", "400", "400", "--trials",
+            "2", "-o", os.path.join(tmp, "naive_slice")]
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.config_from_args(args)
+    t0 = time.perf_counter()
+    result = cli.run_test(cfg, cli.device_of(args.platform))
+    wall = time.perf_counter() - t0
+    saved = load_hdr(cfg.output_name + ".hdr")
+    check(saved.shape == (400, 400, 3) and np.isfinite(saved).all(),
+          "the CLI's naiveSK image is not finite or has the wrong shape")
+    check(0.05 < saved.mean() < 1.5 and result["n_rays"] > 0,
+          f"the CLI's naiveSK image mean {saved.mean()} implausible")
+    log(f"[12] cli.run_test naiveSK 400^2 x 4, 2 trials: {wall:.2f} s in all; "
+        f"mean time {result['mean_time']:.3f} s (image copy excluded), "
+        f"{result['n_rays']:.0f} rays, {result['mrays_per_sec']:.4f} Mrays/s, "
+        f"image mean {saved.mean():.5f}; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -927,6 +1174,15 @@ def main() -> int:
     # -- phase 10: the gather benchmark's entry point -----------------------
     with tempfile.TemporaryDirectory() as tmp:
         glaunches = gather_benchmark(tmp, card)
+
+    # -- phases 11-12: the scheduler family on the slice's scene ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = write_smoke_xml(tmp)
+        t0 = time.perf_counter()
+        check_family(family_rows(xml, card))
+        family_furnace_and_small_renders()
+        log(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+        naive_cli(xml, tmp, card)
 
     def timed(ms, plain_ms, bound, bound_by):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,

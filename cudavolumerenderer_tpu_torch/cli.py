@@ -4,12 +4,12 @@ Port of cudavolumerenderer_tpu/cli.py (reference: Main.cpp:133,
 ConfigParser.cpp:10-67): the same flag names and defaults, and the batch
 "test" mode's trials/timing/Mrays protocol (Main.cpp:46-121).  The render
 runs on the device `--platform` names (`cuda`, the default, or `cpu`);
-asking for CUDA without a card is an error, never a CPU fallback.  The
-interactive modes (`--interactive`, `--camera-path`, `--orbit`) are not
-ported yet (ROADMAP A7).
+asking for CUDA without a card is an error, never a CPU fallback.  Every
+scheduler of `-k` renders; the interactive modes (`--interactive`,
+`--camera-path`, `--orbit`) are not ported yet (ROADMAP A1).
 
 Usage:
-    python -m cudavolumerenderer_tpu_torch.cli scene.xml -k brickSK -i 4
+    python -m cudavolumerenderer_tpu_torch.cli scene.xml -k regenerationSK -i 4
 """
 
 from __future__ import annotations
@@ -57,12 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--interactive", type=_flag, default=False,
-        help="progressive mode with frame dumps (not ported: ROADMAP A7)",
+        help="progressive mode with frame dumps (not ported: ROADMAP A1)",
     )
     p.add_argument("--trials", type=int, default=1)
     p.add_argument("-a", "--algorithm", default="cudaVolPath")
     p.add_argument("-k", "--kernel", default="fastSK",
-                   help="scheduler: fastSK or brickSK (the others: ROADMAP A10)")
+                   help="scheduler: " + ", ".join(k.value for k in Kernel))
     p.add_argument("--number-of-tiles", type=int, nargs="+", default=[1, 1])
     p.add_argument("-i", "--iterations", type=int, default=20)
     p.add_argument("-o", "--output", default=None)
@@ -76,38 +76,42 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--regeneration-level", type=int, default=0,
                    choices=[0, 1, 2],
-                   help="regenerationSK refill granularity (ROADMAP A10)")
+                   help="regenerationSK refill granularity: 0 = per lane "
+                   "(thread), 1 = per 8-lane group (warp analog), 2 = per "
+                   "1024-lane row (block analog)")
     p.add_argument("--mitsuba-comparable", type=_flag, default=True)
     p.add_argument(
         "--platform", default="cuda", choices=["cuda", "cpu"],
         help="device to render on; cuda needs a visible CUDA card",
     )
     p.add_argument("--two-level", action="store_true",
-                   help="fastSK: two-level sparse-leap tracking")
+                   help="fastSK/fastQ: two-level sparse-leap tracking")
     p.add_argument("--lanes-per-pixel", type=int, default=1,
                    help="fastSK: parallel sample lanes per pixel")
     p.add_argument("--defer-ggx", type=int, default=0,
-                   help="fastSK: deferred boundary events (ROADMAP A6)")
+                   help="fastSK: deferred boundary events (ROADMAP A2)")
     p.add_argument("--brick-major", action="store_true",
-                   help="fastSK: brick-major table layout (ROADMAP A6)")
+                   help="fastSK: brick-major table layout (ROADMAP A2)")
     p.add_argument("--cascade-factor", type=_cascade_factor, default=2,
                    help="fastSK: cascade pool shrink factor (> 1)")
     p.add_argument("--table-bits", type=int, default=32, choices=[32, 8, 4],
-                   help="fastSK: quantized density tables (ROADMAP A6)")
+                   help="fastSK: quantized density tables (ROADMAP A2)")
     p.add_argument(
         "--boundary", default="aabb", choices=["aabb", "variable"],
-        help="medium boundary model ('variable': integrator-family "
-        "kernels only, ROADMAP A10)",
+        help="medium boundary model: 'variable' = stochastic "
+        "density-isosurface march with gradient shading normals "
+        "(reference Medium.h VariableBoundary; integrator-family "
+        "kernels only)",
     )
     p.add_argument("--boundary-threshold", type=float, default=1e-8,
                    help="gradient-magnitude threshold for --boundary variable")
     p.add_argument("--allow-quantized", action="store_true",
                    help="opt in to quantized tables under "
-                   "--mitsuba-comparable (ROADMAP A6)")
+                   "--mitsuba-comparable (ROADMAP A2)")
     p.add_argument("--tail-single-level", action="store_true",
-                   help="fastSK: single-level tail pools (ROADMAP A6)")
+                   help="fastSK: single-level tail pools (ROADMAP A2)")
     p.add_argument("--tail-spec", type=int, default=1,
-                   help="fastSK: speculative tail steps (ROADMAP A6)")
+                   help="fastSK: speculative tail steps (ROADMAP A2)")
     p.add_argument("--spec-width", type=int, default=None,
                    help="fastSK: width for the spec/single-level tail modes")
     p.add_argument("--min-width", type=int, default=None,
@@ -115,15 +119,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bricks", type=int, default=None,
                    help="fastSK: two-level probe-table size cap")
     p.add_argument("--tail-bricks", type=int, default=0,
-                   help="fastSK: finer tail brick tables (ROADMAP A6)")
+                   help="fastSK: finer tail brick tables (ROADMAP A2)")
     p.add_argument("--tail-pallas", action="store_true",
                    help="fastSK: persistent tail kernel (csrc/tailpk.cu)")
     p.add_argument("--tail-pk-width", type=int, default=128)
     p.add_argument("--tail-pk-steps", type=int, default=16)
     p.add_argument("--orbit", type=int, default=0, metavar="N",
-                   help="with --interactive: orbit frames (ROADMAP A7)")
+                   help="with --interactive: orbit frames (ROADMAP A1)")
     p.add_argument("--camera-path", metavar="FILE", default=None,
-                   help="with --interactive: camera path (ROADMAP A7)")
+                   help="with --interactive: camera path (ROADMAP A1)")
     return p
 
 
@@ -240,7 +244,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if config.interactive or args.camera_path or args.orbit:
         raise NotImplementedError(
             "--interactive, --camera-path and --orbit are not ported to "
-            "the torch package yet (ROADMAP A7: ops/camera_controller.py)"
+            "the torch package yet (ROADMAP A1: ops/camera_controller.py)"
         )
     device = device_of(args.platform)
     print(f"{PRINT_PREFIX}algorithm set to {config.algorithm.value}.")

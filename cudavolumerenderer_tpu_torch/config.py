@@ -4,8 +4,7 @@ ConfigParser.cpp:10-165).
 Port of cudavolumerenderer_tpu/config.py with the same fields and
 defaults, so a configuration means the same render in both packages.
 Options whose code paths are not ported yet raise NotImplementedError
-where the render reaches them (models/fast.py, models/renderer.py,
-scene/loader.py, cli.py).
+where the render reaches them (models/fast.py, scene/loader.py, cli.py).
 """
 
 from __future__ import annotations
@@ -20,9 +19,8 @@ from .scene.types import RenderSettings
 
 
 class Kernel(enum.Enum):
-    """Scheduling strategies (reference: Config.h:87-95 Kernel enum).
-    FAST_SK (models/fast.py) and BRICK_SK (models/brick.py) are ported;
-    make_kernel_fn raises for the others (ROADMAP A10)."""
+    """Scheduling strategies (reference: Config.h:87-95 Kernel enum);
+    every value renders through models/renderer.make_kernel_fn."""
 
     NAIVE_SK = "naiveSK"
     NAIVE_MK = "naiveMK"
@@ -103,7 +101,7 @@ class Config:
     n_tiles: Tuple[int, int] = (1, 1)
     #: batch-mode trials (cli.run_test); the first is discarded when > 1
     trials: int = 1
-    #: progressive mode with frame dumps (not ported: ROADMAP A7)
+    #: progressive mode with frame dumps (not ported: ROADMAP A1)
     interactive: bool = False
     #: output path stem for .hdr/.png; None = to_string()
     output_name: Optional[str] = None
@@ -111,31 +109,35 @@ class Config:
     #: wavefront pool size for the queue-fed schedulers; None = sized
     #: from the work and device memory (utils/occupancy.py)
     n_lanes: Optional[int] = None
-    #: regenerationSK refill granularity (not ported: ROADMAP A10)
+    #: regenerationSK refill granularity (reference:
+    #: REGENERATION_SYNCHRONIZATION_LEVEL, Defines.h:40-42): 0 = per lane,
+    #: 1 = per 8-lane group, 2 = per 1024-lane row
     regeneration_level: int = 0
+    #: samples per launch of naiveSK/naiveMK (bounds the lanes they hold)
+    spp_per_launch: int = 4
     #: fastSK two-level (sparse-leap) tracking
     two_level: bool = False
     lanes_per_pixel: int = 1
-    #: fastSK deferred boundary events (not ported: ROADMAP A6)
+    #: fastSK deferred boundary events (not ported: ROADMAP A2)
     defer_ggx: int = 0
-    #: fastSK (8,8,128) brick-major table layout (not ported: ROADMAP A6)
+    #: fastSK (8,8,128) brick-major table layout (not ported: ROADMAP A2)
     brick_major: bool = False
     #: fastSK cascade pool shrink factor (may be fractional)
     cascade_factor: float = 2
-    #: fastSK single-level spec-K tail pools (not ported: ROADMAP A6)
+    #: fastSK single-level spec-K tail pools (not ported: ROADMAP A2)
     tail_single_level: bool = False
     tail_spec: int = 1
     #: pool width below which the spec/single-level tail modes engage
-    #: (read only by those modes, not ported: ROADMAP A6)
+    #: (read only by those modes, not ported: ROADMAP A2)
     spec_width: Optional[int] = None
     #: cascade bottom pool width; None = 4096 (widths quantize to
     #: multiples of 256, so values below 256 equal 256)
     min_width: Optional[int] = None
-    #: finer tail-pool brick granularity (not ported: ROADMAP A6)
+    #: finer tail-pool brick granularity (not ported: ROADMAP A2)
     tail_bricks: int = 0
     #: fastSK two-level probe-table size cap (None = fast.py's default)
     max_bricks: Optional[int] = None
-    #: packed 8/4-bit density tables (not ported: ROADMAP A6)
+    #: packed 8/4-bit density tables (not ported: ROADMAP A2)
     table_bits: int = 32
     allow_quantized: bool = False
     #: fastSK persistent tail kernel (ops/tailpk.py, csrc/tailpk.cu):

@@ -68,7 +68,7 @@ _TAIL_CHAIN_WIDTH = 16384
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"fastSK {what} is not ported to the torch package yet (ROADMAP A6)"
+        f"fastSK {what} is not ported to the torch package yet (ROADMAP A2)"
     )
 
 

@@ -5,8 +5,8 @@ CudaVolPath.cpp:13-347, RendererFactory.h:13-155): builds the row-major
 tile array, advances one tile per run_iterations call, accumulates raw
 radiance sums on the scene's device, and exposes get_image with the
 1/iterations display scale.  Tiles render one after another (the JAX
-package's batched all-tiles dispatch is an XLA compile-cache device with
-no counterpart here; its images are bit-identical to this loop).
+package's batched all-tiles dispatch, ROADMAP A2, gives the same images
+as this loop).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from ..config import Config, Kernel
 from ..ops.camera import Camera
 from ..scene.types import Scene
 from ..utils import occupancy
-from . import brick, fast
+from . import brick, fast, fastq, naive, regeneration, streaming, wavefront_mk
 
 
 def _tile_array(
@@ -151,14 +151,17 @@ class ProgressiveTiledRenderer:
                 progress_callback(float(self.iterations_done.sum()) / total)
 
     def _spp_per_launch(self) -> int:
-        # fastSK and brickSK render all iterations of a tile in one call (the
-        # naive schedulers' spp_per_launch comes with them, ROADMAP A10)
+        if self.config.kernel in (Kernel.NAIVE_SK, Kernel.NAIVE_MK):
+            # bound lane memory: pixels x spp lanes are held at once
+            return max(1, min(self.config.spp_per_launch,
+                              self.config.iterations))
         return self.config.iterations
 
 
 def make_kernel_fn(config: Config):
-    """Scheduler dispatch (reference: RendererFactory::createRenderer,
-    RendererFactory.h:43-113).  fastSK and brickSK are ported."""
+    """Scheduler dispatch (reference: RendererFactory::createRenderer's
+    kernel matrix, RendererFactory.h:43-113), row for row the JAX
+    package's."""
     k = config.kernel
     if (
         config.settings.boundary == "variable"
@@ -170,35 +173,72 @@ def make_kernel_fn(config: Config):
             "streamingMK/sortingSK); fastSK/fastQ/brickSK fused tables "
             "keep the AABB boundary"
         )
+    if k == Kernel.FAST_SK:
+        def fsk(*args):
+            return fast.render_tile(
+                *args, two_level=config.two_level,
+                lanes_per_pixel=config.lanes_per_pixel,
+                defer_ggx=config.defer_ggx,
+                brick_major=config.brick_major,
+                cascade_factor=config.cascade_factor,
+                tail_single_level=config.tail_single_level,
+                tail_spec=config.tail_spec,
+                min_width=config.min_width,
+                tail_bricks=config.tail_bricks,
+                tail_pallas=config.tail_pallas,
+                tail_pk_width=config.tail_pk_width,
+                tail_pk_steps=config.tail_pk_steps,
+                table_bits=config.effective_table_bits,
+                **(
+                    {"max_bricks": config.max_bricks}
+                    if config.max_bricks is not None else {}
+                ),
+            )
+        return fsk
     if k == Kernel.BRICK_SK:
         return brick.render_tile
-    if k != Kernel.FAST_SK:
-        raise NotImplementedError(
-            f"kernel {k.value} is not ported to the torch package yet "
-            "(ROADMAP A10); fastSK and brickSK are"
-        )
+    if k == Kernel.FAST_Q:
+        def fq(*args):
+            return fastq.render_tile(
+                *args, n_lanes=config.n_lanes, two_level=config.two_level,
+            )
+        return fq
+    if k == Kernel.NAIVE_SK:
+        return naive.render_tile
+    if k == Kernel.NAIVE_MK:
+        return wavefront_mk.render_tile
+    if k == Kernel.REGENERATION_SK:
+        group = regeneration.LEVEL_GROUPS[config.regeneration_level]
 
-    def fsk(*args):
-        return fast.render_tile(
-            *args, two_level=config.two_level,
-            lanes_per_pixel=config.lanes_per_pixel,
-            defer_ggx=config.defer_ggx,
-            brick_major=config.brick_major,
-            cascade_factor=config.cascade_factor,
-            tail_single_level=config.tail_single_level,
-            tail_spec=config.tail_spec,
-            min_width=config.min_width,
-            tail_bricks=config.tail_bricks,
-            tail_pallas=config.tail_pallas,
-            tail_pk_width=config.tail_pk_width,
-            tail_pk_steps=config.tail_pk_steps,
-            table_bits=config.effective_table_bits,
-            **(
-                {"max_bricks": config.max_bricks}
-                if config.max_bricks is not None else {}
-            ),
-        )
-    return fsk
+        def regen(*args):
+            return regeneration.render_tile(
+                *args, n_lanes=config.n_lanes, refill_group=group
+            )
+        return regen
+    if k == Kernel.STREAMING_SK:
+        def stream(*args):
+            return streaming.render_tile(*args, n_lanes=config.n_lanes)
+        return stream
+    if k == Kernel.SORTING_SK:
+        def sort(*args):
+            # Morton reorder + deferred coherent albedo access, the two
+            # halves of the reference strategy
+            # (SortingVolPTsk_kernel.cuh:105-176)
+            return streaming.render_tile(
+                *args, n_lanes=config.n_lanes, sort_every=8,
+                defer_access=True,
+            )
+        return sort
+    if k == Kernel.STREAMING_MK:
+        def stream_mk(*args):
+            # host-looped regenerate/extend/compact super-iterations with
+            # a device→host active-count read per dispatch (reference:
+            # RenderKernelLauncher.cu:435-472)
+            return wavefront_mk.render_tile_streaming_mk(
+                *args, n_lanes=max(1024, config.n_lanes // 8)
+            )
+        return stream_mk
+    raise ValueError(f"unhandled kernel {k}")
 
 
 def create_renderer(

@@ -2,7 +2,7 @@
 selection, ConfigParser.cpp:99-115, with extension auto-detection).
 
 Port of cudavolumerenderer_tpu/scene/loader.py.  Mitsuba XML, RAW and
-MHD/MHA scenes load; VDB and NPZ raise (ROADMAP A7).
+MHD/MHA scenes load; VDB and NPZ raise (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def load_scene(config: Config, device="cuda") -> Tuple[Scene, Camera]:
     else:  # VDB, NPZ
         raise NotImplementedError(
             f"scene type {stype.value} is not ported to the torch package "
-            "yet (ROADMAP A7); Mitsuba XML, RAW and MHD/MHA scenes load"
+            "yet (ROADMAP A1); Mitsuba XML, RAW and MHD/MHA scenes load"
         )
 
     w, h = config.resolution

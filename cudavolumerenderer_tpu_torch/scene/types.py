@@ -77,10 +77,8 @@ class Scene(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Static rendering switches (reference: Defines.h's compile-time
-    knobs MITSUBA_COMPARABLE, RUSSIAN_ROULETTE, max_path_length).  Field
-    meanings as in the JAX package; its interpolation and variable-
-    boundary march fields serve the integrator-family schedulers
-    (ROADMAP A10) and are not ported yet."""
+    knobs MITSUBA_COMPARABLE, RUSSIAN_ROULETTE, max_path_length, filter
+    mode).  Fields, meanings and defaults as in the JAX package."""
 
     mitsuba_comparable: bool = True
     russian_roulette: bool = True
@@ -88,16 +86,28 @@ class RenderSettings:
     #: 'ggx' — reference boundary BSDF; 'null' — pass-through boundary
     #: (reference: Bsdf.h:6-15), used for white-furnace oracles.
     bsdf_kind: str = "ggx"
+    #: grid filter of the integrator-family schedulers: 'trilinear' under
+    #: mitsuba-comparable, else 'nearest' (reference: Volume.h:50-69);
+    #: fastSK, fastQ and brickSK tap stochastically and do not read it
+    interpolation: str = "trilinear"
+    #: count traced rays (reference: RAYS_STATISTICS, Defines.h:49-50)
+    rays_statistics: bool = True
     #: medium boundary model: 'aabb' (the box faces) or 'variable' (the
     #: density-isosurface march of the integrator-family schedulers;
-    #: fastSK/brickSK refuse it, models/renderer.make_kernel_fn)
+    #: fastSK/fastQ/brickSK refuse it, models/renderer.make_kernel_fn)
     boundary: str = "aabb"
     #: gradient-magnitude threshold for the variable boundary
     boundary_threshold: float = 1e-8
+    #: expected march step of the variable boundary, world units
+    #: (reference: MIN_STEP uniform step scale, Medium.h:87)
+    boundary_min_step: float = 0.1
 
     @classmethod
     def from_flags(cls, mitsuba_comparable: bool = True, **kw) -> "RenderSettings":
-        return cls(mitsuba_comparable=mitsuba_comparable, **kw)
+        interp = "trilinear" if mitsuba_comparable else "nearest"
+        return cls(
+            mitsuba_comparable=mitsuba_comparable, interpolation=interp, **kw
+        )
 
 
 def _f32(x, device) -> torch.Tensor:

@@ -3,7 +3,9 @@ tracking kernel and the five gather kernels of the gather
 microbenchmark): each against its plain torch version, the white
 furnace through the render kernels, launch counts and input checks; for
 the gathers also out-of-range indices, inputs not 16-byte aligned and
-taa0 at 65,536 rows.
+taa0 at 65,536 rows.  The scheduler family (naiveSK ... fastQ, which has
+no kernel of its own) renders on the card, against the same render on
+the CPU, and its white furnace is exact there.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather
+from cudavolumerenderer_tpu_torch.config import Config, Kernel
 from cudavolumerenderer_tpu_torch.models import brick, fast
+from cudavolumerenderer_tpu_torch.models.renderer import make_kernel_fn
 from cudavolumerenderer_tpu_torch.ops import pgather, tailpk, tracking
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
 from cudavolumerenderer_tpu_torch.scene import procedural
@@ -310,3 +314,53 @@ def test_taa0_takes_any_row_count(cuda):
     torch.cuda.synchronize()
     assert pgather.KERNELS["taa0"].launches == launches + 1
     assert torch.equal(got, pgather.taa0_gather(tab, idx))
+
+
+# make_kernel_fn rows of the scheduler family (Config fields beside kernel)
+SCHEDULERS = [
+    ("naiveSK", {}), ("naiveMK", {}),
+    ("regenerationSK", {"regeneration_level": 0}),
+    ("regenerationSK", {"regeneration_level": 1}),
+    ("regenerationSK", {"regeneration_level": 2}),
+    ("streamingSK", {}), ("sortingSK", {}), ("streamingMK", {}),
+    ("fastQ", {}), ("fastQ", {"two_level": True}),
+]
+
+
+def scheduler_render(kernel, fields, device, albedo=None, settings=None):
+    """A 16^2 x 2 render of the blob 32^3 scene through make_kernel_fn's
+    row: (image / spp on the host, n_rays)."""
+    d = procedural.blob_volume()
+    if albedo is None:
+        albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(d, albedo, scale=40.0,
+                                               max_density=1.0, device=device))
+    settings = settings or types.RenderSettings.from_flags(True)
+    fn = make_kernel_fn(Config(kernel=Kernel.from_name(kernel), n_lanes=256,
+                               **fields))
+    img, n_rays = fn(scene, make_camera(16, 16, device=device), settings,
+                     (16, 16), torch.zeros(2, device=device), (16, 16), 2, 9, 0)
+    assert img.device.type == torch.device(device).type  # no fallback
+    return img.cpu().numpy() / 2, float(n_rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, fields", SCHEDULERS)
+def test_scheduler_on_card_matches_cpu(cuda, kernel, fields):
+    """CUDA's and the CPU's float32 math differ in the last bits, so a
+    path may take another branch: the same estimate, mostly the same
+    pixels."""
+    a, ra = scheduler_render(kernel, fields, cuda)
+    b, rb = scheduler_render(kernel, fields, "cpu")
+    assert np.isfinite(a).all()
+    assert abs(ra - rb) <= 0.01 * rb
+    assert abs(a.mean() - b.mean()) < 0.02
+    assert np.mean(np.abs(a - b) < 1e-4) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["naiveSK", "streamingSK", "fastQ"])
+def test_scheduler_white_furnace_on_card(cuda, kernel):
+    settings = types.RenderSettings.from_flags(True, bsdf_kind="null")
+    img, _ = scheduler_render(kernel, {}, cuda, albedo=1.0, settings=settings)
+    assert np.array_equal(img, np.ones_like(img))

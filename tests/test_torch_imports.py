@@ -24,7 +24,10 @@ def test_every_module_imports_without_jax():
     assert "cudavolumerenderer_tpu_torch.ops.tailpk" in mods
     for name in ("ops.tracking", "models.brick", "cli", "utils.image",
                  "scene.vol", "scene.xml_builder", "scene.raw_builder",
-                 "ops.pgather", "benchmarks.micro_pgather"):
+                 "ops.pgather", "benchmarks.micro_pgather", "ops.woodcock",
+                 "ops.gradient", "ops.morton", "models.naive",
+                 "models.regeneration", "models.streaming",
+                 "models.wavefront_mk", "models.fastq"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
