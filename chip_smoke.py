@@ -84,7 +84,29 @@ CPU or to a plain version on a CUDA tensor):
    through naiveSK, streamingSK and fastQ; and each row's 16^2 render on
    the card against the same render on the CPU;
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
-   -i 4 -r 400 400, two trials (the first discarded).
+   -i 4 -r 400 400, two trials (the first discarded);
+13. the gradient on the card (the differentiable path has no kernel of
+   its own): render_diff one- and two-level, null and GGX BSDF, on a
+   random 16^3 grid with a per-voxel albedo at 16^2 x 4, against the
+   same call on the CPU (images allclose at 1e-4 on the null scene, >= 90%
+   of pixels on the GGX scene; both cotangents within rtol 1e-3, atol
+   1e-4 x max on >= 99% of voxels: the tolerances of
+   tests/test_torch_diff.py; their sums within 1e-3 on the null scene and
+   1e-2 on the GGX scene, where a path that takes another branch on the
+   card carries ~1/1,024 of each sum); the pass-A elision (the
+   forward's saved radiance equals pass A's bit for bit, GGX and RR on,
+   cascaded pools); a central finite difference of one albedo voxel;
+14. training: the port's benchmarks/inverse_256.main (BASELINE config 5)
+   at the recipe's full width, n = 256, 128^2, spp 8 in 2 chunks, 2 views
+   per step, cut in depth only (2 views, 16 target spp, steps 1 0 1):
+   per level the seconds per step and per forward+backward program and
+   the replay's iterations; finite losses, a density that moved at each
+   level that took a step and stays within clip_density, the 128^3
+   level's checkpoint the upsampled 64^3 grid, the last checkpoint
+   reloaded with
+   its Adam moments; then torch.profiler over 20 iterations in the middle
+   of one pass-B replay at 256^3 (device kernels per iteration, the
+   card's busy share).
 
 The last lines are a JSON line describing the kernels, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
@@ -130,6 +152,14 @@ FAMILY_ROWS = (
     ("fastQ", "fastQ", {}, {}),
 )
 FAMILY_WINDOW = (60, 60)  # streamingSK's profiled passes: first, count
+# phase 13's gradient case (tests/test_torch_diff.py's): grid, image, spp, seed
+DIFF_N, DIFF_RES, DIFF_SPP, DIFF_SEED = 16, (16, 16), 4, 7
+# phase 14: inverse_256 at the recipe's full width, depth cut to the run's time
+TRAIN_ARGV = ("--n", "256", "--res", "128", "--spp", "8", "--spp-chunks", "2",
+              "--views", "2", "--target-spp", "16", "--steps", "1", "0", "1")
+TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 16 (64)",
+              "--steps 1 0 1 (80 60 40; 128^3 is upsampled through)")
+PROFILE_ITERS = 20  # pass-B replay iterations under torch.profiler
 # each gather kernel's Pallas body (file:line)
 GATHER_REPLACES = {
     "taa1": "benchmarks/micro_pgather.py:284",
@@ -1006,6 +1036,247 @@ def naive_cli(xml: str, tmp: str, card: str) -> None:
         f"image mean {saved.mean():.5f}; card {card}")
 
 
+def diff_case(device: str, bsdf: str, two_level: bool, rr: bool = False):
+    """Phase 13's render_diff case on one device: (image, d density, d
+    albedo) as numpy, from a random 16^3 density, a per-voxel albedo and
+    an image cotangent made with numpy from one seed."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models.differentiable import (
+        CameraSpec, SceneSpec, render_diff,
+    )
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    rs = np.random.RandomState(0)
+    n = DIFF_N
+    density = (rs.rand(n, n, n) * 0.8).astype(np.float32)
+    albedo = (0.3 + 0.6 * rs.rand(n, n, n, 4)).astype(np.float32)
+    g_img = rs.rand(*DIFF_RES, 3).astype(np.float32)
+    d = torch.tensor(density, device=device, requires_grad=True)
+    a = torch.tensor(albedo, device=device, requires_grad=True)
+    settings = RenderSettings.from_flags(
+        True, russian_roulette=rr, max_path_length=16, bsdf_kind=bsdf)
+    img = render_diff(d, a, DIFF_SEED, SceneSpec(scale=4.0),
+                      CameraSpec(res_x=16, res_y=16, fov_x_deg=0.5), settings,
+                      DIFF_RES, DIFF_SPP, two_level)
+    img.backward(torch.tensor(g_img, device=device))
+    return tuple(x.detach().cpu().numpy() for x in (img, d.grad, a.grad))
+
+
+def grad_share(got, want) -> float:
+    """Share of entries within rtol 1e-3, atol 1e-4 x max|want|."""
+    return float(np.isclose(got, want, rtol=1e-3,
+                            atol=1e-4 * np.abs(want).max()).mean())
+
+
+def gradient_on_card() -> None:
+    """Phase 13: render_diff's image and both cotangents on the card
+    against the CPU, the pass-A elision bit for bit on the card, and a
+    central finite difference of one albedo voxel."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.models.differentiable import (
+        CameraSpec, SceneSpec, render_diff,
+    )
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    for bsdf in ("null", "ggx"):
+        for two in (False, True):
+            t0 = time.perf_counter()
+            card_out = diff_case("cuda", bsdf, two)
+            t_card = time.perf_counter() - t0
+            (ci, cdd, cda), (pi, pdd, pda) = card_out, diff_case("cpu", bsdf, two)
+            pixels = float(np.all(np.isclose(ci, pi, rtol=1e-4, atol=1e-4),
+                                  axis=-1).mean())
+            shares = (grad_share(cdd, pdd), grad_share(cda, pda))
+            sums = [abs(c.sum() - p.sum()) / np.abs(p).sum()
+                    for c, p in ((cdd, pdd), (cda, pda))]
+            log(f"[13] render_diff {bsdf} two_level={two} 16^3, 16^2 x "
+                f"{DIFF_SPP}: card {t_card:.2f} s fwd+bwd; card vs CPU pixels "
+                f"within 1e-4 {pixels:.4f} (max |diff| {np.abs(ci - pi).max():.3g}"
+                f"), voxels within tolerance density {shares[0]:.4f} albedo "
+                f"{shares[1]:.4f}, sums apart {max(sums):.2e}")
+            check(np.isfinite(ci).all() and np.isfinite(cdd).all()
+                  and np.isfinite(cda).all(), "render_diff on the card: "
+                  "not finite")
+            # GGX: a path that leaves on another branch (the last bits of
+            # CUDA's float32 math) carries ~1/1,024 of the image and sums
+            sum_tol = 1e-3 if bsdf == "null" else 1e-2
+            check(max(sums) <= sum_tol and min(shares) >= 0.99,
+                  f"render_diff {bsdf} two_level={two}: the card's "
+                  "cotangents disagree with the CPU's")
+            if bsdf == "null":
+                np.testing.assert_allclose(ci, pi, rtol=1e-4, atol=1e-4)
+            else:
+                check(pixels >= 0.9 and abs(ci.mean() - pi.mean())
+                      <= sum_tol * pi.mean(), f"render_diff {bsdf} "
+                      f"two_level={two}: the card's image disagrees")
+
+    # the pass-A elision: the forward's saved radiance is pass A's, bit
+    # for bit (GGX, RR on, the fused cascaded replay)
+    rs = np.random.RandomState(1)
+    density = torch.tensor((rs.rand(16, 16, 16) * 0.8).astype(np.float32),
+                           device="cuda")
+    albedo = torch.tensor((0.3 + 0.6 * rs.rand(16, 16, 16, 4))
+                          .astype(np.float32), device="cuda")
+    spec, cam_spec = SceneSpec(scale=4.0), CameraSpec(res_x=64, res_y=64,
+                                                      fov_x_deg=0.5)
+    settings = RenderSettings.from_flags(True, max_path_length=16)
+    scene, cam = spec.build(density, albedo, "cuda"), cam_spec.build("cuda")
+    _, saved = td._primal_2l(scene, cam, settings, (64, 64), 4, 9, density,
+                             albedo)
+    n, _, o0, d0, rng = td._lane_setup(cam, (64, 64), 4, 9)
+    zeros = torch.zeros(n, device="cuda")
+    pass_a = td._replay(scene, settings, o0, d0, rng, zeros,
+                        torch.zeros(n, 3, device="cuda"), False, None, None,
+                        td._build_brick_tab(density), min_width=1024)
+    check(torch.equal(pass_a.radiance, saved),
+          "pass A's radiance differs from the forward's saved radiance")
+    log(f"[13] pass-A elision on the card: {n} lanes (64^2 x 4, GGX, RR on, "
+        "pools down to 1,024), the saved radiance equals pass A's bit for bit")
+
+    # central finite difference of one albedo voxel (RR off: the paths do
+    # not depend on the albedo, so same-seed differences are exact)
+    w = torch.tensor(rs.rand(16, 16, 3).astype(np.float32), device="cuda")
+    settings = RenderSettings.from_flags(True, russian_roulette=False,
+                                         max_path_length=16)
+
+    def loss(a):
+        return torch.sum(render_diff(density, a, 5, spec,
+                                     CameraSpec(res_x=16, res_y=16,
+                                                fov_x_deg=0.5),
+                                     settings, (16, 16), 8, True) * w)
+
+    a = albedo.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(a), a)
+    per_voxel = g[..., :3].sum(-1)
+    v = np.unravel_index(int(torch.argmax(per_voxel.abs())), per_voxel.shape)
+    e = torch.zeros_like(albedo)
+    e[v][:3] = 1.0
+    h = 1e-2
+    with torch.no_grad():
+        fd = float(loss(albedo + h * e) - loss(albedo - h * e)) / (2 * h)
+    analytic = float(per_voxel[v])
+    log(f"[13] albedo voxel {tuple(int(i) for i in v)}: dL/da {analytic:.6g}, "
+        f"central difference (h {h}) {fd:.6g}")
+    check(abs(analytic - fd) <= 2e-2 * abs(fd) + 1e-3,
+          "the albedo gradient disagrees with its finite difference")
+
+
+def training(tmp: str, card: str) -> None:
+    """Phase 14: inverse_256.main at the recipe's full width with depth
+    cut, its checks, and torch.profiler over PROFILE_ITERS iterations in
+    the middle of one pass-B replay at the finest level."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from cudavolumerenderer_tpu_torch.benchmarks import inverse_256
+    from cudavolumerenderer_tpu_torch.models import inverse
+    from cudavolumerenderer_tpu_torch.models.differentiable import render_diff
+
+    ck = os.path.join(tmp, "inv256_ckpt")
+    log(f"[14] inverse_256 {' '.join(TRAIN_ARGV)}; cut in depth only: "
+        + ", ".join(TRAIN_CUTS))
+    t0 = time.perf_counter()
+    result = inverse_256.main(list(TRAIN_ARGV) + ["--ckpt-dir", ck])
+    wall = time.perf_counter() - t0
+    losses = [l for level in result["losses"] for l in level]
+    check(len(losses) == 2 and np.isfinite(losses).all(),
+          f"the losses are not finite: {losses}")
+    for lvl, steps in result["step_s"].items():
+        if not steps:
+            log(f"[14] {lvl}: no step (the coarser grid upsampled through)")
+            continue
+        log(f"[14] {lvl}: {len(steps)} steps, seconds per step "
+            f"{', '.join(f'{s:.3f}' for s in steps)}; seconds per fwd+bwd "
+            f"program {', '.join(f'{s:.3f}' for s in result['program_s'][lvl])}"
+            f"; replay iterations primal {result['primal_iters'][lvl]}, pass B "
+            f"{result['pass_b_iters'][lvl]}; card {card}")
+    log(f"[14] {wall:.1f} s in all (targets {result['target_render_s']} s), "
+        f"peak allocated {result['max_memory_allocated'] / 2**20:.0f} MiB, "
+        f"grid_mse_ratio {result['grid_mse_ratio']}")
+
+    # the density moved at each level that took a step and stays in
+    # clip_density; the step-less level holds the upsampled coarse grid;
+    # the last checkpoint reloads with its Adam moments
+    n = int(TRAIN_ARGV[1])
+    lo, hi = inverse.InverseConfig().clip_density
+
+    def upsampled(d, size):
+        return torch.clamp(inverse.upsample_density(
+            torch.tensor(d, device="cuda"), (size,) * 3), lo, hi).cpu().numpy()
+
+    d64 = inverse.load_checkpoint(os.path.join(ck, f"L{n // 4}"), 1)[0]
+    d128 = inverse.load_checkpoint(os.path.join(ck, f"L{n // 2}"), 0)[0]
+    tpl = inverse.adam_init([torch.zeros((n, n, n), device="cuda")])
+    d256, _, step, opt = inverse.load_checkpoint(os.path.join(ck, f"L{n}"), 1,
+                                                 opt_state_like=tpl)
+    check(np.array_equal(d128, upsampled(d64, n // 2)),
+          "the step-less level does not hold the upsampled coarse grid")
+    moved = (np.abs(d64 - 0.25).max(), np.abs(d256 - upsampled(d128, n)).max())
+    check(d256.shape == (n,) * 3 and np.isfinite(d256).all()
+          and lo <= d256.min() and d256.max() <= hi,
+          "the final density is not finite or leaves clip_density")
+    check(min(moved) > 0.0, f"the density did not move: {moved}")
+    check(step == 1 and opt is not None and opt.count == 1
+          and all(torch.isfinite(m).all() for m in opt.mu + opt.nu)
+          and float(opt.nu[0].min()) >= 0.0 and float(opt.mu[0].abs().max()) > 0,
+          "the last checkpoint's Adam moments did not reload")
+    log(f"[14] density moved (max |change| {moved[0]:.4f} at {n // 4}^3, "
+        f"{moved[1]:.4f} at {n}^3 over its level), within [{lo}, {hi}]; "
+        f"L{n}/step_1 reloads with Adam count {opt.count}")
+
+    # torch.profiler over PROFILE_ITERS iterations in the middle of pass B
+    res = int(TRAIN_ARGV[3])
+    spec = inverse_256.SceneSpec(scale=12.0, max_density=1.0)
+    settings = inverse_256.RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=64)
+    view = inverse.orbit_camera_specs(2, radius=100.0, res=(res, res),
+                                      fov_x_deg=0.8)[0]
+    target = torch.tensor(np.load(next(
+        os.path.join(ck, f) for f in os.listdir(ck)
+        if f.startswith("targets")))["targets"][0], device="cuda")
+    albedo = torch.full((1, 1, 1, 4), 0.6, device="cuda")
+    spp = int(TRAIN_ARGV[5]) // int(TRAIN_ARGV[7])
+
+    # one forward+backward program; the window is placed once the primal
+    # has counted its iterations (pass B takes as many: the same paths)
+    stats = {}
+    d = torch.tensor(d256, device="cuda", requires_grad=True)
+    with PassCounter((1 << 62, PROFILE_ITERS)) as counted:
+        img = render_diff(d, albedo, 12345, spec, view, settings, (res, res),
+                          spp, True, stats=stats)
+        loss = torch.mean((img / spp - target) ** 2)
+        primal = stats["primal_iters"][0]
+        counted.window = (primal + primal // 2 - PROFILE_ITERS // 2,
+                          PROFILE_ITERS)
+        loss.backward()
+        torch.cuda.synchronize()
+    pass_b = stats["pass_b_iters"][0]
+    check(len(counted.clock) == 2 and pass_b == primal
+          and counted.passes == primal + pass_b,
+          f"the profiled program took {counted.passes} iterations (primal "
+          f"{primal}, pass B {pass_b})")
+    window_us = (counted.clock[1] - counted.clock[0]) * 1e6
+    on_card = [e for e in counted.prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
+    per = PROFILE_ITERS
+    log(f"[14] pass-B replay at {n}^3, {res}^2 x {spp}, iterations "
+        f"{pass_b // 2 - per // 2}-{pass_b // 2 + per // 2 - 1} of {pass_b} "
+        f"(primal {primal}): {window_us / 1e3:.2f} ms of wall, "
+        f"{window_us / per / 1e3:.3f} ms per iteration (the profiler slows "
+        f"the host), device busy {busy_us / 1e3:.3f} ms "
+        + (f"({busy_us / window_us:.1%}; {busy_us / per / 1e3:.3f} ms per "
+           f"iteration), {sum(e.count for e in on_card) / per:.0f} device "
+           "kernels per iteration; top device time: " + "; ".join(
+               f"{e.key[:40]} x{e.count} {e.self_device_time_total:.0f} us"
+               for e in top) if busy_us else "(no device time in the trace: "
+           "the busy share is not measured)") + f"; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1183,6 +1454,15 @@ def main() -> int:
         family_furnace_and_small_renders()
         log(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
         naive_cli(xml, tmp, card)
+
+    # -- phases 13-14: the differentiable path and training ----------------
+    t0 = time.perf_counter()
+    gradient_on_card()
+    log(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        training(tmp, card)
+        log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     def timed(ms, plain_ms, bound, bound_by):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,

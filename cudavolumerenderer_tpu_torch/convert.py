@@ -1,16 +1,23 @@
-"""Carry a scene and a camera across from the JAX package's arrays.
+"""Carry a scene, a camera, the differentiable path's specs and Adam's
+state across from the JAX package.
 
-Both take plain numpy arrays (the leaves of the JAX `Scene` and `Camera`,
-read with np.asarray), so this module needs no jax.  The albedo's affine
-fit is taken as given and never refit: given the same arrays, both
-packages render the same scene.
+The functions take plain numpy arrays (the leaves of the JAX `Scene`,
+`Camera` and optax state, read with np.asarray) or the JAX package's spec
+dataclasses read field by field, so this module needs no jax.  The
+albedo's affine fit is taken as given and never refit: given the same
+arrays, both packages render the same scene.  The grids of the inverse
+problem cross as numpy arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models.differentiable import CameraSpec, SceneSpec
+from .models.inverse import AdamState
 from .ops.camera import Camera
 from .ops.grid import Grid
 from .scene.types import Bsdf, Medium, Scene
@@ -52,3 +59,30 @@ def camera_from_arrays(inv_view, raster_to_view, device="cpu") -> Camera:
         inv_view=_t(inv_view, device),
         raster_to_view=_t(raster_to_view, device),
     )
+
+
+def _spec_fields(cls, spec):
+    return cls(**{f.name: getattr(spec, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def scene_spec_from_jax(spec) -> SceneSpec:
+    """The port's SceneSpec with the fields of the JAX package's."""
+    return _spec_fields(SceneSpec, spec)
+
+
+def camera_spec_from_jax(spec) -> CameraSpec:
+    """The port's CameraSpec with the fields of the JAX package's."""
+    return _spec_fields(CameraSpec, spec)
+
+
+def adam_state_from_optax_leaves(leaves, device="cpu") -> AdamState:
+    """optax.adam's state leaves (jax.tree_util.tree_leaves order: count,
+    mu per parameter, nu per parameter) as numpy arrays → the AdamState
+    that models.inverse.make_adam resumes torch.optim.Adam from."""
+    if len(leaves) % 2 != 1:
+        raise ValueError(f"{len(leaves)} Adam leaves: expected count + 2k")
+    k = (len(leaves) - 1) // 2
+    moments = [_t(x, device) for x in leaves[1:]]
+    return AdamState(int(np.asarray(leaves[0])), tuple(moments[:k]),
+                     tuple(moments[k:]))

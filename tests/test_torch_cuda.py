@@ -5,7 +5,9 @@ furnace through the render kernels, launch counts and input checks; for
 the gathers also out-of-range indices, inputs not 16-byte aligned and
 taa0 at 65,536 rows.  The scheduler family (naiveSK ... fastQ, which has
 no kernel of its own) renders on the card, against the same render on
-the CPU, and its white furnace is exact there.
+the CPU, and its white furnace is exact there.  The differentiable path
+(no kernel of its own) gives the CPU's image and cotangents on the card,
+and one run_inverse step the CPU's loss and grid.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -22,7 +24,9 @@ import torch
 
 from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather
 from cudavolumerenderer_tpu_torch.config import Config, Kernel
-from cudavolumerenderer_tpu_torch.models import brick, fast
+from cudavolumerenderer_tpu_torch.models import (
+    brick, differentiable, fast, inverse,
+)
 from cudavolumerenderer_tpu_torch.models.renderer import make_kernel_fn
 from cudavolumerenderer_tpu_torch.ops import pgather, tailpk, tracking
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
@@ -364,3 +368,72 @@ def test_scheduler_white_furnace_on_card(cuda, kernel):
     settings = types.RenderSettings.from_flags(True, bsdf_kind="null")
     img, _ = scheduler_render(kernel, {}, cuda, albedo=1.0, settings=settings)
     assert np.array_equal(img, np.ones_like(img))
+
+
+def diff_render(device, bsdf, two_level):
+    """render_diff on a random 16^3 grid with a per-voxel albedo at
+    16^2 x 4, and its cotangents under a random image cotangent."""
+    rs = np.random.RandomState(0)
+    density = torch.tensor((rs.rand(16, 16, 16) * 0.8).astype(np.float32),
+                           device=device, requires_grad=True)
+    albedo = torch.tensor((0.3 + 0.6 * rs.rand(16, 16, 16, 4))
+                          .astype(np.float32), device=device,
+                          requires_grad=True)
+    g_img = torch.tensor(rs.rand(16, 16, 3).astype(np.float32), device=device)
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=16, bsdf_kind=bsdf)
+    img = differentiable.render_diff(
+        density, albedo, 7, differentiable.SceneSpec(scale=4.0),
+        differentiable.CameraSpec(res_x=16, res_y=16, fov_x_deg=0.5), settings,
+        (16, 16), 4, two_level)
+    img.backward(g_img)
+    assert img.device.type == torch.device(device).type  # no fallback
+    return [x.detach().cpu().numpy() for x in (img, density.grad, albedo.grad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True], ids=["one-level",
+                                                          "two-level"])
+@pytest.mark.parametrize("bsdf", ["null", "ggx"])
+def test_render_diff_on_card_matches_cpu(cuda, bsdf, two_level):
+    """The image allclose at 1e-4 on the null scene (>= 90% of pixels on
+    the GGX scene, where the last bits of CUDA's float32 math send a path
+    down another branch); both cotangents within rtol 1e-3, atol 1e-4 x
+    max on >= 99% of voxels (the adjoints add with atomics), their sums
+    within 1e-3 on the null scene and 1e-2 on the GGX scene (one path of
+    1,024 carries ~1e-3 of a sum)."""
+    (ci, cdd, cda), (pi, pdd, pda) = (diff_render(dev, bsdf, two_level)
+                                      for dev in (cuda, "cpu"))
+    sum_tol = 1e-3 if bsdf == "null" else 1e-2
+    for got, want in ((cdd, pdd), (cda, pda)):
+        assert np.isfinite(got).all()
+        assert abs(got.sum() - want.sum()) <= sum_tol * np.abs(want).sum()
+        assert np.isclose(got, want, rtol=1e-3,
+                          atol=1e-4 * np.abs(want).max()).mean() >= 0.99
+    if bsdf == "null":
+        np.testing.assert_allclose(ci, pi, rtol=1e-4, atol=1e-4)
+    else:
+        assert np.all(np.isclose(ci, pi, rtol=1e-4, atol=1e-4), -1).mean() >= 0.9
+
+
+@pytest.mark.cuda
+def test_run_inverse_step_on_card(cuda):
+    """One Adam step of run_inverse on a 6^3 grid: the card's loss and
+    grid against the CPU's."""
+    rs = np.random.RandomState(0)
+    density = (0.3 + 0.4 * rs.rand(6, 6, 6)).astype(np.float32)
+    albedo = np.zeros((6, 6, 6, 4), np.float32)
+    spec = differentiable.SceneSpec(scale=2.5, max_density=1.0)
+    cam = differentiable.CameraSpec(res_x=8, res_y=8, fov_x_deg=0.4)
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=8, bsdf_kind="null")
+    target = np.full((8, 8, 3), 0.3, np.float32)
+    config = inverse.InverseConfig(resolution=(8, 8), spp=32,
+                                   learning_rate=0.05, n_steps=1)
+    runs = [inverse.run_inverse(target, density, albedo, spec, cam, settings,
+                                config, device=dev) for dev in (cuda, "cpu")]
+    (d_card, _, l_card), (d_cpu, _, l_cpu) = runs
+    assert d_card.device.type == "cuda"
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    np.testing.assert_allclose(d_card.cpu().numpy(), d_cpu.numpy(), atol=1e-4)
+    assert not np.array_equal(d_cpu.numpy(), density)

@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax():
                  "ops.pgather", "benchmarks.micro_pgather", "ops.woodcock",
                  "ops.gradient", "ops.morton", "models.naive",
                  "models.regeneration", "models.streaming",
-                 "models.wavefront_mk", "models.fastq"):
+                 "models.wavefront_mk", "models.fastq",
+                 "models.differentiable", "models.inverse",
+                 "benchmarks.inverse_256", "convert"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
