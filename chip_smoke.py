@@ -10,9 +10,10 @@ CPU or to a plain version on a CUDA tensor):
 1. identify the card (nvidia-smi name and power limit); refuse to run
    without CUDA;
 2. build the three kernel libraries, csrc/tailpk.cu, csrc/tracking.cu
-   and csrc/pgather.cu, with one nvcc each, started together (into the
-   package's ignored _build/ directory); print the build times and
-   ptxas registers and spills;
+   and csrc/pgather.cu, with one nvcc each, started together with g++ on
+   the native data-path library (the repository's csrc/cvr_native.cpp
+   and csrc/cvr_vdb.cpp), all into the package's ignored _build/
+   directory; print the build times and ptxas registers and spills;
 3. the tail kernel against its plain torch version on the card, on the
    medical 256^3 dilated-brick table with R = 128 and R = 4096 paths at
    K = 16 steps: integer outputs equal on >= 99.9% of paths, floats
@@ -106,7 +107,28 @@ CPU or to a plain version on a CUDA tensor):
    reloaded with
    its Adam moments; then torch.profiler over 20 iterations in the middle
    of one pass-B replay at 256^3 (device kernels per iteration, the
-   card's busy share).
+   card's busy share);
+15. the native library's build time, and BASELINE config 3's smoke
+   (128x128x50, albedo 0.9 d) written with write_vdb and read back with
+   load_vdb_scene(device="cuda"), then through save_npz and
+   load_npz_scene: density and albedo equal to the source on the active
+   bounding box;
+16. BASELINE config 3 at its published size (1024^2 x 4, one tile,
+   fastSK two-level) through the port's baseline_configs driver (two
+   trials, the first discarded), then through the CLI's batch mode with
+   --tail-pallas, whose tail-kernel launch count must rise; wall seconds
+   with the image copy, n_rays and Mrays/s for both;
+17. BASELINE config 4 at its published width (400^2 in 10x10 tiles of
+   40x40, Mitsuba XML + .vol), iterations cut from 50 to 4, rendered
+   twice through create_renderer(...).render(): one fastSK cascade over
+   all 100 tiles (fast.render_tile counted, with its body evaluations),
+   wall with the image copy and n_rays; then multi-tile mode against the
+   sequential tile loop at 2x2 tiles of 40x40, 1 iteration: image and
+   n_rays bit-equal;
+18. the CLI's interactive modes at 64^2 on config 4's scene:
+   --interactive with --orbit 2, with a --camera-path of a rotate between
+   two renders (one accumulation reset), and the progressive mode; each
+   writes its frames.
 
 The last lines are a JSON line describing the kernels, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
@@ -160,6 +182,7 @@ TRAIN_ARGV = ("--n", "256", "--res", "128", "--spp", "8", "--spp-chunks", "2",
 TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 16 (64)",
               "--steps 1 0 1 (80 60 40; 128^3 is upsampled through)")
 PROFILE_ITERS = 20  # pass-B replay iterations under torch.profiler
+CONFIG4_ITERS = 4  # phase 17: BASELINE config 4's 50 iterations, cut
 # each gather kernel's Pallas body (file:line)
 GATHER_REPLACES = {
     "taa1": "benchmarks/micro_pgather.py:284",
@@ -1277,6 +1300,265 @@ def training(tmp: str, card: str) -> None:
            "the busy share is not measured)") + f"; card {card}")
 
 
+def native_and_vdb(tmp: str, card: str) -> str:
+    """Phase 15: the native library (built in phase 2) and the VDB and
+    NPZ round trips on the card's host; returns config 3's .vdb path."""
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.scene import vdb
+    from cudavolumerenderer_tpu_torch.utils import native
+
+    log(f"[15] native library {os.path.relpath(native.library_path())}: g++ "
+        f"{native.build_seconds:.2f} s (0.00 = reused)")
+    d, alb = bc.smoke_and_albedo()
+    nz = np.nonzero(d)
+    box = tuple(slice(a.min(), a.max() + 1) for a in nz)  # (z, y, x)
+    checks = {}
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "hetvol_synth.vdb")
+    vdb.write_vdb(path, d, alb)
+    checks["vdb"] = (path, vdb.load_vdb_scene(path, device="cuda")[0],
+                     d[box], alb[box], time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    npz = os.path.join(tmp, "hetvol_synth.npz")
+    vdb.save_npz(npz, d, alb)
+    checks["npz"] = (npz, vdb.load_npz_scene(npz, device="cuda")[0], d, alb,
+                     time.perf_counter() - t0)
+    for kind, (file, scene, want_d, want_a, secs) in checks.items():
+        med = scene.medium
+        got_d = med.density.data.cpu().numpy()
+        got_a = med.albedo.data.cpu().numpy()
+        check(scene.device.type == "cuda", f"{kind} scene not on the card")
+        check(np.array_equal(got_d, want_d),
+              f"{kind}: density differs from the source on the active box")
+        check(np.array_equal(got_a[..., :3], want_a),
+              f"{kind}: albedo differs from the source on the active box")
+        log(f"[15] {kind} round trip: {os.path.getsize(file)} bytes, written "
+            f"and loaded in {secs:.2f} s, density {got_d.shape} and albedo "
+            f"equal to the source on the active box; scale "
+            f"{float(med.scale):.0f}, albedo mode {fast._albedo_mode(scene)}")
+    return path
+
+
+def config3(vdb_path: str, tmp: str, card: str) -> int:
+    """Phase 16: BASELINE config 3 at its published size, through the
+    port's baseline_configs driver and then the CLI's batch mode with the
+    tail kernel; returns the tail kernel's launches in the second run."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch import cli
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    out = os.path.join(tmp, "config3.json")
+    t0 = time.perf_counter()
+    bc.main(["--only", "3_", "--trials", "2", "--out", out, "--workdir", tmp])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        row = json.load(f)["3_hetvol_vdb_1024"]
+    saved = load_hdr(os.path.join(tmp, "3_hetvol_vdb_1024.hdr"))
+    check(saved.shape == (1024, 1024, 3) and np.isfinite(saved).all(),
+          "config 3's image is not finite or has the wrong shape")
+    check(0.05 < saved.mean() < 1.5, f"config 3 image mean {saved.mean()}")
+    log(f"[16] baseline_configs config 3, 1024^2 x 4, 2 trials: {wall:.2f} s in "
+        f"all; per trial {row['mean_time_with_copy_s']:.3f} s wall with the "
+        f"image copy ({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} "
+        f"rays, {row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} "
+        f"Mrays/s with the copy ({row['mrays_per_sec']:.3f} without), image "
+        f"mean {saved.mean():.5f}; card {card}")
+
+    argv = [vdb_path, "-k", "fastSK", "--two-level", "--tail-pallas", "-i",
+            "4", "-r", "1024", "1024", "-o", os.path.join(tmp, "config3_tail")]
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.config_from_args(args)
+    torch.cuda.synchronize()
+    tpk.KERNEL.launches = 0
+    result = cli.run_test(cfg, cli.device_of(args.platform))
+    launches = tpk.KERNEL.launches
+    saved = load_hdr(cfg.output_name + ".hdr")
+    check(launches > 0, "config 3 with --tail-pallas launched no tail kernel")
+    check(saved.shape == (1024, 1024, 3) and np.isfinite(saved).all(),
+          "config 3's tail-kernel image is not finite or has the wrong shape")
+    check(abs(result["n_rays"] - row["n_rays"]) <= 0.02 * row["n_rays"],
+          "the tail kernel changed config 3's ray count by more than 2%")
+    log(f"[16] cli.run_test config 3 --tail-pallas, 1024^2 x 4: "
+        f"{result['mean_time_with_copy']:.3f} s wall with the image copy "
+        f"({result['mean_time']:.3f} without), {result['n_rays']:.0f} rays, "
+        f"{result['n_rays'] / result['mean_time_with_copy'] / 1e6:.4f} "
+        f"Mrays/s with the copy, {launches} tail-kernel launches, image mean "
+        f"{saved.mean():.5f}; card {card}")
+    return launches
+
+
+class CascadeCounter:
+    """Counts fast.render_tile calls (one cascade each) and their body
+    evaluations (each stage's lane-rows over its pool width) while it is
+    entered; the renderer looks render_tile up at each call."""
+
+    def __enter__(self):
+        from cudavolumerenderer_tpu_torch.models import fast
+
+        self.fast, self.orig = fast, fast.render_tile
+        self.calls = []
+
+        def counted(*args, **kw):
+            img, n_rays, _, _, rows = self.orig(*args, with_stats=True, **kw)
+            offsets = args[4]
+            n_lanes = args[3][0] * args[3][1] * (
+                offsets.shape[0] if offsets.ndim == 2 else 1)
+            widths = fast._cascade_widths(
+                n_lanes, kw.get("cascade_factor", fast._CASCADE_FACTOR),
+                kw.get("min_width") or fast._MIN_WIDTH)
+            evals = sum(float(r) / w for r, w in zip(rows.tolist(), widths))
+            self.calls.append((tuple(offsets.shape), evals))
+            return img, n_rays
+
+        fast.render_tile = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fast.render_tile = self.orig
+
+
+def sequential_render(renderer):
+    """The renderer's tile loop, one tile after another (run_iterations),
+    and its image copied to the host."""
+    renderer.init_rendering()
+    while not renderer.image_complete():
+        renderer.run_iterations(spp=renderer.config.iterations)
+    return renderer.get_image()
+
+
+def config4(tmp: str, card: str, iters: int = CONFIG4_ITERS):
+    """Phase 17: BASELINE config 4 at its published width (400^2, 10x10
+    tiles of 40x40), iterations cut from 50 to `iters`; then multi-tile
+    mode against the sequential tile loop at 2x2 tiles.  Returns the
+    timed render's image and n_rays."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    xml = bc.write_mitsuba_xml(tmp)
+    cfg = Config(scene_file=xml, kernel=Kernel.FAST_SK, two_level=True,
+                 iterations=iters, resolution=(400, 400), n_tiles=(10, 10))
+    scene, camera = load_scene(cfg, device="cuda")
+    for run in ("warm-up", "timed"):
+        renderer = create_renderer(scene, camera, cfg)
+        torch.cuda.synchronize()
+        with CascadeCounter() as cascades:
+            t0 = time.perf_counter()
+            img = renderer.render()
+            wall = time.perf_counter() - t0
+        n_rays = renderer.n_rays
+        check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
+              "config 4 image not finite or wrong shape")
+        check(0.05 < img.mean() < 1.5, f"config 4 image mean {img.mean()}")
+        check([shape for shape, _ in cascades.calls] == [(100, 2)],
+              f"config 4 ran {len(cascades.calls)} cascades, not one "
+              "over all 100 tiles")
+        log(f"[17] config 4 {run}, 400^2 x {iters} in 10x10 tiles of "
+            f"40x40: {wall:.3f} s wall (incl. image copy), {n_rays:.0f} rays, "
+            f"{n_rays / wall / 1e6:.4f} Mrays/s, one cascade over 100 tiles, "
+            f"{cascades.calls[0][1]:.0f} body evaluations, image mean "
+            f"{img.mean():.5f}; card {card}")
+
+    small = Config(scene_file=xml, kernel=Kernel.FAST_SK, two_level=True,
+                   iterations=1, resolution=(80, 80), n_tiles=(2, 2))
+    scene, camera = load_scene(small, device="cuda")
+    multi = create_renderer(scene, camera, small)
+    with CascadeCounter() as cascades:
+        t0 = time.perf_counter()
+        multi_img = multi.render()
+        multi_wall = time.perf_counter() - t0
+    seq = create_renderer(scene, camera, small)
+    with CascadeCounter() as seq_cascades:
+        t0 = time.perf_counter()
+        seq_img = sequential_render(seq)
+        seq_wall = time.perf_counter() - t0
+    check(len(cascades.calls) == 1 and len(seq_cascades.calls) == 4,
+          "multi mode did not render the 2x2 tiles in one cascade")
+    check(np.array_equal(multi_img, seq_img) and multi.n_rays == seq.n_rays,
+          "multi-tile mode differs from the sequential tile loop on the card")
+    log(f"[17] multi-tile mode at 2x2 tiles of 40x40, 1 iteration: image and "
+        f"n_rays ({multi.n_rays:.0f}) bit-equal to the sequential loop; "
+        f"{multi_wall:.3f} s and {cascades.calls[0][1]:.0f} body evaluations "
+        f"in one cascade against {seq_wall:.3f} s and "
+        f"{sum(e for _, e in seq_cascades.calls):.0f} in four; card {card}")
+    return img, n_rays
+
+
+def config4_sequential(tmp: str, card: str, want, iters: int = CONFIG4_ITERS):
+    """Config 4 through the sequential tile loop (100 cascades), timed once,
+    against phase 17's multi-tile render `want` = (image, n_rays): bit
+    for bit.  Not in main (~100x the multi-tile time); run it alone."""
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    cfg = Config(scene_file=bc.write_mitsuba_xml(tmp), kernel=Kernel.FAST_SK,
+                 two_level=True, iterations=iters, resolution=(400, 400),
+                 n_tiles=(10, 10))
+    scene, camera = load_scene(cfg, device="cuda")
+    renderer = create_renderer(scene, camera, cfg)
+    with CascadeCounter() as cascades:
+        t0 = time.perf_counter()
+        img = sequential_render(renderer)
+        wall = time.perf_counter() - t0
+    check(len(cascades.calls) == 100, f"{len(cascades.calls)} cascades")
+    check(np.array_equal(img, want[0]) and renderer.n_rays == want[1],
+          "config 4's sequential loop differs from multi-tile mode")
+    log(f"[17] config 4 sequential loop, 400^2 x {iters}: {wall:.3f} s wall "
+        f"(incl. image copy), 100 cascades, "
+        f"{sum(e for _, e in cascades.calls):.0f} body evaluations, image and "
+        f"n_rays ({renderer.n_rays:.0f}) bit-equal to multi-tile mode; "
+        f"card {card}")
+
+
+def interactive_modes(tmp: str, card: str) -> None:
+    """Phase 18: the CLI's interactive modes at 64^2 on config 4's scene."""
+    import contextlib
+    import io
+
+    from cudavolumerenderer_tpu_torch import cli
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+
+    xml = bc.write_mitsuba_xml(tmp)
+    base = [xml, "--interactive", "1", "-i", "2", "-r", "64", "64",
+            "--two-level"]
+    script = os.path.join(tmp, "path.txt")
+    with open(script, "w") as f:
+        f.write("render 1\nrotate 30 10\nrender 1\n")
+    modes = (
+        ("orbit", ["--orbit", "2"], ("_orbit0000.png", "_orbit0001.png")),
+        ("camera path", ["--camera-path", script],
+         ("_path0001.png", "_path0002.png")),
+        ("progressive", [], ("_frame0001.png", ".hdr")),
+    )
+    for label, extra, files in modes:
+        out = os.path.join(tmp, label.replace(" ", "_"))
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(base + extra + ["-o", out])
+        wall = time.perf_counter() - t0
+        text = printed.getvalue()
+        sys.stdout.write(text)
+        check(rc == 0, f"--interactive {label} returned {rc}")
+        for suffix in files:
+            check(os.path.getsize(out + suffix) > 0,
+                  f"--interactive {label} wrote no {out + suffix}")
+        if label == "camera path":
+            check(text.count("accumulation reset") == 1,
+                  "the camera path's rotate did not reset the accumulation")
+        log(f"[18] --interactive {label} at 64^2: {wall:.2f} s, wrote "
+            f"{', '.join(os.path.basename(out) + s for s in files)}; card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1301,11 +1583,16 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the three libraries, one nvcc each, started together
+    # -- phase 2: build the three libraries, one nvcc each, started together,
+    # and the native data-path library (g++) beside them
+    from cudavolumerenderer_tpu_torch.utils import native
+
     libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY)
-    with ThreadPoolExecutor(len(libraries)) as pool:
+    with ThreadPoolExecutor(len(libraries) + 1) as pool:
+        native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
         builds = [b.result() for b in builds]
+        native_build.result()
     for built in builds:
         log(f"[2] built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
         for line in built.log.splitlines():
@@ -1464,6 +1751,23 @@ def main() -> int:
         training(tmp, card)
         log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phases 15-18: the VDB/NPZ scene path, configs 3 and 4, the modes --
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vdb_path = native_and_vdb(tmp, card)
+        log(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        config3_launches = config3(vdb_path, tmp, card)
+        log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        config4(tmp, card)
+        log(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        interactive_modes(tmp, card)
+        log(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s")
+
     def timed(ms, plain_ms, bound, bound_by):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None}
@@ -1483,7 +1787,7 @@ def main() -> int:
                   "collisions or of scatters, a lane per step",
         "ms_r4096": times[4096][0],
         "step_sweep_ms": sweep["ms"], "in_slice_us": in_slice_us,
-        "slice_round_ms": slice_ms,
+        "slice_round_ms": slice_ms, "launches_config3": config3_launches,
     }, {
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",

@@ -5,8 +5,9 @@ ConfigParser.cpp:10-67): the same flag names and defaults, and the batch
 "test" mode's trials/timing/Mrays protocol (Main.cpp:46-121).  The render
 runs on the device `--platform` names (`cuda`, the default, or `cpu`);
 asking for CUDA without a card is an error, never a CPU fallback.  Every
-scheduler of `-k` renders; the interactive modes (`--interactive`,
-`--camera-path`, `--orbit`) are not ported yet (ROADMAP A1).
+scheduler of `-k` renders.  `--interactive` is the headless progressive
+mode: time-budgeted frame dumps, `--orbit N` frames circling the volume,
+or a `--camera-path` script whose motion resets the accumulation.
 
 Usage:
     python -m cudavolumerenderer_tpu_torch.cli scene.xml -k regenerationSK -i 4
@@ -15,6 +16,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 from typing import List, Optional
@@ -24,11 +26,16 @@ import torch
 
 from .config import Algorithm, Config, Kernel, SceneType
 from .models.renderer import create_renderer
+from .ops.camera import make_camera_look_at
+from .ops.camera_controller import CameraController, parse_camera_path
 from .scene.loader import load_scene
 from .scene.types import RenderSettings
 from .utils.image import save_hdr, save_png, tonemap
 
 PRINT_PREFIX = "[cvr-torch] "
+# Interactive-mode per-frame refinement budget in seconds (reference:
+# InteractiveRenderer.h:335-343 refines until >=0.1 s has elapsed).
+FRAME_BUDGET_S = 0.1
 
 
 def _flag(s: str) -> bool:
@@ -57,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--interactive", type=_flag, default=False,
-        help="progressive mode with frame dumps (not ported: ROADMAP A1)",
+        help="progressive mode with periodic frame dumps (offline "
+        "replacement for the GLFW view)",
     )
     p.add_argument("--trials", type=int, default=1)
     p.add_argument("-a", "--algorithm", default="cudaVolPath")
@@ -124,10 +132,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fastSK: persistent tail kernel (csrc/tailpk.cu)")
     p.add_argument("--tail-pk-width", type=int, default=128)
     p.add_argument("--tail-pk-steps", type=int, default=16)
-    p.add_argument("--orbit", type=int, default=0, metavar="N",
-                   help="with --interactive: orbit frames (ROADMAP A1)")
-    p.add_argument("--camera-path", metavar="FILE", default=None,
-                   help="with --interactive: camera path (ROADMAP A1)")
+    p.add_argument(
+        "--orbit", type=int, default=0, metavar="N",
+        help="with --interactive: render N frames orbiting the volume "
+        "(offline replacement for the GLFW rotate control)",
+    )
+    p.add_argument(
+        "--camera-path", metavar="FILE", default=None,
+        help="with --interactive: replay a scripted camera path "
+        "(rotate/zoom/pan/lookat/render events; motion resets the "
+        "progressive accumulation like the reference's mouse-dirty -> "
+        "reset flow)",
+    )
     return p
 
 
@@ -193,8 +209,10 @@ def run_test(config: Config, device) -> dict:
     """Batch benchmark mode (reference: runTest, Main.cpp:46-121): N
     trials on `device`, discard-first-trial mean/std, paths/s and Mrays/s.
     Each trial fences on the n_rays readback and copies the image to the
-    host after the timed region, as the JAX package does."""
+    host after the timed region, as the JAX package does; the result also
+    carries the mean time with that copy (`mean_time_with_copy`)."""
     times: List[float] = []
+    copy_times: List[float] = []
     rays: List[float] = []
     for trial in range(config.trials):
         print(f"{PRINT_PREFIX}--- trial {trial}")
@@ -209,10 +227,12 @@ def run_test(config: Config, device) -> dict:
         n_rays = renderer.n_rays  # on-device scalar readback = full fence
         t1 = time.time()
         image = renderer.get_image()
+        with_copy = time.time() - t0
         elapsed = t1 - t0
         print(f"{PRINT_PREFIX}rendering time      : {elapsed:.2f} sec")
         if trial > 0 or config.trials == 1:
             times.append(elapsed)
+            copy_times.append(with_copy)
             rays.append(n_rays)
 
         save_hdr(config.output_name + ".hdr", image)
@@ -232,7 +252,93 @@ def run_test(config: Config, device) -> dict:
         mean_time=mean_time, std_time=std_time,
         paths_per_sec=n_paths / mean_time, mrays_per_sec=mrays,
         n_rays=float(np.mean(rays)),
+        mean_time_with_copy=float(np.mean(copy_times)),
     )
+
+
+def run_camera_path(config: Config, path_file: str, device) -> None:
+    """Scripted interactive-camera replay: rotate/zoom/pan events drive
+    the quaternion CameraController (Camera.h:74-122 dynamics) and any
+    motion resets the progressive accumulation before the next render,
+    the InputController dirty-flag -> reset() -> initRendering flow
+    (InteractiveRenderer.h:102,251-282,314-317), minus the GLFW window.
+    Writes one PNG frame per render event."""
+    scene, _ = load_scene(config, device=device)
+    w, h = config.resolution
+    with open(path_file) as f:
+        events = parse_camera_path(f.read())
+    ctl = CameraController(w, h, fov_x_deg=0.7)
+    renderer = create_renderer(scene, ctl.camera(device), config)
+    frame = 0
+    for op, args in events:
+        if op == "rotate":
+            ctl.rotate(*args)
+        elif op == "zoom":
+            ctl.zoom(*args)
+        elif op == "pan":
+            ctl.pan(*args)
+        elif op == "lookat":
+            ctl.look_at(args[0:3], args[3:6], (0.0, 1.0, 0.0))
+        elif op == "render":
+            if ctl.consume_dirty():
+                # motion invalidates the accumulated image: rebuild the
+                # camera and restart accumulation (reference reset())
+                renderer.camera = ctl.camera(device)
+                renderer.init_rendering()
+                print(f"{PRINT_PREFIX}camera moved, accumulation reset")
+            for _ in range(args[0]):
+                renderer.run_pass(1)
+            frame += 1
+            save_png(
+                f"{config.output_name}_path{frame:04d}.png",
+                tonemap(renderer.get_image()),
+            )
+            print(
+                f"{PRINT_PREFIX}path frame {frame} dumped "
+                f"({int(renderer.iterations_done.min())} it)"
+            )
+
+
+def run_interactive(config: Config, device, orbit: int = 0) -> None:
+    """Offline progressive mode: refine and dump frames periodically
+    (replaces GLViewController's 0.1 s refinement budget loop,
+    InteractiveRenderer.h:319-349), then write the final .hdr.  With
+    orbit > 0, N frames circle the volume instead, each a full render
+    (the offline stand-in for the reference's mouse rotate/zoom)."""
+    scene, camera = load_scene(config, device=device)
+
+    if orbit > 0:
+        radius = 100.0
+        w, h = config.resolution
+        for frame in range(orbit):
+            angle = 2.0 * math.pi * frame / orbit
+            eye = (radius * math.sin(angle), 0.0, radius * math.cos(angle))
+            cam_f = make_camera_look_at(
+                eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), w, h, 0.7
+            )
+            img = create_renderer(scene, cam_f, config).render()
+            save_png(f"{config.output_name}_orbit{frame:04d}.png", tonemap(img))
+            print(f"{PRINT_PREFIX}orbit frame {frame} dumped")
+        return
+
+    renderer = create_renderer(scene, camera, config)
+    frame = 0
+    while not renderer.image_complete():
+        # time-budgeted refinement (InteractiveRenderer.h:335-343: repeat
+        # runIterations + getImage until >= 0.1 s has elapsed); each
+        # inner pass is one sample of every pixel
+        t0 = time.time()
+        while True:
+            renderer.run_pass(1)
+            if time.time() - t0 >= FRAME_BUDGET_S or renderer.image_complete():
+                break
+        frame += 1
+        save_png(
+            f"{config.output_name}_frame{frame:04d}.png",
+            tonemap(renderer.get_image()),
+        )
+        print(f"{PRINT_PREFIX}frame {frame} dumped")
+    save_hdr(config.output_name + ".hdr", renderer.get_image())
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -241,16 +347,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         build_parser().print_help()
         return 2
     config = config_from_args(args)
-    if config.interactive or args.camera_path or args.orbit:
-        raise NotImplementedError(
-            "--interactive, --camera-path and --orbit are not ported to "
-            "the torch package yet (ROADMAP A1: ops/camera_controller.py)"
-        )
     device = device_of(args.platform)
     print(f"{PRINT_PREFIX}algorithm set to {config.algorithm.value}.")
     print(f"{PRINT_PREFIX}kernel set to {config.kernel.value}.")
     print(f"{PRINT_PREFIX}iterations set to {config.iterations}.")
-    run_test(config, device)
+    if config.interactive and args.camera_path:
+        run_camera_path(config, args.camera_path, device)
+    elif config.interactive:
+        run_interactive(config, device, orbit=args.orbit)
+    else:
+        run_test(config, device)
     return 0
 
 

@@ -101,7 +101,7 @@ class Config:
     n_tiles: Tuple[int, int] = (1, 1)
     #: batch-mode trials (cli.run_test); the first is discarded when > 1
     trials: int = 1
-    #: progressive mode with frame dumps (not ported: ROADMAP A1)
+    #: progressive mode with frame dumps (cli.run_interactive)
     interactive: bool = False
     #: output path stem for .hdr/.png; None = to_string()
     output_name: Optional[str] = None

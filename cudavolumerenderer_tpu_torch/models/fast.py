@@ -18,6 +18,8 @@ Same physics as the JAX scheduler and the same per-path draw sequences:
 6. **The persistent tail kernel** (`tail_pallas=True`, ops/tailpk.py) —
    once the pending count fits tail_pk_width lanes, a service loop hands
    them to the CUDA kernel for K whole tracking steps per round.
+7. **Multi-tile lane mode** — a (T, 2) tile_offset renders T tiles in one
+   cascade, each lane carrying its tile through its pixel id.
 
 Port notes: the jax while-loops are Python loops that read the pending
 count on the host once per chained group of body evaluations (extra
@@ -228,7 +230,7 @@ def _cascade_widths(
 
 def _check_ported(
     table_bits, defer_ggx, brick_major, tail_spec, tail_single_level,
-    tail_bricks, tile_offset,
+    tail_bricks,
 ):
     if table_bits in (8, 4):
         raise _not_ported("table_bits 8/4 (packed quantized tables)")
@@ -244,8 +246,6 @@ def _check_ported(
         raise _not_ported("tail_single_level (single-level tail pools)")
     if tail_bricks > 0:
         raise _not_ported("tail_bricks > 0 (finer tail brick tables)")
-    if tile_offset.ndim == 2:
-        raise _not_ported("multi-tile lane mode ((T, 2) tile offsets)")
 
 
 def render_tile(
@@ -279,15 +279,27 @@ def render_tile(
 ):
     """Render spp samples of every pixel of one tile.  Returns
     (img (th, tw, 3), n_rays) — with with_stats, also (n_rows, n_busy,
-    per-stage rows), the last stage being the tail kernel's when it ran."""
+    per-stage rows), the last stage being the tail kernel's when it ran.
+
+    Multi-tile lane mode: a tile_offset shaped (T, 2) with a (T,)
+    path_id_base renders all T tiles in one cascade and returns img
+    (T, th, tw, 3).  Lanes cover T*tw*th pixels; the tile index is
+    pix // (tw*th), so it travels with the lane through compaction, and
+    each lane takes its tile's origin and path-id base.  Path ids and
+    camera jitter are the per-tile calls', so the tiles equal the
+    sequential per-tile renders bit for bit (the tail kernel stays off:
+    its service loop is single-tile)."""
     dev = scene.device
     tile_offset = torch.as_tensor(tile_offset, dtype=torch.float32, device=dev)
     _check_ported(
         table_bits, defer_ggx, brick_major, tail_spec, tail_single_level,
-        tail_bricks, tile_offset,
+        tail_bricks,
     )
     tw, th = tile_dim
-    n_pix = tw * th
+    n_pix_tile = tw * th
+    multi_t = tile_offset.ndim == 2
+    n_tiles_batch = tile_offset.shape[0] if multi_t else 1
+    n_pix = n_pix_tile * n_tiles_batch
     m = lanes_per_pixel
     while spp % m != 0:
         m -= 1
@@ -344,16 +356,31 @@ def render_tile(
         )
 
     lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
-    base = int(path_id_base) & M32
+    if multi_t:
+        bases = torch.as_tensor(path_id_base, dtype=torch.int64, device=dev) & M32
 
-    def path_id_of(pix, slot, samples_done):
-        s = slot + m * samples_done
-        return (s * n_pix + pix + base) & M32
+        def path_id_of(pix, slot, samples_done):
+            s = slot + m * samples_done
+            local = pix % n_pix_tile
+            return (s * n_pix_tile + local + bases[pix // n_pix_tile]) & M32
 
-    def pixel_xy_of(pix):
-        px = (pix % tw).to(torch.float32) + tile_offset[0]
-        py = torch.floor(pix.to(torch.float32) / tw) + tile_offset[1]
-        return torch.stack([px, py], dim=-1)
+        def pixel_xy_of(pix):
+            local = pix % n_pix_tile
+            off = tile_offset[pix // n_pix_tile]
+            px = (local % tw).to(torch.float32) + off[:, 0]
+            py = torch.floor(local.to(torch.float32) / tw) + off[:, 1]
+            return torch.stack([px, py], dim=-1)
+    else:
+        base = int(path_id_base) & M32
+
+        def path_id_of(pix, slot, samples_done):
+            s = slot + m * samples_done
+            return (s * n_pix + pix + base) & M32
+
+        def pixel_xy_of(pix):
+            px = (pix % tw).to(torch.float32) + tile_offset[0]
+            py = torch.floor(pix.to(torch.float32) / tw) + tile_offset[1]
+            return torch.stack([px, py], dim=-1)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -585,8 +612,11 @@ def render_tile(
     widths = _cascade_widths(n_lanes, cascade_factor, min_width)
     # the tail kernel takes over once the pending count fits its width;
     # it rebuilds albedo as A*rho+B, so it needs a const/affine albedo
-    # (a full-albedo scene keeps the wavefront tail)
-    use_tailpk = tail_pallas and albedo_mode in ("const", "affine")
+    # (a full-albedo scene keeps the wavefront tail), and its service
+    # loop is single-tile
+    use_tailpk = (
+        tail_pallas and albedo_mode in ("const", "affine") and not multi_t
+    )
     pk_width = min(tail_pk_width, n_lanes)
     img = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     stage_rows = []
@@ -629,7 +659,7 @@ def render_tile(
         stage_rows.append(state.n_rows - rows_before)
         img.index_add_(0, state.pix, state.accum)
 
-    img = img.reshape(th, tw, 3)
+    img = img.reshape((n_tiles_batch, th, tw, 3) if multi_t else (th, tw, 3))
     if with_stats:
         return (
             img, state.n_rays, state.n_rows, state.n_busy,

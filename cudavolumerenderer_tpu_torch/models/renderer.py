@@ -4,9 +4,10 @@ Port of cudavolumerenderer_tpu/models/renderer.py (reference:
 CudaVolPath.cpp:13-347, RendererFactory.h:13-155): builds the row-major
 tile array, advances one tile per run_iterations call, accumulates raw
 radiance sums on the scene's device, and exposes get_image with the
-1/iterations display scale.  Tiles render one after another (the JAX
-package's batched all-tiles dispatch, ROADMAP A2, gives the same images
-as this loop).
+1/iterations display scale.  fastSK renders every tile of a pass in one
+cascade (multi-tile lane mode, fast.render_tile with (T, 2) offsets) when
+its tiles are small; every other case renders the tiles one after
+another.  Both give the same image bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ from ..ops.camera import Camera
 from ..scene.types import Scene
 from ..utils import occupancy
 from . import brick, fast, fastq, naive, regeneration, streaming, wavefront_mk
+
+#: multi-tile lane mode engages for fastSK tiles of at most this many
+#: lanes (the JAX package's measured crossover, models/renderer.py:288-294)
+MULTI_TILE_LANES = 2048
+#: and at most this many lanes over all tiles
+MAX_BATCH_LANES = 1 << 22
 
 
 def _tile_array(
@@ -116,11 +123,18 @@ class ProgressiveTiledRenderer:
 
     def run_pass(self, spp: int = 1) -> None:
         """One progressive pass over all tiles, starting at tile 0 (the
-        row-major path-id order); with uneven per-tile progress each tile
-        clamps to its own remaining iterations."""
+        row-major path-id order).  With uniform progress and small fastSK
+        tiles the pass is one cascade over all tiles; with uneven
+        per-tile progress each tile clamps to its own remaining
+        iterations in the sequential loop.  Bit for bit the same as
+        looping run_iterations(spp) over every tile."""
         self.current_tile = 0
         spp = min(spp, self.config.iterations - int(self.iterations_done.min()))
         if spp <= 0:
+            return
+        uniform = int(self.iterations_done.min()) == int(self.iterations_done.max())
+        if uniform and self._use_multi():
+            self._render_all_tiles_batched(spp)
             return
         for _ in range(len(self.tiles)):
             self.run_iterations(spp=spp)
@@ -144,11 +158,59 @@ class ProgressiveTiledRenderer:
         """render() minus the final host image copy: all work issued,
         image left on the device (read it with get_image)."""
         self.init_rendering()
+        if self._use_multi():
+            self._render_all_tiles_batched(self.config.iterations)
+            return
         total = len(self.tiles) * self.config.iterations
         while not self.image_complete():
             self.run_iterations(spp=self._spp_per_launch())
             if progress_callback is not None:
                 progress_callback(float(self.iterations_done.sum()) / total)
+
+    def _use_multi(self) -> bool:
+        """fastSK renders all tiles in one cascade when there are several
+        and each is small (JAX models/renderer.py:288-294): then a tile
+        no longer pays a whole cascade drain.  Larger tiles keep the
+        sequential loop, which the JAX package measured faster there.
+        The other kernels keep the sequential loop (JAX's lax.map over
+        tiles is sequential too), so JAX's per-tile lane cap for naiveSK
+        (_batch_lanes_ok) has nothing to gate here."""
+        tw, th = self.tile_dim
+        lanes = tw * th * max(1, self.config.lanes_per_pixel)
+        return (
+            self.config.kernel == Kernel.FAST_SK
+            and len(self.tiles) > 1
+            and lanes <= MULTI_TILE_LANES
+            and len(self.tiles) * lanes <= MAX_BATCH_LANES
+        )
+
+    def _render_all_tiles_batched(self, spp: int) -> None:
+        """Every tile in one fastSK cascade (JAX _render_all_tiles_batched):
+        tile t takes path ids from path_id_base + t * tw * th * spp, as
+        the sequential loop gives them, and the (T, th, tw, 3) tiles are
+        assembled row-major into the image on the device."""
+        cfg = self.config
+        tw, th = self.tile_dim
+        w, hres = cfg.resolution
+        ntx, nty = cfg.n_tiles
+        n_tiles = len(self.tiles)
+        offsets = torch.tensor(self.tiles, dtype=torch.float32, device=self.device)
+        bases = self.path_id_base + torch.arange(
+            n_tiles, dtype=torch.int64, device=self.device
+        ) * (tw * th * spp)
+        imgs, n_rays = self.kernel_fn(
+            self.scene, self.camera, self.settings, (tw, th), offsets,
+            (w, hres), spp, cfg.seed, bases,
+        )
+        padded = (
+            imgs.reshape(nty, ntx, th, tw, 3)
+            .permute(0, 2, 1, 3, 4)
+            .reshape(nty * th, ntx * tw, 3)
+        )
+        self._accum_dev = self._accum_dev + padded[:hres, :w]
+        self._n_rays_dev = self._n_rays_dev + n_rays
+        self.path_id_base += n_tiles * tw * th * spp
+        self.iterations_done += spp
 
     def _spp_per_launch(self) -> int:
         if self.config.kernel in (Kernel.NAIVE_SK, Kernel.NAIVE_MK):

@@ -1,8 +1,8 @@
 """Scene loading dispatch (reference: ConfigParser::createConfig's scene-type
 selection, ConfigParser.cpp:99-115, with extension auto-detection).
 
-Port of cudavolumerenderer_tpu/scene/loader.py.  Mitsuba XML, RAW and
-MHD/MHA scenes load; VDB and NPZ raise (ROADMAP A1).
+Port of cudavolumerenderer_tpu/scene/loader.py: Mitsuba XML, RAW,
+MHD/MHA, VDB (the native reader) and NPZ scenes.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ..ops.camera import Camera
 from .mhd import load_mhd_scene
 from .raw_builder import load_raw_scene
 from .types import Scene
+from .vdb import load_npz_scene, load_vdb_scene
 from .xml_builder import load_xml_scene
 
 
@@ -35,11 +36,12 @@ def load_scene(config: Config, device="cuda") -> Tuple[Scene, Camera]:
         scene, camera = load_raw_scene(config.scene_file, device=device)
     elif stype == SceneType.MHD:
         scene, camera = load_mhd_scene(config.scene_file, device=device)
-    else:  # VDB, NPZ
-        raise NotImplementedError(
-            f"scene type {stype.value} is not ported to the torch package "
-            "yet (ROADMAP A1); Mitsuba XML, RAW and MHD/MHA scenes load"
-        )
+    elif stype == SceneType.VDB:
+        scene, camera = load_vdb_scene(config.scene_file, device=device)
+    elif stype == SceneType.NPZ:
+        scene, camera = load_npz_scene(config.scene_file, device=device)
+    else:
+        raise ValueError(f"unhandled scene type {stype}")
 
     w, h = config.resolution
     camera = override_resolution(camera, w, h)

@@ -4,8 +4,9 @@ Port of cudavolumerenderer_tpu/utils/image.py (reference: Image.cpp:35-62,
 ImageBufferTransfer.cu:80-114): `save_hdr` writes the RLE-free Radiance
 .hdr the batch path saves, `save_png` the clamped 8-bit preview, and
 `tonemap` the scale → gamma 1/2.2 → clamp chain.  Pure NumPy on host
-images; the JAX package's optional native RGBE encoder (ROADMAP A1,
-utils/native.py) is not used.
+images.  The JAX package writes with its native RGBE encoder when built;
+the port's native binding (utils/native.rgbe_encode) gives the same
+bytes, and the writer keeps NumPy so saving an image needs no build.
 """
 
 from __future__ import annotations

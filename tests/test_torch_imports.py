@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax():
                  "models.regeneration", "models.streaming",
                  "models.wavefront_mk", "models.fastq",
                  "models.differentiable", "models.inverse",
-                 "benchmarks.inverse_256", "convert"):
+                 "benchmarks.inverse_256", "convert", "utils.native",
+                 "scene.vdb", "ops.camera_controller", "utils.profiling",
+                 "benchmarks.baseline_configs"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -193,11 +193,13 @@ def test_unported_options_raise(option):
 
 
 def test_multi_tile_offsets_raise():
+    """(T, 2) offsets render (multi-tile lane mode, tests/test_torch_tiles.py);
+    combined with an option that is not ported they still raise."""
     scene, _ = medical_scenes(n=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tfast.render_tile(
             scene, tcam.make_camera(4, 4), ttypes.RenderSettings(), (4, 4),
-            torch.zeros(3, 2), (4, 4), 1, 0, torch.zeros(3),
+            torch.zeros(3, 2), (4, 4), 1, 0, torch.zeros(3), table_bits=8,
         )
 
 
@@ -205,8 +207,11 @@ def test_other_kernels_and_scene_types_raise(tmp_path):
     # every scheduler is ported: make_kernel_fn returns a function for each
     for kernel in Kernel:
         assert callable(make_kernel_fn(Config(kernel=kernel))), kernel
-    for name in ("v.vdb", "v.npz"):
+    # every scene type loads (tests/test_torch_vdb.py); a file that is
+    # not a scene of its type raises its reader's error
+    for name, error, match in (("v.vdb", RuntimeError, "cvr_vdb"),
+                               ("v.npz", ValueError, "pickled")):
         path = tmp_path / name
         path.write_bytes(bytes(8))
-        with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        with pytest.raises(error, match=match):
             load_scene(Config(scene_file=str(path)), device="cpu")

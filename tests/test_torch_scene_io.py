@@ -19,7 +19,7 @@ from cudavolumerenderer_tpu.scene.types import RenderSettings as JRS
 from cudavolumerenderer_tpu.utils import image as jimage
 from cudavolumerenderer_tpu_torch.config import Config, SceneType
 from cudavolumerenderer_tpu_torch.scene import mhd, procedural, raw_builder
-from cudavolumerenderer_tpu_torch.scene import vol
+from cudavolumerenderer_tpu_torch.scene import vdb, vol
 from cudavolumerenderer_tpu_torch.scene import xml_builder
 from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 from cudavolumerenderer_tpu_torch.scene.types import RenderSettings as TRS
@@ -159,6 +159,19 @@ def write_mhd(tmp_path):
     return str(path)
 
 
+def write_vdb(tmp_path):
+    path = str(tmp_path / "v.vdb")
+    vdb.write_vdb(path, procedural.smoke_volume((16, 16, 8)))
+    return path
+
+
+def write_npz(tmp_path):
+    d = procedural.smoke_volume((16, 16, 8)).astype(np.float32)
+    path = str(tmp_path / "v.npz")
+    vdb.save_npz(path, d, np.stack([d, d, d], axis=-1))
+    return path
+
+
 # each loader and a scene file it reads
 LOADERS = {
     "load_scene": (load_scene, write_xml_scene,
@@ -167,6 +180,8 @@ LOADERS = {
     "load_xml_scene": (xml_builder.load_xml_scene, write_xml_scene,
                        lambda p: (p,)),
     "load_raw_scene": (raw_builder.load_raw_scene, write_raw, lambda p: (p,)),
+    "load_vdb_scene": (vdb.load_vdb_scene, write_vdb, lambda p: (p,)),
+    "load_npz_scene": (vdb.load_npz_scene, write_npz, lambda p: (p,)),
 }
 
 
