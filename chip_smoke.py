@@ -62,9 +62,13 @@ CPU or to a plain version on a CUDA tensor):
    yardstick, library_ms) each timed per call by CUDA events around
    replays of a CUDA graph of 16 back-to-back calls on the same inputs,
    so the wrapper's host time stays out (kernel and yardstick twice, in
-   turns); for taa0, stream and vmem also cold, a graph of 16 calls on 16
-   fresh index sets; the bound from the bytes the gather moves (indices,
-   the distinct values read, outputs) and the floor at 32-byte sectors;
+   turns); for taa0, stream, vmem and binned also cold, a graph of 16
+   calls on 16 fresh index sets; the bound from the bytes the gather
+   moves (indices, the distinct values read, outputs) and the floor at
+   32-byte sectors; two measured floors in the same protocol, a tiny
+   torch op and a copy_ of the 1 MB idx into a 1 MB float buffer; then
+   binned again on the 4.3 GB table (V = 1,127,219,200, made on the card
+   from a seed and freed before phase 10), bit-equal, warm and cold;
 10. the gather benchmark's entry point (benchmarks/micro_pgather.main) at
    its defaults, every variant at 67 MB, then at --table-mb 4300 on
    xla_big, xla_sorted, xla_packed, xla_packed8f and pallas_binned with 3
@@ -155,7 +159,7 @@ SWEEP_STEPS = (1, 2, 4, 8, 16)  # K of phase 3's step sweep, at R = 128
 SLICE_RAYS = 6040005  # n_rays of the fastSK slice (phase 5), first tail kernel
 WINDOW = (100, 60)  # phase 5's profiler window: first tail round, rounds
 NULL, SCATTER, DIED, CROSSED = 1, 2, 3, 4  # what a traced step did
-COLD = ("taa0", "stream", "vmem")  # gathers also timed on fresh indices
+COLD = ("taa0", "stream", "vmem", "binned")  # also timed on fresh indices
 GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
 GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
               "pallas_binned")  # the variants run at 4.3 GB
@@ -191,6 +195,13 @@ GATHER_REPLACES = {
     "stream": "benchmarks/micro_pgather.py:354",
     "binned": "benchmarks/micro_pgather.py:390",
 }
+# vmem's and binned's design (csrc/pgather.cu, gather_tiles)
+TILE_DESIGN = ("persistent grid over flat tiles of the shard-major lanes "
+               "(vmem 256 threads x 4 lanes, 2 blocks per SM; binned 512 x 4, "
+               "1 per SM); idx staged by 16-byte cp.async in a 2-stage "
+               "shared-memory ring, each group's shard found while its copy "
+               "is in flight; every table read before any store; table read "
+               "L2 evict_last, idx and out evict_first; 16-byte stores")
 SLICE_XML = """<scene version="0.5.0">
   <medium type="heterogeneous" id="smoke">
     <volume name="density" type="gridvolume">
@@ -328,7 +339,8 @@ def tap_bound(taps, bytes_of_words, step_ops: int):
 
 
 def gather_vs_plain(table, name: str, card: str) -> dict:
-    """Phase 9 for one gather kernel: its error, times and bound."""
+    """Phase 9 for one gather kernel: its error, times, bound and
+    32-byte-sector floor (and cold time, for the kernels in COLD)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
@@ -367,7 +379,7 @@ def gather_vs_plain(table, name: str, card: str) -> dict:
     sector_ms = pg.gather_bytes(n, sectors, 32) / HBM_BYTES_PER_MS
     res = {"max_abs_err": err, "ms": (ms_a + ms_b) / 2, "plain_ms": plain_ms,
            "library_ms": (lib_a + lib_b) / 2, "bound_ms": bound,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "sector_ms": sector_ms}
     log(f"[9] {name}: idx {tuple(args[1].shape)} into tab "
         f"{tuple(args[0].shape)}: bit-equal, max |err| {err:.3g}; per call "
         f"kernel {ms_a * 1e3:.2f} / {ms_b * 1e3:.2f} us, yardstick "
@@ -384,10 +396,54 @@ def gather_vs_plain(table, name: str, card: str) -> dict:
         cold_l = graph_ms([lambda a=a, w=w: lib(a[0], w)
                            for a, w in zip(sets, wide)])
         cold_k2 = graph_ms([lambda a=a: run(*a) for a in sets])
+        res["cold_ms"] = (cold_k + cold_k2) / 2
+        res["cold_library_ms"] = cold_l
         log(f"[9] {name} cold (16 fresh index sets per graph): kernel "
             f"{cold_k * 1e3:.2f} / {cold_k2 * 1e3:.2f} us, yardstick "
             f"{cold_l * 1e3:.2f} us per call; card {card}")
     return res
+
+
+def binned_big(card: str) -> dict:
+    """Phase 9 at 4.3 GB: the binned kernel on the benchmark's 1024^3-class
+    table (V = 1,127,219,200; 269 MB shards, none of which fits L2), made
+    on the card from a seed and freed after; bit-equal to its plain
+    version, timed warm and cold with its bound and sector floor."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+
+    t0 = time.perf_counter()
+    V = mpg.table_rows(4300.0, GATHER_S)
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    table = torch.rand(V, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    log(f"[9] binned at 4.3 GB: table ({V},) ({V * 4 / 1e9:.2f} GB) made "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    res = gather_vs_plain(table, "binned", card)
+    del table
+    torch.cuda.empty_cache()
+    log(f"[9] binned at 4.3 GB took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def measured_floors(card: str) -> dict:
+    """Phase 9's two measured floors, in the kernels' graph protocol and
+    with no kernel of the port: one launch of a tiny torch op (a 1-float
+    add_), and a copy_ of the published 1 MB idx into a 1 MB float buffer
+    (the idx and out streams with no table).  Each timed twice."""
+    import torch
+
+    tiny = torch.zeros(1, device="cuda")
+    idx = torch.zeros(GATHER_N // 128, 128, dtype=torch.int32, device="cuda")
+    buf = torch.empty(idx.shape, device="cuda")
+    launch = [graph_ms([lambda: tiny.add_(1.0)] * GRAPH_CALLS) for _ in range(2)]
+    copy = [graph_ms([lambda: buf.copy_(idx)] * GRAPH_CALLS) for _ in range(2)]
+    log(f"[9] measured floors per call: a tiny torch op {launch[0] * 1e3:.2f} "
+        f"/ {launch[1] * 1e3:.2f} us, copy_ of the 1 MB idx into a 1 MB float "
+        f"buffer {copy[0] * 1e3:.2f} / {copy[1] * 1e3:.2f} us; card {card}")
+    return {"launch_ms": sum(launch) / 2, "copy_ms": sum(copy) / 2}
 
 
 def gather_benchmark(tmp: str, card: str):
@@ -1728,6 +1784,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     gathers = {name: gather_vs_plain(gtable, name, card) for name in pg.NAMES}
     del gtable
+    floors = measured_floors(card)
+    big = binned_big(card)
+    for name, res in (("vmem", gathers["vmem"]), ("binned", gathers["binned"]),
+                      ("binned 4.3 GB", big)):
+        log(f"[9] {name}: warm {res['ms'] * 1e3:.2f} us, cold "
+            f"{res['cold_ms'] * 1e3:.2f} us per call; above the tiny op by "
+            f"{(res['ms'] - floors['launch_ms']) * 1e3:.2f} us and above the "
+            f"1 MB copy_ by {(res['ms'] - floors['copy_ms']) * 1e3:.2f} us "
+            f"(warm); byte bound {res['bound_ms'] * 1e3:.3f} us, sector floor "
+            f"{res['sector_ms'] * 1e3:.3f} us; card {card}")
+    log(f"[9] phase 9 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 10: the gather benchmark's entry point -----------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1772,11 +1839,17 @@ def main() -> int:
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None}
 
+    tiled = {"design": TILE_DESIGN, "floor_launch_ms": floors["launch_ms"],
+             "floor_copy_ms": floors["copy_ms"]}
+    extra = {"vmem": tiled, "binned": {
+        **tiled, "ms_4300": big["ms"], "cold_ms_4300": big["cold_ms"],
+        "bound_ms_4300": big["bound_ms"], "sector_ms_4300": big["sector_ms"],
+        "library_ms_4300": big["library_ms"]}}
     gather_lines = [{
         "name": f"pgather_{name}", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/pgather.cu",
         "replaces": GATHER_REPLACES[name], "launches": glaunches[name],
-        **gathers[name],
+        **gathers[name], **extra.get(name, {}),
     } for name in pg.NAMES]
     print(json.dumps({"kernels": [{
         "name": "tailpk", "route": "cuda",

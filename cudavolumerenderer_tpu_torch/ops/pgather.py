@@ -26,6 +26,20 @@ in flight, a 16-byte store) and read the table where it lies, in L2 while
 the touched sectors fit it: taa0 stages nothing and takes any R, stream
 walks no shards.
 
+vmem and binned share one tile kernel (gather_tiles): a persistent
+grid walks flat tiles of the shard-major lanes, each thread stages its
+groups of 4 indices in a 2-stage shared-memory ring with 16-byte
+cp.async, finds each group's shard while the copy is in flight, issues
+all its table reads before its first store, and reads the table with
+an L2 evict_last policy (idx and out evict_first).  Measured on the
+H100 (PERF.md, kernel table) at N = 262,144 they are latency-bound, not
+byte-bound: a call costs a kernel launch (a tiny torch op takes ~1.3 us
+in the same graph protocol), an index round trip and a table round
+trip, and vmem sits ~1 us above a `copy_` of its 1 MB idx; at 67 MB and
+4.3 GB binned's warm time rests on its touched sectors staying in L2,
+which the eviction policy protects, and its cold time on device memory's
+rate of random sectors.
+
 Tables are float32 and indices int32, as in JAX, into the kernels; the
 plain versions widen the indices to int64 because torch's take and
 gather need it.  Indices must lie in the table: the plain versions

@@ -211,11 +211,41 @@ def gather_args(name, size, device, rep=0):
     return micro_pgather.kernel_args(name, table, n, s, rep)
 
 
+# (name, case) of the tile kernel's ragged shapes: binned with K = 128 and
+# 16,256 lanes per shard (a ragged last tile in every shard) and on a
+# 320 MB table (S = 16: 21 MB shards, the table past the 50 MB L2); vmem on
+# a table of no whole number of tiles with n = 262,148 (16-byte path, a
+# last tile of 4 lanes) and n = 262,147 (scalar path)
+TILE_CASES = [("binned", "K128"), ("binned", "K16256"), ("binned", "320MB"),
+              ("vmem", "ragged"), ("vmem", "ragged_scalar")]
+
+
+def tile_case_args(name, case, device, rep=0):
+    gen = np.random.default_rng(rep + 11)
+    if name == "binned":
+        S, K = {"K128": (16, 128), "K16256": (16, 16256),
+                "320MB": (16, 16384)}[case]
+        V = (micro_pgather.table_rows(320.0, S) if case == "320MB"
+             else S * 3000)
+        tab = torch.from_numpy(gen.random(V, dtype=np.float32)).to(device)
+        idx = micro_pgather.fresh_binned(rep, S, K, V // S)
+        return tab, torch.from_numpy(idx).to(device).view(S, K // 128, 128)
+    V = micro_pgather.VMEM_ENTRIES - 100
+    n = 262148 if case == "ragged" else 262147
+    tab = torch.from_numpy(gen.random(V, dtype=np.float32)).to(device)
+    return tab, torch.from_numpy(micro_pgather.fresh_idx(rep, n, V)).to(device)
+
+
+GATHER_CASES = [(name, size) for size in sorted(GATHER_SIZES)
+                for name in pgather.NAMES] + TILE_CASES
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", sorted(GATHER_SIZES))
-@pytest.mark.parametrize("name", pgather.NAMES)
+@pytest.mark.parametrize("name, size", GATHER_CASES,
+                         ids=[f"{size}-{name}" for name, size in GATHER_CASES])
 def test_gather_kernel_matches_plain_version(cuda, name, size):
-    args = gather_args(name, size, cuda)
+    args = (gather_args(name, size, cuda) if size in GATHER_SIZES
+            else tile_case_args(name, size, cuda))
     run, plain = pgather.WRAPPERS[name]
     launches = pgather.KERNELS[name].launches
     got = run(*args)
@@ -261,6 +291,26 @@ def test_graph_replayed_loop_equals_eager_loop(cuda, name):
     torch.cuda.synchronize()
     assert pgather.KERNELS[name].launches == launches + inner
     assert torch.equal(got, loop(*fresh[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vmem", "binned"])
+def test_tile_kernel_graph_replay_equals_eager(cuda, name):
+    """A CUDA graph of 16 calls of the tile kernel at the published shapes,
+    captured on one index set and replayed on 16 fresh ones (the
+    ring and the persistent grid hold no state between calls), gives
+    the eager calls' outputs on those indices."""
+    run = pgather.WRAPPERS[name][0]
+    sets = [gather_args(name, "published", cuda, rep) for rep in range(17)]
+    tab = sets[0][0]
+    static = [a[1].clone() for a in sets[:16]]
+    graphed = micro_pgather.GraphRun(
+        lambda *idx: [run(tab, i) for i in idx], static)
+    graphed.load([a[1] for a in sets[1:]])
+    got = graphed.run()
+    torch.cuda.synchronize()
+    for out, (_, idx) in zip(got, sets[1:]):
+        assert torch.equal(out, run(tab, idx))
 
 
 @pytest.mark.cuda
