@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; nothing falls back to the
 CPU or to a plain version on a CUDA tensor):
 
 1. identify the card (nvidia-smi name and power limit); refuse to run
-   without CUDA;
+   without CUDA; check that torch.sqrt on CUDA float32 is correctly
+   rounded on 2^21 inputs (ops/math3.sqrt relies on it there);
 2. build the three kernel libraries, csrc/tailpk.cu, csrc/tracking.cu
    and csrc/pgather.cu, with one nvcc each, started together with g++ on
    the native data-path library (the repository's csrc/cvr_native.cpp
@@ -62,7 +63,7 @@ CPU or to a plain version on a CUDA tensor):
    yardstick, library_ms) each timed per call by CUDA events around
    replays of a CUDA graph of 16 back-to-back calls on the same inputs,
    so the wrapper's host time stays out (kernel and yardstick twice, in
-   turns); for taa0, stream, vmem and binned also cold, a graph of 16
+   turns); for every gather kernel also cold, a graph of 16
    calls on 16 fresh index sets; the bound from the bytes the gather
    moves (indices, the distinct values read, outputs) and the floor at
    32-byte sectors; two measured floors in the same protocol, a tiny
@@ -132,7 +133,20 @@ CPU or to a plain version on a CUDA tensor):
 18. the CLI's interactive modes at 64^2 on config 4's scene:
    --interactive with --orbit 2, with a --camera-path of a rotate between
    two renders (one accumulation reset), and the progressive mode; each
-   writes its frames.
+   writes its frames;
+19. a density on the 255-level grid renders bit-identically with
+   table_bits 8 and 32 on the card (16^2 x 4, one- and two-level; the
+   packed path's warm-up); then BASELINE config 2 with --champion
+   (packed q4 density tables through the allow_quantized gate, min_width
+   64, 512 bricks, cascade factor 1.25) at its published size, 512^2 x
+   4, one tile, through the port's baseline_configs driver, then the f32
+   row in the same call: table_bits 4 and 32 reach fast.render_tile,
+   each image finite with rays traced, the q4 image mean within 5% of the
+   f32 one (a sanity bound: the quantizer rounds to the nearest of 16
+   levels); wall with and without the image copy, rays, body
+   evaluations, and the two density tables' bytes.
+
+The whole script's wall time is printed last before the JSON lines.
 
 The last lines are a JSON line describing the kernels, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
@@ -159,7 +173,8 @@ SWEEP_STEPS = (1, 2, 4, 8, 16)  # K of phase 3's step sweep, at R = 128
 SLICE_RAYS = 6040005  # n_rays of the fastSK slice (phase 5), first tail kernel
 WINDOW = (100, 60)  # phase 5's profiler window: first tail round, rounds
 NULL, SCATTER, DIED, CROSSED = 1, 2, 3, 4  # what a traced step did
-COLD = ("taa0", "stream", "vmem", "binned")  # also timed on fresh indices
+COLD = ("taa1", "taa0", "stream", "vmem", "binned")  # also timed on fresh indices
+SQRT_INPUTS = 1 << 20  # phase 1's float32 inputs of torch.sqrt on the card
 GATHER_N, GATHER_S = 262144, 16  # the gather benchmark's published N and S
 GATHER_BIG = ("xla_big", "xla_sorted", "xla_packed", "xla_packed8f",
               "pallas_binned")  # the variants run at 4.3 GB
@@ -195,6 +210,11 @@ GATHER_REPLACES = {
     "stream": "benchmarks/micro_pgather.py:354",
     "binned": "benchmarks/micro_pgather.py:390",
 }
+# taa1's design (csrc/pgather.cu, taa1_kernel)
+TAA1_DESIGN = ("one warp per row, 8 warps per block, a grid of one wave; each "
+               "lane's 16-byte tab and idx loads issued together, the row "
+               "through the warp's shared-memory slice after __syncwarp, "
+               "16-byte stores")
 # vmem's and binned's design (csrc/pgather.cu, gather_tiles)
 TILE_DESIGN = ("persistent grid over flat tiles of the shard-major lanes "
                "(vmem 256 threads x 4 lanes, 2 blocks per SM; binned 512 x 4, "
@@ -230,6 +250,28 @@ def log(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def sqrt_on_card() -> None:
+    """Phase 1: torch.sqrt on CUDA float32 is correctly rounded (equal to
+    the float64 root rounded to float32) on SQRT_INPUTS random bit
+    patterns, denormals to the largest finite, and as many uniform [0, 1)
+    values.  ops/math3.sqrt takes CPU float32 through float64 because some
+    hosts' CPU sqrt is not; on the card it calls torch.sqrt, which this
+    check holds to the same."""
+    import torch
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    bits = torch.randint(0, 0x7F800000, (SQRT_INPUTS,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    x = torch.cat([bits.view(torch.float32),
+                   torch.rand(SQRT_INPUTS, device="cuda", generator=gen)])
+    misses = int((torch.sqrt(x) != torch.sqrt(x.double()).float()).sum())
+    log(f"[1] torch.sqrt float32 on the card: {misses} of {x.numel()} inputs "
+        "differ from the float64 root rounded to float32")
+    check(misses == 0, "CUDA torch.sqrt is not correctly rounded: "
+          "ops/math3.sqrt must take the float64 route on the card too")
 
 
 def card_line() -> str:
@@ -1457,6 +1499,7 @@ class CascadeCounter:
 
         self.fast, self.orig = fast, fast.render_tile
         self.calls = []
+        self.table_bits = []  # each call's table precision
 
         def counted(*args, **kw):
             img, n_rays, _, _, rows = self.orig(*args, with_stats=True, **kw)
@@ -1468,6 +1511,7 @@ class CascadeCounter:
                 kw.get("min_width") or fast._MIN_WIDTH)
             evals = sum(float(r) / w for r, w in zip(rows.tolist(), widths))
             self.calls.append((tuple(offsets.shape), evals))
+            self.table_bits.append(kw.get("table_bits", 32))
             return img, n_rays
 
         fast.render_tile = counted
@@ -1615,6 +1659,96 @@ def interactive_modes(tmp: str, card: str) -> None:
             f"{', '.join(os.path.basename(out) + s for s in files)}; card {card}")
 
 
+def representable_on_card() -> None:
+    """Phase 19's exactness check: a density on the 255-level grid (k/256
+    with max_density 255/256, tests/test_fast.py's packed-table scene)
+    renders bit-identically with table_bits 8 and 32 on the card, one-
+    and two-level."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene import types
+
+    d = np.round(procedural.medical_volume((16, 16, 16), n_blobs=4) * 255) / 256
+    alb = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], axis=-1)
+    scene = types.make_scene(types.make_medium(
+        d.astype(np.float32), alb, scale=20.0, max_density=255.0 / 256.0,
+        device="cuda"))
+    camera = make_camera(16, 16, device="cuda")
+    settings = types.RenderSettings.from_flags(True)
+    for two_level in (False, True):
+        a, b = (fast.render_tile(
+            scene, camera, settings, (16, 16), torch.zeros(2, device="cuda"),
+            (16, 16), 4, 7, 0, two_level=two_level, table_bits=bits)
+            for bits in (32, 8))
+        check(torch.equal(a[0], b[0]) and float(a[1]) == float(b[1]),
+              f"table_bits 8 differs from 32 on a representable grid "
+              f"(two_level={two_level})")
+    log("[19] a density on the 255-level grid renders bit-identically with "
+        "table_bits 8 and 32 on the card, one- and two-level")
+
+
+def champion_config2(tmp: str, card: str) -> None:
+    """Phase 19: the exactness check on the card (16^2 renders, which also
+    warm the packed path up), then BASELINE config 2 with --champion (q4
+    packed tables, min_width 64, 512 bricks, cascade factor 1.25) at its
+    published size through the port's baseline_configs driver, then the
+    f32 row in the same call."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.scene.mhd import load_mhd_scene
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    name = "2_medical_mhd_512"
+    t0 = time.perf_counter()
+    representable_on_card()  # the packed path's first renders: the warm-up
+    log(f"[19] warm-up and exactness check took "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for label, extra in (("q4 --champion", ["--champion"]), ("f32", [])):
+        out = os.path.join(tmp, "config2.json")
+        t0 = time.perf_counter()
+        with CascadeCounter() as cascades:
+            bc.main([*extra, "--only", "2_", "--trials", "1", "--out", out,
+                     "--workdir", tmp])
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            row = json.load(f)[name]
+        img = load_hdr(os.path.join(tmp, f"{name}.hdr"))
+        bits = 4 if extra else 32
+        check(cascades.table_bits == [bits],
+              f"config 2 {label} rendered with table_bits {cascades.table_bits}")
+        check(row["precision"] == ("q4-reduced" if extra else "f32"),
+              f"config 2 {label} labelled {row['precision']}")
+        check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
+              f"config 2 {label}: image not finite or of the wrong shape")
+        check(row["n_rays"] > 0, f"config 2 {label} traced no rays")
+        rows[label] = row, float(img.mean())
+        log(f"[19] baseline_configs config 2 {label}, 512^2 x 4, 1 trial: "
+            f"{wall:.2f} s in all (scene file written and loaded); the render "
+            f"{row['mean_time_with_copy_s']:.3f} s wall with the image copy "
+            f"({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} rays, "
+            f"{row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} Mrays/s "
+            f"with the copy, {cascades.calls[0][1]:.0f} body evaluations, "
+            f"image mean {img.mean():.5f}; card {card}")
+    (q4, q4_mean), (f32, f32_mean) = rows["q4 --champion"], rows["f32"]
+    check(abs(q4_mean - f32_mean) <= 0.05 * f32_mean,
+          f"q4 image mean {q4_mean} against f32 {f32_mean}")
+    scene, _ = load_mhd_scene(os.path.join(tmp, "medical_synth.mhd"),
+                              device="cuda")
+    med = scene.medium
+    words = fast.pack_density(med.density.data.reshape(-1), med.max_density, 4)
+    log(f"[19] density tables: f32 {med.density.data.numel() * 4} B, q4 "
+        f"{words.numel() * 4} B; rays q4 {q4['n_rays']:.0f} against f32 "
+        f"{f32['n_rays']:.0f}, image means {q4_mean:.5f} / {f32_mean:.5f}")
+    del scene, words
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1623,8 +1757,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "a CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    sqrt_on_card()
 
     from cudavolumerenderer_tpu_torch import cli
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
@@ -1835,13 +1971,20 @@ def main() -> int:
         interactive_modes(tmp, card)
         log(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 19: config 2 with --champion's packed q4 tables --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        champion_config2(tmp, card)
+        log(f"[19] phase 19 took {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
+
     def timed(ms, plain_ms, bound, bound_by):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None}
 
     tiled = {"design": TILE_DESIGN, "floor_launch_ms": floors["launch_ms"],
              "floor_copy_ms": floors["copy_ms"]}
-    extra = {"vmem": tiled, "binned": {
+    extra = {"taa1": {"design": TAA1_DESIGN}, "vmem": tiled, "binned": {
         **tiled, "ms_4300": big["ms"], "cold_ms_4300": big["cold_ms"],
         "bound_ms_4300": big["bound_ms"], "sector_ms_4300": big["sector_ms"],
         "library_ms_4300": big["library_ms"]}}

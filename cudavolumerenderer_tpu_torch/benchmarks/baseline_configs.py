@@ -25,8 +25,11 @@ one.  `--quick` renders 64^2 (CPU smoke test).  The scene files and
 images go to --workdir (default: baseline_configs under the temporary
 directory); only the selected configs write theirs.  The JSON has the
 JAX script's keys plus n_rays and the mean time with the image copy;
-a file is written only when --out names it.  `--champion` asks for the
-tuned q4 packed tables (table_bits 4), which are not ported: it raises.
+a file is written only when --out names it.  `--champion` applies the
+JAX script's tuned knobs (`champion`): q4 packed density tables through
+the allow_quantized gate and min_width 64 on every row, and on the
+medical row max_bricks 512 and cascade factor 1.25; its rows are labelled
+"q4-reduced".
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ import numpy as np
 
 from .. import cli
 from ..config import Config, Kernel
-from ..models.fast import _not_ported
 from ..scene import procedural, vdb
 from ..scene.types import RenderSettings
 from ..scene.vol import write_vol
@@ -136,6 +138,14 @@ def rows(quick: bool):
     ]
 
 
+def champion(name: str) -> dict:
+    """The JAX script's --champion Config fields for config `name`."""
+    champ = dict(table_bits=4, allow_quantized=True, min_width=64)
+    if name.startswith("2_"):
+        champ.update(max_bricks=512, cascade_factor=1.25)
+    return champ
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m cudavolumerenderer_tpu_torch.benchmarks.baseline_configs")
@@ -150,15 +160,14 @@ def parse_args(argv=None):
     ap.add_argument("--only", nargs="*", default=None,
                     help="run only configs whose name contains any substring")
     ap.add_argument("--champion", action="store_true",
-                    help="the tuned per-class knobs (q4 packed tables): "
-                    "not ported, raises")
+                    help="the tuned per-class knobs (q4 packed tables, "
+                    "min_width 64; medical: 512 bricks, cascade 1.25); "
+                    "reduced-precision rows, labelled so in the JSON")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.champion:
-        raise _not_ported("table_bits 4 (--champion's packed q4 tables)")
     device = cli.device_of(args.platform)
     tmp = args.workdir or os.path.join(tempfile.gettempdir(), "baseline_configs")
     os.makedirs(tmp, exist_ok=True)
@@ -173,6 +182,7 @@ def main(argv=None) -> int:
             resolution=(res, res), n_tiles=tiles, trials=args.trials,
             output_name=os.path.join(tmp, name), two_level=True,
             settings=RenderSettings.from_flags(True),
+            **(champion(name) if args.champion else {}),
         )
         print(f"=== {name} ({path})", flush=True)
         r = cli.run_test(config, device)
@@ -186,7 +196,7 @@ def main(argv=None) -> int:
             # the JAX script's scene-version tags: config 4's XML frames
             # the box at fov 0.7 (round 4), the others are round 3's
             "scene_version": "r4-fov0.7" if name.startswith("4_") else "r3",
-            "precision": "f32",
+            "precision": "q4-reduced" if args.champion else "f32",
         }
         if args.out:
             with open(args.out, "w") as f:

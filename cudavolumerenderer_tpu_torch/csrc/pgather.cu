@@ -25,9 +25,15 @@
 // benchmark's N = 262,144 (0.94 us at 3.35 TB/s).  A random 4-byte value costs
 // a whole 32-byte sector, though, so from device memory the floor is 40 bytes
 // per lane (about 3.1 us); from the 50 MB L2 the sectors are cheaper.
-//  * taa1: one block per four rows.  The block stages its rows' 128 floats
-//    each in shared memory with one coalesced load, then every thread reads
-//    smem[idx].  It streams tab, idx and out once: bound by those bytes.
+//  * taa1: it streams tab, idx and out once, but at N = 262,144 a call is a
+//    launch and one round trip, so what counts is that nothing waits twice.
+//    One warp per row and no block barrier: each lane issues its 16-byte
+//    tab load and its 16-byte idx load together, puts its 4 values in the
+//    warp's 512-byte slice of shared memory, and after __syncwarp reads its
+//    4 outputs there and stores them in 16 bytes; a grid of one wave walks
+//    the rows.  Measured on the H100 (PERF.md), the slice was 0.03-0.08 us
+//    faster than taking the row from registers by __shfl_sync (16 shuffles
+//    a lane), and 8 warps per block no slower than 2, 4 or 16.
 //  * taa0 and stream: one thread per 4 consecutive lanes, one 16-byte load of
 //    idx, four independent read-only loads (__ldg) in flight, one 16-byte
 //    store of out (a scalar path where idx or out is not 16-byte aligned or n
@@ -76,7 +82,7 @@
 namespace {
 
 constexpr int W = 128;               // lanes per row
-constexpr int TAA1_ROWS = 4;         // rows per taa1 block
+constexpr int TAA1_WARPS = 8, TAA1_BLOCKS_PER_SM = 8;  // taa1: rows per block, one wave
 constexpr int FLAT_THREADS = 256;    // taa0 and stream
 constexpr int LANES = 4;             // lanes per taa0 and stream thread
 
@@ -121,18 +127,43 @@ struct MaskedTake {
   }
 };
 
-__global__ void __launch_bounds__(W * TAA1_ROWS) taa1_kernel(
+// taa1: one warp per row, rows r = warp, warp + warps, ... (a grid of one
+// wave).  Lane t issues its 16-byte load of tab (row elements 4t .. 4t + 3)
+// and its 16-byte load of idx together, writes its 4 values into the warp's
+// slice of shared memory, and after __syncwarp reads its 4 outputs from the
+// slice and stores them in 16 bytes.  An index outside the row gives NaN.
+// The scalar path (tab, idx or out not 16-byte aligned) has lane t hold
+// elements t, t + 32, t + 64, t + 96 instead.
+__global__ void __launch_bounds__(32 * TAA1_WARPS) taa1_kernel(
     const float* __restrict__ tab, const int32_t* __restrict__ idx,
-    float* __restrict__ out, int64_t R) {
-  __shared__ float row[TAA1_ROWS][W];
-  const int l = threadIdx.x, y = threadIdx.y;
-  const int64_t r = (int64_t)blockIdx.x * TAA1_ROWS + y;
-  const int64_t i = r * W + l;
-  if (r < R) row[y][l] = tab[i];
-  __syncthreads();
-  if (r < R) {
-    const int32_t q = idx[i];
-    out[i] = (q >= 0 && q < W) ? row[y][q] : NAN;
+    float* __restrict__ out, int64_t R, int vec) {
+  __shared__ __align__(16) float slice[TAA1_WARPS][W];
+  const int lane = threadIdx.x & 31;
+  float* row = slice[threadIdx.x >> 5];
+  auto pick = [&](int32_t q) { return (unsigned)q < (unsigned)W ? row[q] : NAN; };
+  const int64_t warps = (int64_t)gridDim.x * TAA1_WARPS;
+  for (int64_t r = (int64_t)blockIdx.x * TAA1_WARPS + (threadIdx.x >> 5); r < R;
+       r += warps) {
+    const int64_t base = r * W;
+    if (vec) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(tab + base) + lane);
+      const int4 q = __ldg(reinterpret_cast<const int4*>(idx + base) + lane);
+      reinterpret_cast<float4*>(row)[lane] = v;
+      __syncwarp();
+      const float4 o = make_float4(pick(q.x), pick(q.y), pick(q.z), pick(q.w));
+      reinterpret_cast<float4*>(out + base)[lane] = o;
+    } else {
+      int32_t q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        row[k * 32 + lane] = __ldg(tab + base + k * 32 + lane);
+        q[k] = __ldg(idx + base + k * 32 + lane);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[base + k * 32 + lane] = pick(q[k]);
+    }
+    __syncwarp();  // every lane has read the slice before the next row lands
   }
 }
 
@@ -321,8 +352,9 @@ int gather4_vec(const int32_t* idx, const float* out, int64_t n) {
   return ((uintptr_t)idx % 16 == 0) && ((uintptr_t)out % 16 == 0) && n % LANES == 0;
 }
 
-// The tile kernel's persistent grid over n lanes in tiles of tile_lanes: at
-// most blocks_per_sm blocks per SM, and no more blocks than tiles.
+// A persistent grid over n lanes in tiles of tile_lanes (for taa1, rows in
+// blocks of warps): at most blocks_per_sm blocks per SM, and no more blocks
+// than tiles.
 unsigned tile_blocks(int64_t n, int tile_lanes, int blocks_per_sm) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -330,6 +362,11 @@ unsigned tile_blocks(int64_t n, int tile_lanes, int blocks_per_sm) {
   const int64_t tiles = ceil_div(n, tile_lanes);
   const int64_t most = (int64_t)(sms > 0 ? sms : 1) * blocks_per_sm;
   return (unsigned)(tiles < most ? tiles : most);
+}
+
+int taa1_vec(const float* tab, const int32_t* idx, const float* out) {
+  return ((uintptr_t)tab % 16 == 0) && ((uintptr_t)idx % 16 == 0) &&
+         ((uintptr_t)out % 16 == 0);
 }
 
 }  // namespace
@@ -343,8 +380,9 @@ unsigned tile_blocks(int64_t n, int tile_lanes, int blocks_per_sm) {
 extern "C" int taa1_launch(const float* tab, const int32_t* idx, float* out,
                            int64_t R, void* stream) {
   if (R > 0) {
-    taa1_kernel<<<(unsigned)ceil_div(R, TAA1_ROWS), dim3(W, TAA1_ROWS), 0,
-                  (cudaStream_t)stream>>>(tab, idx, out, R);
+    taa1_kernel<<<tile_blocks(R, TAA1_WARPS, TAA1_BLOCKS_PER_SM),
+                  32 * TAA1_WARPS, 0, (cudaStream_t)stream>>>(
+        tab, idx, out, R, taa1_vec(tab, idx, out));
   }
   return (int)cudaGetLastError();
 }

@@ -228,13 +228,56 @@ def _cascade_widths(
     return widths
 
 
+def quantize_density(g: torch.Tensor, max_density, bits: int) -> torch.Tensor:
+    """round(clip(g / max_density, 0, 1) * qmax), qmax = 2^bits - 1, as
+    float: the level each voxel is stored at."""
+    qmax = float((1 << bits) - 1)
+    return torch.round(torch.clamp(g / max_density, 0.0, 1.0) * qmax)
+
+
+def dequant_grid(g: torch.Tensor, max_density, bits: int) -> torch.Tensor:
+    """A density grid round-tripped through the quantizer: the values the
+    packed table's taps see, so the majorants are built from it."""
+    return quantize_density(g, max_density, bits) * (
+        max_density / float((1 << bits) - 1))
+
+
+def pack_density(flat: torch.Tensor, max_density, bits: int) -> torch.Tensor:
+    """The packed table of a flat density vector: per = 32 / bits levels in
+    each 32-bit word, strided by 128 rows.  Voxel j sits at (r, c) =
+    (j >> 7, j & 127) of a (R, 128) view padded to a multiple of
+    128 * 2 * per voxels; it lands in word (r // per) * 128 + c at shift
+    (r % per) * bits.  The words are uint32 in JAX; here they are int32
+    with the same bits.  JAX stores them as (Vp, 2) word pairs where that
+    suits the TPU's tiling, which changes no value; this is one flat word
+    table."""
+    per = 32 // bits
+    q = quantize_density(flat, max_density, bits).to(torch.int64)
+    pad = (-q.numel()) % (128 * 2 * per)
+    q2 = torch.cat([q, q.new_zeros(pad)]).reshape(-1, 128)
+    words = q.new_zeros((q2.shape[0] // per, 128))
+    for k in range(per):
+        words |= q2[k::per] << (k * bits)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).reshape(-1)
+
+
+def packed_take(words: torch.Tensor, j: torch.Tensor, max_density,
+                bits: int) -> torch.Tensor:
+    """Density at flat voxel index j (any shape) from `pack_density`'s
+    table, dequantized."""
+    per = 32 // bits
+    r, c = j >> 7, j & 127
+    word = words[(r // per) * 128 + c]
+    level = (word >> ((r % per) * bits).to(torch.int32)) & ((1 << bits) - 1)
+    return level.to(torch.float32) * (max_density / float((1 << bits) - 1))
+
+
 def _check_ported(
     table_bits, defer_ggx, brick_major, tail_spec, tail_single_level,
     tail_bricks,
 ):
-    if table_bits in (8, 4):
-        raise _not_ported("table_bits 8/4 (packed quantized tables)")
-    if table_bits != 32:
+    if table_bits not in (32, 8, 4):
         raise ValueError("table_bits must be 32, 8 or 4")
     if defer_ggx > 0:
         raise _not_ported("defer_ggx > 0 (deferred boundary events)")
@@ -319,6 +362,25 @@ def render_tile(
         raise _not_ported("'split' albedo table mode")
     fused = make_fused_grid(scene, albedo_mode)
     flat_tab = albedo_mode != "full"  # 1-D density-only table
+    # table_bits 8/4: the flat table packed at 2^bits levels; each tap's
+    # acceptance is then off by at most 1/(2^(bits+1)-2) of max_density,
+    # and the majorants come from the dequantized grid so they bound
+    # every tap
+    use_packed = table_bits in (8, 4) and flat_tab
+    if use_packed:
+        words = pack_density(fused, med.max_density, table_bits)
+
+        def fused_take(j):
+            return packed_take(words, j, med.max_density, table_bits)
+
+        def majorant_grid(g):
+            return dequant_grid(g, med.max_density, table_bits)
+    else:
+        def fused_take(j):
+            return fused[j]
+
+        def majorant_grid(g):
+            return g
 
     def row_rho(row):
         return row if flat_tab else row[..., -1]
@@ -329,7 +391,8 @@ def render_tile(
     def build_brick_tables(bz_, by_, bx_):
         """Majorant + leap table for one brick granularity."""
         nbz, nby, nbx = -(-nz // bz_), -(-ny // by_), -(-nx // bx_)
-        major = brick_majorants(med.density.data, (bz_, by_, bx_))
+        major = brick_majorants(majorant_grid(med.density.data),
+                                (bz_, by_, bx_))
         # world-space edge of the safe Chebyshev ball around a brick
         edge_world = torch.tensor(
             [bx_, by_, bz_], dtype=torch.float32, device=dev
@@ -452,7 +515,8 @@ def render_tile(
                 torch.clamp(tap[:, 1], 0, ny - 1),
                 torch.clamp(tap[:, 2], 0, nz - 1),
             )
-            return fused[flat if mask is None else torch.where(mask, flat, 0)]
+            return fused_take(
+                flat if mask is None else torch.where(mask, flat, 0))
 
         # --- tracking ------------------------------------------------------
         if two_level:
@@ -612,10 +676,12 @@ def render_tile(
     widths = _cascade_widths(n_lanes, cascade_factor, min_width)
     # the tail kernel takes over once the pending count fits its width;
     # it rebuilds albedo as A*rho+B, so it needs a const/affine albedo
-    # (a full-albedo scene keeps the wavefront tail), and its service
-    # loop is single-tile
+    # (a full-albedo scene keeps the wavefront tail), it reads the f32
+    # grid (so not under packed tables), and its service loop is
+    # single-tile
     use_tailpk = (
-        tail_pallas and albedo_mode in ("const", "affine") and not multi_t
+        tail_pallas and albedo_mode in ("const", "affine") and not use_packed
+        and not multi_t
     )
     pk_width = min(tail_pk_width, n_lanes)
     img = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)

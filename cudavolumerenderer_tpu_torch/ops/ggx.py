@@ -28,7 +28,7 @@ def fresnel_dielectric(eta, ndotwi):
 
     tir = ndotwt_sqr <= 0.0
     abs_ndotwi = torch.abs(ndotwi)
-    abs_ndotwt = torch.sqrt(torch.clamp(ndotwt_sqr, min=0.0))
+    abs_ndotwt = math3.sqrt(torch.clamp(ndotwt_sqr, min=0.0))
 
     rs = (abs_ndotwi - eta * abs_ndotwt) / (abs_ndotwi + eta * abs_ndotwt)
     rp = (eta * abs_ndotwi - abs_ndotwt) / (eta * abs_ndotwi + abs_ndotwt)
@@ -56,7 +56,7 @@ def _sample_visible11(theta_i, s1, s2):
     """Slope sampling for alpha = 1 — Mitsuba's analytic fit
     (reference: GGX.h:85-181), with where-selects."""
     phi = 2.0 * PI * s2
-    r_special = torch.sqrt(
+    r_special = math3.sqrt(
         torch.clamp(s1 / torch.clamp(1.0 - s1, min=1e-20), min=0.0)
     )
     special_x = r_special * torch.cos(phi)
@@ -66,7 +66,7 @@ def _sample_visible11(theta_i, s1, s2):
     tan_theta = torch.tan(theta_i)
     safe_tan = torch.where(is_special, 1.0, tan_theta)  # no 0-div under mask
     a = 1.0 + safe_tan * safe_tan
-    g1 = 2.0 / (1.0 + torch.sqrt(a))
+    g1 = 2.0 / (1.0 + math3.sqrt(a))
 
     big_a = (2.0 * s1 / g1) - 1.0
     big_a = torch.where(
@@ -74,7 +74,7 @@ def _sample_visible11(theta_i, s1, s2):
     )
     tmp = 1.0 / (big_a * big_a - 1.0)
     b = safe_tan
-    d = torch.sqrt(
+    d = math3.sqrt(
         torch.clamp(
             (b * b * tmp * tmp) - ((big_a * big_a - b * b) * tmp), min=0.0
         )
@@ -95,7 +95,7 @@ def _sample_visible11(theta_i, s1, s2):
                     - 0.232500544458471) + 1.0)
         - 0.539825872510702
     )
-    slope_y = s_sign * z * torch.sqrt(1.0 + slope_x * slope_x)
+    slope_y = s_sign * z * math3.sqrt(1.0 + slope_x * slope_x)
 
     slope_x = torch.where(is_special, special_x, slope_x)
     slope_y = torch.where(is_special, special_y, slope_y)
@@ -119,7 +119,7 @@ def sample_vndf_mitsuba(wi, alpha, s1, s2):
     ry = sin_phi * sx + cos_phi * sy
     rx = rx * ax
     ry = ry * ay
-    inv_norm = 1.0 / torch.sqrt(rx * rx + ry * ry + 1.0)
+    inv_norm = 1.0 / math3.sqrt(rx * rx + ry * ry + 1.0)
     return torch.stack([-rx * inv_norm, -ry * inv_norm, inv_norm], dim=-1)
 
 
@@ -138,7 +138,7 @@ def sample_vndf_heitz(wi, alpha, s1, s2):
     t2 = math3.cross(t1, wi)
 
     a = 1.0 / (1.0 + wi[..., 2])
-    r = torch.sqrt(s1)
+    r = math3.sqrt(s1)
     lower = s2 < a
     phi = torch.where(
         lower,
@@ -147,7 +147,7 @@ def sample_vndf_heitz(wi, alpha, s1, s2):
     )
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi) * torch.where(lower, 1.0, wi[..., 2])
-    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    pz = math3.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
     n = p1[..., None] * t1 + p2[..., None] * t2 + pz[..., None] * stretched
     return math3.normalize(
         torch.stack(
@@ -164,7 +164,7 @@ def project_roughness(v, alpha):
     inv_sin2 = 1.0 / torch.clamp(1.0 - vz * vz, min=1e-20)
     cos_phi2 = v[..., 0] * v[..., 0] * inv_sin2
     sin_phi2 = v[..., 1] * v[..., 1] * inv_sin2
-    projected = torch.sqrt(cos_phi2 * ax * ax + sin_phi2 * ay * ay)
+    projected = math3.sqrt(cos_phi2 * ax * ax + sin_phi2 * ay * ay)
     isotropic_or_degenerate = torch.logical_or(
         ax == ay, (1.0 - vz * vz) <= 0.0
     )
@@ -179,11 +179,11 @@ def smith_g1(alpha, v, m):
     temp = 1.0 - vz * vz
     degenerate = temp <= 0.0
     tan_v = torch.abs(
-        torch.sqrt(torch.clamp(temp, min=0.0)) / torch.where(vz == 0.0, 1.0, vz)
+        math3.sqrt(torch.clamp(temp, min=0.0)) / torch.where(vz == 0.0, 1.0, vz)
     )
     proj = project_roughness(v, alpha)
     root = proj * tan_v
-    g = 2.0 / (1.0 + torch.sqrt(1.0 + root * root))
+    g = 2.0 / (1.0 + math3.sqrt(1.0 + root * root))
     g = torch.where(tan_v == 0.0, 1.0, g)
     g = torch.where(degenerate, 0.0, g)
     g = torch.where(back, 0.0, g)

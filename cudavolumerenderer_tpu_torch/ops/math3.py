@@ -12,6 +12,20 @@ import torch
 from ..constants import EPSILON
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, the only one the port calls.
+
+    On some hosts torch's CPU float32 sqrt is 1 ulp off for a share of
+    inputs (it is not correctly rounded), while XLA and the card round
+    correctly; near grazing angles GGX's tan(acos(.)) grows that ulp
+    until a path's fate flips.  A float64 sqrt rounded to float32 is
+    exact (float64 has more than 2 * 24 + 2 bits), so CPU float32 takes
+    that route."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
@@ -25,7 +39,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(a * a, dim=-1))
+    return sqrt(torch.sum(a * a, dim=-1))
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
@@ -75,7 +89,7 @@ def local_basis(d: torch.Tensor):
     """Basis (v1, v2) around direction ``d`` (reference: HG.h:11-17),
     with an epsilon guard for the (x, z) ≈ 0 pole."""
     dx, dz = d[..., 0], d[..., 2]
-    inv_n1 = 1.0 / torch.sqrt(torch.clamp(dx * dx + dz * dz, min=1e-12))
+    inv_n1 = 1.0 / sqrt(torch.clamp(dx * dx + dz * dz, min=1e-12))
     v1 = torch.stack([dz * inv_n1, torch.zeros_like(dx), -dx * inv_n1], dim=-1)
     v2 = cross(d, v1)
     return v1, v2

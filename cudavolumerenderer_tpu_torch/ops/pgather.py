@@ -20,7 +20,10 @@ computes the same function (a yardstick for timing, never called here).
 
 What bounds them: each index read once, each needed table value read
 once, each output written once (`gather_bytes`), and in practice one
-32-byte sector per random value.  taa0 and stream give each thread 4
+32-byte sector per random value.  taa1 gives each row one warp, whose
+lanes load 16 bytes of tab and of idx at once, pass the row through the
+warp's slice of shared memory (no block barrier) and store 16 bytes;
+any R.  taa0 and stream give each thread 4
 consecutive lanes (a 16-byte index load, four independent value loads
 in flight, a 16-byte store) and read the table where it lies, in L2 while
 the touched sectors fit it: taa0 stages nothing and takes any R, stream

@@ -38,7 +38,7 @@ def importance_sample_hg(d: torch.Tensor, g, e1, e2) -> torch.Tensor:
     cos_theta = torch.where(torch.abs(g) > EPSILON, cos_aniso, cos_iso)
     cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
 
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = math3.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     phi = TWO_PI * e2
 
     v1, v2 = math3.local_basis(d)

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import EPSILON, TWO_PI
-from . import aabb
+from . import aabb, math3
 from .rng import RngState, jump_constants, next_uint32
 
 # Tail brick geometry: 16^3 interior, 17^3 dilated, rows of 39 x 128.
@@ -238,11 +238,11 @@ def tail_steps(tab, brick, params, f, i, rng, n_steps: int, taps=None):
         cos_th = torch.clamp(
             torch.where(torch.abs(g) > EPSILON, cos_a, cos_i), -1.0, 1.0
         )
-        sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+        sin_th = math3.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
         phi = TWO_PI * e2
         # local basis (ops/math3.local_basis)
         dx, dy, dz = dv
-        inv_n1 = 1.0 / torch.sqrt(torch.clamp(dx * dx + dz * dz, min=1e-12))
+        inv_n1 = 1.0 / math3.sqrt(torch.clamp(dx * dx + dz * dz, min=1e-12))
         v1 = (dz * inv_n1, torch.zeros_like(dx), -dx * inv_n1)
         v2 = (
             dy * v1[2] - dz * v1[1],

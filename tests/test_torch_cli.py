@@ -89,12 +89,12 @@ def test_every_kernel_renders_raw_scene_on_cpu(tmp_path, kernel):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--table-bits", "8", "--allow-quantized"], ["--defer-ggx", "2"],
-    ["--brick-major"],
+    ["--tail-spec", "2"], ["--defer-ggx", "2"], ["--brick-major"],
 ])
 def test_unported_modes_raise(tmp_path, extra):
-    """The interactive modes render (tests/test_torch_interactive.py); the
-    fastSK options still to port raise through the CLI."""
+    """The interactive modes render (tests/test_torch_interactive.py), and
+    so do packed tables (tests/test_torch_packed.py); the fastSK options
+    still to port raise through the CLI."""
     scene = write_xml_scene(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         cli.main([scene, "-i", "1", "-r", "8", "8", "--two-level",

@@ -3,7 +3,8 @@ tracking kernel and the five gather kernels of the gather
 microbenchmark): each against its plain torch version, the white
 furnace through the render kernels, launch counts and input checks; for
 the gathers also out-of-range indices, inputs not 16-byte aligned and
-taa0 at 65,536 rows.  The scheduler family (naiveSK ... fastQ, which has
+taa0 at 65,536 rows and taa1 at row counts no multiple of its rows per
+block.  The scheduler family (naiveSK ... fastQ, which has
 no kernel of its own) renders on the card, against the same render on
 the CPU, and its white furnace is exact there.  The differentiable path
 (no kernel of its own) gives the CPU's image and cotangents on the card,
@@ -351,6 +352,28 @@ def test_gather_kernel_takes_unaligned_inputs(cuda, name):
     run, plain = pgather.WRAPPERS[name]
     want = plain(tab, idx, *rest)
     got = run(at_4_byte_offset(tab), at_4_byte_offset(idx), *rest)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 2049, 20001])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_taa1_takes_any_row_count(cuda, R, aligned):
+    """One warp per row in blocks of 8: 1, 3 and 2,049 rows are no
+    multiple of the rows per block; 20,001 rows are more than one wave
+    of warps, so warps walk several rows.  Unaligned inputs take the
+    scalar path."""
+    gen = np.random.default_rng(R)
+    tab = torch.from_numpy(gen.random((R, 128), dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy(
+        gen.integers(0, 128, (R, 128)).astype(np.int32)).to(cuda)
+    want = pgather.taa1_gather(tab, idx)
+    if not aligned:
+        tab, idx = at_4_byte_offset(tab), at_4_byte_offset(idx)
+    launches = pgather.KERNELS["taa1"].launches
+    got = pgather.run_taa1(tab, idx)
+    torch.cuda.synchronize()
+    assert pgather.KERNELS["taa1"].launches == launches + 1
     assert torch.equal(got, want)
 
 

@@ -123,7 +123,18 @@ def test_quick_config3_on_cpu(tmp_path, capsys):
 
 
 def test_champion_raises_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        bc.main(["--platform", "cpu", "--quick", "--champion",
-                 "--workdir", str(tmp_path)])
-    assert not list(tmp_path.iterdir())  # raised before writing a scene
+    """--champion raised the not-ported error until the packed q4 tables
+    were ported; now it renders its rows, labelled q4-reduced (the quick
+    bucky row here; tests/test_torch_packed.py holds its Config fields
+    against the JAX script's)."""
+    out = str(tmp_path / "r.json")
+    assert bc.main(["--platform", "cpu", "--quick", "--champion", "--only",
+                    "1_", "--trials", "1", "--out", out,
+                    "--workdir", str(tmp_path)]) == 0
+    with open(out) as f:
+        rows = json.load(f)
+    assert list(rows) == ["1_bucky_raw_256_20it"]
+    row = rows["1_bucky_raw_256_20it"]
+    assert row["precision"] == "q4-reduced" and row["n_rays"] > 0
+    img = load_hdr(str(tmp_path / "1_bucky_raw_256_20it.hdr"))
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all()

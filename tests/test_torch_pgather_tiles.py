@@ -1,4 +1,5 @@
-"""The tile kernel of vmem and binned (csrc/pgather.cu, gather_tiles) on the CPU.
+"""The tile kernel of vmem and binned (csrc/pgather.cu, gather_tiles) and
+taa1's warp-per-row kernel on the CPU.
 
 The CUDA kernel cannot run here, so this file models its schedule in
 torch and holds the model to the plain versions:
@@ -25,7 +26,15 @@ model's output equals `binned_gather` / `vmem_gather` bit for bit; a lane
 outside its shard reads nothing and gives NaN; at the 4.3 GB table's
 shard size (arithmetic only: a stub table returns the position it is
 asked for) the 64-bit offsets pass 2^32 bytes and land on the index.
-tests/test_torch_cuda.py holds the kernel itself on the card.
+
+taa1 (taa1_kernel): a grid of one wave of warps walks the rows, each row
+once; lane t's registers hold row elements 4t .. 4t + 3 (t, t + 32, ...
+on the scalar path, which unaligned inputs take); each slot of the
+warp's shared-memory slice is written by one lane (lane q >> 2,
+component q & 3 on the 16-byte path) and output q reads slot q, or NaN
+outside the row.  The model equals `taa1_gather` for R = 1, 3, 2,048
+and 2,049, on both paths.
+tests/test_torch_cuda.py holds the kernels themselves on the card.
 """
 
 import functools
@@ -38,6 +47,7 @@ import torch
 
 from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
 from cudavolumerenderer_tpu_torch.ops import pgather as pg
+from test_torch_cuda import at_4_byte_offset
 
 torch.set_num_threads(2)
 
@@ -240,3 +250,116 @@ def test_source_shapes_fit_the_model(name):
     assert lpt % 4 == 0 and threads % 32 == 0 and per_sm >= 1
     stages = re.search(r"int32_t ring\[(\d+)\]\[TL\]", SOURCE)
     assert stages and int(stages.group(1)) == STAGES
+
+
+# -- taa1: one warp per row (csrc/pgather.cu, taa1_kernel) -------------------
+
+def taa1_shape():
+    """(warps per block, blocks per SM) of taa1, as the source declares them."""
+    found = re.search(r"constexpr int TAA1_WARPS = (\d+), "
+                      r"TAA1_BLOCKS_PER_SM = (\d+);", SOURCE)
+    assert found, "no taa1 shape in csrc/pgather.cu"
+    return tuple(map(int, found.groups()))
+
+
+def taa1_vec(*tensors):
+    """The launcher's choice of the 16-byte path (taa1_vec in the source)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def taa1_slots(vec):
+    """(writer lane, register component) of each of the 128 slots of a
+    warp's shared-memory slice, and the lane that stores each output:
+    on the 16-byte path lane t loads, writes and stores elements 4t ..
+    4t + 3 (lane q >> 2, component q & 3); on the scalar path elements t,
+    t + 32, t + 64, t + 96 (lane q & 31, component q >> 5)."""
+    lane = torch.arange(32)[:, None]
+    comp = torch.arange(4)[None, :]
+    slot = lane * 4 + comp if vec else comp * 32 + lane
+    writer = torch.full((128,), -1)
+    component = torch.full((128,), -1)
+    writer[slot.reshape(-1)] = lane.expand(32, 4).reshape(-1)
+    component[slot.reshape(-1)] = comp.expand(32, 4).reshape(-1)
+    counts = torch.bincount(slot.reshape(-1), minlength=128)
+    assert bool((counts == 1).all()), "a slot written other than once"
+    return writer, component
+
+
+def taa1_model(tab, idx, vec, sms=H100_SMS):
+    """taa1_kernel's output: the grid of one wave walks the rows warp by
+    warp, each lane's registers hold its 4 row values, the slice gives
+    output q the value its writer lane put there, NaN outside the row."""
+    warps, per_sm = taa1_shape()
+    R = idx.shape[0]
+    G = min(-(-R // warps), sms * per_sm)  # tile_blocks(R, warps, per_sm)
+    visits = torch.zeros(R, dtype=torch.int64)
+    for gw in range(G * warps):  # block gw // warps, warp gw % warps
+        visits[gw::G * warps] += 1
+    assert bool((visits == 1).all()), "a row walked other than once"
+    writer, component = taa1_slots(vec)
+    lane = torch.arange(32)[:, None]
+    comp = torch.arange(4)[None, :]
+    held = (lane * 4 + comp if vec else comp * 32 + lane).reshape(-1)
+    regs = tab[:, held].reshape(R, 32, 4)  # lane t's 4 registers
+    q = idx.long()
+    ok = (q >= 0) & (q < 128)
+    qc = q.clamp(0, 127)
+    if vec:
+        assert torch.equal(writer[qc], qc >> 2) and torch.equal(component[qc], qc & 3)
+    rows = torch.arange(R)[:, None].expand_as(qc)
+    vals = regs[rows, writer[qc], component[qc]]
+    return torch.where(ok, vals, torch.full_like(vals, float("nan")))
+
+
+def taa1_inputs(R, seed=0, bad=False):
+    gen = np.random.default_rng(seed)
+    tab = torch.from_numpy(gen.random((R, 128), dtype=np.float32))
+    idx = torch.from_numpy(gen.integers(0, 128, (R, 128)).astype(np.int32))
+    if bad:
+        flat = idx.view(-1)
+        flat[::7] = -1
+        flat[3::7] = 128
+        flat[5::7] = 1 << 30
+    return tab, idx
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 2])
+@pytest.mark.parametrize("vec", [True, False], ids=["vec16", "scalar"])
+@pytest.mark.parametrize("R", [1, 3, 2048, 2049])
+def test_taa1_model_equals_plain(R, vec, sms):
+    """R = 1 and 3 leave most of a block's warps idle, 2,049 rows are no
+    multiple of the rows per block, and two SMs make each warp walk
+    many rows."""
+    tab, idx = taa1_inputs(R, seed=R)
+    assert torch.equal(taa1_model(tab, idx, vec, sms), pg.taa1_gather(tab, idx))
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["vec16", "scalar"])
+def test_taa1_model_fills_out_of_range_indices(vec):
+    """Indices below 0 and above 127 read nothing and give NaN."""
+    tab, idx = taa1_inputs(2049, seed=5, bad=True)
+    bad = (idx < 0) | (idx > 127)
+    assert int(bad.sum()) > 0
+    got = taa1_model(tab, idx, vec)
+    want = pg.taa1_gather(tab, idx.clamp(0, 127))
+    assert torch.equal(got.isnan(), bad)
+    assert torch.equal(got[~bad], want[~bad])
+
+
+def test_taa1_unaligned_inputs_take_the_scalar_path():
+    tab, idx = taa1_inputs(2049, seed=7)
+    out = torch.empty(idx.shape)
+    assert taa1_vec(tab, idx, out)
+    utab, uidx = at_4_byte_offset(tab), at_4_byte_offset(idx)
+    for args in ((utab, idx, out), (tab, uidx, out),
+                 (tab, idx, at_4_byte_offset(out))):
+        assert not taa1_vec(*args)
+    got = taa1_model(utab, uidx, taa1_vec(utab, uidx, out))
+    assert torch.equal(got, pg.taa1_gather(tab, idx))
+
+
+def test_taa1_grid_is_one_wave_at_the_published_shape():
+    """R = 2,048: one warp per row, every row's warp resident at once."""
+    warps, per_sm = taa1_shape()
+    assert 32 * warps * per_sm <= 2048  # threads an SM holds
+    assert -(-2048 // warps) <= H100_SMS * per_sm

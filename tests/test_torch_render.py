@@ -180,7 +180,7 @@ def test_tiled_progressive_passes_match_one_batch(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(table_bits=8), dict(defer_ggx=4), dict(brick_major=True),
+    dict(defer_ggx=1), dict(defer_ggx=4), dict(brick_major=True),
     dict(tail_spec=2), dict(tail_single_level=True), dict(tail_bricks=4),
 ])
 def test_unported_options_raise(option):
@@ -199,7 +199,7 @@ def test_multi_tile_offsets_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tfast.render_tile(
             scene, tcam.make_camera(4, 4), ttypes.RenderSettings(), (4, 4),
-            torch.zeros(3, 2), (4, 4), 1, 0, torch.zeros(3), table_bits=8,
+            torch.zeros(3, 2), (4, 4), 1, 0, torch.zeros(3), defer_ggx=2,
         )
 
 
