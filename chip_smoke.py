@@ -33,14 +33,13 @@ CPU or to a plain version on a CUDA tensor):
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
    scale 100, 512^2 x 4 iterations, one tile) through load_scene and
    create_renderer(...).render() with fastSK two-level and the tail
-   kernel on; one warm-up render, with torch.profiler over tail rounds
-   100-159 (the kernel's device time per launch at the slice's own
-   state, and the card's busy share in that window) and the inputs of
-   round 130 kept (the kernel against its plain version on them, their
-   paths traced, and timed as in phase 3), then one timed render
-   including the image copy to the host; the kernel's launch
-   count must rise, and n_rays must be the 6,040,005 of the kernel's
-   first design (the same draws give the same render);
+   kernel on; one render, timed with the image copy to the host, with
+   torch.profiler over tail rounds 100-159 (the kernel's device time per
+   launch at the slice's own state, and the card's busy share in that
+   window) and the inputs of round 130 kept (the kernel against its plain
+   version on them, their paths traced, and timed as in phase 3); the
+   kernel's launch count must rise, and n_rays must be the 6,040,005 of
+   the kernel's first design (the same draws give the same render);
 6. the tracking kernel against its plain torch version on the brickSK
    slice's own dilated table (smoke 128x128x50, scale 800) with R = 8
    and R = 1,250 rows at K = 8 and K = 32 steps: integer outputs equal on
@@ -52,10 +51,9 @@ CPU or to a plain version on a CUDA tensor):
 8. the brickSK slice (the smoke class of benchmarks/micro_smoke_brick.py:
    smoke 128x128x50, albedo 0.9 d, scale 800, written as Mitsuba XML +
    .vol files like BASELINE config 4) through the CLI's batch mode:
-   -k brickSK -i 4 -r 400 400, two trials (the first discarded); the
-   tracking kernel's launch count must rise; then one timed render
-   through brick.render_tile (the function make_kernel_fn returns),
-   image copied to the host, with its round count;
+   -k brickSK -i 4 -r 400 400, one trial, timed with the image copy,
+   brick.render_tile (the function make_kernel_fn returns) counting its
+   rounds: the tracking kernel launches once per round;
 9. each of the five gather kernels (csrc/pgather.cu) against its plain
    torch version at the gather benchmark's published shapes (67 MB
    table, N = 262,144, S = 16): bit-equal outputs; the kernel, its plain
@@ -104,7 +102,7 @@ CPU or to a plain version on a CUDA tensor):
    cascaded pools); a central finite difference of one albedo voxel;
 14. training: the port's benchmarks/inverse_256.main (BASELINE config 5)
    at the recipe's full width, n = 256, 128^2, spp 8 in 2 chunks, 2 views
-   per step, cut in depth only (2 views, 16 target spp, steps 1 0 1):
+   per step, cut in depth only (2 views, 8 target spp, steps 1 0 1):
    per level the seconds per step and per forward+backward program and
    the replay's iterations; finite losses, a density that moved at each
    level that took a step and stays within clip_density, the 128^3
@@ -119,13 +117,13 @@ CPU or to a plain version on a CUDA tensor):
    load_npz_scene: density and albedo equal to the source on the active
    bounding box;
 16. BASELINE config 3 at its published size (1024^2 x 4, one tile,
-   fastSK two-level) through the port's baseline_configs driver (two
-   trials, the first discarded), then through the CLI's batch mode with
+   fastSK two-level) through the port's baseline_configs driver (one
+   trial), then through the CLI's batch mode with
    --tail-pallas, whose tail-kernel launch count must rise; wall seconds
    with the image copy, n_rays and Mrays/s for both;
 17. BASELINE config 4 at its published width (400^2 in 10x10 tiles of
    40x40, Mitsuba XML + .vol), iterations cut from 50 to 4, rendered
-   twice through create_renderer(...).render(): one fastSK cascade over
+   once through create_renderer(...).render(): one fastSK cascade over
    all 100 tiles (fast.render_tile counted, with its body evaluations),
    wall with the image copy and n_rays; then multi-tile mode against the
    sequential tile loop at 2x2 tiles of 40x40, 1 iteration: image and
@@ -144,7 +142,27 @@ CPU or to a plain version on a CUDA tensor):
    each image finite with rays traced, the q4 image mean within 5% of the
    f32 one (a sanity bound: the quantizer rounds to the nearest of 16
    levels); wall with and without the image copy, rays, body
-   evaluations, and the two density tables' bytes.
+   evaluations, and the two density tables' bytes; the f32 row also
+   counts the device kernels of body evaluations 100-159 (torch.profiler)
+   and is phase 20's defer_ggx 0 row;
+20. fastSK's options on config 2's scene at its published 512^2 x 4, one
+   tile, two-level, no tail kernel, through create_renderer(...).render()
+   in one call so the rows compare: defer_ggx 4 against phase 19's f32
+   render, which is defer_ggx 0 (render_tile's images bit-equal, n_rays
+   equal; wall with the image copy, body evaluations, and device kernels
+   per evaluation from torch.profiler over evaluations 100-159 of each);
+   brick_major (the 256^3 grid divides (8, 8, 128): bit-equal to
+   the defer_ggx=0 image); the white furnace exact on the card for
+   tests/test_fast.py's two tail configurations (16^2 x 4); then
+   micro_medical2's bricks16 (cascade 2, 4,096 bricks), bricks16+tb4
+   (tail_bricks 4) and b16+spec16@512 (min_width 512, single-level
+   spec-16 tail at <= 512 lanes): wall, evaluations per stage, n_rays,
+   each tail row's image mean within 2% and n_rays within 5% of
+   bricks16's; a 64^3 per-voxel albedo under a budget cut to send it to
+   'split', bit-equal to its 'full' render; then a per-voxel albedo grid
+   made on the card at the side n where plan_albedo_table picks 'split'
+   on this card (16 n^3 > 30% and 20 n^3 < 80% of its memory), rendered
+   at 128^2 x 1: wall, peak allocated memory, image mean.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -154,6 +172,7 @@ and power limit, and the result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -197,11 +216,28 @@ FAMILY_WINDOW = (60, 60)  # streamingSK's profiled passes: first, count
 DIFF_N, DIFF_RES, DIFF_SPP, DIFF_SEED = 16, (16, 16), 4, 7
 # phase 14: inverse_256 at the recipe's full width, depth cut to the run's time
 TRAIN_ARGV = ("--n", "256", "--res", "128", "--spp", "8", "--spp-chunks", "2",
-              "--views", "2", "--target-spp", "16", "--steps", "1", "0", "1")
-TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 16 (64)",
+              "--views", "2", "--target-spp", "8", "--steps", "1", "0", "1")
+TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 8 (64)",
               "--steps 1 0 1 (80 60 40; 128^3 is upsampled through)")
 PROFILE_ITERS = 20  # pass-B replay iterations under torch.profiler
 CONFIG4_ITERS = 4  # phase 17: BASELINE config 4's 50 iterations, cut
+EVAL_WINDOW = (100, 60)  # phase 20's profiled body evaluations: first, count
+# phase 20's tail rows (benchmarks/micro_medical2.py:88-113), the first the
+# reference the others are held to
+BRICKS16 = {"cascade_factor": 2, "max_bricks": 4096}
+TAIL_ROWS = (
+    ("bricks16", BRICKS16),
+    ("bricks16+tb4", {**BRICKS16, "tail_bricks": 4}),
+    ("b16+spec16@512", {**BRICKS16, "min_width": 512,
+                        "tail_single_level": True, "tail_spec": 16,
+                        "spec_width": 512}),
+)
+# tests/test_fast.py:51-70's tail configurations (white furnace)
+FURNACE_TAILS = (
+    {"tail_spec": 4, "tail_width": 1 << 20, "min_width": 64},
+    {"tail_single_level": True, "tail_spec": 8, "tail_width": 1 << 20,
+     "min_width": 64, "tail_chain": 4},
+)
 # each gather kernel's Pallas body (file:line)
 GATHER_REPLACES = {
     "taa1": "benchmarks/micro_pgather.py:284",
@@ -682,10 +718,11 @@ def ptxas_report(log_text: str) -> str:
 
 
 def profile_tail_window(renderer, card: str):
-    """Phase 5: one render (the warm-up) with torch.profiler over the
-    WINDOW of tail rounds, keeping the kernel's inputs of the window's
-    middle round.  Returns the tail kernel's device us per launch there
-    (None if the trace holds no device time) and those inputs."""
+    """Phase 5: the slice's render with torch.profiler over the WINDOW of
+    tail rounds, keeping the kernel's inputs of the window's middle round.
+    Returns the tail kernel's device us per launch there (None if the
+    trace holds no device time), those inputs, the renderer's image and
+    the render's wall seconds (image copy included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -693,7 +730,7 @@ def profile_tail_window(renderer, card: str):
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
 
     first, n = WINDOW
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     run = tpk.run_tail_steps
     rounds, clock, kept = 0, [], []
 
@@ -716,11 +753,12 @@ def profile_tail_window(renderer, card: str):
     tpk.run_tail_steps = windowed
     t0 = time.perf_counter()
     try:
-        renderer.render()
+        img = renderer.render()
     finally:
         tpk.run_tail_steps = run
-    log(f"[5] warm-up render {time.perf_counter() - t0:.2f} s "
-        f"({rounds} tail rounds, {first}-{first + n - 1} profiled)")
+    wall = time.perf_counter() - t0
+    log(f"[5] the slice's render {wall:.2f} s ({rounds} tail rounds, "
+        f"{first}-{first + n - 1} profiled)")
     check(len(clock) == 2, f"the render ran {rounds} tail rounds, fewer "
           f"than the window's {first + n}")
     window_us = (clock[1] - clock[0]) * 1e6
@@ -731,7 +769,7 @@ def profile_tail_window(renderer, card: str):
     if not tail or busy_us == 0.0:
         log(f"[5] profiler window: no device time in the trace; the tail "
             "kernel's in-slice time is not measured")
-        return None, kept
+        return None, kept, img, wall
     launches = sum(e.count for e in tail)
     per_launch = sum(e.self_device_time_total for e in tail) / launches
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
@@ -741,7 +779,7 @@ def profile_tail_window(renderer, card: str):
         f"{per_launch:.2f} us of device time per launch; top device time: "
         + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total:.0f} us"
                     for e in top) + f"; card {card}")
-    return per_launch, kept
+    return per_launch, kept, img, wall
 
 
 def slice_round(kept, card: str) -> float:
@@ -975,8 +1013,7 @@ class PassCounter:
         from torch.profiler import ProfilerActivity, profile
 
         if self.window:
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
 
         def counted(*args, **kw):
             if self.window and self.passes == self.window[0]:
@@ -1451,7 +1488,7 @@ def config3(vdb_path: str, tmp: str, card: str) -> int:
 
     out = os.path.join(tmp, "config3.json")
     t0 = time.perf_counter()
-    bc.main(["--only", "3_", "--trials", "2", "--out", out, "--workdir", tmp])
+    bc.main(["--only", "3_", "--trials", "1", "--out", out, "--workdir", tmp])
     wall = time.perf_counter() - t0
     with open(out) as f:
         row = json.load(f)["3_hetvol_vdb_1024"]
@@ -1459,7 +1496,7 @@ def config3(vdb_path: str, tmp: str, card: str) -> int:
     check(saved.shape == (1024, 1024, 3) and np.isfinite(saved).all(),
           "config 3's image is not finite or has the wrong shape")
     check(0.05 < saved.mean() < 1.5, f"config 3 image mean {saved.mean()}")
-    log(f"[16] baseline_configs config 3, 1024^2 x 4, 2 trials: {wall:.2f} s in "
+    log(f"[16] baseline_configs config 3, 1024^2 x 4, 1 trial: {wall:.2f} s in "
         f"all; per trial {row['mean_time_with_copy_s']:.3f} s wall with the "
         f"image copy ({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} "
         f"rays, {row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} "
@@ -1499,6 +1536,8 @@ class CascadeCounter:
 
         self.fast, self.orig = fast, fast.render_tile
         self.calls = []
+        self.images = []  # each call's image, the sum over its samples
+        self.stages = []  # each call's body evaluations per stage
         self.table_bits = []  # each call's table precision
 
         def counted(*args, **kw):
@@ -1509,8 +1548,10 @@ class CascadeCounter:
             widths = fast._cascade_widths(
                 n_lanes, kw.get("cascade_factor", fast._CASCADE_FACTOR),
                 kw.get("min_width") or fast._MIN_WIDTH)
-            evals = sum(float(r) / w for r, w in zip(rows.tolist(), widths))
-            self.calls.append((tuple(offsets.shape), evals))
+            stages = [float(r) / w for r, w in zip(rows.tolist(), widths)]
+            self.calls.append((tuple(offsets.shape), sum(stages)))
+            self.stages.append(stages)
+            self.images.append(img)
             self.table_bits.append(kw.get("table_bits", 32))
             return img, n_rays
 
@@ -1546,25 +1587,24 @@ def config4(tmp: str, card: str, iters: int = CONFIG4_ITERS):
     cfg = Config(scene_file=xml, kernel=Kernel.FAST_SK, two_level=True,
                  iterations=iters, resolution=(400, 400), n_tiles=(10, 10))
     scene, camera = load_scene(cfg, device="cuda")
-    for run in ("warm-up", "timed"):
-        renderer = create_renderer(scene, camera, cfg)
-        torch.cuda.synchronize()
-        with CascadeCounter() as cascades:
-            t0 = time.perf_counter()
-            img = renderer.render()
-            wall = time.perf_counter() - t0
-        n_rays = renderer.n_rays
-        check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
-              "config 4 image not finite or wrong shape")
-        check(0.05 < img.mean() < 1.5, f"config 4 image mean {img.mean()}")
-        check([shape for shape, _ in cascades.calls] == [(100, 2)],
-              f"config 4 ran {len(cascades.calls)} cascades, not one "
-              "over all 100 tiles")
-        log(f"[17] config 4 {run}, 400^2 x {iters} in 10x10 tiles of "
-            f"40x40: {wall:.3f} s wall (incl. image copy), {n_rays:.0f} rays, "
-            f"{n_rays / wall / 1e6:.4f} Mrays/s, one cascade over 100 tiles, "
-            f"{cascades.calls[0][1]:.0f} body evaluations, image mean "
-            f"{img.mean():.5f}; card {card}")
+    renderer = create_renderer(scene, camera, cfg)
+    torch.cuda.synchronize()
+    with CascadeCounter() as cascades:
+        t0 = time.perf_counter()
+        img = renderer.render()
+        wall = time.perf_counter() - t0
+    n_rays = renderer.n_rays
+    check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
+          "config 4 image not finite or wrong shape")
+    check(0.05 < img.mean() < 1.5, f"config 4 image mean {img.mean()}")
+    check([shape for shape, _ in cascades.calls] == [(100, 2)],
+          f"config 4 ran {len(cascades.calls)} cascades, not one "
+          "over all 100 tiles")
+    log(f"[17] config 4, 400^2 x {iters} in 10x10 tiles of 40x40: "
+        f"{wall:.3f} s wall (incl. image copy), {n_rays:.0f} rays, "
+        f"{n_rays / wall / 1e6:.4f} Mrays/s, one cascade over 100 tiles, "
+        f"{cascades.calls[0][1]:.0f} body evaluations, image mean "
+        f"{img.mean():.5f}; card {card}")
 
     small = Config(scene_file=xml, kernel=Kernel.FAST_SK, two_level=True,
                    iterations=1, resolution=(80, 80), n_tiles=(2, 2))
@@ -1690,12 +1730,14 @@ def representable_on_card() -> None:
         "table_bits 8 and 32 on the card, one- and two-level")
 
 
-def champion_config2(tmp: str, card: str) -> None:
+def champion_config2(tmp: str, card: str) -> dict:
     """Phase 19: the exactness check on the card (16^2 renders, which also
     warm the packed path up), then BASELINE config 2 with --champion (q4
     packed tables, min_width 64, 512 bricks, cascade factor 1.25) at its
     published size through the port's baseline_configs driver, then the
-    f32 row in the same call."""
+    f32 row in the same call.  The f32 row is config 2 at defer_ggx 0, so
+    it also counts the device kernels of body evaluations 100-159 and is
+    returned as phase 20's first row (option_render's dict)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
@@ -1712,7 +1754,10 @@ def champion_config2(tmp: str, card: str) -> None:
     for label, extra in (("q4 --champion", ["--champion"]), ("f32", [])):
         out = os.path.join(tmp, "config2.json")
         t0 = time.perf_counter()
-        with CascadeCounter() as cascades:
+        # the f32 row (defer_ggx 0) also counts its kernels per evaluation
+        prof = (contextlib.nullcontext() if extra
+                else EvaluationWindow(*EVAL_WINDOW))
+        with CascadeCounter() as cascades, prof:
             bc.main([*extra, "--only", "2_", "--trials", "1", "--out", out,
                      "--workdir", tmp])
         wall = time.perf_counter() - t0
@@ -1728,6 +1773,10 @@ def champion_config2(tmp: str, card: str) -> None:
               f"config 2 {label}: image not finite or of the wrong shape")
         check(row["n_rays"] > 0, f"config 2 {label} traced no rays")
         rows[label] = row, float(img.mean())
+        if not extra:
+            inline = {"img": cascades.images[0], "n_rays": row["n_rays"],
+                      "evals": cascades.calls[0][1], "kernels": prof.kernels}
+            log_window("f32 (defer_ggx 0)", prof, card)
         log(f"[19] baseline_configs config 2 {label}, 512^2 x 4, 1 trial: "
             f"{wall:.2f} s in all (scene file written and loaded); the render "
             f"{row['mean_time_with_copy_s']:.3f} s wall with the image copy "
@@ -1747,6 +1796,268 @@ def champion_config2(tmp: str, card: str) -> None:
         f"{f32['n_rays']:.0f}, image means {q4_mean:.5f} / {f32_mean:.5f}")
     del scene, words
     torch.cuda.empty_cache()
+    return inline
+
+
+class EvaluationWindow:
+    """torch.profiler over body evaluations [first, first + n) of the
+    renders run while it is entered: fastSK's body calls
+    ops.camera.generate_rays once per evaluation, so those calls count
+    the evaluations.  kernels is the device kernels per evaluation there
+    (None when the trace holds no device time)."""
+
+    def __init__(self, first: int, n: int):
+        self.first, self.n = first, n
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from cudavolumerenderer_tpu_torch.ops import camera
+
+        self.camera, self.orig = camera, camera.generate_rays
+        # device activity only, as in every window here: the counts read
+        # are of kernels, and host events would slow the trace's processing
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.evals, self.clock = 0, []
+
+        def counted(*args, **kw):
+            if self.evals in (self.first, self.first + self.n):
+                torch.cuda.synchronize()
+                self.clock.append(time.perf_counter())
+                (self.prof.start if self.evals == self.first
+                 else self.prof.stop)()
+            self.evals += 1
+            return self.orig(*args, **kw)
+
+        camera.generate_rays = counted
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        self.camera.generate_rays = self.orig
+        if exc[0] is not None:
+            return
+        check(len(self.clock) == 2, f"{self.evals} body evaluations, fewer "
+              f"than the window's {self.first + self.n}")
+        on_card = [e for e in self.prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        self.busy_us = sum(e.self_device_time_total for e in on_card)
+        self.window_us = (self.clock[1] - self.clock[0]) * 1e6
+        self.kernels = (sum(e.count for e in on_card) / self.n
+                        if self.busy_us else None)
+
+
+def log_window(tag: str, prof, card: str) -> None:
+    if prof.kernels is None:
+        log(f"[20] {tag}: no device time in the profiler's trace; kernels "
+            "per evaluation not measured")
+        return
+    log(f"[20] {tag}: evaluations {EVAL_WINDOW[0]}-{sum(EVAL_WINDOW) - 1} "
+        f"under torch.profiler: {prof.kernels:.0f} device kernels per "
+        f"evaluation, {prof.window_us / 1e3:.2f} ms of wall, device busy "
+        f"{prof.busy_us / 1e3:.3f} ms ({prof.busy_us / prof.window_us:.1%}); "
+        f"card {card}")
+
+
+def option_render(scene, camera, fields: dict, tag: str, card: str,
+                  window: bool = False) -> dict:
+    """One 512^2 x 4 fastSK two-level render of config 2's scene through
+    create_renderer(...).render() with Config `fields`; prints its wall
+    (image copy included), rays, body evaluations per stage and, with
+    window, the device kernels per evaluation.  Returns render_tile's
+    image (the sum over samples, on the card), the renderer's image,
+    n_rays, evaluations and kernels per evaluation."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+
+    cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
+                 iterations=4, n_tiles=(1, 1), **fields)
+    renderer = create_renderer(scene, camera, cfg)
+    torch.cuda.synchronize()
+    prof = EvaluationWindow(*EVAL_WINDOW) if window else contextlib.nullcontext()
+    with CascadeCounter() as cascades, prof:
+        t0 = time.perf_counter()
+        host = renderer.render()
+        wall = time.perf_counter() - t0
+    n_rays = renderer.n_rays
+    check(len(cascades.calls) == 1, f"{tag}: {len(cascades.calls)} cascades")
+    check(host.shape == (512, 512, 3) and np.isfinite(host).all(),
+          f"{tag}: image not finite or of the wrong shape")
+    check(n_rays > 0, f"{tag}: no rays traced")
+    evals = cascades.calls[0][1]
+    stages = " / ".join(f"{e:.0f}" for e in cascades.stages[0])
+    log(f"[20] {tag}: {wall:.3f} s wall (incl. image copy), {n_rays:.0f} "
+        f"rays, {evals:.0f} body evaluations ({stages} per stage), image "
+        f"mean {float(host.mean()):.5f}; card {card}")
+    if window:
+        log_window(tag, prof, card)
+    return {"img": cascades.images[0], "host": host, "n_rays": n_rays,
+            "evals": evals, "kernels": prof.kernels if window else None}
+
+
+def tail_furnace_on_card() -> None:
+    """Phase 20: tests/test_fast.py:51-70's tail configurations give the
+    white furnace exactly on the card (unit albedo, null boundary)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import (
+        RenderSettings, make_medium, make_scene,
+    )
+
+    scene = make_scene(make_medium(procedural.blob_volume(), 1.0, scale=40.0,
+                                   max_density=1.0, device="cuda"))
+    settings = RenderSettings.from_flags(True, bsdf_kind="null")
+    for kw in FURNACE_TAILS:
+        img, _ = fast.render_tile(
+            scene, make_camera(16, 16, device="cuda"), settings, (16, 16),
+            torch.zeros(2, device="cuda"), (16, 16), 4, 3, 0, two_level=True,
+            **kw)
+        img = img.cpu().numpy() / 4
+        check(np.array_equal(img, np.ones_like(img)),
+              f"white furnace {kw}: max |img - 1| {np.abs(img - 1).max()}")
+    log(f"[20] white furnace exact on the card (16^2 x 4) for "
+        f"{len(FURNACE_TAILS)} tail configurations")
+
+
+def per_voxel_albedo_scene(n: int, seed: int):
+    """A random density and a per-voxel random albedo (not affine in
+    density) of side n, made on the card from a seeded generator."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.scene.types import make_medium, make_scene
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+    density = torch.empty((n, n, n), device="cuda")
+    albedo = torch.empty((n, n, n, 4), device="cuda")
+    step = max(1, (1 << 28) // (n * n * 4))  # slabs of at most 2^28 values
+    for z in range(0, n, step):
+        density[z:z + step] = torch.rand(density[z:z + step].shape,
+                                         generator=gen, device="cuda")
+        albedo[z:z + step] = torch.rand(albedo[z:z + step].shape,
+                                        generator=gen, device="cuda")
+    albedo[..., 3] = 1.0
+    return make_scene(make_medium(density, albedo, scale=20.0,
+                                  max_density=1.0, device="cuda"))
+
+
+def split_on_card(card: str) -> None:
+    """Phase 20: 'split' bit-equal to 'full' at 64^3 under a budget cut to
+    40 bytes per voxel, then at the side where plan_albedo_table picks
+    'split' on this card."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera
+    from cudavolumerenderer_tpu_torch.utils import occupancy
+
+    def render(scene, res, spp):
+        cfg = Config(kernel=Kernel.FAST_SK, two_level=True,
+                     resolution=(res, res), iterations=spp, n_tiles=(1, 1))
+        renderer = create_renderer(scene, make_camera(res, res, device="cuda"),
+                                   cfg)
+        return renderer.render(), renderer.n_rays
+
+    small = per_voxel_albedo_scene(64, 21)
+    check(fast._albedo_mode(small, allow_split=True) == "full",
+          "the 64^3 per-voxel albedo is not planned 'full'")
+    full, full_rays = render(small, 64, 4)
+    budget = occupancy.device_memory_budget
+    occupancy.device_memory_budget = lambda device=None: 40 * 64 ** 3
+    try:
+        check(fast._albedo_mode(small, allow_split=True) == "split",
+              "a budget of 40 B per voxel does not plan 'split'")
+        split, split_rays = render(small, 64, 4)
+    finally:
+        occupancy.device_memory_budget = budget
+    check(np.array_equal(split, full) and split_rays == full_rays,
+          "64^3 'split' differs from 'full' on the card")
+    log(f"[20] 64^3 per-voxel albedo, 64^2 x 4: 'split' equals 'full' bit for "
+        f"bit ({split_rays:.0f} rays)")
+    del small
+
+    total = torch.cuda.mem_get_info()[1]
+    n = int(np.ceil((0.31 * total / 16) ** (1 / 3)))
+    check(16 * n ** 3 > 0.3 * total and 20 * n ** 3 < 0.8 * total,
+          f"side {n} is not a 'split' size for {total} B")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene = per_voxel_albedo_scene(n, 22)
+    made = time.perf_counter() - t0
+    mode = fast._albedo_mode(scene, allow_split=True)
+    check(mode == "split", f"{n}^3 planned {mode!r}, not 'split'")
+    t0 = time.perf_counter()
+    img, n_rays = render(scene, 128, 1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(img.shape == (128, 128, 3) and np.isfinite(img).all() and n_rays > 0,
+          f"{n}^3 split render: image not finite or no rays")
+    log(f"[20] 'split' at {n}^3 ({n ** 3 * 20 / 1e9:.1f} GB of grids made on "
+        f"the card in {made:.1f} s; {total / 2**30:.1f} GiB on the card): "
+        f"128^2 x 1 two-level {wall:.3f} s wall (incl. image copy), "
+        f"{n_rays:.0f} rays, peak allocated {peak / 2**30:.2f} GiB, image "
+        f"mean {float(img.mean()):.5f}; card {card}")
+    del scene
+    torch.cuda.empty_cache()
+
+
+def options_config2(tmp: str, card: str, scene=None, camera=None,
+                    inline: dict = None) -> None:
+    """Phase 20: fastSK's options on config 2's scene (see the module
+    docstring): phase 5's scene and camera when given, else written to
+    `tmp` and loaded.  `inline` is the defer_ggx 0 row (phase 19's f32
+    render, the same render_tile call); without it this renders the
+    row."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.scene.mhd import load_mhd_scene
+
+    if scene is None:
+        scene, camera = load_mhd_scene(write_medical_mhd(tmp), device="cuda")
+    if inline is None:
+        inline = option_render(scene, camera, {}, "defer_ggx 0", card,
+                               window=True)
+    defer = option_render(scene, camera, {"defer_ggx": 4}, "defer_ggx 4",
+                          card, window=True)
+    check(torch.equal(defer["img"], inline["img"])
+          and defer["n_rays"] == inline["n_rays"],
+          "defer_ggx 4 differs from defer_ggx 0")
+    log(f"[20] defer_ggx 4 equals 0 bit for bit ({defer['n_rays']:.0f} "
+        f"rays); evaluations {defer['evals']:.0f} against "
+        f"{inline['evals']:.0f}; kernels per evaluation {defer['kernels']} "
+        f"against {inline['kernels']}")
+    bm = option_render(scene, camera, {"brick_major": True}, "brick_major",
+                       card)
+    check(torch.equal(bm["img"], inline["img"])
+          and bm["n_rays"] == inline["n_rays"],
+          "brick_major differs from the row-major render")
+    log("[20] brick_major equals the row-major render bit for bit")
+    del defer, bm, inline
+    tail_furnace_on_card()
+    rows = {label: option_render(scene, camera, fields, label, card)
+            for label, fields in TAIL_ROWS}
+    ref = rows[TAIL_ROWS[0][0]]
+    ref_mean = float(ref["host"].mean())
+    for label, _ in TAIL_ROWS[1:]:
+        mean_off = abs(float(rows[label]["host"].mean()) - ref_mean) / ref_mean
+        rays_off = abs(rows[label]["n_rays"] - ref["n_rays"]) / ref["n_rays"]
+        log(f"[20] {label} against {TAIL_ROWS[0][0]}: image mean off by "
+            f"{mean_off:.3%}, n_rays by {rays_off:.3%}")
+        check(mean_off < 0.02 and rays_off < 0.05,
+              f"{label}: image mean off by {mean_off:.3%}, rays by "
+              f"{rays_off:.3%}")
+    del rows
+    split_on_card(card)
 
 
 def main() -> int:
@@ -1764,10 +2075,8 @@ def main() -> int:
 
     from cudavolumerenderer_tpu_torch import cli
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
-    from cudavolumerenderer_tpu_torch.models import fast
-    from cudavolumerenderer_tpu_torch.models.renderer import (
-        create_renderer, make_kernel_fn,
-    )
+    from cudavolumerenderer_tpu_torch.models import brick, fast
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
@@ -1821,14 +2130,11 @@ def main() -> int:
 
     # -- phase 5: the slice -------------------------------------------------
     renderer = create_renderer(scene, camera, cfg)
-    in_slice_us, kept = profile_tail_window(renderer, card)
-    slice_ms = slice_round(kept, card)
     torch.cuda.synchronize()
     tpk.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    img = renderer.render()
-    wall = time.perf_counter() - t0
+    in_slice_us, kept, img, wall = profile_tail_window(renderer, card)
     launches = tpk.KERNEL.launches
+    slice_ms = slice_round(kept, card)
     n_rays = renderer.n_rays
     mean = float(img.mean())
     check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
@@ -1848,11 +2154,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         argv = [write_smoke_xml(tmp), "-k", "brickSK", "-i", "4", "-r", "400",
-                "400", "--trials", "2", "-o", os.path.join(tmp, "brick_slice")]
+                "400", "--trials", "1", "-o", os.path.join(tmp, "brick_slice")]
         args = cli.build_parser().parse_args(argv)
         bcfg = cli.config_from_args(args)
         dev = cli.device_of(args.platform)
-        bscene, bcamera = load_scene(bcfg, device=dev)
+        bscene, _ = load_scene(bcfg, device=dev)
         log(f"[6] brickSK smoke scene written and loaded in "
             f"{time.perf_counter() - t0:.1f} s; albedo mode "
             f"{fast._albedo_mode(bscene)}")
@@ -1872,42 +2178,42 @@ def main() -> int:
         brick_furnace_and_small_render()
 
         # -- phase 8: the brickSK slice through the CLI --------------------
+        # brick.render_tile (what make_kernel_fn returns for brickSK) is
+        # called with_stats inside the CLI's trial to count its rounds
+        rounds_of, tile_fn = [], brick.render_tile
+
+        def counted(*args, **kw):
+            img, n_rays, rounds = tile_fn(*args, with_stats=True, **kw)
+            rounds_of.append(int(rounds))
+            return img, n_rays
+
         torch.cuda.synchronize()
         tk.KERNEL.launches = 0
+        brick.render_tile = counted
         t0 = time.perf_counter()
-        result = cli.run_test(bcfg, dev)
+        try:
+            result = cli.run_test(bcfg, dev)
+        finally:
+            brick.render_tile = tile_fn
         cli_wall = time.perf_counter() - t0
         track_launches = tk.KERNEL.launches
         check(track_launches > 0, "the brickSK slice launched no tracking kernel")
         saved = load_hdr(bcfg.output_name + ".hdr")
         check(saved.shape == (400, 400, 3) and np.isfinite(saved).all(),
               "the CLI's saved image is not finite or has the wrong shape")
-        log(f"[8] cli.run_test brickSK 400^2 x 4, 2 trials: {cli_wall:.2f} s "
+        log(f"[8] cli.run_test brickSK 400^2 x 4, 1 trial: {cli_wall:.2f} s "
             f"in all, {track_launches} tracking-kernel launches; mean time "
             f"{result['mean_time']:.3f} s (image copy excluded), "
             f"{result['mrays_per_sec']:.4f} Mrays/s")
-
-        torch.cuda.synchronize()
-        tk.KERNEL.launches = 0
-        t0 = time.perf_counter()
-        bimg, bn_rays, rounds = make_kernel_fn(bcfg)(
-            bscene, bcamera, bcfg.settings, (400, 400),
-            torch.zeros(2, device=dev), (400, 400), bcfg.iterations,
-            bcfg.seed, 0, with_stats=True,
-        )
-        bimg = bimg.cpu().numpy() / bcfg.iterations
-        bwall = time.perf_counter() - t0
-        blaunches = tk.KERNEL.launches
-        bn_rays = float(bn_rays)
-        bmean = float(bimg.mean())
-    check(np.isfinite(bimg).all(), "brickSK slice image not finite")
+    rounds = sum(rounds_of)
+    bwall, bn_rays = result["mean_time_with_copy"], result["n_rays"]
+    bmean = float(saved.mean())
     check(0.05 < bmean < 1.5, f"brickSK slice image mean {bmean} implausible")
-    check(blaunches == rounds > 0, f"{blaunches} launches in {rounds} rounds")
-    check(abs(bn_rays - result["n_rays"]) <= 0.01 * bn_rays,
-          "the timed render and the CLI trials traced different ray counts")
+    check(len(rounds_of) == 1 and track_launches == rounds > 0,
+          f"{track_launches} launches in {rounds_of} rounds")
     log(f"[8] brickSK slice 400^2 x 4: {bwall:.3f} s wall (incl. image copy), "
         f"{bn_rays:.0f} rays, {bn_rays / bwall / 1e6:.4f} Mrays/s, "
-        f"{rounds} rounds, {blaunches} tracking-kernel launches, "
+        f"{rounds} rounds, {track_launches} tracking-kernel launches, "
         f"{bwall / rounds * 1e3:.2f} ms per round, image mean {bmean:.5f}; "
         f"card {card}")
 
@@ -1974,8 +2280,14 @@ def main() -> int:
     # -- phase 19: config 2 with --champion's packed q4 tables --------------
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        champion_config2(tmp, card)
+        inline = champion_config2(tmp, card)
         log(f"[19] phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 20: fastSK's options on config 2's scene (phase 5's) ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        options_config2(tmp, card, scene, camera, inline)
+        log(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):

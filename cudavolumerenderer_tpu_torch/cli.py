@@ -97,13 +97,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lanes-per-pixel", type=int, default=1,
                    help="fastSK: parallel sample lanes per pixel")
     p.add_argument("--defer-ggx", type=int, default=0,
-                   help="fastSK: deferred boundary events (ROADMAP A2)")
+                   help="fastSK: deferred boundary events (flush every N)")
     p.add_argument("--brick-major", action="store_true",
-                   help="fastSK: brick-major table layout (ROADMAP A2)")
+                   help="fastSK: brick-major table layout")
     p.add_argument("--cascade-factor", type=_cascade_factor, default=2,
                    help="fastSK: cascade pool shrink factor (> 1)")
     p.add_argument("--table-bits", type=int, default=32, choices=[32, 8, 4],
-                   help="fastSK: quantized density tables (ROADMAP A2)")
+                   help="fastSK: quantized density tables")
     p.add_argument(
         "--boundary", default="aabb", choices=["aabb", "variable"],
         help="medium boundary model: 'variable' = stochastic "
@@ -115,11 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gradient-magnitude threshold for --boundary variable")
     p.add_argument("--allow-quantized", action="store_true",
                    help="opt in to quantized tables under "
-                   "--mitsuba-comparable (ROADMAP A2)")
+                   "--mitsuba-comparable")
     p.add_argument("--tail-single-level", action="store_true",
-                   help="fastSK: single-level tail pools (ROADMAP A2)")
+                   help="fastSK: single-level tail pools")
     p.add_argument("--tail-spec", type=int, default=1,
-                   help="fastSK: speculative tail steps (ROADMAP A2)")
+                   help="fastSK: speculative tail steps")
     p.add_argument("--spec-width", type=int, default=None,
                    help="fastSK: width for the spec/single-level tail modes")
     p.add_argument("--min-width", type=int, default=None,
@@ -127,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bricks", type=int, default=None,
                    help="fastSK: two-level probe-table size cap")
     p.add_argument("--tail-bricks", type=int, default=0,
-                   help="fastSK: finer tail brick tables (ROADMAP A2)")
+                   help="fastSK: finer tail brick tables")
     p.add_argument("--tail-pallas", action="store_true",
                    help="fastSK: persistent tail kernel (csrc/tailpk.cu)")
     p.add_argument("--tail-pk-width", type=int, default=128)
@@ -314,7 +314,8 @@ def run_interactive(config: Config, device, orbit: int = 0) -> None:
             angle = 2.0 * math.pi * frame / orbit
             eye = (radius * math.sin(angle), 0.0, radius * math.cos(angle))
             cam_f = make_camera_look_at(
-                eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), w, h, 0.7
+                eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), w, h, 0.7,
+                device=device,
             )
             img = create_renderer(scene, cam_f, config).render()
             save_png(f"{config.output_name}_orbit{frame:04d}.png", tonemap(img))

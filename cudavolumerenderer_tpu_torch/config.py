@@ -3,8 +3,6 @@ ConfigParser.cpp:10-165).
 
 Port of cudavolumerenderer_tpu/config.py with the same fields and
 defaults, so a configuration means the same render in both packages.
-Options whose code paths are not ported yet raise NotImplementedError
-where the render reaches them (models/fast.py, scene/loader.py, cli.py).
 """
 
 from __future__ import annotations
@@ -118,26 +116,25 @@ class Config:
     #: fastSK two-level (sparse-leap) tracking
     two_level: bool = False
     lanes_per_pixel: int = 1
-    #: fastSK deferred boundary events (not ported: ROADMAP A2)
+    #: fastSK deferred boundary events: a batched GGX flush every N evaluations
     defer_ggx: int = 0
-    #: fastSK (8,8,128) brick-major table layout (not ported: ROADMAP A2)
+    #: fastSK (8,8,128) brick-major table layout
     brick_major: bool = False
     #: fastSK cascade pool shrink factor (may be fractional)
     cascade_factor: float = 2
-    #: fastSK single-level spec-K tail pools (not ported: ROADMAP A2)
+    #: fastSK single-level tail pools and speculative tail steps
     tail_single_level: bool = False
     tail_spec: int = 1
     #: pool width below which the spec/single-level tail modes engage
-    #: (read only by those modes, not ported: ROADMAP A2)
     spec_width: Optional[int] = None
     #: cascade bottom pool width; None = 4096 (widths quantize to
     #: multiples of 256, so values below 256 equal 256)
     min_width: Optional[int] = None
-    #: finer tail-pool brick granularity (not ported: ROADMAP A2)
+    #: finer tail-pool brick granularity
     tail_bricks: int = 0
     #: fastSK two-level probe-table size cap (None = fast.py's default)
     max_bricks: Optional[int] = None
-    #: packed 8/4-bit density tables (not ported: ROADMAP A2)
+    #: packed 8/4-bit density tables
     table_bits: int = 32
     allow_quantized: bool = False
     #: fastSK persistent tail kernel (ops/tailpk.py, csrc/tailpk.cu):

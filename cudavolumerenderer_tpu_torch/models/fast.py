@@ -20,13 +20,24 @@ Same physics as the JAX scheduler and the same per-path draw sequences:
    them to the CUDA kernel for K whole tracking steps per round.
 7. **Multi-tile lane mode** — a (T, 2) tile_offset renders T tiles in one
    cascade, each lane carrying its tile through its pixel id.
+8. **Deferred boundary events** (`defer_ggx=G`) — a lane at the box
+   surface stalls and the GGX sampler runs for every stalled lane at once
+   on a schedule read from the summed pool widths.
+9. **Tail knobs** — finer brick tables in tail pools (`tail_bricks`),
+   `tail_spec` Woodcock steps from one gather in pools up to `spec_width`
+   lanes, under the global majorant with `tail_single_level`.
+10. **Table layouts** — the (8, 8, 128) brick-major flat table
+   (`brick_major`), and 'split' albedo: a full per-voxel albedo too big to
+   copy into the fused table is gathered from the scene grid at accepted
+   taps (utils/occupancy.plan_albedo_table).
 
 Port notes: the jax while-loops are Python loops that read the pending
 count on the host once per chained group of body evaluations (extra
 evaluations past the exit condition are no-ops: draws are masked per
 path); compaction gathers each field with index_select; the image is
-accumulated with index_add_ of masked values.  The wavefront body is
-plain torch ops, as it was XLA (not Pallas) on the TPU.
+accumulated with index_add_ of masked values; the defer_ggx schedule
+reads a host float32 copy of n_rows, not the device's.  The wavefront
+body is plain torch ops, as it was XLA (not Pallas) on the TPU.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -62,16 +74,10 @@ _MIN_WIDTH = 4096
 _LEAP_ITERS = 6
 
 # Narrow tail pools chain this many body evaluations per pending-count
-# read; speculation (tail_spec) stays off.
+# read; speculation (tail_spec) is off by default.
 _TAIL_CHAIN = 8
 _TAIL_SPEC = 1
 _TAIL_CHAIN_WIDTH = 16384
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"fastSK {what} is not ported to the torch package yet (ROADMAP A2)"
-    )
 
 
 def _albedo_mode(scene: Scene, allow_split: bool = False) -> str:
@@ -113,6 +119,28 @@ def fused_row_decode(scene: Scene, row: torch.Tensor):
         aff = scene.medium.albedo_affine
         return row, row[..., None] * aff[0] + aff[1]
     return row[..., -1], row[..., :3]
+
+
+#: brick-major layout brick dims (z, y, x): the taps of an 8x8x128 brick
+#: are contiguous in the flat table (the texture-locality analog,
+#: CudaVolPath.cpp:118-186); the shifts and masks derive from it
+_BM_BRICK = (8, 8, 128)
+_BM_SHIFT = tuple(d.bit_length() - 1 for d in _BM_BRICK)  # (z, y, x)
+_BM_MASK = tuple(d - 1 for d in _BM_BRICK)
+assert all(1 << s == d for s, d in zip(_BM_SHIFT, _BM_BRICK))
+
+
+def brick_major_table(density_zyx: torch.Tensor) -> torch.Tensor:
+    """Flat density table in brick-major order ((8, 8, 128) bricks); the
+    grid's dims must be multiples of the brick's."""
+    nz, ny, nx = density_zyx.shape
+    ez, ey, ex = _BM_BRICK
+    assert nz % ez == 0 and ny % ey == 0 and nx % ex == 0
+    return (
+        density_zyx.reshape(nz // ez, ez, ny // ey, ey, nx // ex, ex)
+        .permute(0, 2, 4, 1, 3, 5)
+        .reshape(-1)
+    )
 
 
 def pick_brick(grid_shape_zyx, max_bricks: int = _MAX_BRICKS) -> Tuple[int, int, int]:
@@ -180,6 +208,7 @@ class FastState(NamedTuple):
     n_rays: torch.Tensor  # () f32 traced rays
     n_rows: torch.Tensor  # () f32 — sum over iterations of pool width
     n_busy: torch.Tensor  # () f32 — sum over iterations of tracking lanes
+    pend_b: torch.Tensor  # (N,) bool waiting for the deferred boundary flush
 
 
 def _take_lanes(s, idx: torch.Tensor):
@@ -207,6 +236,13 @@ def _stochastic_tap(coord, f_bits):
         dim=-1,
     )
     return i0 + (u < frac).to(torch.int64)
+
+
+def first_stop(stopj: torch.Tensor):
+    """(column of each row's first True, whether the row has one) of an
+    (N, K) bool tensor: jnp.argmax's first maximum, taken over integers
+    (an all-false row gives column 0, which its callers leave unused)."""
+    return torch.argmax(stopj.to(torch.int32), dim=-1), stopj.any(dim=-1)
 
 
 def _cascade_widths(
@@ -273,24 +309,6 @@ def packed_take(words: torch.Tensor, j: torch.Tensor, max_density,
     return level.to(torch.float32) * (max_density / float((1 << bits) - 1))
 
 
-def _check_ported(
-    table_bits, defer_ggx, brick_major, tail_spec, tail_single_level,
-    tail_bricks,
-):
-    if table_bits not in (32, 8, 4):
-        raise ValueError("table_bits must be 32, 8 or 4")
-    if defer_ggx > 0:
-        raise _not_ported("defer_ggx > 0 (deferred boundary events)")
-    if brick_major:
-        raise _not_ported("brick_major (brick-major table layout)")
-    if tail_spec > 1:
-        raise _not_ported("tail_spec > 1 (speculative tail steps)")
-    if tail_single_level:
-        raise _not_ported("tail_single_level (single-level tail pools)")
-    if tail_bricks > 0:
-        raise _not_ported("tail_bricks > 0 (finer tail brick tables)")
-
-
 def render_tile(
     scene: Scene,
     camera: cam.Camera,
@@ -313,6 +331,7 @@ def render_tile(
     tail_chain: int = _TAIL_CHAIN,
     tail_spec: int = _TAIL_SPEC,
     tail_width: int = _TAIL_CHAIN_WIDTH,
+    spec_width: int = None,
     min_width: int = None,
     tail_single_level: bool = False,
     tail_bricks: int = 0,
@@ -331,13 +350,24 @@ def render_tile(
     each lane takes its tile's origin and path-id base.  Path ids and
     camera jitter are the per-tile calls', so the tiles equal the
     sequential per-tile renders bit for bit (the tail kernel stays off:
-    its service loop is single-tile)."""
+    its service loop is single-tile).
+
+    defer_ggx = G > 0 batches boundary events: a lane that reaches the
+    box surface stalls (pend_b) and the GGX sampler runs for all pending
+    lanes when round(n_rows / width) % G == 0, n_rows being the float32
+    sum of every evaluation's pool width over all stages.  A lane's draws
+    keep their place in its own stream, so the image and n_rays equal
+    defer_ggx=0's; the schedule (and so with_stats' rows) is JAX's.
+
+    Tail pools (width <= tail_width) may probe a finer brick table
+    (tail_bricks); pools of width <= spec_width (default tail_width) take
+    tail_spec Woodcock steps per evaluation from one gather, under the
+    global majorant with tail_single_level.  brick_major stores a flat
+    table in (8, 8, 128) bricks when the grid divides them."""
     dev = scene.device
     tile_offset = torch.as_tensor(tile_offset, dtype=torch.float32, device=dev)
-    _check_ported(
-        table_bits, defer_ggx, brick_major, tail_spec, tail_single_level,
-        tail_bricks,
-    )
+    if table_bits not in (32, 8, 4):
+        raise ValueError("table_bits must be 32, 8 or 4")
     tw, th = tile_dim
     n_pix_tile = tw * th
     multi_t = tile_offset.ndim == 2
@@ -358,10 +388,19 @@ def render_tile(
     scale = med.scale
     inv_sigmat = 1.0 / (scale * med.max_density)
     albedo_mode = _albedo_mode(scene, allow_split=True)
-    if albedo_mode == "split":
-        raise _not_ported("'split' albedo table mode")
-    fused = make_fused_grid(scene, albedo_mode)
     flat_tab = albedo_mode != "full"  # 1-D density-only table
+    ez_bm, ey_bm, ex_bm = _BM_BRICK
+    use_bm = (
+        brick_major and flat_tab and albedo_mode != "split"
+        and nz % ez_bm == 0 and ny % ey_bm == 0 and nx % ex_bm == 0
+    )
+    if use_bm:
+        fused = brick_major_table(med.density.data)
+    else:
+        fused = make_fused_grid(scene, albedo_mode)
+    if albedo_mode == "split":
+        # rows of the scene's own albedo grid (a view: no copy of it)
+        albedo_rows = med.albedo.data.reshape(-1, med.albedo.data.shape[-1])
     # table_bits 8/4: the flat table packed at 2^bits levels; each tap's
     # acceptance is then off by at most 1/(2^(bits+1)-2) of max_density,
     # and the majorants come from the dequantized grid so they bound
@@ -386,10 +425,31 @@ def render_tile(
         return row if flat_tab else row[..., -1]
 
     def tap_flat_idx(ix, iy, iz):
-        return (iz * ny + iy) * nx + ix
+        """Flat table index of a clamped integer tap, row-major or
+        brick-major."""
+        if not use_bm:
+            return (iz * ny + iy) * nx + ix
+        sz, sy, sx = _BM_SHIFT
+        mz, my, mx = _BM_MASK
+        return (
+            (((iz >> sz) * (ny // ey_bm) + (iy >> sy)) * (nx // ex_bm)
+             + (ix >> sx)) * (ez_bm * ey_bm * ex_bm)
+            + (((iz & mz) << (sy + sx)) + ((iy & my) << sx) + (ix & mx))
+        )
+
+    def tap_albedo(row, tap_flat, mask):
+        """Scatter albedo for lanes in `mask`: decoded from the fused row,
+        or under 'split' gathered from the scene's albedo grid at the
+        accepted tap."""
+        if albedo_mode == "split":
+            return albedo_rows[torch.where(mask, tap_flat, 0)][..., :3]
+        return fused_row_decode(scene, row)[1]
 
     def build_brick_tables(bz_, by_, bx_):
-        """Majorant + leap table for one brick granularity."""
+        """Majorant + leap table for one brick granularity.  Stages may
+        use different granularities: a lane's carried (brick_exit,
+        inv_sig_local) stays a valid majorant until its next crossing,
+        so switching tables at a stage boundary needs no re-probe."""
         nbz, nby, nbx = -(-nz // bz_), -(-ny // by_), -(-nx // bx_)
         major = brick_majorants(majorant_grid(med.density.data),
                                 (bz_, by_, bx_))
@@ -413,10 +473,15 @@ def render_tile(
             nby=nby, nbx=nbx,
         )
 
+    coarse_bt = fine_bt = None
     if two_level:
-        bt = build_brick_tables(
+        coarse_bt = build_brick_tables(
             *(brick_size or pick_brick((nz, ny, nx), max_bricks))
         )
+        # tail pools are latency-bound: tighter majorants cut the null
+        # collisions of the few deep paths left
+        if tail_bricks > 0:
+            fine_bt = build_brick_tables(tail_bricks, tail_bricks, tail_bricks)
 
     lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
     if multi_t:
@@ -463,9 +528,48 @@ def render_tile(
         tracking=zeros(n_lanes, dtype=torch.bool),
         rng=make_rng(seed, zeros(n_lanes, dtype=torch.int64)),
         n_rays=zeros(), n_rows=zeros(), n_busy=zeros(),
+        pend_b=zeros(n_lanes, dtype=torch.bool),
     )
 
-    def body(s: FastState) -> FastState:
+    def cap_and_roulette(alive, samples_done, bounce, tput, rng, event,
+                         cap_on):
+        """After `event` lanes took an event (bounce already counted):
+        the path-length cap on `cap_on` lanes, then Russian roulette on
+        the event lanes that were not capped."""
+        capped = cap_on & (bounce >= settings.max_path_length)
+        alive = alive & ~capped
+        samples_done = torch.where(capped, samples_done + 1, samples_done)
+        if settings.russian_roulette:
+            tput, alive, killed, rng = integrator.russian_roulette(
+                tput, alive, rng, event & ~capped
+            )
+            samples_done = torch.where(killed, samples_done + 1, samples_done)
+        return alive, samples_done, tput, rng, capped
+
+    def flush_boundary(s: FastState) -> FastState:
+        """The boundary event of every pending lane in one batched GGX
+        evaluation, in the inline order: event, bounce + 1, path cap,
+        Russian roulette."""
+        pend = s.pend_b
+        o_bound = s.o + s.d * s.max_t[:, None]
+        o_b, d_b, t_b, rng = integrator.boundary_event(
+            scene, settings, s.normal, o_bound, s.d, s.throughput, s.rng,
+            pend,
+        )
+        p3 = pend[:, None]
+        bounce = torch.where(pend, s.bounce + 1, s.bounce)
+        alive, samples_done, tput, rng, _ = cap_and_roulette(
+            s.alive, s.samples_done, bounce, torch.where(p3, t_b, s.throughput),
+            rng, event=pend, cap_on=pend,
+        )
+        return s._replace(
+            o=torch.where(p3, o_b, s.o), d=torch.where(p3, d_b, s.d),
+            throughput=tput, bounce=bounce, alive=alive,
+            samples_done=samples_done, rng=rng,
+            pend_b=torch.zeros_like(pend),
+        )
+
+    def body(s: FastState, spec_k=1, single_level=False, bt=None) -> FastState:
         width = s.alive.shape[0]
         # --- regenerate: next sample of the lane's pixel -----------------
         needs = ~s.alive & (s.samples_done < spp_per_lane)
@@ -487,6 +591,8 @@ def render_tile(
 
         # --- segment start: AABB + classification ------------------------
         need_isect = alive & ~tracking
+        if defer_ggx > 0:
+            need_isect = need_isect & ~s.pend_b  # stalled for the flush
         n_rays = s.n_rays + need_isect.to(torch.float32).sum()
         isect = aabb.aabb_intersect(med.box_min, med.box_max, o, d)
         miss = need_isect & ~isect.hit
@@ -502,24 +608,67 @@ def render_tile(
         brick_exit = torch.where(enters, -1.0, s.brick_exit)
         inv_sig_local = s.inv_sig_local
 
-        def tap_row(t_at, bits, mask):
-            """Fused-table row of the stochastic tap at o + t_at d."""
+        def tap_flat(t_at, bits):
+            """Flat table index of the stochastic tap at o + t_at d."""
             p_at = o + t_at[:, None] * d
             coord = (
                 torch.clamp((p_at - med.box_min) / extent, 0.0, 1.0)
                 * res_minus_1
             )
             tap = _stochastic_tap(coord, bits)
-            flat = tap_flat_idx(
+            return tap_flat_idx(
                 torch.clamp(tap[:, 0], 0, nx - 1),
                 torch.clamp(tap[:, 1], 0, ny - 1),
                 torch.clamp(tap[:, 2], 0, nz - 1),
             )
-            return fused_take(
-                flat if mask is None else torch.where(mask, flat, 0))
+
+        def speculate(rng, mask, inv_sig, t_end, strict):
+            """spec_k Woodcock steps from one gather: spec_k u1 draws,
+            then spec_k tap draws, then spec_k u2 draws, each masked per
+            candidate.  A candidate is valid while it stays before t_end
+            (strictly for a brick exit, not for the box's max_t); the
+            prefix stops at the first acceptance or invalid candidate.
+            Returns (stopped, accepted at the stop, t of the stop or of
+            the last candidate, the stop's row and tap, rng)."""
+            t_run, cands = t, []
+            for _ in range(spec_k):
+                u1, rng = next_float(rng, mask)
+                t_run = t_run + torch.where(
+                    mask, -torch.log(torch.clamp(u1, min=EPSILON)) * inv_sig,
+                    0.0,
+                )
+                cands.append(t_run)
+            t_cands = torch.stack(cands, dim=-1)  # (N, K)
+            before = (t_cands < t_end[:, None]) if strict else (
+                t_cands <= t_end[:, None])
+            valid = mask[:, None] & before
+            flats = []
+            for j in range(spec_k):
+                bits, rng = next_uint32(rng, valid[:, j])
+                flats.append(tap_flat(t_cands[:, j], bits))
+            idxk = torch.stack(flats, dim=-1)  # (N, K)
+            rows = fused_take(torch.where(valid, idxk, 0))  # (N, K[, 4])
+            u2s = []
+            for j in range(spec_k):
+                u2, rng = next_float(rng, valid[:, j])
+                u2s.append(u2)
+            u2k = torch.stack(u2s, dim=-1)
+            acceptj = valid & ~(scale * row_rho(rows) * inv_sig[:, None] < u2k)
+            j0, any_stop = first_stop(acceptj | ~valid)
+            j0 = j0[:, None]
+            if flat_tab:
+                row0 = rows.gather(1, j0)[:, 0]
+            else:
+                row0 = rows.gather(
+                    1, j0[:, :, None].expand(-1, 1, rows.shape[-1]))[:, 0]
+            acc0 = acceptj.gather(1, j0)[:, 0]
+            t_stop = torch.where(
+                any_stop, t_cands.gather(1, j0)[:, 0], t_cands[:, -1])
+            return (any_stop, acc0, t_stop, row0, idxk.gather(1, j0)[:, 0],
+                    rng)
 
         # --- tracking ------------------------------------------------------
-        if two_level:
+        if two_level and not single_level:
             # Two-level (sparse-leap) delta tracking: brick probes hit the
             # small (B, 2) majorant+leap table, taps the fused table; a
             # brick entry probes AND takes its first Woodcock step in the
@@ -567,20 +716,35 @@ def render_tile(
             stepping = tracking & ~probe_empty
             eff_exit = torch.minimum(brick_exit, max_t)
 
-            u1, rng = next_float(rng, stepping)
-            step = torch.where(
-                stepping,
-                -torch.log(torch.clamp(u1, min=EPSILON)) * inv_sig_local,
-                0.0,
-            )
-            t_cand = t + step
-            crossed_step = stepping & (t_cand >= eff_exit)
-            inside = stepping & ~crossed_step
-            tap_bits, rng = next_uint32(rng, inside)
-            row = tap_row(t_cand, tap_bits, inside)
-            u2, rng = next_float(rng, inside)
-            accepted = inside & ~(scale * row_rho(row) * inv_sig_local < u2)
-            alb_hat = fused_row_decode(scene, row)[1]
+            if spec_k == 1:
+                u1, rng = next_float(rng, stepping)
+                step = torch.where(
+                    stepping,
+                    -torch.log(torch.clamp(u1, min=EPSILON)) * inv_sig_local,
+                    0.0,
+                )
+                t_cand = t + step
+                crossed_step = stepping & (t_cand >= eff_exit)
+                inside = stepping & ~crossed_step
+                tap_bits, rng = next_uint32(rng, inside)
+                flat = tap_flat(t_cand, tap_bits)
+                row = fused_take(torch.where(inside, flat, 0))
+                u2, rng = next_float(rng, inside)
+                accepted = inside & ~(
+                    scale * row_rho(row) * inv_sig_local < u2)
+                alb_hat = tap_albedo(row, flat, accepted)
+                advance, t_adv = inside, t_cand
+            else:
+                # speculative steps: keep the prefix up to the first
+                # acceptance or brick crossing (thinned steps are iid, so
+                # the prefix is the same stochastic process)
+                any_stop, acc0, t_adv, row0, tap0, rng = speculate(
+                    rng, stepping, inv_sig_local, eff_exit, strict=True)
+                accepted = stepping & any_stop & acc0
+                crossed_step = stepping & any_stop & ~acc0
+                alb_hat = tap_albedo(row0, tap0, accepted)
+                # no stop within K valid steps: advance and keep tracking
+                advance = stepping & (accepted | ~any_stop)
 
             overran_step = crossed_step & (max_t <= brick_exit)
             transit = crossed_step & ~overran_step
@@ -593,7 +757,7 @@ def render_tile(
                     torch.where(
                         overran_step,
                         torch.maximum(t, max_t),
-                        torch.where(inside, t_cand, t),
+                        torch.where(advance, t_adv, t),
                     ),
                 ),
             )
@@ -603,54 +767,77 @@ def render_tile(
             terminated = overran | accepted
             scattered = accepted
             tracking = tracking & ~terminated
-        else:
+        elif spec_k == 1:
             # single-level Woodcock tracking under the global majorant
             step_mask = tracking
             u1, rng = next_float(rng, step_mask)
             step = -torch.log(torch.clamp(u1, min=EPSILON)) * inv_sigmat
             t_new = torch.where(step_mask, t + step, t)
             tap_bits, rng = next_uint32(rng, step_mask)
-            row = tap_row(t_new, tap_bits, None)
+            flat = tap_flat(t_new, tap_bits)
+            row = fused_take(flat)
             u2, rng = next_float(rng, step_mask)
             overran = t_new > max_t
             accepted = ~(scale * row_rho(row) * inv_sigmat < u2)
             terminated = step_mask & (overran | accepted)
             scattered = terminated & ~overran
-            alb_hat = fused_row_decode(scene, row)[1]
+            alb_hat = tap_albedo(row, flat, scattered)
             t = t_new
+            tracking = tracking & ~terminated
+        else:
+            # speculative single-level steps: no brick crossings, so every
+            # candidate before the box exit is a valid Woodcock step
+            step_mask = tracking
+            any_stop, acc0, t_stop, row0, tap0, rng = speculate(
+                rng, step_mask, inv_sigmat.expand(t.shape), max_t,
+                strict=False)
+            accepted = step_mask & any_stop & acc0
+            overran = step_mask & any_stop & ~acc0
+            terminated = accepted | overran
+            scattered = accepted
+            alb_hat = tap_albedo(row0, tap0, scattered)
+            t = torch.where(step_mask, t_stop, t)
             tracking = tracking & ~terminated
 
         # --- boundary event ----------------------------------------------
         boundary = boundary_now | (terminated & overran)
-        o_bound = torch.where(
-            boundary_now[:, None],
-            o + d * isect.dist[:, None],
-            o + d * max_t[:, None],
-        )
-        o_b, d_b, t_b, rng = integrator.boundary_event(
-            scene, settings, normal, o_bound, d, tput, rng, boundary
-        )
+        pend_b = s.pend_b
+        if defer_ggx > 0:
+            # record the boundary distance and stall; flush_boundary runs
+            # the event later at the same place in the lane's stream
+            max_t = torch.where(boundary_now, isect.dist, max_t)
+            pend_b = pend_b | boundary
+            boundary = torch.zeros_like(boundary)
+        else:
+            o_bound = torch.where(
+                boundary_now[:, None],
+                o + d * isect.dist[:, None],
+                o + d * max_t[:, None],
+            )
+            o_b, d_b, t_b, rng = integrator.boundary_event(
+                scene, settings, normal, o_bound, d, tput, rng, boundary
+            )
 
         # --- scatter event: reuse the accepted tap's albedo --------------
         o_s = o + d * t[:, None] - d * EPSILON
         d_s, rng = phase.sample_phase(d, med.g, rng, active=scattered)
         sc, bd = scattered[:, None], boundary[:, None]
-        o = torch.where(sc, o_s, torch.where(bd, o_b, o))
-        d = torch.where(sc, d_s, torch.where(bd, d_b, d))
-        tput = torch.where(sc, tput * alb_hat, torch.where(bd, t_b, tput))
+        if defer_ggx > 0:
+            o = torch.where(sc, o_s, o)
+            d = torch.where(sc, d_s, d)
+            tput = torch.where(sc, tput * alb_hat, tput)
+        else:
+            o = torch.where(sc, o_s, torch.where(bd, o_b, o))
+            d = torch.where(sc, d_s, torch.where(bd, d_b, d))
+            tput = torch.where(sc, tput * alb_hat, torch.where(bd, t_b, tput))
 
         # --- path-length cap + Russian roulette after events --------------
         had_event = alive & (scattered | boundary)
         bounce = torch.where(had_event, bounce + 1, bounce)
-        capped = alive & (bounce >= settings.max_path_length)
-        alive = alive & ~capped
+        alive, samples_done, tput, rng, capped = cap_and_roulette(
+            alive, samples_done, bounce, tput, rng, event=had_event,
+            cap_on=alive)
         tracking = tracking & ~capped
-        samples_done = torch.where(capped, samples_done + 1, samples_done)
-        if settings.russian_roulette:
-            tput, alive, killed, rng = integrator.russian_roulette(
-                tput, alive, rng, had_event & ~capped
-            )
-            samples_done = torch.where(killed, samples_done + 1, samples_done)
 
         return FastState(
             o=o, d=d, throughput=tput, accum=accum, normal=normal,
@@ -662,6 +849,7 @@ def render_tile(
             rng=rng, n_rays=n_rays,
             n_rows=s.n_rows + float(width),
             n_busy=s.n_busy + tracking.to(torch.float32).sum(),
+            pend_b=pend_b,
         )
 
     def pending_of(s):
@@ -670,18 +858,30 @@ def render_tile(
     def pending_count(s) -> int:
         return int(torch.count_nonzero(pending_of(s)))
 
+    # the flush schedule reads n_rows; a host copy, summed in float32 in
+    # the same order, equals the device's bit for bit without a read
+    rows_host = np.float32(0.0)
+
+    def step(s: FastState, **kw) -> FastState:
+        nonlocal rows_host
+        width = np.float32(s.alive.shape[0])
+        if defer_ggx > 0 and int(np.round(rows_host / width)) % defer_ggx == 0:
+            s = flush_boundary(s)
+        rows_host = np.float32(rows_host + width)
+        return body(s, **kw)
+
     # --- cascade: shrink the pool as the tail empties ---------------------
     if min_width is None:
         min_width = _MIN_WIDTH
     widths = _cascade_widths(n_lanes, cascade_factor, min_width)
     # the tail kernel takes over once the pending count fits its width;
     # it rebuilds albedo as A*rho+B, so it needs a const/affine albedo
-    # (a full-albedo scene keeps the wavefront tail), it reads the f32
-    # grid (so not under packed tables), and its service loop is
-    # single-tile
+    # (a full-albedo scene keeps the wavefront tail), runs boundary events
+    # inline (not under defer_ggx), reads the f32 grid (so not under
+    # packed tables), and its service loop is single-tile
     use_tailpk = (
-        tail_pallas and albedo_mode in ("const", "affine") and not use_packed
-        and not multi_t
+        tail_pallas and albedo_mode in ("const", "affine") and defer_ggx == 0
+        and not use_packed and not multi_t
     )
     pk_width = min(tail_pk_width, n_lanes)
     img = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
@@ -705,10 +905,21 @@ def render_tile(
         # pending-count read (extra evaluations past the exit are no-ops)
         tail = len(widths) > 1 and width <= tail_width
         k_chain = tail_chain if tail else 1
+        # pools up to spec_width may speculate, and with tail_single_level
+        # switch to the global majorant (memoryless, so a mid-flight lane
+        # may restart under it); an (N, K) gather only pays while N*K is
+        # small, hence a width of its own
+        narrow = len(widths) > 1 and width <= (
+            tail_width if spec_width is None else spec_width)
+        kw = dict(
+            spec_k=tail_spec if narrow else 1,
+            single_level=narrow and tail_single_level and two_level,
+            bt=fine_bt if (tail and fine_bt is not None) else coarse_bt,
+        )
         rows_before = state.n_rows
         while pending_count(state) > thresh:
             for _ in range(k_chain):
-                state = body(state)
+                state = step(state, **kw)
         stage_rows.append(state.n_rows - rows_before)
         if last and not use_tailpk:
             img.index_add_(0, state.pix, state.accum)
@@ -727,6 +938,11 @@ def render_tile(
 
     img = img.reshape((n_tiles_batch, th, tw, 3) if multi_t else (th, tw, 3))
     if with_stats:
+        if defer_ggx > 0 and float(state.n_rows) != float(rows_host):
+            raise RuntimeError(
+                f"fastSK: the host's n_rows {float(rows_host)} parted from "
+                f"the device's {float(state.n_rows)}"
+            )
         return (
             img, state.n_rays, state.n_rows, state.n_busy,
             torch.stack(stage_rows),

@@ -245,6 +245,7 @@ def make_kernel_fn(config: Config):
                 cascade_factor=config.cascade_factor,
                 tail_single_level=config.tail_single_level,
                 tail_spec=config.tail_spec,
+                spec_width=config.spec_width,
                 min_width=config.min_width,
                 tail_bricks=config.tail_bricks,
                 tail_pallas=config.tail_pallas,

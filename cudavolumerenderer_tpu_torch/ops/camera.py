@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..scene.types import loader_device
 from . import math3
 from .rng import RngState, next_float2
 
@@ -50,11 +51,13 @@ def make_camera(
     fov_x_deg: float = 0.7,
     position=(0.0, 0.0, 100.0),
     mitsuba_comparable: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> Camera:
     """Default camera at +z looking down -z (reference: Camera.h:26-42);
     fov_y follows fov_x by aspect ratio, the x-axis handedness flip
-    follows MITSUBA_COMPARABLE (Camera.h:30-34)."""
+    follows MITSUBA_COMPARABLE (Camera.h:30-34).  Builds on the card
+    unless the caller passes device="cpu"."""
+    device = loader_device(device)
     right_x = 1.0 if mitsuba_comparable else -1.0
     inv_view = np.array(
         [
@@ -73,10 +76,13 @@ def make_camera(
 
 
 def make_camera_look_at(
-    eye, center, up, res_x: int, res_y: int, fov_x_deg: float, device="cpu"
+    eye, center, up, res_x: int, res_y: int, fov_x_deg: float,
+    device="cuda",
 ) -> Camera:
     """Look-at constructor (reference: Camera.h lookAt:107-122).
-    View-to-world columns are (right, -new_up, forward, eye)."""
+    View-to-world columns are (right, -new_up, forward, eye).  Builds on
+    the card unless the caller passes device="cpu"."""
+    device = loader_device(device)
     eye = np.asarray(eye, np.float32)
     forward = np.asarray(center, np.float32) - eye
     forward = forward / np.linalg.norm(forward)

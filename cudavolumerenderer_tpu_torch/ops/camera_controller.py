@@ -51,6 +51,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..scene.types import loader_device
 from .camera import Camera, make_camera
 
 ROTATION_VELOCITY = 1.0  # InteractiveRenderer.h:219
@@ -191,8 +192,10 @@ class CameraController:
     def position(self) -> np.ndarray:
         return quat_to_mat(self.orientation) @ (-self.translation)
 
-    def camera(self, device="cpu") -> Camera:
-        """Render camera for the current pose, on `device`."""
+    def camera(self, device="cuda") -> Camera:
+        """Render camera for the current pose, on `device` (the card
+        unless the caller passes device="cpu")."""
+        device = loader_device(device)
         rot = quat_to_mat(self.orientation)
         inv_view = np.concatenate(
             [rot, (rot @ (-self.translation))[:, None]], axis=1

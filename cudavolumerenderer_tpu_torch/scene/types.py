@@ -115,15 +115,15 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def loader_device(device) -> torch.device:
-    """The device a scene loader builds on.  The loaders default to
-    "cuda"; without a card that raises (there is no fallback) and a CPU
-    caller passes device="cpu"."""
+    """The device a scene loader or a scene/camera constructor builds on.
+    They default to "cuda"; without a card that raises (there is no
+    fallback) and a CPU caller passes device="cpu"."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"scene loader: device {device} needs a CUDA card and "
+            f"device {device} needs a CUDA card and "
             "torch.cuda.is_available() is False; pass device=\"cpu\" to "
-            "load the scene on the CPU"
+            "build the scene or camera on the CPU"
         )
     return device
 
@@ -136,13 +136,15 @@ def make_medium(
     scale: float = 1.0,
     max_density: float | None = None,
     g: float = 0.0,
-    device="cpu",
+    device="cuda",
 ) -> Medium:
     """Assemble a Medium from volumes in x-fastest (Z, Y, X[,C]) layout.
 
     A scalar or (3,) albedo becomes a constant (1, 1, 1, 4) grid.  The
     affine albedo fit runs on numpy inputs; torch tensors pass through
-    without a host round-trip and without a fit."""
+    without a host round-trip and without a fit.  Builds on the card
+    unless the caller passes device="cpu"."""
+    device = loader_device(device)
     if not isinstance(density_zyx, torch.Tensor):
         density_zyx = np.asarray(density_zyx, np.float32)
     if np.ndim(albedo_zyx) <= 1:  # constant albedo

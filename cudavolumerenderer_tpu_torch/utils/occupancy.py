@@ -101,3 +101,16 @@ def validate_pool(n_lanes: int, grid_shape_zyx, budget=None, device=None) -> Non
             "n_lanes or the grid resolution",
             stacklevel=2,
         )
+
+
+def autotune_report(n_pix, spp, grid_shape_zyx, budget=None, device=None) -> str:
+    """Human-readable line mirroring the reference's occupancy printout
+    (RenderKernelLauncher.cu:318-324); the JAX package's words."""
+    budget = budget or device_memory_budget(device)
+    lanes = pick_n_lanes(n_pix, spp, grid_shape_zyx, budget)
+    return (
+        f"[cvr-tpu] occupancy: pool {lanes} lanes "
+        f"({lanes * _BYTES_PER_LANE / 2**20:.1f} MiB state), "
+        f"budget {budget / 2**30:.1f} GiB, "
+        f"work {n_pix * spp} paths"
+    )

@@ -73,14 +73,15 @@ def test_white_furnace_exact():
     """albedo 1 + null boundary + no roulette: every path ends by leaving
     the box with throughput 1, so every pixel is exactly spp."""
     d = procedural.blob_volume((24, 24, 24), n_blobs=3)
-    scene = ttypes.make_scene(ttypes.make_medium(d, 1.0, scale=8.0,
-                                                 max_density=1.0))
+    scene = ttypes.make_scene(ttypes.make_medium(
+        d, 1.0, scale=8.0, max_density=1.0, device="cpu"))
     settings = ttypes.RenderSettings.from_flags(
         True, russian_roulette=False, bsdf_kind="null"
     )
     spp = 2
     img, n_rays, rounds = tbrick.render_tile(
-        scene, tcam.make_camera(16, 16), settings, (16, 16), torch.zeros(2),
+        scene, tcam.make_camera(16, 16, device="cpu"), settings, (16, 16),
+        torch.zeros(2),
         (16, 16), spp, 3, 0, with_stats=True,
     )
     assert rounds > 1 and float(n_rays) > 16 * 16 * spp
@@ -89,7 +90,7 @@ def test_white_furnace_exact():
 
 def test_create_renderer_equals_render_tile():
     scene, _ = smoke_scenes(100.0)
-    camera = tcam.make_camera(16, 8)
+    camera = tcam.make_camera(16, 8, device="cpu")
     cfg = Config(kernel=Kernel.BRICK_SK, resolution=(16, 8), iterations=3,
                  seed=9)
     renderer = create_renderer(scene, camera, cfg)
@@ -107,7 +108,8 @@ def test_lane_count_must_divide_into_rows():
     scene, _ = smoke_scenes(100.0)
     with pytest.raises(ValueError, match="divisible by 128"):
         tbrick.render_tile(
-            scene, tcam.make_camera(10, 10), ttypes.RenderSettings(),
+            scene, tcam.make_camera(10, 10, device="cpu"),
+            ttypes.RenderSettings(),
             (10, 10), torch.zeros(2), (10, 10), 1, 0, 0,
         )
 

@@ -48,7 +48,7 @@ def assert_same(t, j):
     np.testing.assert_allclose(t.orientation, j.orientation, **TOL)
     np.testing.assert_allclose(t.translation, j.translation, **TOL)
     np.testing.assert_allclose(t.position, j.position, **TOL)
-    tc, jc = t.camera(), j.camera()
+    tc, jc = t.camera(device="cpu"), j.camera()
     np.testing.assert_allclose(tc.inv_view.numpy(), np.asarray(jc.inv_view),
                                **TOL)
     np.testing.assert_array_equal(tc.raster_to_view.numpy(),
@@ -78,13 +78,14 @@ def test_every_event_equals_jax(res):
 
 def test_default_pose_and_look_at_match_cameras():
     ctl = tcc.CameraController(32, 32, fov_x_deg=0.7)
-    torch.testing.assert_close(ctl.camera().inv_view,
-                               make_camera(32, 32, 0.7).inv_view,
+    torch.testing.assert_close(ctl.camera(device="cpu").inv_view,
+                               make_camera(32, 32, 0.7, device="cpu").inv_view,
                                atol=1e-6, rtol=0)
     eye = (30.0, 40.0, 50.0)
     ctl.look_at(eye, (0.0, 0.0, 0.0), (0, 1, 0))
-    ref = make_camera_look_at(eye, (0.0, 0.0, 0.0), (0, 1, 0), 32, 32, 0.7)
-    torch.testing.assert_close(ctl.camera().inv_view, ref.inv_view,
+    ref = make_camera_look_at(eye, (0.0, 0.0, 0.0), (0, 1, 0), 32, 32, 0.7,
+                              device="cpu")
+    torch.testing.assert_close(ctl.camera(device="cpu").inv_view, ref.inv_view,
                                atol=1e-5, rtol=0)
     r0 = np.linalg.norm(ctl.position)
     ctl.rotate(25.0, 10.0)  # motion composes with the pose
@@ -96,7 +97,8 @@ def test_rotated_camera_rays_aim_at_center():
     ctl = tcc.CameraController(9, 9)
     ctl.rotate(120.0, 60.0)
     rng = make_rng(1, torch.arange(1))
-    o, d, _ = generate_rays(ctl.camera(), torch.tensor([[4.0, 4.0]]), (9, 9),
+    o, d, _ = generate_rays(ctl.camera(device="cpu"),
+                            torch.tensor([[4.0, 4.0]]), (9, 9),
                             rng, active=torch.ones(1, dtype=torch.bool))
     o, d = o[0].numpy(), d[0].numpy()
     np.testing.assert_allclose(o, ctl.position, atol=1e-4)

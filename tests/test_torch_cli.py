@@ -92,13 +92,19 @@ def test_every_kernel_renders_raw_scene_on_cpu(tmp_path, kernel):
     ["--tail-spec", "2"], ["--defer-ggx", "2"], ["--brick-major"],
 ])
 def test_unported_modes_raise(tmp_path, extra):
-    """The interactive modes render (tests/test_torch_interactive.py), and
-    so do packed tables (tests/test_torch_packed.py); the fastSK options
-    still to port raise through the CLI."""
+    """These fastSK options raised through the CLI until they were ported
+    (tests/test_torch_fast_options.py holds them against JAX); each now
+    renders, and --defer-ggx and --brick-major (a layout) write the
+    default render's image bit for bit."""
     scene = write_xml_scene(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        cli.main([scene, "-i", "1", "-r", "8", "8", "--two-level",
-                  "--platform", "cpu", *extra])
+    argv = [scene, "-i", "1", "-r", "8", "8", "--two-level", "--platform",
+            "cpu"]
+    assert cli.main(argv + ["-o", str(tmp_path / "opt"), *extra]) == 0
+    img = load_hdr(str(tmp_path / "opt.hdr"))
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    if extra[0] != "--tail-spec":
+        assert cli.main(argv + ["-o", str(tmp_path / "ref")]) == 0
+        np.testing.assert_array_equal(img, load_hdr(str(tmp_path / "ref.hdr")))
 
 
 def test_cuda_platform_without_card_raises(tmp_path, monkeypatch):

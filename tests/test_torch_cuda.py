@@ -8,7 +8,9 @@ block.  The scheduler family (naiveSK ... fastQ, which has
 no kernel of its own) renders on the card, against the same render on
 the CPU, and its white furnace is exact there.  The differentiable path
 (no kernel of its own) gives the CPU's image and cotangents on the card,
-and one run_inverse step the CPU's loss and grid.
+and one run_inverse step the CPU's loss and grid.  The scene and camera
+constructors build on the card by default, and fastSK's defer_ggx,
+brick_major and 'split' table give the default render bit for bit there.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -510,3 +512,71 @@ def test_run_inverse_step_on_card(cuda):
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
     np.testing.assert_allclose(d_card.cpu().numpy(), d_cpu.numpy(), atol=1e-4)
     assert not np.array_equal(d_cpu.numpy(), density)
+
+
+@pytest.mark.cuda
+def test_constructors_default_to_card(cuda):
+    """make_camera, make_camera_look_at, make_medium and
+    CameraController.camera build on the card unless asked for the CPU."""
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera_look_at
+    from cudavolumerenderer_tpu_torch.ops.camera_controller import (
+        CameraController,
+    )
+
+    cams = [make_camera(8, 8),
+            make_camera_look_at((0, 0, 100), (0, 0, 0), (0, 1, 0), 8, 8, 0.7),
+            CameraController(8, 8).camera()]
+    for c in cams:
+        assert c.inv_view.device.type == c.raster_to_view.device.type == "cuda"
+    medium = types.make_medium(np.ones((4, 4, 4), np.float32), 0.9)
+    assert all(t.device.type == "cuda" for t in (
+        medium.density.data, medium.albedo.data, medium.box_min, medium.scale))
+    assert make_camera(8, 8, device="cpu").inv_view.device.type == "cpu"
+
+
+def fast_option_render(device, option, shape=(16, 16, 128), albedo=None):
+    """A 24^2 x 4 two-level fastSK render in pools of 576, 512 and 256
+    lanes (image, n_rays) on the host."""
+    d = procedural.blob_volume(shape[::-1], n_blobs=3)
+    if albedo is None:
+        albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(d, albedo, scale=20.0,
+                                               max_density=1.0, device=device))
+    img, n_rays = fast.render_tile(
+        scene, make_camera(24, 24, device=device),
+        types.RenderSettings.from_flags(True), (24, 24),
+        torch.zeros(2, device=device), (24, 24), 4, 7, 0, two_level=True,
+        cascade_factor=2, min_width=256, **option)
+    assert img.device.type == torch.device(device).type
+    return img.cpu().numpy(), float(n_rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [dict(defer_ggx=4), dict(brick_major=True)],
+                         ids=["defer_ggx", "brick_major"])
+def test_fast_option_bit_equal_on_card(cuda, option):
+    """defer_ggx re-times boundary events and brick_major re-lays the
+    table ((16, 16, 128) divides its bricks): on the card both give the
+    default render bit for bit, through the GGX boundary."""
+    a, ra = fast_option_render(cuda, option)
+    b, rb = fast_option_render(cuda, {})
+    assert np.isfinite(a).all() and ra > 0
+    np.testing.assert_array_equal(a, b)
+    assert ra == rb
+
+
+@pytest.mark.cuda
+def test_split_equals_full_on_card(cuda, monkeypatch):
+    """A per-voxel albedo sent to 'split' by a small budget renders the
+    'full' table's image bit for bit on the card."""
+    from cudavolumerenderer_tpu_torch.utils import occupancy
+
+    shape = (16, 16, 32)
+    alb = np.random.default_rng(4).uniform(0.3, 1.0, shape + (3,))
+    alb = alb.astype(np.float32)
+    b, rb = fast_option_render(cuda, dict(tail_spec=4), shape, alb)
+    monkeypatch.setattr(occupancy, "device_memory_budget",
+                        lambda device=None: 40 * int(np.prod(shape)))
+    a, ra = fast_option_render(cuda, dict(tail_spec=4), shape, alb)
+    np.testing.assert_array_equal(a, b)
+    assert ra == rb

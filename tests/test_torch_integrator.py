@@ -50,11 +50,12 @@ def small_scene(albedo_value=None, scale=40.0, g=0.0):
     else:
         albedo = np.full(dens.shape + (3,), albedo_value, np.float32)
     return make_scene(make_medium(dens, albedo, scale=scale, max_density=1.0,
-                                  g=g))
+                                  g=g, device="cpu"))
 
 
 def render(scene, settings, res=32, spp=4, seed=1, base=0, fn=naive.render_tile):
-    img, n_rays = fn(scene, make_camera(res, res), settings, (res, res),
+    img, n_rays = fn(scene, make_camera(res, res, device="cpu"), settings,
+                     (res, res),
                      torch.zeros(2), (res, res), spp, seed, base)
     return img.numpy() / spp, float(n_rays)
 
@@ -93,7 +94,7 @@ def test_white_furnace_every_scheduler(kernel, fields):
 def test_zero_density_is_background():
     dens = np.full((8, 8, 8), 1e-12, np.float32)
     scene = make_scene(make_medium(dens, np.ones(dens.shape + (3,), np.float32),
-                                   scale=1.0, max_density=1.0))
+                                   scale=1.0, max_density=1.0, device="cpu"))
     img, _ = render(scene, NULL, res=16, spp=2)
     np.testing.assert_allclose(img, 1.0, atol=1e-4)
 
@@ -180,10 +181,11 @@ def test_naive_vs_oracle_trilinear():
         seed=101,
     )
     scene = make_scene(
-        make_medium(dens, alb, scale=t.SCALE, max_density=1.0, g=t.G),
+        make_medium(dens, alb, scale=t.SCALE, max_density=1.0, g=t.G,
+                    device="cpu"),
         roughness=t.ROUGH, int_ior=t.INT_IOR, ext_ior=t.EXT_IOR)
     camera = make_camera_look_at(t.EYE, (0, 0, 0), (0, 1, 0), t.RES, t.RES,
-                                 t.FOV)
+                                 t.FOV, device="cpu")
     settings = RenderSettings.from_flags(True, russian_roulette=False,
                                          max_path_length=t.CAP)
     img, _ = naive.render_tile(scene, camera, settings, (t.RES, t.RES),
@@ -200,7 +202,7 @@ def slab_scene(n=32):
     d = np.zeros((n, n, n), np.float32)
     d[:, :, n // 2:] = 1.0
     return make_scene(make_medium(d, np.full((n, n, n, 3), 0.9, np.float32),
-                                  scale=5.0, max_density=1.0))
+                                  scale=5.0, max_density=1.0, device="cpu"))
 
 
 def rays_along_x(n):
@@ -266,7 +268,8 @@ def test_march_finds_slab_edge():
 def test_no_surface_means_no_hit():
     n = 16
     scene = make_scene(make_medium(np.zeros((n, n, n), np.float32),
-                                   (0.9, 0.9, 0.9), scale=5.0, max_density=1.0))
+                                   (0.9, 0.9, 0.9), scale=5.0, max_density=1.0,
+                                   device="cpu"))
     settings = RenderSettings.from_flags(True, boundary="variable",
                                          boundary_threshold=1e-4)
     o, d = rays_along_x(8)
@@ -329,7 +332,7 @@ def test_variable_boundary_matches_jax():
 
 def test_render_runs_and_differs_from_aabb():
     scene = slab_scene()
-    cam = make_camera(16, 16, 35.0, position=(0.0, 0.0, 3.0))
+    cam = make_camera(16, 16, 35.0, position=(0.0, 0.0, 3.0), device="cpu")
     imgs = {}
     for boundary in ("aabb", "variable"):
         settings = RenderSettings.from_flags(
@@ -349,12 +352,14 @@ def test_white_furnace_conserves_with_null_bsdf(kernel):
     n = 16
     d = np.zeros((n, n, n), np.float32)
     d[:, :, n // 2:] = 1.0
-    scene = make_scene(make_medium(d, 1.0, scale=3.0, max_density=1.0))
+    scene = make_scene(make_medium(d, 1.0, scale=3.0, max_density=1.0,
+                                   device="cpu"))
     settings = RenderSettings.from_flags(
         True, boundary="variable", boundary_threshold=1e-4, bsdf_kind="null",
         russian_roulette=False, max_path_length=200)
     fn = make_kernel_fn(Config(kernel=Kernel.from_name(kernel), n_lanes=256,
                                settings=settings))
-    img, _ = fn(scene, make_camera(8, 8, 35.0, position=(0.0, 0.0, 3.0)),
+    img, _ = fn(scene, make_camera(8, 8, 35.0, position=(0.0, 0.0, 3.0),
+                                   device="cpu"),
                 settings, (8, 8), torch.zeros(2), (8, 8), 4, 5, 0)
     np.testing.assert_allclose(img.numpy() / 4, 1.0, rtol=0, atol=1e-5)

@@ -90,7 +90,7 @@ def test_generate_rays(res):
     t_st, j_st = rngs(5)
     active = rs.uniform(size=N) < 0.7
     pix = rs.uniform(0, res[0], (N, 2)).astype(np.float32)
-    t_cam = tcam.make_camera(*res)
+    t_cam = tcam.make_camera(*res, device="cpu")
     j_cam = jcam.make_camera(*res)
     same(t_cam.inv_view, j_cam.inv_view)
     same(t_cam.raster_to_view, j_cam.raster_to_view)
@@ -106,7 +106,8 @@ def test_generate_rays(res):
 
 
 def test_look_at_matches_make_camera():
-    t_cam = tcam.make_camera_look_at((0, 0, 100), (0, 0, 0), (0, 1, 0), 8, 8, 0.7)
+    t_cam = tcam.make_camera_look_at((0, 0, 100), (0, 0, 0), (0, 1, 0), 8, 8,
+                                     0.7, device="cpu")
     j_cam = jcam.make_camera_look_at((0, 0, 100), (0, 0, 0), (0, 1, 0), 8, 8, 0.7)
     close(t_cam.inv_view, j_cam.inv_view)
 

@@ -19,6 +19,7 @@ import importlib.util
 import os
 import types as pytypes
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -174,6 +175,21 @@ def test_packed_render_with_ggx_agrees_with_jax(bits):
     assert abs(na - nb) <= 0.01 * nb
     share = float(np.mean(np.all(np.isclose(a, b, **JAX_TOL), axis=-1)))
     assert share >= 0.99, share
+
+
+@pytest.mark.parametrize("bits", [32, 4])
+def test_packed_render_with_ggx_equals_jax_op_by_op(bits):
+    """The parting above is XLA's CPU jit, not the port: op by op
+    (jax.disable_jit) JAX renders the port's image and ray count bit for
+    bit.  Under jit XLA contracts a * b + c into an fma and rewrites
+    1 / sqrt(x) as rsqrt; the first to move a path here is the entry
+    point o + d * dist (models/fast.py's o_bound), 0.49999857 against
+    0.5 on the box's z face (ROADMAP C1)."""
+    with jax.disable_jit():
+        (a, na), (b, nb) = render_pair(quantized_scene, "ggx",
+                                       two_level=True, table_bits=bits)
+    assert na == nb
+    np.testing.assert_array_equal(a, b)
 
 
 def test_packed_render_differs_from_f32():

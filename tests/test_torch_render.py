@@ -103,14 +103,15 @@ def test_white_furnace_exact_through_tail_stage():
     scatters, the service loop's boundary events and regeneration all
     conserve energy."""
     d = procedural.blob_volume((24, 24, 24), n_blobs=3)
-    scene = ttypes.make_scene(ttypes.make_medium(d, 1.0, scale=8.0,
-                                                 max_density=1.0))
+    scene = ttypes.make_scene(ttypes.make_medium(
+        d, 1.0, scale=8.0, max_density=1.0, device="cpu"))
     settings = ttypes.RenderSettings.from_flags(
         True, russian_roulette=False, max_path_length=200, bsdf_kind="null",
     )
     spp = 2
     img, _, _, _, rows = tfast.render_tile(
-        scene, tcam.make_camera(6, 6), settings, (6, 6), torch.zeros(2),
+        scene, tcam.make_camera(6, 6, device="cpu"), settings, (6, 6),
+        torch.zeros(2),
         (6, 6), spp, 3, 0, with_stats=True, **TAIL,
     )
     assert float(rows[-1]) > 0
@@ -122,9 +123,10 @@ def test_full_albedo_keeps_wavefront_tail():
     tail_pallas then renders exactly as without it."""
     d = procedural.blob_volume((12, 12, 12), n_blobs=2)
     albedo = np.random.RandomState(1).rand(12, 12, 12, 4).astype(np.float32)
-    scene = ttypes.make_scene(ttypes.make_medium(d, albedo, scale=8.0,
-                                                 max_density=1.0))
-    args = (scene, tcam.make_camera(6, 6), ttypes.RenderSettings(), (6, 6),
+    scene = ttypes.make_scene(ttypes.make_medium(
+        d, albedo, scale=8.0, max_density=1.0, device="cpu"))
+    args = (scene, tcam.make_camera(6, 6, device="cpu"),
+            ttypes.RenderSettings(), (6, 6),
             torch.zeros(2), (6, 6), 2, 3, 0)
     a, _ = tfast.render_tile(*args, two_level=True, tail_pallas=True)
     b, _ = tfast.render_tile(*args, two_level=True)
@@ -184,23 +186,37 @@ def test_tiled_progressive_passes_match_one_batch(tmp_path):
     dict(tail_spec=2), dict(tail_single_level=True), dict(tail_bricks=4),
 ])
 def test_unported_options_raise(option):
+    """These options raised until they were ported; each now renders a
+    finite image (tests/test_torch_fast_options.py holds them against
+    JAX), and defer_ggx and brick_major (a layout; the 8^3 grid does not
+    divide its bricks, so it stays row-major) equal the default render
+    bit for bit."""
     scene, _ = medical_scenes(n=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tfast.render_tile(
-            scene, tcam.make_camera(4, 4), ttypes.RenderSettings(), (4, 4),
-            torch.zeros(2), (4, 4), 1, 0, 0, two_level=True, **option,
-        )
+    args = (scene, tcam.make_camera(16, 16, device="cpu"),
+            ttypes.RenderSettings(), (16, 16), torch.zeros(2), (16, 16), 2,
+            0, 0)
+    # 512 lanes in pools of 512 and 256: the second is a tail pool
+    kw = dict(two_level=True, lanes_per_pixel=2, min_width=256)
+    img, n_rays = tfast.render_tile(*args, **kw, **option)
+    assert torch.isfinite(img).all() and float(n_rays) > 0
+    if "defer_ggx" in option or "brick_major" in option:
+        ref, ref_rays = tfast.render_tile(*args, **kw)
+        assert torch.equal(img, ref) and float(n_rays) == float(ref_rays)
 
 
 def test_multi_tile_offsets_raise():
     """(T, 2) offsets render (multi-tile lane mode, tests/test_torch_tiles.py);
-    combined with an option that is not ported they still raise."""
+    combined with defer_ggx, which raised until it was ported, they render
+    the same tiles bit for bit."""
     scene, _ = medical_scenes(n=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tfast.render_tile(
-            scene, tcam.make_camera(4, 4), ttypes.RenderSettings(), (4, 4),
-            torch.zeros(3, 2), (4, 4), 1, 0, torch.zeros(3), defer_ggx=2,
-        )
+    args = (scene, tcam.make_camera(4, 4, device="cpu"),
+            ttypes.RenderSettings(), (4, 4),
+            torch.tensor([[0.0, 0.0], [4.0, 0.0], [0.0, 4.0]]), (8, 8), 1, 0,
+            torch.tensor([0, 16, 32]))
+    img, n_rays = tfast.render_tile(*args, defer_ggx=2)
+    ref, ref_rays = tfast.render_tile(*args)
+    assert img.shape == (3, 4, 4, 3) and torch.isfinite(img).all()
+    assert torch.equal(img, ref) and float(n_rays) == float(ref_rays)
 
 
 def test_other_kernels_and_scene_types_raise(tmp_path):

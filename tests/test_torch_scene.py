@@ -105,7 +105,7 @@ def test_affine_albedo_fit_matches_jax(affine):
     albedo = np.stack([0.8 * d + 0.1, 0.3 * np.ones_like(d), 1.0 - d], -1)
     if not affine:
         albedo[2, 3, 1, 1] += 0.25
-    t_aff = ttypes.make_medium(d, albedo).albedo_affine
+    t_aff = ttypes.make_medium(d, albedo, device="cpu").albedo_affine
     j_aff = jtypes.make_medium(d, albedo).albedo_affine
     assert (t_aff is None) == (j_aff is None) == (not affine)
     if affine:
@@ -145,3 +145,27 @@ def test_pool_sizing_matches_jax(n_pix, spp, grid, budget):
 def test_cpu_budget_is_host_memory():
     assert tocc.device_memory_budget("cpu") > 0
     assert tocc.device_memory_budget() == tocc.device_memory_budget("cpu")
+
+
+def test_constructors_default_to_card_and_raise_without_one(monkeypatch):
+    """make_camera, make_camera_look_at, make_medium and
+    CameraController.camera build on the card by default, as the scene
+    loaders do: without one they raise, and device="cpu" builds on the
+    CPU."""
+    from cudavolumerenderer_tpu_torch.ops import camera as tcam
+    from cudavolumerenderer_tpu_torch.ops.camera_controller import (
+        CameraController,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = np.ones((4, 4, 4), np.float32)
+    for build in (
+        lambda **kw: tcam.make_camera(8, 8, **kw),
+        lambda **kw: tcam.make_camera_look_at(
+            (0, 0, 100), (0, 0, 0), (0, 1, 0), 8, 8, 0.7, **kw),
+        lambda **kw: CameraController(8, 8).camera(**kw),
+        lambda **kw: ttypes.make_medium(d, 0.9, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            build()
+        assert build(device="cpu") is not None

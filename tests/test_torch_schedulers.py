@@ -304,7 +304,8 @@ def test_regeneration_groups_wait_for_their_whole_membership():
     out, image_id, issued = regeneration._regenerate(
         regeneration.integrator.PathState(**state),
         torch.zeros(10, dtype=torch.int64), torch.tensor(0), 100, (4, 4),
-        torch.zeros(2), (4, 4), tcam.make_camera(4, 4), 1, 0, refill_group=4)
+        torch.zeros(2), (4, 4), tcam.make_camera(4, 4, device="cpu"), 1, 0,
+        refill_group=4)
     took = out.alive.numpy() & ~state["alive"].numpy()
     np.testing.assert_array_equal(
         took, [False, False, False, False, True, True, True, True, False, True])

@@ -113,7 +113,8 @@ def test_multi_tile_keeps_the_tail_kernel_off():
 
 def renderer_scene():
     d = procedural.blob_volume((16, 16, 16), n_blobs=3)
-    return make_scene(make_medium(d, 0.8, scale=20.0, max_density=1.0))
+    return make_scene(make_medium(d, 0.8, scale=20.0, max_density=1.0,
+                                  device="cpu"))
 
 
 class Cascades:
@@ -145,7 +146,7 @@ def render_sequential(scene, camera, config):
                                     Kernel.NAIVE_SK])
 @pytest.mark.parametrize("tiles,res", [((2, 2), 16), ((3, 2), 20)])
 def test_batched_tiles_equal_sequential(kernel, tiles, res):
-    scene, camera = renderer_scene(), make_camera(res, res)
+    scene, camera = renderer_scene(), make_camera(res, res, device="cpu")
     cfg = dict(kernel=kernel, iterations=4, resolution=(res, res),
                n_tiles=tiles, n_lanes=256,
                settings=RenderSettings.from_flags(True))
@@ -167,7 +168,8 @@ def test_ragged_tiles_cover_image():
     cfg = Config(kernel=Kernel.FAST_SK, iterations=2, resolution=(res, res),
                  n_tiles=(3, 3),
                  settings=RenderSettings.from_flags(True, russian_roulette=False))
-    img = create_renderer(renderer_scene(), make_camera(res, res), cfg).render()
+    img = create_renderer(renderer_scene(),
+                          make_camera(res, res, device="cpu"), cfg).render()
     assert img.shape == (res, res, 3)
     assert np.isfinite(img).all()
     # RR off + constant environment: every path escapes with positive
@@ -178,7 +180,7 @@ def test_ragged_tiles_cover_image():
 def test_progressive_pass_batched_equals_sequential():
     """run_pass(spp) (one cascade over all tiles) matches looping
     run_iterations(spp) over every tile bit for bit, across passes."""
-    scene, camera = renderer_scene(), make_camera(16, 16)
+    scene, camera = renderer_scene(), make_camera(16, 16, device="cpu")
     cfg = dict(kernel=Kernel.FAST_SK, iterations=4, resolution=(16, 16),
                n_tiles=(2, 2), n_lanes=256,
                settings=RenderSettings.from_flags(True))
@@ -200,7 +202,7 @@ def test_progressive_pass_batched_equals_sequential():
 def test_run_pass_uneven_progress_respects_iteration_cap():
     """Mixing run_iterations with run_pass never renders a tile past
     config.iterations: uneven progress takes the sequential loop."""
-    scene, camera = renderer_scene(), make_camera(16, 16)
+    scene, camera = renderer_scene(), make_camera(16, 16, device="cpu")
     cfg = dict(kernel=Kernel.FAST_SK, iterations=2, resolution=(16, 16),
                n_tiles=(2, 2), n_lanes=256,
                settings=RenderSettings.from_flags(True))
@@ -219,7 +221,7 @@ def test_render_device_matches_render():
     """render_device + get_image equals render(): the benchmark protocol
     fences on the ray counter and copies the image after the timed
     region."""
-    scene, camera = renderer_scene(), make_camera(16, 16)
+    scene, camera = renderer_scene(), make_camera(16, 16, device="cpu")
     cfg = dict(kernel=Kernel.FAST_SK, iterations=3, resolution=(16, 16),
                n_tiles=(2, 2), two_level=True,
                settings=RenderSettings.from_flags(True))
@@ -241,7 +243,8 @@ def test_multi_mode_gate():
 
     def uses(**kw):
         cfg = Config(**{"kernel": Kernel.FAST_SK, "iterations": 1, **kw})
-        return create_renderer(scene, make_camera(8, 8), cfg)._use_multi()
+        return create_renderer(scene, make_camera(8, 8, device="cpu"),
+                               cfg)._use_multi()
 
     assert uses(resolution=(80, 80), n_tiles=(2, 2))
     assert not uses(resolution=(80, 80), n_tiles=(1, 1))
