@@ -136,8 +136,9 @@ CPU or to a plain version on a CUDA tensor):
    table_bits 8 and 32 on the card (16^2 x 4, one- and two-level; the
    packed path's warm-up); then BASELINE config 2 with --champion
    (packed q4 density tables through the allow_quantized gate, min_width
-   64, 512 bricks, cascade factor 1.25) at its published size, 512^2 x
-   4, one tile, through the port's baseline_configs driver, then the f32
+   64, 512 bricks, cascade factor 1.25) at its published width, 512^2,
+   one tile, iterations cut from 4 to CONFIG2_ITERS = 1 for time,
+   through the port's baseline_configs driver, then the f32
    row in the same call: table_bits 4 and 32 reach fast.render_tile,
    each image finite with rays traced, the q4 image mean within 5% of the
    f32 one (a sanity bound: the quantizer rounds to the nearest of 16
@@ -145,8 +146,9 @@ CPU or to a plain version on a CUDA tensor):
    evaluations, and the two density tables' bytes; the f32 row also
    counts the device kernels of body evaluations 100-159 (torch.profiler)
    and is phase 20's defer_ggx 0 row;
-20. fastSK's options on config 2's scene at its published 512^2 x 4, one
-   tile, two-level, no tail kernel, through create_renderer(...).render()
+20. fastSK's options on config 2's scene at its published width, 512^2
+   x CONFIG2_ITERS (as phase 19), one tile, two-level, no tail kernel,
+   through create_renderer(...).render()
    in one call so the rows compare: defer_ggx 4 against phase 19's f32
    render, which is defer_ggx 0 (render_tile's images bit-equal, n_rays
    equal; wall with the image copy, body evaluations, and device kernels
@@ -162,7 +164,21 @@ CPU or to a plain version on a CUDA tensor):
    'split', bit-equal to its 'full' render; then a per-voxel albedo grid
    made on the card at the side n where plan_albedo_table picks 'split'
    on this card (16 n^3 > 30% and 20 n^3 < 80% of its memory), rendered
-   at 128^2 x 1: wall, peak allocated memory, image mean.
+   at 128^2 x 1: wall, peak allocated memory, image mean;
+21. parallel/ (torch.distributed) on the card: (a) phase 5's render
+   through render_sharded on a 1-rank NCCL group, image and n_rays equal
+   to phase 5's bit for bit, the tail kernel's launch count rising, wall
+   with the image copy and the all_reduce of the image timed by CUDA
+   events; (b) two processes of a gloo group sharing the card (NCCL
+   refuses two ranks on one device) render config 2's scene at 64^2 x 5
+   (odd spp) with fastSK two-level, q4 tables and cascade 1.25 while this
+   process renders the same on its 1-rank mesh: images allclose at 1e-5,
+   n_rays equal; (c) make_inverse_step (32^3, 32^2 x 8, two-level, SGD)
+   on the 1-rank mesh against an unsharded render_diff + SGD step: loss
+   and grids bit for bit, both under torch.use_deterministic_algorithms;
+   (d) benchmarks/scaling_efficiency --compare-plain at its default
+   width (128^2 x 4 per rank), one timed rep (cut from 3), in a group of
+   one: the N = 1 row and the plain render beside it.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -232,6 +248,15 @@ TAIL_ROWS = (
                         "tail_single_level": True, "tail_spec": 16,
                         "spec_width": 512}),
 )
+CONFIG2_ITERS = 1  # phases 19-20's config-2 iterations (cut from 4 for time)
+# phase 21 (b): two gloo ranks sharing the card, and (c): the inverse step
+GLOO_RES, GLOO_SPP = (64, 64), 5
+GLOO_KNOBS = {"two_level": True, "table_bits": 4, "cascade_factor": 1.25}
+INV_N, INV_RES, INV_SPP, INV_LR, INV_SEED = 32, (32, 32), 8, 5.0, 11
+RANK_TIMEOUT = 600  # seconds for each phase 21 (b) rank
+ALL_REDUCE_REPS = 20  # phase 21 (a): all_reduces of the image timed
+SCALING_REPS = 1  # phase 21 (d): timed reps (the benchmark's default 3, cut)
+HERE = os.path.dirname(os.path.abspath(__file__))
 # tests/test_fast.py:51-70's tail configurations (white furnace)
 FURNACE_TAILS = (
     {"tail_spec": 4, "tail_width": 1 << 20, "min_width": 64},
@@ -1730,61 +1755,80 @@ def representable_on_card() -> None:
         "table_bits 8 and 32 on the card, one- and two-level")
 
 
+def config2_row(bc, name: str, label: str, extra, tmp: str, card: str):
+    """One phase 19 row: config 2 through baseline_configs.main with the
+    flags `extra`, one trial.  Returns (its JSON row, the image mean, and
+    for the f32 row option_render's dict of the render, with the device
+    kernels per evaluation of evaluations 100-159)."""
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    out = os.path.join(tmp, "config2.json")
+    t0 = time.perf_counter()
+    # the f32 row (defer_ggx 0) also counts its kernels per evaluation
+    prof = contextlib.nullcontext() if extra else EvaluationWindow(*EVAL_WINDOW)
+    with CascadeCounter() as cascades, prof:
+        bc.main([*extra, "--only", "2_", "--trials", "1", "--out", out,
+                 "--workdir", tmp])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        row = json.load(f)[name]
+    img = load_hdr(os.path.join(tmp, f"{name}.hdr"))
+    bits = 4 if extra else 32
+    check(cascades.table_bits == [bits],
+          f"config 2 {label} rendered with table_bits {cascades.table_bits}")
+    check(row["precision"] == ("q4-reduced" if extra else "f32"),
+          f"config 2 {label} labelled {row['precision']}")
+    check(row["iterations"] == CONFIG2_ITERS,
+          f"config 2 {label} rendered {row['iterations']} iterations")
+    check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
+          f"config 2 {label}: image not finite or of the wrong shape")
+    check(row["n_rays"] > 0, f"config 2 {label} traced no rays")
+    inline = None
+    if not extra:
+        inline = {"img": cascades.images[0], "n_rays": row["n_rays"],
+                  "evals": cascades.calls[0][1], "kernels": prof.kernels}
+        log_window("f32 (defer_ggx 0)", prof, card)
+    log(f"[19] baseline_configs config 2 {label}, 512^2 x {CONFIG2_ITERS}, "
+        f"1 trial: {wall:.2f} s in all (scene file written and loaded); the "
+        f"render {row['mean_time_with_copy_s']:.3f} s wall with the image "
+        f"copy ({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} rays, "
+        f"{row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} Mrays/s "
+        f"with the copy, {cascades.calls[0][1]:.0f} body evaluations, "
+        f"image mean {img.mean():.5f}; card {card}")
+    return row, float(img.mean()), inline
+
+
 def champion_config2(tmp: str, card: str) -> dict:
     """Phase 19: the exactness check on the card (16^2 renders, which also
     warm the packed path up), then BASELINE config 2 with --champion (q4
     packed tables, min_width 64, 512 bricks, cascade factor 1.25) at its
-    published size through the port's baseline_configs driver, then the
-    f32 row in the same call.  The f32 row is config 2 at defer_ggx 0, so
-    it also counts the device kernels of body evaluations 100-159 and is
-    returned as phase 20's first row (option_render's dict)."""
+    published width, CONFIG2_ITERS iterations, through the port's
+    baseline_configs driver, then the f32 row in the same call.  The f32
+    row is config 2 at defer_ggx 0, so it also counts the device kernels
+    of body evaluations 100-159 and is returned as phase 20's first row
+    (option_render's dict)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
     from cudavolumerenderer_tpu_torch.models import fast
     from cudavolumerenderer_tpu_torch.scene.mhd import load_mhd_scene
-    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
     name = "2_medical_mhd_512"
     t0 = time.perf_counter()
     representable_on_card()  # the packed path's first renders: the warm-up
     log(f"[19] warm-up and exactness check took "
         f"{time.perf_counter() - t0:.1f} s")
-    rows = {}
-    for label, extra in (("q4 --champion", ["--champion"]), ("f32", [])):
-        out = os.path.join(tmp, "config2.json")
-        t0 = time.perf_counter()
-        # the f32 row (defer_ggx 0) also counts its kernels per evaluation
-        prof = (contextlib.nullcontext() if extra
-                else EvaluationWindow(*EVAL_WINDOW))
-        with CascadeCounter() as cascades, prof:
-            bc.main([*extra, "--only", "2_", "--trials", "1", "--out", out,
-                     "--workdir", tmp])
-        wall = time.perf_counter() - t0
-        with open(out) as f:
-            row = json.load(f)[name]
-        img = load_hdr(os.path.join(tmp, f"{name}.hdr"))
-        bits = 4 if extra else 32
-        check(cascades.table_bits == [bits],
-              f"config 2 {label} rendered with table_bits {cascades.table_bits}")
-        check(row["precision"] == ("q4-reduced" if extra else "f32"),
-              f"config 2 {label} labelled {row['precision']}")
-        check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
-              f"config 2 {label}: image not finite or of the wrong shape")
-        check(row["n_rays"] > 0, f"config 2 {label} traced no rays")
-        rows[label] = row, float(img.mean())
-        if not extra:
-            inline = {"img": cascades.images[0], "n_rays": row["n_rays"],
-                      "evals": cascades.calls[0][1], "kernels": prof.kernels}
-            log_window("f32 (defer_ggx 0)", prof, card)
-        log(f"[19] baseline_configs config 2 {label}, 512^2 x 4, 1 trial: "
-            f"{wall:.2f} s in all (scene file written and loaded); the render "
-            f"{row['mean_time_with_copy_s']:.3f} s wall with the image copy "
-            f"({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} rays, "
-            f"{row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} Mrays/s "
-            f"with the copy, {cascades.calls[0][1]:.0f} body evaluations, "
-            f"image mean {img.mean():.5f}; card {card}")
-    (q4, q4_mean), (f32, f32_mean) = rows["q4 --champion"], rows["f32"]
+    published = bc.rows  # config 2 cut to CONFIG2_ITERS iterations here
+    bc.rows = lambda quick: [
+        r[:4] + (CONFIG2_ITERS,) + r[5:] if r[0] == name else r
+        for r in published(quick)]
+    try:
+        (q4, q4_mean, _), (f32, f32_mean, inline) = (
+            config2_row(bc, name, label, extra, tmp, card)
+            for label, extra in (("q4 --champion", ["--champion"]),
+                                 ("f32", [])))
+    finally:
+        bc.rows = published
     check(abs(q4_mean - f32_mean) <= 0.05 * f32_mean,
           f"q4 image mean {q4_mean} against f32 {f32_mean}")
     scene, _ = load_mhd_scene(os.path.join(tmp, "medical_synth.mhd"),
@@ -1863,19 +1907,19 @@ def log_window(tag: str, prof, card: str) -> None:
 
 def option_render(scene, camera, fields: dict, tag: str, card: str,
                   window: bool = False) -> dict:
-    """One 512^2 x 4 fastSK two-level render of config 2's scene through
-    create_renderer(...).render() with Config `fields`; prints its wall
-    (image copy included), rays, body evaluations per stage and, with
-    window, the device kernels per evaluation.  Returns render_tile's
-    image (the sum over samples, on the card), the renderer's image,
-    n_rays, evaluations and kernels per evaluation."""
+    """One 512^2 x CONFIG2_ITERS fastSK two-level render of config 2's
+    scene through create_renderer(...).render() with Config `fields`;
+    prints its wall (image copy included), rays, body evaluations per
+    stage and, with window, the device kernels per evaluation.  Returns
+    render_tile's image (the sum over samples, on the card), the
+    renderer's image, n_rays, evaluations and kernels per evaluation."""
     import torch
 
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
 
     cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
-                 iterations=4, n_tiles=(1, 1), **fields)
+                 iterations=CONFIG2_ITERS, n_tiles=(1, 1), **fields)
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
     prof = EvaluationWindow(*EVAL_WINDOW) if window else contextlib.nullcontext()
@@ -1890,7 +1934,8 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
     check(n_rays > 0, f"{tag}: no rays traced")
     evals = cascades.calls[0][1]
     stages = " / ".join(f"{e:.0f}" for e in cascades.stages[0])
-    log(f"[20] {tag}: {wall:.3f} s wall (incl. image copy), {n_rays:.0f} "
+    log(f"[20] {tag} x {CONFIG2_ITERS}: {wall:.3f} s wall (incl. image "
+        f"copy), {n_rays:.0f} "
         f"rays, {evals:.0f} body evaluations ({stages} per stage), image "
         f"mean {float(host.mean()):.5f}; card {card}")
     if window:
@@ -2058,6 +2103,287 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
               f"{rays_off:.3%}")
     del rows
     split_on_card(card)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_mesh():
+    """Phase 21's group: one rank over NCCL (the backend a CUDA device
+    gets by default) at a free localhost port."""
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.parallel import mesh as pm
+
+    pm.initialize_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                              world_size=1, rank=0)
+    mesh = pm.make_mesh(1)
+    check(dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+          f"the 1-rank group is {dist.get_backend()} on {mesh.device}")
+    return mesh
+
+
+def sharded_config2(mesh, scene, camera, cfg, want, card: str) -> int:
+    """Phase 21 (a): phase 5's render (config 2, 512^2 x 4, fastSK
+    two-level with the tail kernel) through render_sharded on a 1-rank
+    NCCL mesh.  create_renderer renders phase 5's one tile with one
+    fast.render_tile call of all spp from path id 0, so image and n_rays
+    must equal phase 5's `want` = (image, n_rays) bit for bit, and the
+    tail kernel must launch.  Returns its launches."""
+    import torch
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.models.renderer import fast_keywords
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+    from cudavolumerenderer_tpu_torch.parallel.shard import render_sharded
+
+    torch.cuda.synchronize()
+    tpk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    img, n_rays = render_sharded(
+        scene, camera, cfg.settings, cfg.resolution, cfg.iterations,
+        cfg.seed, mesh, kernel="fast", path_id_base=0, **fast_keywords(cfg))
+    host = img.cpu().numpy() / cfg.iterations
+    wall = time.perf_counter() - t0
+    launches = tpk.KERNEL.launches
+    check(launches > 0, "the sharded config-2 render launched no tail kernel")
+    check(np.array_equal(host, want[0]) and float(n_rays) == want[1],
+          f"sharded config 2: {float(n_rays):.0f} rays against phase 5's "
+          f"{want[1]:.0f}, max |image diff| "
+          f"{float(np.abs(host - want[0]).max()):.3g}")
+    buf = img.clone()
+    ar_ms = cuda_ms(lambda: dist.all_reduce(buf), ALL_REDUCE_REPS, 3)
+    log(f"[21] render_sharded on 1 NCCL rank, config 2 512^2 x "
+        f"{cfg.iterations}: {wall:.3f} s wall (incl. image copy), "
+        f"{float(n_rays):.0f} rays, {launches} tail-kernel launches; image "
+        f"and n_rays equal phase 5's bit for bit; all_reduce of the "
+        f"{tuple(img.shape)} image {ar_ms * 1e3:.1f} us (CUDA events, mean "
+        f"of {ALL_REDUCE_REPS}); card {card}")
+    return launches
+
+
+def gloo_rank(rank: int, port: int, scene_file: str, out: str,
+              device: str = "cuda") -> int:
+    """Phase 21 (b), run in a process of its own: rank `rank` of a
+    2-rank gloo group whose ranks share the card (NCCL refuses two ranks
+    on one device, so the backend is named), rendering phase 21 (b)'s
+    settings with render_sharded; rank 0 writes the image and n_rays to
+    `out`."""
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.config import Config
+    from cudavolumerenderer_tpu_torch.parallel import mesh as pm
+    from cudavolumerenderer_tpu_torch.parallel.shard import render_sharded
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    pm.initialize_distributed(backend="gloo",
+                              init_method=f"tcp://127.0.0.1:{port}",
+                              world_size=2, rank=rank, device=device)
+    try:
+        mesh = pm.make_mesh(2, device=device)
+        cfg = Config(scene_file=scene_file, resolution=GLOO_RES)
+        scene, camera = load_scene(cfg, device=mesh.device)
+        t0 = time.perf_counter()
+        img, n_rays = render_sharded(
+            scene, camera, cfg.settings, GLOO_RES, GLOO_SPP, cfg.seed, mesh,
+            kernel="fast", **GLOO_KNOBS)
+        host = img.cpu().numpy()
+        wall = time.perf_counter() - t0
+        check(img.device.type == device, f"rank {rank} image on {img.device}")
+        log(f"[21] gloo rank {rank} of 2 on {mesh.device}: "
+            f"{wall:.3f} s wall (incl. image copy), {float(n_rays):.0f} rays")
+        if rank == 0:
+            np.savez(out, img=host, n_rays=float(n_rays), wall=wall)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_ranks_on_one_card(mesh, tmp: str, card: str) -> None:
+    """Phase 21 (b): two processes of a gloo group on the one card
+    render GLOO_RES x GLOO_SPP (odd spp: rank 0 also renders the
+    remainder) of config 2's scene with fastSK two-level, q4 tables and
+    cascade 1.25; meanwhile this process renders the same on its 1-rank
+    NCCL mesh.  Images allclose at 1e-5, n_rays equal."""
+    from cudavolumerenderer_tpu_torch.config import Config
+    from cudavolumerenderer_tpu_torch.parallel.shard import render_sharded
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    scene_file = write_medical_mhd(tmp)
+    out = os.path.join(tmp, "gloo_rank0.npz")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.gloo_rank("
+         f"{rank}, {port}, {scene_file!r}, {out!r}, "
+         f"{mesh.device.type!r}))"],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    ) for rank in (0, 1)]
+    try:
+        cfg = Config(scene_file=scene_file, resolution=GLOO_RES)
+        scene, camera = load_scene(cfg, device=mesh.device)
+        t0 = time.perf_counter()
+        want, want_rays = render_sharded(
+            scene, camera, cfg.settings, GLOO_RES, GLOO_SPP, cfg.seed, mesh,
+            kernel="fast", **GLOO_KNOBS)
+        want = want.cpu().numpy()
+        wall = time.perf_counter() - t0
+        logs = [p.communicate(timeout=RANK_TIMEOUT)[0].decode()
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if line.startswith("[21]"):
+                log(line)
+        check(p.returncode == 0, f"gloo rank {rank} failed:\n{text[-3000:]}")
+    got = np.load(out)
+    err = float(np.abs(got["img"] - want).max())
+    check(float(got["n_rays"]) == float(want_rays),
+          f"2 gloo ranks traced {float(got['n_rays']):.0f} rays, 1 rank "
+          f"{float(want_rays):.0f}")
+    np.testing.assert_allclose(got["img"], want, rtol=1e-5, atol=1e-5)
+    log(f"[21] 2 gloo ranks on one card against 1 NCCL rank, {GLOO_RES[0]}^2 "
+        f"x {GLOO_SPP}, {GLOO_KNOBS}: n_rays {float(want_rays):.0f} equal, "
+        f"max |image diff| {err:.3g} (allclose 1e-5); 1 rank {wall:.3f} s, "
+        f"2 ranks {float(got['wall']):.3f} s (rank 0's wall, incl. image "
+        f"copy); card {card}")
+
+
+def inverse_one_rank(mesh, card: str) -> None:
+    """Phase 21 (c): make_inverse_step on the 1-rank NCCL mesh (SGD)
+    against an unsharded render_diff + SGD step with the same seed (at
+    rank 0 the salted seed is the seed itself): loss and both updated
+    grids bit for bit.  Both run under
+    torch.use_deterministic_algorithms, since index_add_'s atomics would
+    otherwise add the cotangents in a different order in each call."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models.differentiable import (
+        CameraSpec, SceneSpec, render_diff,
+    )
+    from cudavolumerenderer_tpu_torch.parallel.shard import make_inverse_step
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    dev = mesh.device
+    d = procedural.blob_volume((INV_N,) * 3, n_blobs=5)
+    spec = SceneSpec(scale=10.0)
+    cam_spec = CameraSpec(res_x=INV_RES[0], res_y=INV_RES[1], fov_x_deg=0.4)
+    settings = RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=8, bsdf_kind="null")
+    target = torch.full((INV_RES[1], INV_RES[0], 3), float(np.exp(-3.0)),
+                        device=dev)
+    start = torch.tensor(d, device=dev)
+
+    def leaves():
+        return (torch.tensor(d, device=dev).requires_grad_(),
+                torch.full((INV_N,) * 3 + (3,), 0.5, device=dev)
+                .requires_grad_())
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step = make_inverse_step(
+            spec, cam_spec, settings, INV_RES, INV_SPP, mesh,
+            lambda p: torch.optim.SGD(p, lr=INV_LR), two_level=True)
+        t0 = time.perf_counter()
+        params, loss = step(leaves(), target, INV_SEED)
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        ref = leaves()
+        opt = torch.optim.SGD(ref, lr=INV_LR)
+        img = render_diff(*ref, INV_SEED, spec, cam_spec, settings, INV_RES,
+                          INV_SPP, True) / float(INV_SPP)
+        ref_loss = torch.mean((img - target) ** 2)
+        ref_loss.backward()
+        opt.step()
+        ref_loss = float(ref_loss.detach())
+    finally:
+        torch.use_deterministic_algorithms(was)
+    moved = float((params[0].detach() - start).abs().max())
+    check(np.isfinite(loss) and moved > 0,
+          f"inverse step: loss {loss}, density moved by {moved}")
+    check(loss == ref_loss, f"inverse step loss {loss!r} against the "
+          f"unsharded {ref_loss!r}")
+    for name, got, want in zip(("density", "albedo"), params, ref):
+        check(torch.equal(got, want),
+              f"inverse step {name}: max |diff| "
+              f"{float((got - want).abs().max()):.3g} against the unsharded "
+              "step")
+    log(f"[21] make_inverse_step on 1 NCCL rank, {INV_N}^3, "
+        f"{INV_RES[0]}^2 x {INV_SPP}, two-level, SGD {INV_LR}: loss "
+        f"{loss:.6g}, density moved by up to {moved:.3g}; loss and both "
+        f"grids equal the unsharded step bit for bit; {wall:.3f} s per step; "
+        f"card {card}")
+
+
+def scaling_rows(card: str) -> dict:
+    """Phase 21 (d): benchmarks/scaling_efficiency --compare-plain at its
+    default width (128^2 x 4 per rank), SCALING_REPS timed reps after the
+    warm-up, in a group of one (the 1-rank NCCL mesh is destroyed first):
+    the N = 1 row and the plain fast.render_tile beside it."""
+    from cudavolumerenderer_tpu_torch.benchmarks import scaling_efficiency
+
+    out = scaling_efficiency.main(["--compare-plain", "--reps",
+                                   str(SCALING_REPS)])
+    row, plain = out["rows"][0], out["plain_comparison"]
+    check(out["platform"] == "cuda" and row["n"] == 1 and row["s"] > 0,
+          f"scaling rows: {out['rows']}")
+    log(f"[21] scaling_efficiency --compare-plain, {out['res']}^2 x "
+        f"{out['spp_per_device']} per rank: N=1 {row['s']:.3f} s, "
+        f"{row['rays_per_s'] / 1e6:.4f} Mrays/s; plain fast.render_tile "
+        f"{plain['plain_s']:.3f} s, sharded dispatch overhead "
+        f"{plain['sharded_dispatch_overhead']:+.2%}; card {card}")
+    return out
+
+
+def sharded(tmp: str, card: str, slice_result=None, scene=None, camera=None,
+            cfg=None) -> int:
+    """Phase 21: the port's parallel/ on the card, (a)-(d) above.  Given
+    phase 5's (image, n_rays), scene, camera and Config, (a) holds the
+    sharded render to them; alone it writes config 2's scene to `tmp`
+    and renders phase 5's image first.  Returns (a)'s tail-kernel
+    launches."""
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    if slice_result is None:
+        cfg = Config(scene_file=write_medical_mhd(tmp), kernel=Kernel.FAST_SK,
+                     two_level=True, tail_pallas=True, resolution=(512, 512),
+                     iterations=4, n_tiles=(1, 1))
+        scene, camera = load_scene(cfg, device="cuda")
+        renderer = create_renderer(scene, camera, cfg)
+        slice_result = (renderer.render(), renderer.n_rays)
+    mesh = nccl_mesh()
+    try:
+        t0 = time.perf_counter()
+        launches = sharded_config2(mesh, scene, camera, cfg, slice_result,
+                                   card)
+        log(f"[21] (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        two_ranks_on_one_card(mesh, tmp, card)
+        log(f"[21] (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        inverse_one_rank(mesh, card)
+        log(f"[21] (c) took {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    scaling_rows(card)
+    log(f"[21] (d) took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2288,6 +2614,13 @@ def main() -> int:
         t0 = time.perf_counter()
         options_config2(tmp, card, scene, camera, inline)
         log(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 21: parallel/ on the card (phase 5's scene and image) -------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sharded_launches = sharded(tmp, card, (img, n_rays), scene, camera,
+                                   cfg)
+        log(f"[21] phase 21 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -2316,6 +2649,7 @@ def main() -> int:
         "ms_r4096": times[4096][0],
         "step_sweep_ms": sweep["ms"], "in_slice_us": in_slice_us,
         "slice_round_ms": slice_ms, "launches_config3": config3_launches,
+        "launches_sharded": sharded_launches,
     }, {
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",

@@ -220,6 +220,28 @@ class ProgressiveTiledRenderer:
         return self.config.iterations
 
 
+def fast_keywords(config: Config) -> dict:
+    """The keywords make_kernel_fn passes fast.render_tile for fastSK."""
+    return dict(
+        two_level=config.two_level,
+        lanes_per_pixel=config.lanes_per_pixel,
+        defer_ggx=config.defer_ggx,
+        brick_major=config.brick_major,
+        cascade_factor=config.cascade_factor,
+        tail_single_level=config.tail_single_level,
+        tail_spec=config.tail_spec,
+        spec_width=config.spec_width,
+        min_width=config.min_width,
+        tail_bricks=config.tail_bricks,
+        tail_pallas=config.tail_pallas,
+        tail_pk_width=config.tail_pk_width,
+        tail_pk_steps=config.tail_pk_steps,
+        table_bits=config.effective_table_bits,
+        **({"max_bricks": config.max_bricks}
+           if config.max_bricks is not None else {}),
+    )
+
+
 def make_kernel_fn(config: Config):
     """Scheduler dispatch (reference: RendererFactory::createRenderer's
     kernel matrix, RendererFactory.h:43-113), row for row the JAX
@@ -237,26 +259,7 @@ def make_kernel_fn(config: Config):
         )
     if k == Kernel.FAST_SK:
         def fsk(*args):
-            return fast.render_tile(
-                *args, two_level=config.two_level,
-                lanes_per_pixel=config.lanes_per_pixel,
-                defer_ggx=config.defer_ggx,
-                brick_major=config.brick_major,
-                cascade_factor=config.cascade_factor,
-                tail_single_level=config.tail_single_level,
-                tail_spec=config.tail_spec,
-                spec_width=config.spec_width,
-                min_width=config.min_width,
-                tail_bricks=config.tail_bricks,
-                tail_pallas=config.tail_pallas,
-                tail_pk_width=config.tail_pk_width,
-                tail_pk_steps=config.tail_pk_steps,
-                table_bits=config.effective_table_bits,
-                **(
-                    {"max_bricks": config.max_bricks}
-                    if config.max_bricks is not None else {}
-                ),
-            )
+            return fast.render_tile(*args, **fast_keywords(config))
         return fsk
     if k == Kernel.BRICK_SK:
         return brick.render_tile

@@ -11,6 +11,8 @@ the CPU, and its white furnace is exact there.  The differentiable path
 and one run_inverse step the CPU's loss and grid.  The scene and camera
 constructors build on the card by default, and fastSK's defer_ggx,
 brick_major and 'split' table give the default render bit for bit there.
+A rank of parallel/ takes the card by default, and a 1-rank NCCL
+render_sharded equals fast.render_tile bit for bit.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -580,3 +582,54 @@ def test_split_equals_full_on_card(cuda, monkeypatch):
     a, ra = fast_option_render(cuda, dict(tail_spec=4), shape, alb)
     np.testing.assert_array_equal(a, b)
     assert ra == rb
+
+
+@pytest.mark.cuda
+def test_ranks_default_to_the_card_and_need_a_group(cuda):
+    """A rank's device is the card by default; make_mesh raises until a
+    process group exists."""
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.parallel import mesh
+
+    assert mesh.rank_device().type == "cuda"
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        mesh.make_mesh()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_render_sharded_equals_render_tile(cuda):
+    """A 1-rank NCCL group (the backend a CUDA device gets by default):
+    render_sharded renders every sample on its rank, so its image and
+    n_rays equal fast.render_tile's bit for bit at 64^2."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cudavolumerenderer_tpu_torch.parallel import mesh as pm
+    from cudavolumerenderer_tpu_torch.parallel.shard import render_sharded
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = pm.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        assert dev.type == "cuda" and dist.get_backend() == "nccl"
+        m = pm.make_mesh(1)
+        assert m.device == dev
+        scene = odd_scene(m.device)
+        camera = make_camera(64, 64, device=m.device)
+        settings = types.RenderSettings.from_flags(True)
+        kw = dict(two_level=True, table_bits=4, cascade_factor=1.25)
+        img, n_rays = render_sharded(scene, camera, settings, (64, 64), 5, 3,
+                                     m, kernel="fast", **kw)
+        want, want_rays = fast.render_tile(
+            scene, camera, settings, (64, 64), torch.zeros(2, device=dev),
+            (64, 64), 5, 3, 0, **kw)
+        assert img.device == dev and float(n_rays) > 0
+        np.testing.assert_array_equal(img.cpu().numpy(), want.cpu().numpy())
+        assert float(n_rays) == float(want_rays)
+    finally:
+        dist.destroy_process_group()

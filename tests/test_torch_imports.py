@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
                  "models.differentiable", "models.inverse",
                  "benchmarks.inverse_256", "convert", "utils.native",
                  "scene.vdb", "ops.camera_controller", "utils.profiling",
-                 "benchmarks.baseline_configs"):
+                 "benchmarks.baseline_configs", "parallel.mesh",
+                 "parallel.shard", "scripts.run_multihost",
+                 "benchmarks.scaling_efficiency"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
