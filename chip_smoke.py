@@ -9,9 +9,12 @@ CPU or to a plain version on a CUDA tensor):
 
 1. identify the card (nvidia-smi name and power limit); refuse to run
    without CUDA; check that torch.sqrt on CUDA float32 is correctly
-   rounded on 2^21 inputs (ops/math3.sqrt relies on it there);
-2. build the three kernel libraries, csrc/tailpk.cu, csrc/tracking.cu
-   and csrc/pgather.cu, with one nvcc each, started together with g++ on
+   rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
+   two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
+   (x0 + x2) + x1; x / c is x * float32(1 / c));
+2. build the four kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
+   csrc/pgather.cu and csrc/fastbody.cu, with one nvcc each, started
+   together with g++ on
    the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -33,7 +36,9 @@ CPU or to a plain version on a CUDA tensor):
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
    scale 100, 512^2 x 4 iterations, one tile) through load_scene and
    create_renderer(...).render() with fastSK two-level and the tail
-   kernel on; one render, timed with the image copy to the host, with
+   kernel on, every body evaluation one launch of the body kernel
+   (csrc/fastbody.cu, counted); one render, timed with the image copy to
+   the host, with
    torch.profiler over tail rounds 100-159 (the kernel's device time per
    launch at the slice's own state, and the card's busy share in that
    window) and the inputs of round 130 kept (the kernel against its plain
@@ -120,7 +125,11 @@ CPU or to a plain version on a CUDA tensor):
    fastSK two-level) through the port's baseline_configs driver (one
    trial), then through the CLI's batch mode with
    --tail-pallas, whose tail-kernel launch count must rise; wall seconds
-   with the image copy, n_rays and Mrays/s for both;
+   with the image copy, n_rays and Mrays/s for both; then BASELINE config
+   1 at its published size (256^2 x 20, the RAW scene whose transfer-
+   function albedo makes the 'full' table, fastSK two-level) through
+   baseline_configs, three trials: wall with and without the image copy,
+   n_rays, Mrays/s, the body kernel's launches;
 17. BASELINE config 4 at its published width (400^2 in 10x10 tiles of
    40x40, Mitsuba XML + .vol), iterations cut from 50 to 4, rendered
    once through create_renderer(...).render(): one fastSK cascade over
@@ -136,9 +145,9 @@ CPU or to a plain version on a CUDA tensor):
    table_bits 8 and 32 on the card (16^2 x 4, one- and two-level; the
    packed path's warm-up); then BASELINE config 2 with --champion
    (packed q4 density tables through the allow_quantized gate, min_width
-   64, 512 bricks, cascade factor 1.25) at its published width, 512^2,
-   one tile, iterations cut from 4 to CONFIG2_ITERS = 1 for time,
-   through the port's baseline_configs driver, then the f32
+   64, 512 bricks, cascade factor 1.25) at its published size, 512^2 x
+   CONFIG2_ITERS = 4, one tile, through the body kernel and the port's
+   baseline_configs driver, then the f32
    row in the same call: table_bits 4 and 32 reach fast.render_tile,
    each image finite with rays traced, the q4 image mean within 5% of the
    f32 one (a sanity bound: the quantizer rounds to the nearest of 16
@@ -149,10 +158,11 @@ CPU or to a plain version on a CUDA tensor):
 20. fastSK's options on config 2's scene at its published width, 512^2
    x CONFIG2_ITERS (as phase 19), one tile, two-level, no tail kernel,
    through create_renderer(...).render()
-   in one call so the rows compare: defer_ggx 4 against phase 19's f32
-   render, which is defer_ggx 0 (render_tile's images bit-equal, n_rays
-   equal; wall with the image copy, body evaluations, and device kernels
-   per evaluation from torch.profiler over evaluations 100-159 of each);
+   in one call so the rows compare: defer_ggx 4 (the eager body) against
+   phase 19's f32 render, which is defer_ggx 0 (the body kernel):
+   render_tile's images bit-equal, n_rays equal; wall with the image
+   copy, body evaluations, and device kernels per evaluation from
+   torch.profiler over evaluations 100-159 of each;
    brick_major (the 256^3 grid divides (8, 8, 128): bit-equal to
    the defer_ggx=0 image); the white furnace exact on the card for
    tests/test_fast.py's two tail configurations (16^2 x 4); then
@@ -178,7 +188,18 @@ CPU or to a plain version on a CUDA tensor):
    and grids bit for bit, both under torch.use_deterministic_algorithms;
    (d) benchmarks/scaling_efficiency --compare-plain at its default
    width (128^2 x 4 per rank), one timed rep (cut from 3), in a group of
-   one: the N = 1 row and the plain render beside it.
+   one: the N = 1 row and the plain render beside it;
+22. the body kernel against the eager body on config 2's own states: its
+   render (phase 5's scene, 512^2 x 4, two-level, no tail kernel) through
+   the kernel, keeping the state at evaluations 0, 20 and 100 and at the
+   first evaluation of the 16,384- and 4,096-lane pools; on each, one
+   kernel evaluation and one eager evaluation give equal FastState fields
+   (NaN equal to NaN) and the same pending count; the kernel's device
+   time per evaluation from replays of a CUDA graph of 16 out-of-place
+   evaluations of the kept state, the eager body's by CUDA events, and
+   the byte bound (ops/fastbody.body_bytes: each lane's state read and
+   written once, the distinct table entries and brick rows the eager
+   evaluation read).
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -248,7 +269,7 @@ TAIL_ROWS = (
                         "tail_single_level": True, "tail_spec": 16,
                         "spec_width": 512}),
 )
-CONFIG2_ITERS = 1  # phases 19-20's config-2 iterations (cut from 4 for time)
+CONFIG2_ITERS = 4  # phases 19-20's config-2 iterations (the published 4)
 # phase 21 (b): two gloo ranks sharing the card, and (c): the inverse step
 GLOO_RES, GLOO_SPP = (64, 64), 5
 GLOO_KNOBS = {"two_level": True, "table_bits": 4, "cascade_factor": 1.25}
@@ -333,6 +354,35 @@ def sqrt_on_card() -> None:
         "differ from the float64 root rounded to float32")
     check(misses == 0, "CUDA torch.sqrt is not correctly rounded: "
           "ops/math3.sqrt must take the float64 route on the card too")
+
+
+def torch_ops_on_card() -> None:
+    """Phase 1: the two rules of torch's CUDA ops that the body kernel
+    (csrc/fastbody.cu) follows to stay bit-equal to the eager body, on
+    2^20 random rows: a float32 sum over a last dim of 3 adds
+    (x0 + x2) + x1, and a division by a Python scalar multiplies by the
+    scalar's float32 reciprocal (400 and 40 tell it from a true division;
+    512 cannot)."""
+    import torch
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(1)
+    scale = torch.tensor([1e-3, 1.0, 1e3], device="cuda")
+    x = torch.randn((1 << 20, 3), generator=gen, device="cuda") * scale
+    s = torch.sum(x, dim=-1)
+    check(torch.equal(s, (x[:, 0] + x[:, 2]) + x[:, 1]),
+          "torch.sum over a last dim of 3 is not (x0 + x2) + x1 on the card")
+    swapped = int((s != (x[:, 0] + x[:, 1]) + x[:, 2]).sum())
+    y = torch.rand(1 << 20, generator=gen, device="cuda") * 1000.0
+    for r in (400.0, 40.0, 512.0):
+        inv = np.float32(1.0) / np.float32(r)
+        check(torch.equal(y / r, y * float(inv)),
+              f"x / {r} on the card is not x * float32(1 / {r})")
+    true_div = int((y / 400.0 != y / torch.full_like(y, 400.0)).sum())
+    log(f"[1] torch on the card: a sum over 3 is (x0 + x2) + x1 "
+        f"({swapped} of {1 << 20} rows differ from (x0 + x1) + x2); x / "
+        f"400.0 is x * float32(1 / 400) ({true_div} rows differ from a "
+        "true division)")
 
 
 def card_line() -> str:
@@ -1551,6 +1601,48 @@ def config3(vdb_path: str, tmp: str, card: str) -> int:
     return launches
 
 
+def config1(tmp: str, card: str) -> dict:
+    """Phase 16: BASELINE config 1 at its published size (256^2 x 20, one
+    tile, the RAW scene with its transfer-function albedo, so the 'full'
+    table, fastSK two-level) through the port's baseline_configs driver,
+    three trials, through the body kernel.  Returns its JSON row."""
+    from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+    from cudavolumerenderer_tpu_torch.scene.raw_builder import load_raw_scene
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    name = "1_bucky_raw_256_20it"
+    out = os.path.join(tmp, "config1.json")
+    before = fb.KERNEL.launches
+    t0 = time.perf_counter()
+    bc.main(["--only", "1_", "--trials", "3", "--out", out, "--workdir", tmp])
+    wall = time.perf_counter() - t0
+    launches = fb.KERNEL.launches - before
+    with open(out) as f:
+        row = json.load(f)[name]
+    saved = load_hdr(os.path.join(tmp, f"{name}.hdr"))
+    scene, _ = load_raw_scene(os.path.join(tmp, "bucky_synth.raw"),
+                              device="cuda")
+    mode = fast._albedo_mode(scene)
+    check(mode == "full", f"config 1's albedo is {mode!r}, not 'full'")
+    check(launches > 0, "config 1 launched no body kernel")
+    check(saved.shape == (256, 256, 3) and np.isfinite(saved).all(),
+          "config 1's image is not finite or has the wrong shape")
+    check(row["iterations"] == 20 and row["n_rays"] > 0,
+          f"config 1 rendered {row['iterations']} iterations, "
+          f"{row['n_rays']} rays")
+    log(f"[16] baseline_configs config 1, 256^2 x 20 ('full' albedo table), "
+        f"3 trials: {wall:.2f} s in all; per trial "
+        f"{row['mean_time_with_copy_s']:.3f} s wall with the image copy "
+        f"({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} rays, "
+        f"{row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} Mrays/s "
+        f"with the copy ({row['mrays_per_sec']:.3f} without), "
+        f"{launches} body-kernel launches in all, image mean "
+        f"{saved.mean():.5f}; card {card}")
+    return row
+
+
 class CascadeCounter:
     """Counts fast.render_tile calls (one cascade each) and their body
     evaluations (each stage's lane-rows over its pool width) while it is
@@ -1845,8 +1937,9 @@ def champion_config2(tmp: str, card: str) -> dict:
 
 class EvaluationWindow:
     """torch.profiler over body evaluations [first, first + n) of the
-    renders run while it is entered: fastSK's body calls
-    ops.camera.generate_rays once per evaluation, so those calls count
+    renders run while it is entered: fastSK's eager body calls
+    ops.camera.generate_rays once per evaluation and the body kernel's
+    evaluations go through ops.fastbody.run_body, so those calls count
     the evaluations.  kernels is the device kernels per evaluation there
     (None when the trace holds no device time)."""
 
@@ -1857,30 +1950,35 @@ class EvaluationWindow:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        from cudavolumerenderer_tpu_torch.ops import camera
+        from cudavolumerenderer_tpu_torch.ops import camera, fastbody
 
         self.camera, self.orig = camera, camera.generate_rays
+        self.fastbody, self.orig_body = fastbody, fastbody.run_body
         # device activity only, as in every window here: the counts read
         # are of kernels, and host events would slow the trace's processing
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.evals, self.clock = 0, []
 
-        def counted(*args, **kw):
-            if self.evals in (self.first, self.first + self.n):
-                torch.cuda.synchronize()
-                self.clock.append(time.perf_counter())
-                (self.prof.start if self.evals == self.first
-                 else self.prof.stop)()
-            self.evals += 1
-            return self.orig(*args, **kw)
+        def counting(orig):
+            def counted(*args, **kw):
+                if self.evals in (self.first, self.first + self.n):
+                    torch.cuda.synchronize()
+                    self.clock.append(time.perf_counter())
+                    (self.prof.start if self.evals == self.first
+                     else self.prof.stop)()
+                self.evals += 1
+                return orig(*args, **kw)
+            return counted
 
-        camera.generate_rays = counted
+        camera.generate_rays = counting(self.orig)
+        fastbody.run_body = counting(self.orig_body)
         return self
 
     def __exit__(self, *exc):
         from torch.autograd import DeviceType
 
         self.camera.generate_rays = self.orig
+        self.fastbody.run_body = self.orig_body
         if exc[0] is not None:
             return
         check(len(self.clock) == 2, f"{self.evals} body evaluations, fewer "
@@ -2103,6 +2201,123 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
               f"{rays_off:.3%}")
     del rows
     split_on_card(card)
+
+
+# phase 22: the body evaluations whose states are kept (0: every lane
+# regenerates; 20: the 262,144-lane pool tracking; 100: a 65,536-lane pool)
+BODY_KEEP = (0, 20, 100)
+BODY_TAIL_WIDTHS = (16384, 4096)  # and the first of each of these pool widths
+BODY_PLAIN_REPS = 5  # eager evaluations timed per kept state
+
+
+def clone_state(s):
+    """A FastState with every tensor copied (the kernel updates in place)."""
+    return type(s)(*(type(v)(v.state.clone(), v.inc.clone())
+                     if hasattr(v, "inc") else v.clone() for v in s))
+
+
+def state_diff(a, b):
+    """{field: lanes that differ} between two FastStates (NaN equals NaN),
+    and the largest absolute difference of their float fields."""
+    import torch
+
+    out, err = {}, 0.0
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if name == "rng":
+            x, y = torch.stack([x.state, x.inc]), torch.stack([y.state, y.inc])
+        if x.is_floating_point():
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if bool(fin.any()):
+                err = max(err, float((x - y)[fin].abs().max()))
+        else:
+            same = x == y
+        if not bool(same.all()):
+            out[name] = int((~same).reshape(x.shape[0], -1).any(-1).sum()
+                            if x.ndim else 1)
+    return out, err
+
+
+def body_states(scene, camera, card: str) -> dict:
+    """Phase 22: config 2 (phase 5's scene and camera, 512^2 x 4, one tile,
+    two-level, no tail kernel) rendered through the body kernel while the
+    states at evaluations BODY_KEEP and at the first evaluation of each
+    BODY_TAIL_WIDTHS pool are kept; on each, one kernel evaluation against
+    one eager evaluation: every FastState field equal and the pending
+    count equal; then the kernel's device time per evaluation (replays of
+    a CUDA graph of GRAPH_CALLS out-of-place evaluations of the same
+    state), the eager body's (CUDA events) and the byte bound (state read
+    and written once, the distinct table entries and brick rows the eager
+    evaluation read)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
+                 iterations=4, n_tiles=(1, 1))
+    renderer = create_renderer(scene, camera, cfg)
+    run = fb.run_body
+    kept, evals, widths = {}, [0], set()
+
+    def keeping(ctx, s, out=None):
+        width = s.alive.shape[0]
+        tag = None
+        if evals[0] in BODY_KEEP:
+            tag = f"evaluation {evals[0]}"
+        elif width in BODY_TAIL_WIDTHS and width not in widths:
+            tag = f"first {width}-lane evaluation"
+        if tag is not None:
+            widths.add(width)
+            kept[tag] = (ctx, clone_state(s), evals[0])
+        evals[0] += 1
+        return run(ctx, s, out)
+
+    fb.run_body = keeping
+    t0 = time.perf_counter()
+    try:
+        renderer.render()
+    finally:
+        fb.run_body = run
+    log(f"[22] config 2 512^2 x 4 through the body kernel: "
+        f"{time.perf_counter() - t0:.3f} s, {evals[0]} evaluations, states "
+        f"kept: {', '.join(kept)}")
+    check(len(kept) == len(BODY_KEEP) + len(BODY_TAIL_WIDTHS),
+          f"kept {list(kept)}")
+    rows, max_err = {}, 0.0
+    for tag, (ctx, s, at) in kept.items():
+        width = s.alive.shape[0]
+        spp = int(ctx.iparams[fb.IP_SPP])
+        got, pending = fb.run_body(ctx, clone_state(s))
+        taps = []
+        want = ctx.plain(clone_state(s), taps=taps)
+        diff, err = state_diff(got, want)
+        max_err = max(max_err, err)
+        pend = int((want.alive | (want.samples_done < spp)).sum())
+        check(not diff and int(pending) == pend,
+              f"phase 22, {tag}: the kernel's evaluation differs from the "
+              f"eager body's in {diff}; pending {int(pending)} against {pend}")
+        out = clone_state(s)
+        ms = graph_ms([lambda: fb.KERNEL.launch(ctx, s, out)] * GRAPH_CALLS)
+        plain_ms = cuda_ms(lambda: ctx.plain(clone_state(s)), BODY_PLAIN_REPS,
+                           1)
+        n_bytes = fb.body_bytes(ctx, width, taps)
+        bound, bound_by = bound_ms(n_bytes)
+        rows[tag] = {"width": width, "evaluation": at, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "bytes": n_bytes,
+                     "tracking": int(s.tracking.sum()),
+                     "alive": int(s.alive.sum())}
+        log(f"[22] {tag} ({width} lanes, {rows[tag]['alive']} alive, "
+            f"{rows[tag]['tracking']} tracking): kernel equals the eager body "
+            f"in every FastState field (pending {pend}); kernel "
+            f"{ms * 1e3:.2f} us per evaluation (graph of {GRAPH_CALLS}), eager "
+            f"body {plain_ms:.3f} ms (the copy of its input included); bound "
+            f"{n_bytes} B = {bound * 1e3:.2f} us ({bound / ms:.1%} of the "
+            f"kernel's time); card {card}")
+    return {"rows": rows, "max_abs_err": max_err, "evals": evals[0]}
 
 
 def free_port() -> int:
@@ -2398,23 +2613,25 @@ def main() -> int:
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sqrt_on_card()
+    torch_ops_on_card()
 
     from cudavolumerenderer_tpu_torch import cli
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
     from cudavolumerenderer_tpu_torch.models import brick, fast
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the three libraries, one nvcc each, started together,
+    # -- phase 2: build the four libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
-    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY)
+    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -2457,9 +2674,9 @@ def main() -> int:
     # -- phase 5: the slice -------------------------------------------------
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
-    tpk.KERNEL.launches = 0
+    tpk.KERNEL.launches = fb.KERNEL.launches = 0
     in_slice_us, kept, img, wall = profile_tail_window(renderer, card)
-    launches = tpk.KERNEL.launches
+    launches, body_launches = tpk.KERNEL.launches, fb.KERNEL.launches
     slice_ms = slice_round(kept, card)
     n_rays = renderer.n_rays
     mean = float(img.mean())
@@ -2468,9 +2685,11 @@ def main() -> int:
     check(0.05 < mean < 1.5, f"slice image mean {mean} implausible")
     check(n_rays > 0, "no rays traced")
     check(launches > 0, "the slice launched no tail kernel")
+    check(body_launches > 0, "the slice launched no body kernel")
     log(f"[5] slice 512^2 x 4: {wall:.3f} s wall (incl. image copy), "
         f"{n_rays:.0f} rays, {n_rays / wall / 1e6:.4f} Mrays/s, "
-        f"{launches} tail-kernel launches, image mean {mean:.5f}; card {card}")
+        f"{launches} tail-kernel launches, {body_launches} body-kernel "
+        f"launches (one per evaluation), image mean {mean:.5f}; card {card}")
     log(f"[5] n_rays {n_rays:.0f} against {SLICE_RAYS} of the first tail kernel: "
         f"difference {n_rays - SLICE_RAYS:+.0f}")
     check(abs(n_rays - SLICE_RAYS) <= 1e-4 * SLICE_RAYS,
@@ -2593,6 +2812,7 @@ def main() -> int:
         log(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         config3_launches = config3(vdb_path, tmp, card)
+        config1(tmp, card)
         log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2621,6 +2841,11 @@ def main() -> int:
         sharded_launches = sharded(tmp, card, (img, n_rays), scene, camera,
                                    cfg)
         log(f"[21] phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 22: the body kernel against the eager body on kept states ----
+    t0 = time.perf_counter()
+    body = body_states(scene, camera, card)
+    log(f"[22] phase 22 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -2656,6 +2881,18 @@ def main() -> int:
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tracking.py:123",
         "launches": track_launches, "max_abs_err": max(terrs),
         **timed(*ttimes[1250, 8]),
+    }, {
+        "name": "fastbody", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/fastbody.cu",
+        "replaces": "cudavolumerenderer_tpu/models/fast.py:744",
+        "launches": body_launches, "max_abs_err": body["max_abs_err"],
+        **{k: body["rows"]["evaluation 20"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "one thread per lane, one launch per body evaluation; the "
+                  "FastState tensors read and written in place; counts "
+                  "reduced per block and by the last block",
+        "per_state": body["rows"],
     }, *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -60,11 +60,11 @@
 // like torch.minimum/maximum.  The kernel allocates nothing and does not
 // synchronise.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace cvr;
 
 constexpr int TBRICK = 16;
 constexpr int TDIL = TBRICK + 1;  // 17
@@ -96,48 +96,13 @@ enum {
 };
 enum { I_WX = 0, I_WY, I_WZ, I_BOUNCE, I_STATUS, N_I };
 
-constexpr uint32_t PCG_MULT = 747796405u;
-constexpr float EPS = 1e-5f;                  // constants.EPSILON
-constexpr float TWO_PI_F = 6.283185307179586f;  // constants.TWO_PI
-
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
-}
-__device__ __forceinline__ float jclip(float x, float lo, float hi) {
-  return jmin(jmax(x, lo), hi);
-}
-__device__ __forceinline__ int iclip(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-
-// PCG-RXS-M-XS-32 (ops/rng.py): the state after one more draw, and the 32
-// bits a draw that lands on state s returns.
-__device__ __forceinline__ uint32_t pcg_next(uint32_t s, uint32_t inc) {
-  return s * PCG_MULT + inc;
-}
-__device__ __forceinline__ uint32_t pcg_bits(uint32_t s) {
-  const uint32_t word = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
-  return (word >> 22u) ^ word;
-}
-__device__ __forceinline__ float uniform(uint32_t s) {
-  return (float)(pcg_bits(s) >> 8) * (1.0f / 16777216.0f);
-}
-
 struct Consts {
-  float scale, g, A[3], B[3], bmin[3], ext[3], rm1[3], max_path, epsw;
+  float scale, g, A[3], B[3], bmin[3], bmax[3], ext[3], rm1[3], max_path, epsw;
   float plane_lo[3], plane_hi[3];  // the brick interior's faces per axis
   bool rr_on;
   int ngrid[3], worg[3];
   const float* win;
 };
-
-// Flight length of a draw: -log(max(u1, eps)) / sigma.
-__device__ __forceinline__ float flight(uint32_t s, float inv_sig) {
-  return -logf(jmax(uniform(s), EPS)) * inv_sig;
-}
 
 // Stochastic-trilinear tap at o + t d (bits: the tap draw), clipped into
 // the window, so every lane may load it.
@@ -155,30 +120,6 @@ __device__ __forceinline__ float tap(const Consts& c, const float o[3],
   return __ldg(c.win + (local[2] * TDIL + local[1]) * TDIL + local[0]);
 }
 
-// HG sampling (ops/phase.importance_sample_hg): cos and sin of the angle.
-__device__ __forceinline__ void hg(float g, float e1, float& cos_th, float& sin_th) {
-  const float sqr = (1.0f - g * g) / jmax(1.0f - g + 2.0f * g * e1, 1e-12f);
-  const float g_safe = fabsf(g) > 1e-12f ? g : 1.0f;
-  const float cos_a = (1.0f + g * g - sqr * sqr) / (2.0f * g_safe);
-  const float cos_i = 1.0f - 2.0f * e1;
-  cos_th = jclip(fabsf(g) > EPS ? cos_a : cos_i, -1.0f, 1.0f);
-  sin_th = sqrtf(jmax(0.0f, 1.0f - cos_th * cos_th));
-}
-
-// The direction after a scatter from d, with hx = sin_th cos(phi),
-// hy = sin_th sin(phi) (ops/math3.local_basis, then the rotation).
-__device__ __forceinline__ void turn(const float d[3], float hx, float hy,
-                                     float cos_th, float nd[3]) {
-  const float inv_n1 = 1.0f / sqrtf(jmax(d[0] * d[0] + d[2] * d[2], 1e-12f));
-  const float v1x = d[2] * inv_n1, v1y = 0.0f, v1z = -d[0] * inv_n1;
-  const float v2x = d[1] * v1z - d[2] * v1y;
-  const float v2y = d[2] * v1x - d[0] * v1z;
-  const float v2z = d[0] * v1y - d[1] * v1x;
-  nd[0] = hx * v1x + hy * v2x + cos_th * d[0];
-  nd[1] = hx * v1y + hy * v2y + cos_th * d[1];
-  nd[2] = hx * v1z + hy * v2z + cos_th * d[2];
-}
-
 // A new segment from pose (o, d) at t = 0: the box exit and face normal
 // (ops/aabb.aabb_intersect semantics; normal picked in the order
 // +x,+y,+z,-x,-y,-z among planes at t == dist), and the DDA exit of the
@@ -187,35 +128,12 @@ __device__ __forceinline__ void turn(const float d[3], float hx, float hy,
 __device__ __forceinline__ void segment(const Consts& c, const float o[3],
                                         const float d[3], float& max_t,
                                         float nrm[3], float& bexit) {
-  float ttop[3], tbot[3];
-  for (int a = 0; a < 3; ++a) {
-    const float inv = 1.0f / d[a];
-    tbot[a] = (c.bmin[a] - o[a]) * inv;
-    ttop[a] = (c.bmin[a] + c.ext[a] - o[a]) * inv;
-  }
-  const float largest_tmin = jmax(
-      jmax(jmin(ttop[0], tbot[0]), jmin(ttop[1], tbot[1])), jmin(ttop[2], tbot[2]));
-  const float smallest_tmax = jmin(
-      jmin(jmax(ttop[0], tbot[0]), jmax(ttop[1], tbot[1])), jmax(ttop[2], tbot[2]));
-  max_t = largest_tmin > EPS ? largest_tmin : smallest_tmax;
-  nrm[0] = nrm[1] = nrm[2] = 0.0f;
-  bool taken = false;
-  for (int j = 0; j < 6; ++j) {
-    const int a = j % 3;
-    const float tpl = j < 3 ? ttop[a] : tbot[a];
-    if (!taken && max_t == tpl) {
-      nrm[a] = j < 3 ? 1.0f : -1.0f;
-      taken = true;
-    }
-  }
-  float exit_t = INFINITY;
-  for (int a = 0; a < 3; ++a) {
-    const float bound_world = d[a] > 0.0f ? c.plane_hi[a] : c.plane_lo[a];
-    const float t_axis =
-        fabsf(d[a]) > 1e-12f ? (bound_world - o[a]) / d[a] : INFINITY;
-    exit_t = jmin(exit_t, t_axis);
-  }
-  bexit = jmax(exit_t, 0.0f + c.epsw);
+  const BoxHit h = box_hit(c.bmin, c.bmax, o, d);
+  max_t = h.dist;
+  for (int a = 0; a < 3; ++a) nrm[a] = h.nrm[a];
+  float bound[3];
+  for (int a = 0; a < 3; ++a) bound[a] = d[a] > 0.0f ? c.plane_hi[a] : c.plane_lo[a];
+  bexit = dda_exit(bound, o, d, 0.0f + c.epsw);
 }
 
 // A path's state between rounds; every lane of its warp holds a copy.
@@ -263,6 +181,7 @@ __global__ void __launch_bounds__(32 * WARPS) tail_kernel(
     c.bmin[a] = params[P_BMINX + a];
     c.ext[a] = params[P_EXTX + a];
     c.rm1[a] = params[P_RM1X + a];
+    c.bmax[a] = c.bmin[a] + c.ext[a];
     c.ngrid[a] = (int)params[P_NX + a];
     c.worg[a] = iin[(I_WX + a) * R + p];
     // bmin + ext * bound_vox / rm1 with bound_vox = worg + up * 16

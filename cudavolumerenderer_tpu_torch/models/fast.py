@@ -36,12 +36,18 @@ count on the host once per chained group of body evaluations (extra
 evaluations past the exit condition are no-ops: draws are masked per
 path); compaction gathers each field with index_select; the image is
 accumulated with index_add_ of masked values; the defer_ggx schedule
-reads a host float32 copy of n_rows, not the device's.  The wavefront
-body is plain torch ops, as it was XLA (not Pallas) on the TPU.
+reads a host float32 copy of n_rows, not the device's.  XLA compiled the
+wavefront body into one device program on the TPU; on the card one
+evaluation is one launch of csrc/fastbody.cu (ops/fastbody.py), which
+also counts the pool's pending lanes, for spec_k == 1 and defer_ggx == 0.
+The eager body below is its plain version: the CPU runs it, and so do the
+speculative tail steps, the deferred GGX flush and callers that pass
+eager_body=True.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -50,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, phase
+from ..ops import aabb, camera as cam, fastbody, phase
 from ..ops import tailpk as tpk
 from ..ops.rng import M32, RngState, make_rng, next_float, next_uint32
 from ..scene.types import RenderSettings, Scene
@@ -338,6 +344,7 @@ def render_tile(
     tail_pallas: bool = False,
     tail_pk_width: int = 128,
     tail_pk_steps: int = 16,
+    eager_body: bool = False,
 ):
     """Render spp samples of every pixel of one tile.  Returns
     (img (th, tw, 3), n_rays) — with with_stats, also (n_rows, n_busy,
@@ -569,7 +576,11 @@ def render_tile(
             pend_b=torch.zeros_like(pend),
         )
 
-    def body(s: FastState, spec_k=1, single_level=False, bt=None) -> FastState:
+    def body(s: FastState, spec_k=1, single_level=False, bt=None,
+             taps=None) -> FastState:
+        """One evaluation of every lane; a list given as `taps` receives
+        the flat table indices and brick rows the evaluation reads
+        (fastbody.body_bytes)."""
         width = s.alive.shape[0]
         # --- regenerate: next sample of the lane's pixel -----------------
         needs = ~s.alive & (s.samples_done < spp_per_lane)
@@ -689,6 +700,8 @@ def render_tile(
             bflat = (bi[:, 2] * bt["nby"] + bi[:, 1]) * bt["nbx"] + bi[:, 0]
             row_b = bt["tab"][torch.where(need_brick, bflat, 0)]
             rho_b, leap_b = row_b[:, 0], row_b[:, 1]
+            if taps is not None:
+                taps.append(("brick", bflat[need_brick]))
 
             # fresh DDA brick exit for probing lanes
             up = (d > 0.0).to(torch.float32)
@@ -729,6 +742,8 @@ def render_tile(
                 tap_bits, rng = next_uint32(rng, inside)
                 flat = tap_flat(t_cand, tap_bits)
                 row = fused_take(torch.where(inside, flat, 0))
+                if taps is not None:
+                    taps.append(("tap", flat[inside]))
                 u2, rng = next_float(rng, inside)
                 accepted = inside & ~(
                     scale * row_rho(row) * inv_sig_local < u2)
@@ -776,6 +791,8 @@ def render_tile(
             tap_bits, rng = next_uint32(rng, step_mask)
             flat = tap_flat(t_new, tap_bits)
             row = fused_take(flat)
+            if taps is not None:
+                taps.append(("tap", flat[step_mask]))
             u2, rng = next_float(rng, step_mask)
             overran = t_new > max_t
             accepted = ~(scale * row_rho(row) * inv_sigmat < u2)
@@ -862,13 +879,31 @@ def render_tile(
     # the same order, equals the device's bit for bit without a read
     rows_host = np.float32(0.0)
 
-    def step(s: FastState, **kw) -> FastState:
+    def step(s: FastState, ctx, **kw):
+        """One evaluation: (the new state, the pool's pending count as a
+        0-d tensor when the kernel counted it, else None)."""
         nonlocal rows_host
         width = np.float32(s.alive.shape[0])
         if defer_ggx > 0 and int(np.round(rows_host / width)) % defer_ggx == 0:
             s = flush_boundary(s)
         rows_host = np.float32(rows_host + width)
-        return body(s, **kw)
+        if ctx is not None:
+            return fastbody.run_body(ctx, s)
+        return body(s, **kw), None
+
+    # the kernel's parameters, read back to the host once per render
+    base_ctx = None
+    if fastbody.route(dev.type, 1, defer_ggx, eager_body):
+        base_ctx = fastbody.make_context(
+            scene, camera, settings, full_resolution, tile_dim, tile_offset,
+            path_id_base, seed, spp_per_lane=spp_per_lane, m=m,
+            n_pix_tile=n_pix_tile, res_minus_1=res_minus_1, extent=extent,
+            inv_sigmat=inv_sigmat, epsw=torch.amax(extent) * 1e-6,
+            two_level=two_level, table=words if use_packed else fused,
+            table_bits=table_bits, brick_major=use_bm,
+            albedo_mode=albedo_mode,
+            albedo_rows=albedo_rows if albedo_mode == "split" else None,
+        )
 
     # --- cascade: shrink the pool as the tail empties ---------------------
     if min_width is None:
@@ -898,28 +933,28 @@ def render_tile(
         order = torch.argsort((~pending).to(torch.int32), stable=True)
         return _take_lanes(s, order[:next_width]), img
 
-    for stage, width in enumerate(widths):
+    plan = stage_plan(widths, tail_width, spec_width, tail_spec,
+                      tail_single_level, two_level, tail_chain)
+    for stage, (width, p) in enumerate(zip(widths, plan)):
         last = stage == len(widths) - 1
         thresh = (pk_width if use_tailpk else 0) if last else widths[stage + 1]
-        # narrow tail pools chain several complete body evaluations per
-        # pending-count read (extra evaluations past the exit are no-ops)
-        tail = len(widths) > 1 and width <= tail_width
-        k_chain = tail_chain if tail else 1
-        # pools up to spec_width may speculate, and with tail_single_level
-        # switch to the global majorant (memoryless, so a mid-flight lane
-        # may restart under it); an (N, K) gather only pays while N*K is
-        # small, hence a width of its own
-        narrow = len(widths) > 1 and width <= (
-            tail_width if spec_width is None else spec_width)
+        k_chain = p["k_chain"]
         kw = dict(
-            spec_k=tail_spec if narrow else 1,
-            single_level=narrow and tail_single_level and two_level,
-            bt=fine_bt if (tail and fine_bt is not None) else coarse_bt,
+            spec_k=p["spec_k"], single_level=p["single_level"],
+            bt=fine_bt if (p["tail"] and fine_bt is not None) else coarse_bt,
         )
+        ctx = None
+        if base_ctx is not None and fastbody.route(
+                dev.type, kw["spec_k"], defer_ggx, eager_body):
+            ctx = fastbody.stage_context(
+                base_ctx, kw["bt"],
+                kw["single_level"], functools.partial(body, **kw))
         rows_before = state.n_rows
-        while pending_count(state) > thresh:
+        pending = None  # the kernel's count of the last evaluation
+        while (pending_count(state) if pending is None
+               else int(pending)) > thresh:
             for _ in range(k_chain):
-                state = step(state, **kw)
+                state, pending = step(state, ctx, **kw)
         stage_rows.append(state.n_rows - rows_before)
         if last and not use_tailpk:
             img.index_add_(0, state.pix, state.accum)
@@ -948,6 +983,30 @@ def render_tile(
             torch.stack(stage_rows),
         )
     return img, state.n_rays
+
+
+def stage_plan(widths, tail_width: int = _TAIL_CHAIN_WIDTH,
+               spec_width: int = None, tail_spec: int = _TAIL_SPEC,
+               tail_single_level: bool = False, two_level: bool = False,
+               tail_chain: int = _TAIL_CHAIN):
+    """Per cascade stage (pool width): whether it is a tail pool, the body
+    evaluations chained per pending-count read, spec_k and single_level.
+    Narrow tail pools chain several complete evaluations per read (extra
+    evaluations past the exit are no-ops); pools up to spec_width may
+    speculate and, with tail_single_level, switch to the global majorant
+    (memoryless, so a mid-flight lane may restart under it); an (N, K)
+    gather only pays while N*K is small, hence a width of its own."""
+    plan = []
+    for width in widths:
+        tail = len(widths) > 1 and width <= tail_width
+        narrow = len(widths) > 1 and width <= (
+            tail_width if spec_width is None else spec_width)
+        plan.append(dict(
+            tail=tail, k_chain=tail_chain if tail else 1,
+            spec_k=tail_spec if narrow else 1,
+            single_level=narrow and tail_single_level and two_level,
+        ))
+    return plan
 
 
 def tail_params(scene: Scene, settings: RenderSettings) -> torch.Tensor:

@@ -1,0 +1,392 @@
+"""fastSK's wavefront body as one CUDA kernel (csrc/fastbody.cu).
+
+JAX's `render_tile` (cudavolumerenderer_tpu/models/fast.py:744) runs its
+`body` under a `lax.while_loop`, so XLA compiled each cascade stage into
+one device program.  The port's eager body (models/fast.py, render_tile's
+`body`) runs it as ~1,000 torch launches per evaluation; the kernel runs
+one evaluation of every lane of a pool in one launch, bit for bit the
+eager body's on the card, for `spec_k == 1` and `defer_ggx == 0` (the
+speculative tail steps and the deferred GGX flush stay eager: `route`).
+
+This module holds the gate (`route`), the kernel's parameter vectors
+(`make_context`, `stage_context`), the wrapper `run_body` (the plain
+version, the eager body, for CPU tensors; the kernel for CUDA tensors, or
+it raises) and the bound (`body_bytes`).  The kernel updates the state's
+per-lane tensors in place unless it is given `out`, and returns fresh
+0-d counters (n_rays, n_rows, n_busy) and the pool's pending count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .rng import M32, as_u32, mul32
+
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastbody.cu"
+
+# Float parameters (csrc/fastbody.cu FP_*).
+FP_TILEX, FP_TILEY, FP_INV_TW, FP_INV_RESX, FP_INV_RESY = range(5)
+FP_CAM = 5  # the camera's (3, 4) inv_view, row-major
+FP_R2VX = FP_CAM + 12
+FP_R2VY = FP_R2VX + 1
+FP_BMIN = FP_R2VY + 1
+FP_BMAX = FP_BMIN + 3
+FP_EXT = FP_BMAX + 3
+FP_RM1 = FP_EXT + 3
+FP_SCALE = FP_RM1 + 3
+FP_INV_SIGMAT = FP_SCALE + 1
+FP_G = FP_INV_SIGMAT + 1
+FP_LE = FP_G + 1
+FP_ALB_A = FP_LE + 3
+FP_ALB_B = FP_ALB_A + 3
+FP_QSCALE = FP_ALB_B + 3
+FP_EPSW = FP_QSCALE + 1
+FP_BSIZE = FP_EPSW + 1
+FP_ROUGH = FP_BSIZE + 3
+FP_ETA = FP_ROUGH + 2
+FP_INV_ETA = FP_ETA + 1
+N_FP = FP_INV_ETA + 1
+
+# Integer parameters (csrc/fastbody.cu IP_*).
+(IP_SPP, IP_M, IP_NPIX, IP_TW, IP_MULTI, IP_BASE, IP_SEEDH, IP_NX, IP_NY,
+ IP_NZ, IP_TWO_LEVEL, IP_TABLE, IP_BITS, IP_BRICK_MAJOR, IP_ALBEDO,
+ IP_ALB_STRIDE, IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_NBX, IP_NBY,
+ IP_HIX, IP_HIY, IP_HIZ, N_IP) = range(26)
+
+# Pointer slots (csrc/fastbody.cu S_*): the per-lane fields the body
+# updates, in FastState's names, then the rest.
+LANE_FIELDS = ("o", "d", "throughput", "accum", "normal", "t", "max_t",
+               "brick_exit", "inv_sig_local", "samples_done", "bounce",
+               "alive", "tracking", "rng_state", "rng_inc")
+N_LANE = len(LANE_FIELDS)
+_DTYPES = dict(zip(LANE_FIELDS, (torch.float32,) * 9 + (torch.int64,) * 2
+                   + (torch.bool,) * 2 + (torch.int64,) * 2),
+               pix=torch.int64, slot=torch.int64)
+S_PIX = N_LANE
+S_SLOT, S_NRAYS, S_NROWS, S_NBUSY = S_PIX + 1, S_PIX + 2, S_PIX + 3, S_PIX + 4
+S_OUT = S_NBUSY + 1
+S_COUNTS = S_OUT + N_LANE
+S_PENDING, S_SCRATCH = S_COUNTS + 1, S_COUNTS + 2
+S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES = range(S_SCRATCH + 1,
+                                                         S_SCRATCH + 6)
+N_S = S_BASES + 1
+
+# Table and albedo modes (IP_TABLE, IP_ALBEDO).
+TAB_F32, TAB_ROWS, TAB_PACKED = range(3)
+ALBEDO_MODES = {"const": 0, "affine": 1, "full": 2, "split": 3}
+
+#: bytes of one lane's state the kernel reads (o, d, throughput, accum,
+#: normal; t, max_t, brick_exit, inv_sig_local; pix, slot, samples_done,
+#: bounce; alive, tracking; the RNG's two words) and writes (all but pix
+#: and slot)
+LANE_READ_BYTES = 15 * 4 + 4 * 4 + 4 * 8 + 2 + 2 * 8
+LANE_WRITTEN_BYTES = LANE_READ_BYTES - 2 * 8
+
+
+def route(device_type: str, spec_k: int, defer_ggx: int,
+          eager_body: bool = False) -> bool:
+    """Whether a stage's body evaluations go to the kernel: on the card,
+    for spec_k == 1 and defer_ggx == 0, unless the caller asks for the
+    eager body (tests and chip_smoke.py hold the kernel against it).  The
+    speculative steps (tail_spec > 1) and the deferred GGX flush stay
+    eager; so does the CPU, which has no kernel."""
+    return (device_type == "cuda" and spec_k == 1 and defer_ggx == 0
+            and not eager_body)
+
+
+@dataclasses.dataclass
+class BodyContext:
+    """One stage's kernel inputs besides the state: the parameter
+    vectors (host numpy), the read-only tensors (None where a mode reads
+    none) and the eager body with the stage's keywords (the plain
+    version; it takes an optional `taps` list, see body_bytes)."""
+
+    fparams: np.ndarray  # (N_FP,) float32
+    iparams: np.ndarray  # (N_IP,) int64
+    table: torch.Tensor
+    albedo_rows: Optional[torch.Tensor]
+    brick_tab: Optional[torch.Tensor]
+    tile_offset: Optional[torch.Tensor]  # (T, 2), multi-tile mode
+    bases: Optional[torch.Tensor]  # (T,) int64, multi-tile mode
+    plain: Optional[Callable] = None
+
+
+def _f32(x) -> np.ndarray:
+    """A tensor's (or number's) float32 values on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy().reshape(-1)
+    return np.asarray(x, np.float32).reshape(-1)
+
+
+def make_context(scene, camera, settings, full_resolution, tile_dim,
+                 tile_offset, path_id_base, seed, *, spp_per_lane: int,
+                 m: int, n_pix_tile: int, res_minus_1, extent, inv_sigmat,
+                 epsw, two_level: bool, table: torch.Tensor, table_bits: int,
+                 brick_major: bool, albedo_mode: str,
+                 albedo_rows: Optional[torch.Tensor]) -> BodyContext:
+    """The kernel's parameters from the values render_tile computes (the
+    same tensors, read back to the host once per render): the brick
+    fields stay 0 until `stage_context` fills them.  A division by a
+    Python scalar runs on the card as a multiplication by the scalar's
+    float32 reciprocal, so those reciprocals are what the vector holds."""
+    med = scene.medium
+    nz, ny, nx = med.density.data.shape
+    tw = int(tile_dim[0])
+    multi = tile_offset.ndim == 2
+    f = np.zeros(N_FP, np.float32)
+    i = np.zeros(N_IP, np.int64)
+    one = np.float32(1.0)
+    if not multi:
+        f[FP_TILEX:FP_TILEY + 1] = _f32(tile_offset)
+    f[FP_INV_TW] = one / np.float32(tw)
+    f[FP_INV_RESX] = one / np.float32(float(full_resolution[0]))
+    f[FP_INV_RESY] = one / np.float32(float(full_resolution[1]))
+    f[FP_CAM:FP_CAM + 12] = _f32(camera.inv_view)
+    f[FP_R2VX:FP_R2VY + 1] = _f32(camera.raster_to_view)
+    f[FP_BMIN:FP_BMIN + 3] = _f32(med.box_min)
+    f[FP_BMAX:FP_BMAX + 3] = _f32(med.box_max)
+    f[FP_EXT:FP_EXT + 3] = _f32(extent)
+    f[FP_RM1:FP_RM1 + 3] = _f32(res_minus_1)
+    f[FP_SCALE] = _f32(med.scale)[0]
+    f[FP_INV_SIGMAT] = _f32(inv_sigmat)[0]
+    f[FP_G] = _f32(med.g)[0]
+    f[FP_LE:FP_LE + 3] = _f32(scene.le)
+    if albedo_mode == "const":
+        f[FP_ALB_B:FP_ALB_B + 3] = _f32(med.albedo.data.reshape(-1)[:3])
+    elif albedo_mode == "affine":
+        f[FP_ALB_A:FP_ALB_A + 3] = _f32(med.albedo_affine[0])
+        f[FP_ALB_B:FP_ALB_B + 3] = _f32(med.albedo_affine[1])
+    if table_bits in (8, 4) and albedo_mode != "full":
+        # packed_take's dequantizing factor, as the eager op computes it
+        f[FP_QSCALE] = _f32(med.max_density / float((1 << table_bits) - 1))[0]
+    f[FP_EPSW] = _f32(epsw)[0]
+    f[FP_ROUGH:FP_ROUGH + 2] = _f32(scene.bsdf.roughness)
+    f[FP_ETA] = _f32(scene.bsdf.eta)[0]
+    f[FP_INV_ETA] = one / f[FP_ETA]
+
+    i[IP_SPP], i[IP_M], i[IP_NPIX], i[IP_TW] = spp_per_lane, m, n_pix_tile, tw
+    i[IP_MULTI] = int(multi)
+    if not multi:
+        i[IP_BASE] = int(path_id_base) & M32
+    seed_u = as_u32(seed if isinstance(seed, torch.Tensor) else int(seed))
+    i[IP_SEEDH] = int(mul32(seed_u.cpu(), 0x9E3779B9))
+    i[IP_NX], i[IP_NY], i[IP_NZ] = nx, ny, nz
+    i[IP_TWO_LEVEL] = int(two_level)
+    if albedo_mode == "full":
+        i[IP_TABLE] = TAB_ROWS
+    elif table_bits in (8, 4):
+        i[IP_TABLE], i[IP_BITS] = TAB_PACKED, table_bits
+    i[IP_BRICK_MAJOR] = int(brick_major)
+    i[IP_ALBEDO] = ALBEDO_MODES[albedo_mode]
+    if albedo_rows is not None:
+        i[IP_ALB_STRIDE] = albedo_rows.shape[-1]
+    i[IP_BSDF] = int(settings.bsdf_kind == "ggx")
+    i[IP_MITSUBA] = int(settings.mitsuba_comparable)
+    i[IP_RR] = int(settings.russian_roulette)
+    i[IP_MAXPATH] = settings.max_path_length
+    dev = table.device
+    return BodyContext(
+        fparams=f, iparams=i, table=table, albedo_rows=albedo_rows,
+        brick_tab=None,
+        tile_offset=(tile_offset.to(dev, torch.float32).contiguous()
+                     if multi else None),
+        bases=((torch.as_tensor(path_id_base, dtype=torch.int64,
+                                device=dev) & M32).contiguous()
+               if multi else None),
+    )
+
+
+def stage_context(ctx: BodyContext, bt: Optional[dict], single_level: bool,
+                  plain: Callable) -> BodyContext:
+    """`ctx` for one stage: two-level with the brick table `bt` (the
+    coarse or the tail's fine one) unless single_level, and the eager body
+    with the stage's keywords."""
+    f, i = ctx.fparams.copy(), ctx.iparams.copy()
+    two = bool(i[IP_TWO_LEVEL]) and not single_level and bt is not None
+    i[IP_TWO_LEVEL] = int(two)
+    brick_tab = None
+    if two:
+        f[FP_BSIZE:FP_BSIZE + 3] = _f32(bt["size"])
+        i[IP_HIX:IP_HIZ + 1] = bt["hi"].cpu().numpy()
+        i[IP_NBX], i[IP_NBY] = bt["nbx"], bt["nby"]
+        brick_tab = bt["tab"].contiguous()
+    return dataclasses.replace(ctx, fparams=f, iparams=i, brick_tab=brick_tab,
+                               plain=plain)
+
+
+class FastBodyKernel:
+    """The CUDA body kernel: built from csrc/fastbody.cu at first use,
+    launched through its C entry point, and counted.  `launches` counts
+    launches made now; a launch recorded into a CUDA graph being captured
+    counts in `captured` instead."""
+
+    def __init__(self):
+        self.launches = 0  # CUDA launches; the plain version is not counted
+        self.captured = 0
+        self._built = None
+        self._scratch = {}  # device -> (4,) int64 zeros the kernel reuses
+
+    def library(self):
+        """Build (or reuse) and load the kernel library; returns the
+        utils.cuda_build.BuiltLibrary."""
+        if self._built is None:
+            from ..utils import cuda_build  # noqa: PLC0415
+
+            built = cuda_build.build_library(_SOURCE)
+            fn = built.lib.fastbody_launch
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 3)()
+            built.lib.fastbody_layout(sizes)
+            if tuple(sizes) != (N_FP, N_IP, N_S):
+                raise RuntimeError(
+                    f"fastbody: csrc/fastbody.cu's layout {tuple(sizes)} is "
+                    f"not ops/fastbody.py's {(N_FP, N_IP, N_S)}")
+            self._built = built
+        return self._built
+
+    def scratch(self, dev) -> torch.Tensor:
+        if dev not in self._scratch:
+            self._scratch[dev] = torch.zeros(4, dtype=torch.int64, device=dev)
+        return self._scratch[dev]
+
+    def launch(self, ctx: BodyContext, s, out=None):
+        """One body evaluation of every lane of `s` (a FastState): the new
+        state (its per-lane tensors `out`'s, or `s`'s, updated in place)
+        and the pool's pending count as a 0-d int64 tensor."""
+        width = s.alive.shape[0]
+        dev = s.alive.device
+        out = s if out is None else out
+        fields = [_lane_field(s, name) for name in LANE_FIELDS]
+        outs = [_lane_field(out, name) for name in LANE_FIELDS]
+        for name, x, y in zip(LANE_FIELDS, fields, outs):
+            _check(name, x, width, dev)
+            if y is not x:
+                _check(name, y, width, dev)
+                if _overlaps(x, y):
+                    raise ValueError(
+                        f"fastbody: out.{name} overlaps the input partly")
+        for name in ("pix", "slot"):
+            _check(name, getattr(s, name), width, dev)
+        for name in ("n_rays", "n_rows", "n_busy"):
+            x = getattr(s, name)
+            if x.device != dev or x.dtype != torch.float32 or x.ndim != 0:
+                raise ValueError(f"fastbody: {name} must be a 0-d float32 "
+                                 f"tensor on {dev}")
+        for name in ("table", "albedo_rows", "brick_tab", "tile_offset",
+                     "bases"):
+            x = getattr(ctx, name)
+            if x is not None and (x.device != dev or not x.is_contiguous()):
+                raise ValueError(f"fastbody: {name} must be contiguous on "
+                                 f"{dev}")
+        counts = torch.empty(3, dtype=torch.float32, device=dev)
+        pending = torch.empty((), dtype=torch.int64, device=dev)
+        ptrs = [0] * N_S
+        for k, x in enumerate(fields):
+            ptrs[k] = x.data_ptr()
+        for k, x in enumerate(outs):
+            ptrs[S_OUT + k] = x.data_ptr()
+        ptrs[S_PIX], ptrs[S_SLOT] = s.pix.data_ptr(), s.slot.data_ptr()
+        ptrs[S_NRAYS] = s.n_rays.data_ptr()
+        ptrs[S_NROWS] = s.n_rows.data_ptr()
+        ptrs[S_NBUSY] = s.n_busy.data_ptr()
+        ptrs[S_COUNTS], ptrs[S_PENDING] = counts.data_ptr(), pending.data_ptr()
+        ptrs[S_SCRATCH] = self.scratch(dev).data_ptr()
+        for slot_, x in ((S_TABLE, ctx.table), (S_ALB_ROWS, ctx.albedo_rows),
+                         (S_BTAB, ctx.brick_tab), (S_TILE_OFF, ctx.tile_offset),
+                         (S_BASES, ctx.bases)):
+            ptrs[slot_] = 0 if x is None else x.data_ptr()
+        fn = self.library().lib.fastbody_launch
+        addresses = (ctypes.c_void_p * N_S)(*ptrs)
+        with torch.cuda.device(dev):
+            err = fn(
+                ctx.fparams.ctypes.data, N_FP, ctx.iparams.ctypes.data, N_IP,
+                ctypes.addressof(addresses), N_S, width,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"fastbody launch failed: CUDA error {err}")
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+        new = out._replace(pix=s.pix, slot=s.slot, pend_b=s.pend_b,
+                           n_rays=counts[0], n_rows=counts[1],
+                           n_busy=counts[2])
+        return new, pending
+
+
+def _lane_field(s, name: str) -> torch.Tensor:
+    if name == "rng_state":
+        return s.rng.state
+    if name == "rng_inc":
+        return s.rng.inc
+    return getattr(s, name)
+
+
+def _check(name, x, width, dev):
+    want = _DTYPES[name]
+    shape = (width, 3) if name in LANE_FIELDS[:5] else (width,)
+    if (x.device != dev or x.dtype != want or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"fastbody: {name} must be contiguous {want} {shape} on {dev}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors share memory without being the same buffer
+    (in place is the same buffer; anything else must not overlap, as a
+    lane's thread reads all its fields before it writes any)."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    if a0 == b0:
+        return False
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a0 < b1 and b0 < a1
+
+
+KERNEL = FastBodyKernel()
+
+
+def run_body(ctx: BodyContext, s, out=None):
+    """One body evaluation of the pool `s`: the plain version (the eager
+    body) for CPU tensors, the CUDA kernel for CUDA tensors.  Returns the
+    new state and the pool's pending count as a 0-d tensor, or None when
+    the plain version ran (the caller counts)."""
+    dev = s.alive.device
+    if dev.type == "cpu":
+        return ctx.plain(s), None
+    if dev.type == "cuda":
+        return KERNEL.launch(ctx, s, out)
+    raise ValueError(f"fastbody: no kernel for device {dev}")
+
+
+def body_bytes(ctx: BodyContext, width: int, taps) -> int:
+    """The least bytes one evaluation of a width-lane pool moves: each
+    lane's state read once and written once, and the distinct table
+    entries its taps read, counted from the plain version's `taps` (a
+    list the eager body fills with ("tap", flat indices) and ("brick",
+    brick rows) of the lanes that read them)."""
+    kind = int(ctx.iparams[IP_TABLE])
+    tap_idx = [x for k, x in taps if k == "tap"]
+    bricks = [x for k, x in taps if k == "brick"]
+    n = width * (LANE_READ_BYTES + LANE_WRITTEN_BYTES)
+    if tap_idx:
+        j = torch.cat(tap_idx)
+        if kind == TAB_PACKED:
+            per = 32 // int(ctx.iparams[IP_BITS])
+            j = ((j >> 7) // per) * 128 + (j & 127)  # the words read
+        n += torch.unique(j).numel() * (16 if kind == TAB_ROWS else 4)
+    if bricks:
+        n += torch.unique(torch.cat(bricks)).numel() * 8
+    return n

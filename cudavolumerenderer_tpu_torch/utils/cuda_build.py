@@ -4,7 +4,8 @@ nvcc compiles the file into a library with a plain C interface, loaded
 with ctypes (no PyTorch headers, so a build takes seconds).  The library
 lands in the package's `_build/` directory (listed in .gitignore), named
 by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing is built at import time.
+an unchanged one is reused; the hash covers the headers (`*.cuh`) beside
+the source too, which the kernels share.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ def nvcc_path() -> str:
 
 def build_library(source: Path) -> BuiltLibrary:
     """Compile `source` (if its hash is new) and load the library."""
+    headers = sorted(source.parent.glob("*.cuh"))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in (source, *headers))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
     log_path = out.with_suffix(".log")

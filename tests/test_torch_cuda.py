@@ -633,3 +633,232 @@ def test_one_rank_nccl_render_sharded_equals_render_tile(cuda):
         assert float(n_rays) == float(want_rays)
     finally:
         dist.destroy_process_group()
+
+
+# -- the fastSK body kernel (csrc/fastbody.cu) --------------------------------
+
+def body_scene(device, albedo="affine", shape=(24, 24, 24), scale=20.0,
+               g=0.3, tail_free=False):
+    """A medical-like blob volume with an affine, constant or per-voxel
+    ('full') albedo and HG anisotropy g."""
+    d = procedural.medical_volume(shape, n_blobs=4).astype(np.float32)
+    if albedo == "affine":
+        alb = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    elif albedo == "const":
+        alb = 0.8
+    else:
+        alb = np.random.default_rng(5).uniform(0.3, 1.0, shape + (3,))
+        alb = alb.astype(np.float32)
+    return types.make_scene(types.make_medium(
+        d, alb, scale=scale, max_density=1.0, g=g, device=device))
+
+
+#: (id, scene keywords, settings keywords, render_tile keywords): every mode
+#: the kernel covers, each in a cascade of several pools (min_width 256) so
+#: the tail pools' chained evaluations run too
+BODY_CASES = [
+    ("f32-2l-ggx", {}, {}, dict(two_level=True)),
+    ("f32-1l-ggx", {}, {}, dict(two_level=False)),
+    ("null-2l", {}, dict(bsdf_kind="null"), dict(two_level=True)),
+    ("null-1l", {}, dict(bsdf_kind="null"), dict(two_level=False)),
+    ("rr-off-cap", {}, dict(russian_roulette=False, max_path_length=4),
+     dict(two_level=True)),
+    ("heitz-2l", {}, dict(mitsuba_comparable=False), dict(two_level=True)),
+    ("const-albedo", dict(albedo="const"), {}, dict(two_level=True)),
+    ("full-2l", dict(albedo="full"), {}, dict(two_level=True)),
+    ("full-1l", dict(albedo="full"), {}, dict(two_level=False)),
+    ("packed8-2l", {}, {}, dict(two_level=True, table_bits=8)),
+    ("packed4-1l", {}, {}, dict(two_level=False, table_bits=4)),
+    ("packed4-2l", {}, {}, dict(two_level=True, table_bits=4)),
+    ("brick-major-2l", dict(shape=(16, 16, 128)), {},
+     dict(two_level=True, brick_major=True)),
+    ("brick-major-packed", dict(shape=(16, 16, 128)), {},
+     dict(two_level=True, brick_major=True, table_bits=4)),
+    ("tail-bricks", {}, {}, dict(two_level=True, tail_bricks=4)),
+    ("tail-single-level", {}, {},
+     dict(two_level=True, tail_single_level=True)),
+    ("m2", {}, {}, dict(two_level=True, lanes_per_pixel=2)),
+    ("g0", dict(g=0.0), {}, dict(two_level=True)),
+    # 40 and 24 are no powers of two: the pixel row and the raster scale
+    # divide by them (on the card a multiplication by the reciprocal)
+    ("res40-2l", {}, {}, dict(two_level=True, res=40)),
+    ("res24-1l", {}, {}, dict(two_level=False, res=24)),
+]
+
+
+def body_render(device, scene, settings, res=32, spp=4, multi=False, **kw):
+    """with_stats fastSK render of `scene` on `device` (a 2x2 multi-tile
+    cascade of res/2 tiles with multi)."""
+    cam = make_camera(res, res, device=device)
+    if multi:
+        h = res // 2
+        off = torch.tensor([[0, 0], [h, 0], [0, h], [h, h]],
+                           dtype=torch.float32, device=device)
+        bases = torch.arange(4, dtype=torch.int64, device=device) * (h * h * spp)
+        return fast.render_tile(scene, cam, settings, (h, h), off, (res, res),
+                                spp, 11, bases, with_stats=True,
+                                cascade_factor=2, min_width=256, **kw)
+    return fast.render_tile(
+        scene, cam, settings, (res, res), torch.zeros(2, device=device),
+        (res, res), spp, 11, 3, with_stats=True, cascade_factor=2,
+        min_width=256, **kw)
+
+
+def assert_same_render(a, b):
+    """image, n_rays, n_rows, n_busy and the per-stage rows bit for bit"""
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), (x, y) if x.numel() < 8 else "image"
+
+
+def state_mismatches(a, b):
+    """Fields of two FastStates that differ (NaN equal to NaN), with their
+    differing lane counts."""
+    out = {}
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if name == "rng":
+            x, y = torch.stack([x.state, x.inc]), torch.stack([y.state, y.inc])
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y)) if (
+            x.is_floating_point()) else x == y
+        if not bool(same.all()):
+            out[name] = int((~same).reshape(x.shape[0], -1).any(-1).sum()
+                            if x.ndim else 1)
+    return out
+
+
+def clone_state(s):
+    return type(s)(*(
+        type(v)(v.state.clone(), v.inc.clone()) if hasattr(v, "inc")
+        else v.clone() for v in s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BODY_CASES, ids=[c[0] for c in BODY_CASES])
+def test_body_kernel_equals_eager_body(cuda, case):
+    """Every evaluation of the kernel's trajectory equals the eager body's
+    on the same state in every FastState field, and the whole render
+    (image, rays, rows, busy lanes, per-stage rows) equals the eager
+    render bit for bit."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    _, scene_kw, settings_kw, kw = case
+    scene = body_scene(cuda, **scene_kw)
+    settings_kw = dict(settings_kw)
+    settings = types.RenderSettings.from_flags(
+        settings_kw.pop("mitsuba_comparable", True), **settings_kw)
+    run = fastbody.run_body
+    bad = []
+
+    def checked(ctx, s, out=None):
+        want = ctx.plain(clone_state(s))
+        got, pending = run(ctx, s, out)
+        diff = state_mismatches(got, want)
+        if diff:
+            bad.append((s.alive.shape[0], diff))
+        pend = int((want.alive | (want.samples_done < int(
+            ctx.iparams[fastbody.IP_SPP]))).sum())
+        assert int(pending) == pend
+        return got, pending
+
+    launches = fastbody.KERNEL.launches
+    fastbody.run_body = checked
+    try:
+        got = body_render(cuda, scene, settings, **kw)
+    finally:
+        fastbody.run_body = run
+    assert fastbody.KERNEL.launches > launches
+    assert not bad, f"{len(bad)} evaluations differ; first {bad[:3]}"
+    want = body_render(cuda, scene, settings, eager_body=True, **kw)
+    assert_same_render(got, want)
+    assert float(got[1]) > 0 and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("albedo, res", [("affine", 32), ("full", 40)])
+def test_body_kernel_multi_tile(cuda, albedo, res):
+    """Multi-tile lane mode (2x2 tiles of (res/2)^2 in one cascade): the
+    kernel renders the eager body's tiles bit for bit."""
+    scene = body_scene(cuda, albedo)
+    settings = types.RenderSettings.from_flags(True)
+    got = body_render(cuda, scene, settings, res=res, multi=True,
+                      two_level=True)
+    want = body_render(cuda, scene, settings, res=res, multi=True,
+                       two_level=True, eager_body=True)
+    assert got[0].shape == (4, res // 2, res // 2, 3)
+    assert_same_render(got, want)
+
+
+@pytest.mark.cuda
+def test_body_kernel_split(cuda, monkeypatch):
+    """A per-voxel albedo sent to 'split' by a small budget: the kernel
+    reads the scene's albedo grid at the tap, and renders the eager
+    body's image and the 'full' table's bit for bit."""
+    from cudavolumerenderer_tpu_torch.utils import occupancy
+
+    shape = (16, 16, 32)
+    scene = body_scene(cuda, "full", shape=shape)
+    settings = types.RenderSettings.from_flags(True)
+    full = body_render(cuda, scene, settings, two_level=True)
+    monkeypatch.setattr(occupancy, "device_memory_budget",
+                        lambda device=None: 40 * int(np.prod(shape)))
+    assert fast._albedo_mode(scene, allow_split=True) == "split"
+    got = body_render(cuda, scene, settings, two_level=True)
+    want = body_render(cuda, scene, settings, two_level=True, eager_body=True)
+    assert_same_render(got, want)
+    assert_same_render(got, full)
+
+
+@pytest.mark.cuda
+def test_white_furnace_through_body_kernel(cuda):
+    """Unit albedo and the null boundary: every pixel is exactly spp,
+    one- and two-level, through the body kernel."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    d = procedural.blob_volume((24, 24, 24), n_blobs=3)
+    scene = types.make_scene(types.make_medium(d, 1.0, scale=8.0,
+                                               max_density=1.0, device=cuda))
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=200, bsdf_kind="null")
+    for two_level in (False, True):
+        launches = fastbody.KERNEL.launches
+        img = body_render(cuda, scene, settings, res=16, two_level=two_level)[0]
+        assert fastbody.KERNEL.launches > launches
+        np.testing.assert_array_equal(img.cpu().numpy(), 4.0)
+
+
+@pytest.mark.cuda
+def test_body_wrapper_runs_kernel_or_plain_by_device(cuda):
+    """run_body launches the kernel on a kept state (counted), writes the
+    `out` state it is given, equals the eager body there, and checks the
+    state's types and layout."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    ctxs, states = [], []
+    run = fastbody.run_body
+
+    def keep(ctx, s, out=None):
+        if not ctxs:
+            ctxs.append(ctx)
+            states.append(clone_state(s))
+        return run(ctx, s, out)
+
+    fastbody.run_body = keep
+    try:
+        body_render(cuda, scene, settings, two_level=True)
+    finally:
+        fastbody.run_body = run
+    ctx, s = ctxs[0], states[0]
+    out = clone_state(s)
+    launches = fastbody.KERNEL.launches
+    got, pending = fastbody.run_body(ctx, clone_state(s), out=out)
+    assert fastbody.KERNEL.launches == launches + 1
+    assert got.o.data_ptr() == out.o.data_ptr()
+    assert not state_mismatches(got, ctx.plain(clone_state(s)))
+    bad = s._replace(t=s.t.double())
+    with pytest.raises(ValueError, match="t must be"):
+        fastbody.run_body(ctx, bad)
+    bad = s._replace(o=s.o.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        fastbody.run_body(ctx, bad)

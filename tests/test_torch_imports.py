@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax():
                  "scene.vdb", "ops.camera_controller", "utils.profiling",
                  "benchmarks.baseline_configs", "parallel.mesh",
                  "parallel.shard", "scripts.run_multihost",
-                 "benchmarks.scaling_efficiency"):
+                 "benchmarks.scaling_efficiency", "ops.fastbody"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
