@@ -36,9 +36,9 @@ CPU or to a plain version on a CUDA tensor):
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
    scale 100, 512^2 x 4 iterations, one tile) through load_scene and
    create_renderer(...).render() with fastSK two-level and the tail
-   kernel on, every body evaluation one launch of the body kernel
-   (csrc/fastbody.cu, counted); one render, timed with the image copy to
-   the host, with
+   kernel on, every cascade stage gated chains of the body kernel
+   (csrc/fastbody.cu; launches and host reads counted); one render, timed
+   with the image copy to the host, with
    torch.profiler over tail rounds 100-159 (the kernel's device time per
    launch at the slice's own state, and the card's busy share in that
    window) and the inputs of round 130 kept (the kernel against its plain
@@ -153,8 +153,8 @@ CPU or to a plain version on a CUDA tensor):
    f32 one (a sanity bound: the quantizer rounds to the nearest of 16
    levels); wall with and without the image copy, rays, body
    evaluations, and the two density tables' bytes; the f32 row also
-   counts the device kernels of body evaluations 100-159 (torch.profiler)
-   and is phase 20's defer_ggx 0 row;
+   counts the device kernels per evaluation over its render_tile call
+   (torch.profiler) and is phase 20's defer_ggx 0 row;
 20. fastSK's options on config 2's scene at its published width, 512^2
    x CONFIG2_ITERS (as phase 19), one tile, two-level, no tail kernel,
    through create_renderer(...).render()
@@ -189,17 +189,31 @@ CPU or to a plain version on a CUDA tensor):
    (d) benchmarks/scaling_efficiency --compare-plain at its default
    width (128^2 x 4 per rank), one timed rep (cut from 3), in a group of
    one: the N = 1 row and the plain render beside it;
-22. the body kernel against the eager body on config 2's own states: its
-   render (phase 5's scene, 512^2 x 4, two-level, no tail kernel) through
-   the kernel, keeping the state at evaluations 0, 20 and 100 and at the
-   first evaluation of the 16,384- and 4,096-lane pools; on each, one
-   kernel evaluation and one eager evaluation give equal FastState fields
-   (NaN equal to NaN) and the same pending count; the kernel's device
-   time per evaluation from replays of a CUDA graph of 16 out-of-place
-   evaluations of the kept state, the eager body's by CUDA events, and
-   the byte bound (ops/fastbody.body_bytes: each lane's state read and
-   written once, the distinct table entries and brick rows the eager
-   evaluation read).
+22. the body kernels on config 2 (phase 5's scene, 512^2 x 4, two-level,
+   no tail kernel): (a) rendered through the per-evaluation loop
+   (ops/fastbody.loop_stage: one launch and a pending-count read per
+   evaluation or chain), keeping the state at evaluations 0, 20 and 100,
+   at the first evaluation of the 16,384- and 4,096-lane pools and at
+   each stage's entry, then through the stage path (gated chains, the
+   last stage drained), the kernels' counts set to 0 just before it:
+   image, n_rays, n_rows, n_busy and per-stage rows bit-equal, n_rays
+   6,056,452 and 3,002 evaluations, launches, host reads and the host's
+   enqueue time per gated launch; the two renders again in turns (loop,
+   stage, stage, loop; wall with the image copy); (b) on each stage's
+   entry state the per-evaluation loop against the stage path, in turns:
+   every FastState field equal, wall, device kernels and busy ms
+   (torch.profiler), launches and host reads; (c) the drain at 32, 64,
+   128 and 256 threads per block, twice in turns (CUDA events around one
+   drain; bit-equal), the longest lane's L and the drain's us per step of
+   it, its plain version (the eager body's loop, timed) and its byte
+   bound (ops/fastbody.body_bytes over every evaluation's taps: each
+   lane's state read and written once, the distinct table entries and
+   brick rows read); (d) on each kept evaluation state, one kernel
+   evaluation and one eager evaluation give equal FastState fields (NaN
+   equal to NaN) and the same pending count; the kernel's device time per
+   evaluation from replays of a CUDA graph of 16 out-of-place evaluations
+   of the kept state, the eager body's by CUDA events, and the byte
+   bound.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -1614,11 +1628,12 @@ def config1(tmp: str, card: str) -> dict:
 
     name = "1_bucky_raw_256_20it"
     out = os.path.join(tmp, "config1.json")
-    before = fb.KERNEL.launches
+    before = fb.KERNEL.launches, fb.KERNEL.drain_launches
     t0 = time.perf_counter()
     bc.main(["--only", "1_", "--trials", "3", "--out", out, "--workdir", tmp])
     wall = time.perf_counter() - t0
-    launches = fb.KERNEL.launches - before
+    launches = fb.KERNEL.launches - before[0]
+    drains = fb.KERNEL.drain_launches - before[1]
     with open(out) as f:
         row = json.load(f)[name]
     saved = load_hdr(os.path.join(tmp, f"{name}.hdr"))
@@ -1626,7 +1641,7 @@ def config1(tmp: str, card: str) -> dict:
                               device="cuda")
     mode = fast._albedo_mode(scene)
     check(mode == "full", f"config 1's albedo is {mode!r}, not 'full'")
-    check(launches > 0, "config 1 launched no body kernel")
+    check(launches > 0 and drains > 0, "config 1 launched no body kernel")
     check(saved.shape == (256, 256, 3) and np.isfinite(saved).all(),
           "config 1's image is not finite or has the wrong shape")
     check(row["iterations"] == 20 and row["n_rays"] > 0,
@@ -1638,7 +1653,7 @@ def config1(tmp: str, card: str) -> dict:
         f"({row['mean_time_s']:.3f} without), {row['n_rays']:.0f} rays, "
         f"{row['n_rays'] / row['mean_time_with_copy_s'] / 1e6:.4f} Mrays/s "
         f"with the copy ({row['mrays_per_sec']:.3f} without), "
-        f"{launches} body-kernel launches in all, image mean "
+        f"{launches} body-kernel and {drains} drain launches in all, image mean "
         f"{saved.mean():.5f}; card {card}")
     return row
 
@@ -1656,9 +1671,12 @@ class CascadeCounter:
         self.images = []  # each call's image, the sum over its samples
         self.stages = []  # each call's body evaluations per stage
         self.table_bits = []  # each call's table precision
+        self.stats = []  # each call's with_stats tuple
 
         def counted(*args, **kw):
-            img, n_rays, _, _, rows = self.orig(*args, with_stats=True, **kw)
+            stats = self.orig(*args, with_stats=True, **kw)
+            self.stats.append(stats)
+            img, n_rays, _, _, rows = stats
             offsets = args[4]
             n_lanes = args[3][0] * args[3][1] * (
                 offsets.shape[0] if offsets.ndim == 2 else 1)
@@ -1857,7 +1875,7 @@ def config2_row(bc, name: str, label: str, extra, tmp: str, card: str):
     out = os.path.join(tmp, "config2.json")
     t0 = time.perf_counter()
     # the f32 row (defer_ggx 0) also counts its kernels per evaluation
-    prof = contextlib.nullcontext() if extra else EvaluationWindow(*EVAL_WINDOW)
+    prof = contextlib.nullcontext() if extra else RenderWindow()
     with CascadeCounter() as cascades, prof:
         bc.main([*extra, "--only", "2_", "--trials", "1", "--out", out,
                  "--workdir", tmp])
@@ -1877,6 +1895,7 @@ def config2_row(bc, name: str, label: str, extra, tmp: str, card: str):
     check(row["n_rays"] > 0, f"config 2 {label} traced no rays")
     inline = None
     if not extra:
+        prof.per_evaluation(cascades.calls[0][1])
         inline = {"img": cascades.images[0], "n_rays": row["n_rays"],
                   "evals": cascades.calls[0][1], "kernels": prof.kernels}
         log_window("f32 (defer_ggx 0)", prof, card)
@@ -1936,12 +1955,12 @@ def champion_config2(tmp: str, card: str) -> dict:
 
 
 class EvaluationWindow:
-    """torch.profiler over body evaluations [first, first + n) of the
+    """torch.profiler over eager body evaluations [first, first + n) of the
     renders run while it is entered: fastSK's eager body calls
-    ops.camera.generate_rays once per evaluation and the body kernel's
-    evaluations go through ops.fastbody.run_body, so those calls count
-    the evaluations.  kernels is the device kernels per evaluation there
-    (None when the trace holds no device time)."""
+    ops.camera.generate_rays once per evaluation, so those calls count
+    the evaluations (RenderWindow profiles renders through the body
+    kernels).  kernels is the device kernels per evaluation there (None
+    when the trace holds no device time)."""
 
     def __init__(self, first: int, n: int):
         self.first, self.n = first, n
@@ -1950,10 +1969,9 @@ class EvaluationWindow:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        from cudavolumerenderer_tpu_torch.ops import camera, fastbody
+        from cudavolumerenderer_tpu_torch.ops import camera
 
         self.camera, self.orig = camera, camera.generate_rays
-        self.fastbody, self.orig_body = fastbody, fastbody.run_body
         # device activity only, as in every window here: the counts read
         # are of kernels, and host events would slow the trace's processing
         self.prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1971,14 +1989,12 @@ class EvaluationWindow:
             return counted
 
         camera.generate_rays = counting(self.orig)
-        fastbody.run_body = counting(self.orig_body)
         return self
 
     def __exit__(self, *exc):
         from torch.autograd import DeviceType
 
         self.camera.generate_rays = self.orig
-        self.fastbody.run_body = self.orig_body
         if exc[0] is not None:
             return
         check(len(self.clock) == 2, f"{self.evals} body evaluations, fewer "
@@ -1991,10 +2007,66 @@ class EvaluationWindow:
                         if self.busy_us else None)
 
 
+class RenderWindow:
+    """torch.profiler over the one fast.render_tile call made while it is
+    entered (a render through the body kernels, whose evaluations make no
+    Python call each): after `per_evaluation(evals)`, kernels is the device
+    kernels per evaluation (None when the trace holds no device time),
+    busy_us and window_us the device's busy time and the call's wall."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from cudavolumerenderer_tpu_torch.models import fast
+
+        self.fast, self.orig = fast, fast.render_tile
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.calls, self.kernels = 0, None
+
+        def windowed(*args, **kw):
+            self.calls += 1
+            check(self.calls == 1, "RenderWindow profiles one render_tile call")
+            torch.cuda.synchronize()
+            self.prof.start()
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.window_us = (time.perf_counter() - t0) * 1e6
+                self.prof.stop()
+
+        fast.render_tile = windowed
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+
+        self.fast.render_tile = self.orig
+        if exc[0] is not None:
+            return
+        # the trace is read here, after the caller's timed render
+        on_card = [e for e in self.prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        self.busy_us = sum(e.self_device_time_total for e in on_card)
+        self.n_kernels = sum(e.count for e in on_card)
+
+    def per_evaluation(self, evals: float) -> None:
+        self.kernels = self.n_kernels / evals if self.busy_us else None
+
+
 def log_window(tag: str, prof, card: str) -> None:
     if prof.kernels is None:
         log(f"[20] {tag}: no device time in the profiler's trace; kernels "
             "per evaluation not measured")
+        return
+    if isinstance(prof, RenderWindow):
+        log(f"[20] {tag}: the whole render under torch.profiler: "
+            f"{prof.kernels:.3f} device kernels per evaluation, "
+            f"{prof.window_us / 1e3:.2f} ms of wall, device busy "
+            f"{prof.busy_us / 1e3:.3f} ms "
+            f"({prof.busy_us / prof.window_us:.1%}); card {card}")
         return
     log(f"[20] {tag}: evaluations {EVAL_WINDOW[0]}-{sum(EVAL_WINDOW) - 1} "
         f"under torch.profiler: {prof.kernels:.0f} device kernels per "
@@ -2020,7 +2092,10 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
                  iterations=CONFIG2_ITERS, n_tiles=(1, 1), **fields)
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
-    prof = EvaluationWindow(*EVAL_WINDOW) if window else contextlib.nullcontext()
+    prof = contextlib.nullcontext()
+    if window:  # the eager body's evaluations can be counted one by one
+        prof = (EvaluationWindow(*EVAL_WINDOW) if fields.get("defer_ggx")
+                else RenderWindow())
     with CascadeCounter() as cascades, prof:
         t0 = time.perf_counter()
         host = renderer.render()
@@ -2031,6 +2106,8 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
           f"{tag}: image not finite or of the wrong shape")
     check(n_rays > 0, f"{tag}: no rays traced")
     evals = cascades.calls[0][1]
+    if isinstance(prof, RenderWindow):
+        prof.per_evaluation(evals)
     stages = " / ".join(f"{e:.0f}" for e in cascades.stages[0])
     log(f"[20] {tag} x {CONFIG2_ITERS}: {wall:.3f} s wall (incl. image "
         f"copy), {n_rays:.0f} "
@@ -2208,6 +2285,9 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
 BODY_KEEP = (0, 20, 100)
 BODY_TAIL_WIDTHS = (16384, 4096)  # and the first of each of these pool widths
 BODY_PLAIN_REPS = 5  # eager evaluations timed per kept state
+DRAIN_BLOCKS = (32, 64, 128, 256)  # phase 22's drain threads per block
+CONFIG2_RAYS = 6056452  # config 2's n_rays (512^2 x 4, no tail kernel)
+CONFIG2_EVALS = 3002  # and its body evaluations (n_rows over pool widths)
 
 
 def clone_state(s):
@@ -2239,17 +2319,105 @@ def state_diff(a, b):
     return out, err
 
 
+def device_time(fn):
+    """(result of fn(), device kernels, device busy ms) from torch.profiler
+    around one call (None for both when the trace holds no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    if not busy:
+        return out, None, None
+    return out, sum(e.count for e in on_card), busy
+
+
+def stage_run(fn, fb):
+    """One stage run, fn(): (its state, wall ms with the card synchronised,
+    body launches, drain launches, host reads)."""
+    import torch
+
+    k = fb.KERNEL
+    torch.cuda.synchronize()
+    before = (k.launches, k.drain_launches, k.reads)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (out, wall, k.launches - before[0], k.drain_launches - before[1],
+            k.reads - before[2])
+
+
+def counted_render(renderer, fb) -> dict:
+    """renderer.render() with the body kernels' counts set to 0 just before
+    and read just after: render_tile's with_stats tuple, the wall in s
+    with the image copy, body and drain launches, host reads, the host's
+    seconds enqueueing gated launches, and the last drain's L, E,
+    launches and threads."""
+    import torch
+
+    k = fb.KERNEL
+    torch.cuda.synchronize()
+    k.launches = k.drain_launches = k.reads = 0
+    k.enqueue_s, k.last_drain = 0.0, None
+    with CascadeCounter() as cascades:
+        t0 = time.perf_counter()
+        renderer.render()
+        wall = time.perf_counter() - t0
+    check(len(cascades.stats) == 1, f"{len(cascades.stats)} cascades")
+    return {"stats": cascades.stats[0], "wall": wall,
+            "launches": k.launches, "drains": k.drain_launches,
+            "reads": k.reads, "enqueue_s": k.enqueue_s,
+            "drain": k.last_drain}
+
+
+def per_evaluation_render(renderer, fb, keep_body=None, keep_stage=None):
+    """renderer.render() through the per-evaluation loop (fastbody's
+    loop_stage, one run_body launch and one pending-count read per
+    evaluation), optionally wrapping run_body and keeping each stage's
+    entry; returns counted_render's tuple."""
+    run_stage, run_body = fb.run_stage, fb.run_body
+
+    def stage(ctx, s, thresh, k_chain, last):
+        if keep_stage is not None:
+            keep_stage(ctx, s, thresh, k_chain, last)
+        return fb.loop_stage(ctx, s, thresh, k_chain)
+
+    fb.run_stage = stage
+    if keep_body is not None:
+        fb.run_body = keep_body
+    try:
+        return counted_render(renderer, fb)
+    finally:
+        fb.run_stage, fb.run_body = run_stage, run_body
+
+
 def body_states(scene, camera, card: str) -> dict:
     """Phase 22: config 2 (phase 5's scene and camera, 512^2 x 4, one tile,
-    two-level, no tail kernel) rendered through the body kernel while the
-    states at evaluations BODY_KEEP and at the first evaluation of each
-    BODY_TAIL_WIDTHS pool are kept; on each, one kernel evaluation against
-    one eager evaluation: every FastState field equal and the pending
-    count equal; then the kernel's device time per evaluation (replays of
-    a CUDA graph of GRAPH_CALLS out-of-place evaluations of the same
-    state), the eager body's (CUDA events) and the byte bound (state read
-    and written once, the distinct table entries and brick rows the eager
-    evaluation read)."""
+    two-level, no tail kernel).  (a) Rendered through the per-evaluation
+    loop, keeping the states at evaluations BODY_KEEP, at the first
+    evaluation of each BODY_TAIL_WIDTHS pool and at each stage's entry;
+    then through the stage path (gated chains, the drain), its counts set
+    to 0 just before: render_tile's image, n_rays, n_rows, n_busy and
+    per-stage rows equal bit for bit, n_rays CONFIG2_RAYS and
+    CONFIG2_EVALS evaluations; the two renders again in turns (loop,
+    stage, stage, loop: wall with the image copy).  (b) On each stage's
+    entry state the per-evaluation loop against the stage path, in turns:
+    every FastState field equal, wall, device kernels and busy ms
+    (torch.profiler), launches and host reads.  (c) The drain's block
+    sizes (CUDA events around one drain each, twice in turns) and its
+    plain version (the eager body's loop, timed, its taps giving the
+    drain's byte bound).  (d) On each kept evaluation state, one kernel
+    evaluation against one eager evaluation: every FastState field and
+    the pending count equal; the kernel's device time per evaluation
+    (replays of a CUDA graph of GRAPH_CALLS out-of-place evaluations),
+    the eager body's (CUDA events) and the byte bound."""
     import torch
 
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
@@ -2260,7 +2428,7 @@ def body_states(scene, camera, card: str) -> dict:
                  iterations=4, n_tiles=(1, 1))
     renderer = create_renderer(scene, camera, cfg)
     run = fb.run_body
-    kept, evals, widths = {}, [0], set()
+    kept, evals, widths, stages = {}, [0], set(), []
 
     def keeping(ctx, s, out=None):
         width = s.alive.shape[0]
@@ -2275,17 +2443,142 @@ def body_states(scene, camera, card: str) -> dict:
         evals[0] += 1
         return run(ctx, s, out)
 
-    fb.run_body = keeping
-    t0 = time.perf_counter()
-    try:
-        renderer.render()
-    finally:
-        fb.run_body = run
-    log(f"[22] config 2 512^2 x 4 through the body kernel: "
-        f"{time.perf_counter() - t0:.3f} s, {evals[0]} evaluations, states "
-        f"kept: {', '.join(kept)}")
+    def keep_stage(ctx, s, thresh, k_chain, last):
+        stages.append((ctx, clone_state(s), thresh, k_chain, last))
+
+    # -- (a) whole renders: the per-evaluation loop against the stage path
+    loop = per_evaluation_render(renderer, fb, keeping, keep_stage)
+    stage = counted_render(renderer, fb)
+    _, n_rays, _, _, rows = stage["stats"]
+    launches, drains, reads, info = (stage[k] for k in (
+        "launches", "drains", "reads", "drain"))
+    for name, x, y in zip(("image", "n_rays", "n_rows", "n_busy",
+                           "stage_rows"), stage["stats"], loop["stats"]):
+        check(torch.equal(x, y), f"phase 22: the stage path's {name} differs "
+              "from the per-evaluation loop's")
+    n_evals = sum(float(r) / w for r, w in zip(rows.tolist(), (
+        s.alive.shape[0] for _, s, *_ in stages)))
+    check(float(n_rays) == CONFIG2_RAYS and n_evals == CONFIG2_EVALS,
+          f"config 2 traced {float(n_rays):.0f} rays in {n_evals} "
+          f"evaluations, not {CONFIG2_RAYS} in {CONFIG2_EVALS}")
+    check(launches > 0 and drains > 0, f"config 2 made {launches} body and "
+          f"{drains} drain launches")
+    walls = {"loop": [loop["wall"]], "stage": [stage["wall"]]}
+    for mode in ("stage", "loop"):
+        again = (counted_render(renderer, fb) if mode == "stage"
+                 else per_evaluation_render(renderer, fb))
+        walls[mode].append(again["wall"])
+    enqueue_us = stage["enqueue_s"] * 1e6 / launches
+    log(f"[22] config 2 512^2 x 4 (no tail kernel): {float(n_rays):.0f} rays, "
+        f"{n_evals:.0f} evaluations; per-evaluation loop {loop['launches']} "
+        f"launches, {loop['reads']} pending-count reads; stage path "
+        f"{launches} body launches ({enqueue_us:.2f} us of host time "
+        f"enqueueing each), "
+        f"{drains} drain launch(es), {reads} host reads (batches of "
+        f"{fb.GATED_BATCH} and drain launches {launches / fb.GATED_BATCH + drains:.0f}"
+        f" + stages {len(stages)}); the drain's longest "
+        f"lane L = {info['L']}, E = {info['E']} evaluations, "
+        f"{info['threads']} threads per block; every output bit-equal; wall "
+        f"with the image copy in turns (loop, stage, stage, loop): "
+        f"{walls['loop'][0]:.4f} / {walls['stage'][0]:.4f} / "
+        f"{walls['stage'][1]:.4f} / {walls['loop'][1]:.4f} s; card {card}")
     check(len(kept) == len(BODY_KEEP) + len(BODY_TAIL_WIDTHS),
           f"kept {list(kept)}")
+
+    # -- (b) each stage: the per-evaluation loop against the stage path ---
+    stage_rows = []
+    for ctx, s, thresh, k_chain, last in stages:
+        width = s.alive.shape[0]
+        mode = fb.stage_mode("cuda", 1, 0, thresh)
+        runs = {}
+        for which in ("loop", "stage", "stage", "loop"):
+            fn = ((lambda: fb.loop_stage(ctx, clone_state(s), thresh, k_chain))
+                  if which == "loop" else
+                  (lambda: fb.run_stage(ctx, clone_state(s), thresh, k_chain,
+                                        last)))
+            runs.setdefault(which, []).append(stage_run(fn, fb))
+        for which in ("loop", "stage"):
+            _, kernels, busy = device_time(
+                (lambda: fb.loop_stage(ctx, clone_state(s), thresh, k_chain))
+                if which == "loop" else
+                (lambda: fb.run_stage(ctx, clone_state(s), thresh, k_chain,
+                                      last)))
+            runs[which].append((kernels, busy))
+        want, got = runs["loop"][0][0], runs["stage"][0][0]
+        diff, _ = state_diff(got, want)
+        check(not diff, f"phase 22, {width}-lane stage: the stage path "
+              f"differs from the per-evaluation loop in {diff}")
+        n = round((float(want.n_rows) - float(s.n_rows)) / width)
+        row = {"width": width, "mode": mode, "evaluations": n}
+        for which in ("loop", "stage"):
+            (_, w1, l1, d1, r1), (_, w2, *_), (kernels, busy) = (
+                runs[which][0], runs[which][1], runs[which][2])
+            row[which] = {"wall_ms": [w1, w2], "launches": l1,
+                          "drain_launches": d1, "reads": r1,
+                          "device_kernels": kernels, "device_ms": busy}
+        stage_rows.append(row)
+        lo, st = row["loop"], row["stage"]
+        log(f"[22] {width}-lane stage ({mode}, {n} evaluations): per-"
+            f"evaluation loop {lo['wall_ms'][0]:.3f} / {lo['wall_ms'][1]:.3f} "
+            f"ms wall, {lo['launches']} launches, {lo['reads']} reads, device "
+            f"{lo['device_ms']} ms in {lo['device_kernels']} kernels; stage "
+            f"path {st['wall_ms'][0]:.3f} / {st['wall_ms'][1]:.3f} ms wall, "
+            f"{st['launches']} body + {st['drain_launches']} drain launches, "
+            f"{st['reads']} reads, device {st['device_ms']} ms in "
+            f"{st['device_kernels']} kernels; bit-equal; card {card}")
+
+    # -- (c) the drain: block sizes, and its plain version -----------------
+    ctx, s, thresh, k_chain, _ = stages[-1]
+    check(thresh == 0, "config 2's last stage does not drain")
+    width = s.alive.shape[0]
+    want = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
+    drain_ms, drain_err = {}, 0.0
+    for threads in DRAIN_BLOCKS + DRAIN_BLOCKS[::-1]:
+        t = clone_state(s)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got = fb.KERNEL.drain(ctx, t, k_chain, threads=threads)
+        stop.record()
+        torch.cuda.synchronize()
+        diff, err = state_diff(got, want)
+        drain_err = max(drain_err, err)
+        check(not diff, f"phase 22: the drain in blocks of {threads} differs "
+              f"from the per-evaluation loop in {diff}")
+        drain_ms.setdefault(threads, []).append(start.elapsed_time(stop))
+    longest = fb.KERNEL.last_drain["L"]
+    default = fb.DRAIN_THREADS
+    taps, t = [], clone_state(s)
+    spp = int(ctx.iparams[fb.IP_SPP])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while fb.pending_count(t, spp) > 0:
+        for _ in range(k_chain):
+            t = ctx.plain(t, taps=taps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff, _ = state_diff(t, want)
+    check(not diff, f"phase 22: the eager drain differs in {diff}")
+    n_bytes = fb.body_bytes(ctx, width, taps)
+    bound, bound_by = bound_ms(n_bytes)
+    ms = min(drain_ms[default])
+    log(f"[22] drain of the {width}-lane stage: longest lane L = {longest} "
+        f"evaluations; " + ", ".join(
+            f"{k} threads {v[0]:.3f} / {v[1]:.3f} ms" for k, v in
+            drain_ms.items()) + f" (CUDA events, one launch each, in turns); "
+        f"at {default} threads {ms * 1e3 / longest:.3f} us per step of the "
+        f"longest lane; its plain version (the eager body's loop) "
+        f"{plain_ms:.1f} ms; bound {n_bytes} B = {bound * 1e3:.3f} us "
+        f"({bound / ms:.2%} of the drain); card {card}")
+    drain = {"launches": drains, "ms": ms, "plain_ms": plain_ms,
+             "max_abs_err": drain_err,
+             "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+             "L": longest, "E": info["E"], "threads": default,
+             "us_per_step": ms * 1e3 / longest,
+             "ms_by_threads": drain_ms}
+
+    # -- (d) one evaluation: the kernel against the eager body -------------
     rows, max_err = {}, 0.0
     for tag, (ctx, s, at) in kept.items():
         width = s.alive.shape[0]
@@ -2317,7 +2610,10 @@ def body_states(scene, camera, card: str) -> dict:
             f"body {plain_ms:.3f} ms (the copy of its input included); bound "
             f"{n_bytes} B = {bound * 1e3:.2f} us ({bound / ms:.1%} of the "
             f"kernel's time); card {card}")
-    return {"rows": rows, "max_abs_err": max_err, "evals": evals[0]}
+    return {"rows": rows, "max_abs_err": max_err, "evals": evals[0],
+            "launches": launches, "reads": reads, "walls": walls,
+            "enqueue_us": enqueue_us,
+            "stages": stage_rows, "drain": drain}
 
 
 def free_port() -> int:
@@ -2674,9 +2970,10 @@ def main() -> int:
     # -- phase 5: the slice -------------------------------------------------
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
-    tpk.KERNEL.launches = fb.KERNEL.launches = 0
+    tpk.KERNEL.launches = fb.KERNEL.launches = fb.KERNEL.reads = 0
     in_slice_us, kept, img, wall = profile_tail_window(renderer, card)
     launches, body_launches = tpk.KERNEL.launches, fb.KERNEL.launches
+    body_reads = fb.KERNEL.reads
     slice_ms = slice_round(kept, card)
     n_rays = renderer.n_rays
     mean = float(img.mean())
@@ -2689,7 +2986,8 @@ def main() -> int:
     log(f"[5] slice 512^2 x 4: {wall:.3f} s wall (incl. image copy), "
         f"{n_rays:.0f} rays, {n_rays / wall / 1e6:.4f} Mrays/s, "
         f"{launches} tail-kernel launches, {body_launches} body-kernel "
-        f"launches (one per evaluation), image mean {mean:.5f}; card {card}")
+        f"launches (gated chains), {body_reads} host reads of the pending "
+        f"count, image mean {mean:.5f}; card {card}")
     log(f"[5] n_rays {n_rays:.0f} against {SLICE_RAYS} of the first tail kernel: "
         f"difference {n_rays - SLICE_RAYS:+.0f}")
     check(abs(n_rays - SLICE_RAYS) <= 1e-4 * SLICE_RAYS,
@@ -2889,10 +3187,26 @@ def main() -> int:
         **{k: body["rows"]["evaluation 20"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "design": "one thread per lane, one launch per body evaluation; the "
-                  "FastState tensors read and written in place; counts "
-                  "reduced per block and by the last block",
-        "per_state": body["rows"],
+        "design": "one thread per lane and evaluation; the FastState tensors "
+                  "read and written in place; counts reduced per block and by "
+                  "the last block; a stage's evaluations enqueued in batches, "
+                  "each launch gated on the stage's control words",
+        "per_state": body["rows"], "launches_config2": body["launches"],
+        "reads_config2": body["reads"], "walls_config2": body["walls"],
+        "enqueue_us_config2": body["enqueue_us"],
+        "stages_config2": body["stages"],
+    }, {
+        "name": "fastbody_drain", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/fastbody.cu",
+        "replaces": "cudavolumerenderer_tpu/models/fast.py:744",
+        **{k: body["drain"][k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "L", "E", "threads",
+            "us_per_step", "ms_by_threads")},
+        "library_ms": None,
+        "design": "the last stage without the tail kernel in one launch: each "
+                  "lane runs to its end in registers; per-evaluation counts "
+                  "by warp-aggregated atomics, folded in order by the last "
+                  "block",
     }, *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

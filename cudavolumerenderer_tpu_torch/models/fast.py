@@ -38,11 +38,14 @@ path); compaction gathers each field with index_select; the image is
 accumulated with index_add_ of masked values; the defer_ggx schedule
 reads a host float32 copy of n_rows, not the device's.  XLA compiled the
 wavefront body into one device program on the TPU; on the card one
-evaluation is one launch of csrc/fastbody.cu (ops/fastbody.py), which
-also counts the pool's pending lanes, for spec_k == 1 and defer_ggx == 0.
-The eager body below is its plain version: the CPU runs it, and so do the
-speculative tail steps, the deferred GGX flush and callers that pass
-eager_body=True.
+stage runs through csrc/fastbody.cu (ops/fastbody.run_stage) for
+spec_k == 1 and defer_ggx == 0: chains of one-evaluation launches that
+read the pending count on the card and return untouched once the loop
+would have exited, the host reading it once per batch; and the last
+stage without the tail kernel in one launch in which each lane runs to
+its end.  The eager body below is its plain version: the CPU runs it, and
+so do the speculative tail steps, the deferred GGX flush and callers that
+pass eager_body=True.
 """
 
 from __future__ import annotations
@@ -872,24 +875,19 @@ def render_tile(
     def pending_of(s):
         return s.alive | (s.samples_done < spp_per_lane)
 
-    def pending_count(s) -> int:
-        return int(torch.count_nonzero(pending_of(s)))
-
     # the flush schedule reads n_rows; a host copy, summed in float32 in
     # the same order, equals the device's bit for bit without a read
     rows_host = np.float32(0.0)
 
-    def step(s: FastState, ctx, **kw):
-        """One evaluation: (the new state, the pool's pending count as a
-        0-d tensor when the kernel counted it, else None)."""
+    def step(s: FastState, **kw) -> FastState:
+        """One evaluation of the eager body (after the deferred GGX flush
+        when its schedule says so)."""
         nonlocal rows_host
         width = np.float32(s.alive.shape[0])
         if defer_ggx > 0 and int(np.round(rows_host / width)) % defer_ggx == 0:
             s = flush_boundary(s)
         rows_host = np.float32(rows_host + width)
-        if ctx is not None:
-            return fastbody.run_body(ctx, s)
-        return body(s, **kw), None
+        return body(s, **kw)
 
     # the kernel's parameters, read back to the host once per render
     base_ctx = None
@@ -944,17 +942,19 @@ def render_tile(
             bt=fine_bt if (p["tail"] and fine_bt is not None) else coarse_bt,
         )
         ctx = None
-        if base_ctx is not None and fastbody.route(
-                dev.type, kw["spec_k"], defer_ggx, eager_body):
+        if base_ctx is not None and fastbody.stage_mode(
+                dev.type, kw["spec_k"], defer_ggx, thresh,
+                eager_body) != "eager":
             ctx = fastbody.stage_context(
                 base_ctx, kw["bt"],
                 kw["single_level"], functools.partial(body, **kw))
         rows_before = state.n_rows
-        pending = None  # the kernel's count of the last evaluation
-        while (pending_count(state) if pending is None
-               else int(pending)) > thresh:
-            for _ in range(k_chain):
-                state, pending = step(state, ctx, **kw)
+        if ctx is not None:
+            state = fastbody.run_stage(ctx, state, thresh, k_chain, last)
+        else:
+            while fastbody.pending_count(state, spp_per_lane) > thresh:
+                for _ in range(k_chain):
+                    state = step(state, **kw)
         stage_rows.append(state.n_rows - rows_before)
         if last and not use_tailpk:
             img.index_add_(0, state.pix, state.accum)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -57,7 +58,7 @@ N_FP = FP_INV_ETA + 1
 (IP_SPP, IP_M, IP_NPIX, IP_TW, IP_MULTI, IP_BASE, IP_SEEDH, IP_NX, IP_NY,
  IP_NZ, IP_TWO_LEVEL, IP_TABLE, IP_BITS, IP_BRICK_MAJOR, IP_ALBEDO,
  IP_ALB_STRIDE, IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_NBX, IP_NBY,
- IP_HIX, IP_HIY, IP_HIZ, N_IP) = range(26)
+ IP_HIX, IP_HIY, IP_HIZ, IP_THRESH, IP_CHAIN, IP_CAP, N_IP) = range(29)
 
 # Pointer slots (csrc/fastbody.cu S_*): the per-lane fields the body
 # updates, in FastState's names, then the rest.
@@ -73,9 +74,25 @@ S_SLOT, S_NRAYS, S_NROWS, S_NBUSY = S_PIX + 1, S_PIX + 2, S_PIX + 3, S_PIX + 4
 S_OUT = S_NBUSY + 1
 S_COUNTS = S_OUT + N_LANE
 S_PENDING, S_SCRATCH = S_COUNTS + 1, S_COUNTS + 2
-S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES = range(S_SCRATCH + 1,
-                                                         S_SCRATCH + 6)
-N_S = S_BASES + 1
+(S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES, S_CTRL,
+ S_EVALS) = range(S_SCRATCH + 1, S_SCRATCH + 8)
+N_S = S_EVALS + 1
+
+# A stage's control words (csrc/fastbody.cu C_*, int64).
+(C_EVAL, C_PEND, C_LMAX, C_LEFT_ACC, C_JMAX, C_TICKET, C_LEFT, C_TOTAL,
+ N_CTRL) = range(9)
+
+#: evaluations enqueued per host read in a gated stage (rounded up to a
+#: whole number of chains)
+GATED_BATCH = 32
+#: the drain's evaluations per lane and launch (its per-evaluation count
+#: arrays hold this many); a lane at the cap is stored, and the host
+#: launches again
+DRAIN_CAP = 8192
+#: the drain's threads per block: a narrow pool in small blocks spreads
+#: over the SMs (32, 64, 128 and 256 time alike on config 2's last pool,
+#: chip_smoke.py phase 22)
+DRAIN_THREADS = 32
 
 # Table and albedo modes (IP_TABLE, IP_ALBEDO).
 TAB_F32, TAB_ROWS, TAB_PACKED = range(3)
@@ -98,6 +115,16 @@ def route(device_type: str, spec_k: int, defer_ggx: int,
     eager; so does the CPU, which has no kernel."""
     return (device_type == "cuda" and spec_k == 1 and defer_ggx == 0
             and not eager_body)
+
+
+def stage_mode(device_type: str, spec_k: int, defer_ggx: int, thresh: int,
+               eager_body: bool = False) -> str:
+    """How a cascade stage runs: "eager" where `route` keeps the eager
+    body, else by the stage's exit threshold alone: "drain" at 0 (the last
+    stage without the tail kernel), "gated" above it."""
+    if not route(device_type, spec_k, defer_ggx, eager_body):
+        return "eager"
+    return "drain" if thresh == 0 else "gated"
 
 
 @dataclasses.dataclass
@@ -221,16 +248,27 @@ def stage_context(ctx: BodyContext, bt: Optional[dict], single_level: bool,
 
 
 class FastBodyKernel:
-    """The CUDA body kernel: built from csrc/fastbody.cu at first use,
-    launched through its C entry point, and counted.  `launches` counts
-    launches made now; a launch recorded into a CUDA graph being captured
-    counts in `captured` instead."""
+    """The CUDA body kernels: built from csrc/fastbody.cu at first use,
+    launched through their C entry points, and counted.  `launches` counts
+    body_kernel launches made now (one evaluation each, or a gated one
+    that may return untouched); a launch recorded into a CUDA graph being
+    captured counts in `captured` instead.  `drain_launches` counts
+    drain_kernel launches, `reads` the host's reads of a stage's control
+    words or pending count (loop_stage's too), `enqueue_s` the host's
+    seconds in gated stages' enqueue loops, and `last_drain` holds the
+    last drain's longest lane L, its evaluations E, launches and block
+    size."""
 
     def __init__(self):
         self.launches = 0  # CUDA launches; the plain version is not counted
         self.captured = 0
+        self.drain_launches = 0
+        self.reads = 0
+        self.enqueue_s = 0.0  # host seconds in gated stages' enqueue loops
+        self.last_drain = None
         self._built = None
         self._scratch = {}  # device -> (4,) int64 zeros the kernel reuses
+        self._evals = {}  # (device, cap) -> (2 cap,) int32 zeros (the drain)
 
     def library(self):
         """Build (or reuse) and load the kernel library; returns the
@@ -239,18 +277,19 @@ class FastBodyKernel:
             from ..utils import cuda_build  # noqa: PLC0415
 
             built = cuda_build.build_library(_SOURCE)
-            fn = built.lib.fastbody_launch
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 3)()
+            args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            built.lib.fastbody_launch.argtypes = args + [ctypes.c_void_p]
+            built.lib.fastbody_drain.argtypes = args + [ctypes.c_int,
+                                                        ctypes.c_void_p]
+            built.lib.fastbody_launch.restype = ctypes.c_int
+            built.lib.fastbody_drain.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 4)()
             built.lib.fastbody_layout(sizes)
-            if tuple(sizes) != (N_FP, N_IP, N_S):
+            if tuple(sizes) != (N_FP, N_IP, N_S, N_CTRL):
                 raise RuntimeError(
                     f"fastbody: csrc/fastbody.cu's layout {tuple(sizes)} is "
-                    f"not ops/fastbody.py's {(N_FP, N_IP, N_S)}")
+                    f"not ops/fastbody.py's {(N_FP, N_IP, N_S, N_CTRL)}")
             self._built = built
         return self._built
 
@@ -259,13 +298,14 @@ class FastBodyKernel:
             self._scratch[dev] = torch.zeros(4, dtype=torch.int64, device=dev)
         return self._scratch[dev]
 
-    def launch(self, ctx: BodyContext, s, out=None):
-        """One body evaluation of every lane of `s` (a FastState): the new
-        state (its per-lane tensors `out`'s, or `s`'s, updated in place)
-        and the pool's pending count as a 0-d int64 tensor."""
+    def _pointers(self, ctx: BodyContext, s, out, counts, pending, ctrl=None,
+                  evals=None):
+        """The checked pointer array of launches on `s` that write `out`'s
+        per-lane tensors, read s's counters (n_rays, n_rows, n_busy), write
+        the new ones to the (3,) float32 `counts` and the pending count to
+        `pending` (a 0-d int64 tensor, or None)."""
         width = s.alive.shape[0]
         dev = s.alive.device
-        out = s if out is None else out
         fields = [_lane_field(s, name) for name in LANE_FIELDS]
         outs = [_lane_field(out, name) for name in LANE_FIELDS]
         for name, x, y in zip(LANE_FIELDS, fields, outs):
@@ -288,8 +328,6 @@ class FastBodyKernel:
             if x is not None and (x.device != dev or not x.is_contiguous()):
                 raise ValueError(f"fastbody: {name} must be contiguous on "
                                  f"{dev}")
-        counts = torch.empty(3, dtype=torch.float32, device=dev)
-        pending = torch.empty((), dtype=torch.int64, device=dev)
         ptrs = [0] * N_S
         for k, x in enumerate(fields):
             ptrs[k] = x.data_ptr()
@@ -299,20 +337,30 @@ class FastBodyKernel:
         ptrs[S_NRAYS] = s.n_rays.data_ptr()
         ptrs[S_NROWS] = s.n_rows.data_ptr()
         ptrs[S_NBUSY] = s.n_busy.data_ptr()
-        ptrs[S_COUNTS], ptrs[S_PENDING] = counts.data_ptr(), pending.data_ptr()
+        ptrs[S_COUNTS] = counts.data_ptr()
+        ptrs[S_PENDING] = 0 if pending is None else pending.data_ptr()
         ptrs[S_SCRATCH] = self.scratch(dev).data_ptr()
         for slot_, x in ((S_TABLE, ctx.table), (S_ALB_ROWS, ctx.albedo_rows),
                          (S_BTAB, ctx.brick_tab), (S_TILE_OFF, ctx.tile_offset),
-                         (S_BASES, ctx.bases)):
+                         (S_BASES, ctx.bases), (S_CTRL, ctrl),
+                         (S_EVALS, evals)):
             ptrs[slot_] = 0 if x is None else x.data_ptr()
+        return (ctypes.c_void_p * N_S)(*ptrs)
+
+    def launch(self, ctx: BodyContext, s, out=None):
+        """One body evaluation of every lane of `s` (a FastState): the new
+        state (its per-lane tensors `out`'s, or `s`'s, updated in place)
+        and the pool's pending count as a 0-d int64 tensor."""
+        dev = s.alive.device
+        out = s if out is None else out
+        counts = torch.empty(3, dtype=torch.float32, device=dev)
+        pending = torch.empty((), dtype=torch.int64, device=dev)
+        addresses = self._pointers(ctx, s, out, counts, pending)
         fn = self.library().lib.fastbody_launch
-        addresses = (ctypes.c_void_p * N_S)(*ptrs)
         with torch.cuda.device(dev):
-            err = fn(
-                ctx.fparams.ctypes.data, N_FP, ctx.iparams.ctypes.data, N_IP,
-                ctypes.addressof(addresses), N_S, width,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
+            err = fn(ctx.fparams.ctypes.data, N_FP, ctx.iparams.ctypes.data,
+                     N_IP, ctypes.addressof(addresses), N_S, s.alive.shape[0],
+                     torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fastbody launch failed: CUDA error {err}")
         if torch.cuda.is_current_stream_capturing():
@@ -323,6 +371,86 @@ class FastBodyKernel:
                            n_rays=counts[0], n_rows=counts[1],
                            n_busy=counts[2])
         return new, pending
+
+    def _read(self, ctrl: torch.Tensor) -> list:
+        self.reads += 1
+        return ctrl.tolist()
+
+    def gated(self, ctx: BodyContext, s, thresh: int, k_chain: int,
+              batch: int = GATED_BATCH):
+        """A stage whose loop exits at a chain boundary once the pending
+        count is at most `thresh` (> 0): the state's per-lane tensors
+        updated in place, its counters fresh.  The launch is prepared once;
+        the host enqueues whole chains `batch` evaluations at a time and
+        reads the control words once per batch (and once at the start)."""
+        dev = s.alive.device
+        width = s.alive.shape[0]
+        spp = int(ctx.iparams[IP_SPP])
+        counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
+        s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
+        ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
+        ctrl[C_PEND] = torch.count_nonzero(s.alive | (s.samples_done < spp))
+        iparams = ctx.iparams.copy()
+        iparams[IP_THRESH], iparams[IP_CHAIN] = thresh, k_chain
+        addresses = self._pointers(ctx, s, s, counts, ctrl[C_PEND], ctrl)
+        n = k_chain * -(-batch // k_chain)
+        fn = self.library().lib.fastbody_launch
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fastbody: a gated stage reads the card; it "
+                               "cannot be captured")
+        args = (ctx.fparams.ctypes.data, N_FP, iparams.ctypes.data, N_IP,
+                ctypes.addressof(addresses), N_S, width,
+                torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            while True:
+                e, pend = self._read(ctrl[:C_PEND + 1])
+                if e % k_chain == 0 and pend <= thresh:
+                    return s
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    err = fn(*args)
+                    if err != 0:
+                        raise RuntimeError(
+                            f"fastbody launch failed: CUDA error {err}")
+                    self.launches += 1
+                self.enqueue_s += time.perf_counter() - t0
+
+    def drain(self, ctx: BodyContext, s, k_chain: int, cap: int = DRAIN_CAP,
+              threads: int = DRAIN_THREADS):
+        """The last stage without the tail kernel (its loop exits at a
+        pending count of 0): each lane runs to its end, `cap` evaluations
+        per launch at most, in blocks of `threads` (32, 64, 128 or 256);
+        one host read per launch.  The state's per-lane tensors are updated
+        in place, its counters fresh."""
+        dev = s.alive.device
+        width = s.alive.shape[0]
+        counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
+        s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
+        ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
+        if (dev, cap) not in self._evals:
+            self._evals[dev, cap] = torch.zeros(2 * cap, dtype=torch.int32,
+                                                device=dev)
+        iparams = ctx.iparams.copy()
+        iparams[IP_CHAIN], iparams[IP_CAP] = k_chain, cap
+        addresses = self._pointers(ctx, s, s, counts, None, ctrl,
+                                   self._evals[dev, cap])
+        fn = self.library().lib.fastbody_drain
+        launches = 0
+        while True:
+            with torch.cuda.device(dev):
+                err = fn(ctx.fparams.ctypes.data, N_FP, iparams.ctypes.data,
+                         N_IP, ctypes.addressof(addresses), N_S, width,
+                         threads, torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"fastbody drain failed: CUDA error {err}")
+            self.drain_launches += 1
+            launches += 1
+            words = self._read(ctrl)
+            if words[C_LEFT] == 0:
+                break
+        self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
+                           "launches": launches, "threads": threads}
+        return s
 
 
 def _lane_field(s, name: str) -> torch.Tensor:
@@ -371,12 +499,52 @@ def run_body(ctx: BodyContext, s, out=None):
     raise ValueError(f"fastbody: no kernel for device {dev}")
 
 
+def pending_count(s, spp: int) -> int:
+    """The pool's pending lanes (a path in flight or samples left), read
+    to the host."""
+    return int(torch.count_nonzero(s.alive | (s.samples_done < spp)))
+
+
+def loop_stage(ctx: BodyContext, s, thresh: int, k_chain: int):
+    """The plain version of a stage: chains of k_chain `run_body`
+    evaluations while the pending count exceeds `thresh`, the count read
+    at each chain's end (the kernel's, or counted here on the CPU; each
+    read counts in KERNEL.reads)."""
+    spp = int(ctx.iparams[IP_SPP])
+    pending = None  # the kernel's count of the last evaluation
+    while True:
+        n = pending_count(s, spp) if pending is None else int(pending)
+        KERNEL.reads += 1
+        if n <= thresh:
+            return s
+        for _ in range(k_chain):
+            s, pending = run_body(ctx, s)
+
+
+def run_stage(ctx: BodyContext, s, thresh: int, k_chain: int, last: bool):
+    """One cascade stage of render_tile: the state once the loop of body
+    evaluations would exit (the pending count at most `thresh` at a chain
+    boundary), n_rows telling the evaluations.  On the CPU `loop_stage`;
+    on the card the drain for a threshold of 0 (only the last stage has
+    it) and gated chains above it, both equal to `loop_stage` bit for bit.
+    The kernels update the state's per-lane tensors in place."""
+    if s.alive.device.type != "cuda":  # another device raises in run_body
+        return loop_stage(ctx, s, thresh, k_chain)
+    if thresh == 0:
+        if not last:
+            raise ValueError("fastbody: only the last stage drains")
+        return KERNEL.drain(ctx, s, k_chain)
+    return KERNEL.gated(ctx, s, thresh, k_chain)
+
+
 def body_bytes(ctx: BodyContext, width: int, taps) -> int:
     """The least bytes one evaluation of a width-lane pool moves: each
     lane's state read once and written once, and the distinct table
     entries its taps read, counted from the plain version's `taps` (a
     list the eager body fills with ("tap", flat indices) and ("brick",
-    brick rows) of the lanes that read them)."""
+    brick rows) of the lanes that read them).  Given the taps of every
+    evaluation of a drained stage, the drain's: it reads and writes each
+    lane's state once however many evaluations the lane runs."""
     kind = int(ctx.iparams[IP_TABLE])
     tap_idx = [x for k, x in taps if k == "tap"]
     bricks = [x for k, x in taps if k == "brick"]

@@ -683,25 +683,30 @@ BODY_CASES = [
     # divide by them (on the card a multiplication by the reciprocal)
     ("res40-2l", {}, {}, dict(two_level=True, res=40)),
     ("res24-1l", {}, {}, dict(two_level=False, res=24)),
+    # --champion's knobs (q4 tables, 512 bricks, cascade 1.25, min_width
+    # 64): six pools from 2,304 lanes
+    ("champion", {}, {}, dict(two_level=True, res=48, table_bits=4,
+                              max_bricks=512, cascade_factor=1.25,
+                              min_width=64)),
 ]
 
 
 def body_render(device, scene, settings, res=32, spp=4, multi=False, **kw):
     """with_stats fastSK render of `scene` on `device` (a 2x2 multi-tile
-    cascade of res/2 tiles with multi)."""
+    cascade of res/2 tiles with multi), in pools of cascade factor 2 down
+    to 256 lanes unless kw names others."""
     cam = make_camera(res, res, device=device)
+    kw = {"cascade_factor": 2, "min_width": 256, **kw}
     if multi:
         h = res // 2
         off = torch.tensor([[0, 0], [h, 0], [0, h], [h, h]],
                            dtype=torch.float32, device=device)
         bases = torch.arange(4, dtype=torch.int64, device=device) * (h * h * spp)
         return fast.render_tile(scene, cam, settings, (h, h), off, (res, res),
-                                spp, 11, bases, with_stats=True,
-                                cascade_factor=2, min_width=256, **kw)
+                                spp, 11, bases, with_stats=True, **kw)
     return fast.render_tile(
         scene, cam, settings, (res, res), torch.zeros(2, device=device),
-        (res, res), spp, 11, 3, with_stats=True, cascade_factor=2,
-        min_width=256, **kw)
+        (res, res), spp, 11, 3, with_stats=True, **kw)
 
 
 def assert_same_render(a, b):
@@ -732,13 +737,53 @@ def clone_state(s):
         else v.clone() for v in s))
 
 
+def checked_stages(bad: list, modes: list):
+    """A stand-in for ops.fastbody.run_stage that first runs the stage as
+    the per-evaluation loop (fastbody.loop_stage, each kernel evaluation
+    held against one eager evaluation of the same state and its pending
+    count) on a copy of the state, then the stage path on the state, and
+    records in `bad` where either differs (every FastState field, the
+    counters included) and in `modes` the stage's mode."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    run_stage, run_body = fastbody.run_stage, fastbody.run_body
+
+    def checked_body(ctx, s, out=None):
+        want = ctx.plain(clone_state(s))
+        got, pending = run_body(ctx, s, out)
+        diff = state_mismatches(got, want)
+        if diff:
+            bad.append(("evaluation", s.alive.shape[0], diff))
+        pend = int((want.alive | (want.samples_done < int(
+            ctx.iparams[fastbody.IP_SPP]))).sum())
+        assert int(pending) == pend
+        return got, pending
+
+    def stage(ctx, s, thresh, k_chain, last):
+        fastbody.run_body = checked_body
+        try:
+            want = fastbody.loop_stage(ctx, clone_state(s), thresh, k_chain)
+        finally:
+            fastbody.run_body = run_body
+        got = run_stage(ctx, s, thresh, k_chain, last)
+        diff = state_mismatches(got, want)
+        if diff:
+            bad.append(("stage", thresh, diff))
+        modes.append(fastbody.stage_mode("cuda", 1, 0, thresh))
+        return got
+
+    return stage
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BODY_CASES, ids=[c[0] for c in BODY_CASES])
 def test_body_kernel_equals_eager_body(cuda, case):
-    """Every evaluation of the kernel's trajectory equals the eager body's
-    on the same state in every FastState field, and the whole render
-    (image, rays, rows, busy lanes, per-stage rows) equals the eager
-    render bit for bit."""
+    """Every stage through run_stage (gated chains, and the drain for the
+    last stage) equals the per-evaluation loop on the same state in every
+    FastState field and counter, every evaluation of that loop equals the
+    eager body's on the same state, and the whole render (image, rays,
+    rows, busy lanes, per-stage rows) equals the eager render bit for
+    bit."""
     from cudavolumerenderer_tpu_torch.ops import fastbody
 
     _, scene_kw, settings_kw, kw = case
@@ -746,42 +791,115 @@ def test_body_kernel_equals_eager_body(cuda, case):
     settings_kw = dict(settings_kw)
     settings = types.RenderSettings.from_flags(
         settings_kw.pop("mitsuba_comparable", True), **settings_kw)
-    run = fastbody.run_body
-    bad = []
-
-    def checked(ctx, s, out=None):
-        want = ctx.plain(clone_state(s))
-        got, pending = run(ctx, s, out)
-        diff = state_mismatches(got, want)
-        if diff:
-            bad.append((s.alive.shape[0], diff))
-        pend = int((want.alive | (want.samples_done < int(
-            ctx.iparams[fastbody.IP_SPP]))).sum())
-        assert int(pending) == pend
-        return got, pending
-
-    launches = fastbody.KERNEL.launches
-    fastbody.run_body = checked
+    run = fastbody.run_stage
+    bad, modes = [], []
+    launches = fastbody.KERNEL.launches, fastbody.KERNEL.drain_launches
+    fastbody.run_stage = checked_stages(bad, modes)
     try:
         got = body_render(cuda, scene, settings, **kw)
     finally:
-        fastbody.run_body = run
-    assert fastbody.KERNEL.launches > launches
-    assert not bad, f"{len(bad)} evaluations differ; first {bad[:3]}"
+        fastbody.run_stage = run
+    assert fastbody.KERNEL.launches > launches[0]
+    assert fastbody.KERNEL.drain_launches > launches[1]
+    assert modes == ["gated"] * (len(modes) - 1) + ["drain"] and len(modes) > 1
+    assert not bad, f"{len(bad)} evaluations or stages differ; first {bad[:3]}"
     want = body_render(cuda, scene, settings, eager_body=True, **kw)
     assert_same_render(got, want)
     assert float(got[1]) > 0 and torch.isfinite(got[0]).all()
 
 
+def kept_stages(device, scene, settings, **kw):
+    """A render through the stage path keeping, per stage, (ctx, a copy of
+    its entry state, thresh, k_chain)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    kept, run = [], fastbody.run_stage
+
+    def keep(ctx, s, thresh, k_chain, last):
+        kept.append((ctx, clone_state(s), thresh, k_chain))
+        return run(ctx, s, thresh, k_chain, last)
+
+    fastbody.run_stage = keep
+    try:
+        out = body_render(device, scene, settings, **kw)
+    finally:
+        fastbody.run_stage = run
+    return kept, out
+
+
+@pytest.mark.cuda
+def test_drain_cap_and_block_sizes(cuda):
+    """The drain on the last stage's state with caps of 1, 5 and the
+    default, in blocks of 32, 64, 128 and 256 threads, equals the
+    per-evaluation loop bit for bit; it launches ceil(L / cap) times (L
+    the longest lane's evaluations), reads the host once per launch, and
+    its evaluations E = k_chain * ceil(L / k_chain) are the loop's."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    kept, _ = kept_stages(cuda, scene, settings, two_level=True)
+    ctx, s, thresh, k_chain = kept[-1]
+    assert thresh == 0
+    width = s.alive.shape[0]
+    want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
+    evals = float(want.n_rows - s.n_rows) / width
+    for cap in (1, 5, fastbody.DRAIN_CAP):
+        for threads in (32, 64, 128, 256):
+            reads = fastbody.KERNEL.reads
+            got = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=cap,
+                                        threads=threads)
+            assert not state_mismatches(got, want), (cap, threads)
+            info = fastbody.KERNEL.last_drain
+            assert info["E"] == evals == k_chain * -(-info["L"] // k_chain)
+            assert info["launches"] == max(1, -(-info["L"] // cap))
+            assert fastbody.KERNEL.reads - reads == info["launches"]
+
+
+@pytest.mark.cuda
+def test_gated_batches(cuda):
+    """Gated chains on every stage with a threshold above 0, enqueued 1, 3
+    and 32 evaluations per host read, equal the per-evaluation loop bit
+    for bit; the host reads the control words once per batch and once at
+    the start."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    kept, _ = kept_stages(cuda, scene, settings, two_level=True,
+                          tail_chain=4)
+    gated = [k for k in kept if k[2] > 0]
+    assert len(gated) >= 2
+    for ctx, s, thresh, k_chain in gated:
+        want = fastbody.loop_stage(ctx, clone_state(s), thresh, k_chain)
+        evals = round(float(want.n_rows - s.n_rows) / s.alive.shape[0])
+        for batch in (1, 3, 32):
+            reads = fastbody.KERNEL.reads
+            got = fastbody.KERNEL.gated(ctx, clone_state(s), thresh, k_chain,
+                                        batch=batch)
+            assert not state_mismatches(got, want), (thresh, batch)
+            n = k_chain * -(-batch // k_chain)
+            assert fastbody.KERNEL.reads - reads == 1 + -(-evals // n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("albedo, res", [("affine", 32), ("full", 40)])
 def test_body_kernel_multi_tile(cuda, albedo, res):
-    """Multi-tile lane mode (2x2 tiles of (res/2)^2 in one cascade): the
-    kernel renders the eager body's tiles bit for bit."""
+    """Multi-tile lane mode (2x2 tiles of (res/2)^2 in one cascade): every
+    stage through run_stage equals the per-evaluation loop, and the
+    kernels render the eager body's tiles bit for bit."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
     scene = body_scene(cuda, albedo)
     settings = types.RenderSettings.from_flags(True)
-    got = body_render(cuda, scene, settings, res=res, multi=True,
-                      two_level=True)
+    run, bad, modes = fastbody.run_stage, [], []
+    fastbody.run_stage = checked_stages(bad, modes)
+    try:
+        got = body_render(cuda, scene, settings, res=res, multi=True,
+                          two_level=True)
+    finally:
+        fastbody.run_stage = run
+    assert not bad and modes[-1] == "drain", bad[:3]
     want = body_render(cuda, scene, settings, res=res, multi=True,
                        two_level=True, eager_body=True)
     assert got[0].shape == (4, res // 2, res // 2, 3)
@@ -790,9 +908,11 @@ def test_body_kernel_multi_tile(cuda, albedo, res):
 
 @pytest.mark.cuda
 def test_body_kernel_split(cuda, monkeypatch):
-    """A per-voxel albedo sent to 'split' by a small budget: the kernel
-    reads the scene's albedo grid at the tap, and renders the eager
-    body's image and the 'full' table's bit for bit."""
+    """A per-voxel albedo sent to 'split' by a small budget: the kernels
+    read the scene's albedo grid at the tap, every stage through
+    run_stage equals the per-evaluation loop, and the render equals the
+    eager body's and the 'full' table's bit for bit."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
     from cudavolumerenderer_tpu_torch.utils import occupancy
 
     shape = (16, 16, 32)
@@ -802,7 +922,13 @@ def test_body_kernel_split(cuda, monkeypatch):
     monkeypatch.setattr(occupancy, "device_memory_budget",
                         lambda device=None: 40 * int(np.prod(shape)))
     assert fast._albedo_mode(scene, allow_split=True) == "split"
-    got = body_render(cuda, scene, settings, two_level=True)
+    run, bad, modes = fastbody.run_stage, [], []
+    fastbody.run_stage = checked_stages(bad, modes)
+    try:
+        got = body_render(cuda, scene, settings, two_level=True)
+    finally:
+        fastbody.run_stage = run
+    assert not bad and modes[-1] == "drain", bad[:3]
     want = body_render(cuda, scene, settings, two_level=True, eager_body=True)
     assert_same_render(got, want)
     assert_same_render(got, full)
@@ -820,9 +946,9 @@ def test_white_furnace_through_body_kernel(cuda):
     settings = types.RenderSettings.from_flags(
         True, russian_roulette=False, max_path_length=200, bsdf_kind="null")
     for two_level in (False, True):
-        launches = fastbody.KERNEL.launches
+        launches = fastbody.KERNEL.drain_launches
         img = body_render(cuda, scene, settings, res=16, two_level=two_level)[0]
-        assert fastbody.KERNEL.launches > launches
+        assert fastbody.KERNEL.drain_launches > launches  # one pool: drained
         np.testing.assert_array_equal(img.cpu().numpy(), 4.0)
 
 
@@ -835,21 +961,8 @@ def test_body_wrapper_runs_kernel_or_plain_by_device(cuda):
 
     scene = body_scene(cuda)
     settings = types.RenderSettings.from_flags(True)
-    ctxs, states = [], []
-    run = fastbody.run_body
-
-    def keep(ctx, s, out=None):
-        if not ctxs:
-            ctxs.append(ctx)
-            states.append(clone_state(s))
-        return run(ctx, s, out)
-
-    fastbody.run_body = keep
-    try:
-        body_render(cuda, scene, settings, two_level=True)
-    finally:
-        fastbody.run_body = run
-    ctx, s = ctxs[0], states[0]
+    kept, _ = kept_stages(cuda, scene, settings, two_level=True)
+    ctx, s = kept[0][:2]
     out = clone_state(s)
     launches = fastbody.KERNEL.launches
     got, pending = fastbody.run_body(ctx, clone_state(s), out=out)

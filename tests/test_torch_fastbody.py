@@ -31,6 +31,7 @@ from cudavolumerenderer_tpu_torch.ops import fastbody as fb
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
 from cudavolumerenderer_tpu_torch.scene import types as ttypes
 from cudavolumerenderer_tpu_torch.utils import occupancy as tocc
+from test_torch_cuda import clone_state
 from test_torch_fast_options import (
     CASCADE, assert_matches_jax, full_albedo_pair, medical,
 )
@@ -368,3 +369,234 @@ def test_split_eager_body_matches_jax(monkeypatch):
     assert_matches_jax(t, j)
     jax.clear_caches()
 
+
+
+# -- (d) the stage path: run_stage, its drain and its gated chains ------------
+
+def pending_lanes(s, spp: int) -> torch.Tensor:
+    return s.alive | (s.samples_done < spp)
+
+
+def lane_fields(s):
+    """(name, per-lane tensor) of every field the body may update."""
+    return [(name, fb._lane_field(s, name)) for name in fb.LANE_FIELDS]
+
+
+def same(x, y):
+    """Equal bit for bit as values (NaN equal to NaN)."""
+    if x.is_floating_point():
+        return bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+    return bool((x == y).all())
+
+
+def stage_render(monkeypatch, scene, settings, res, spp, cam=None, base=5,
+                 **kw):
+    """A with_stats CPU render of `scene` (seed 7) with the gate forced
+    open, so render_tile hands every kernel-routed stage to run_stage (on
+    the CPU its loop of plain evaluations); returns the render and, per
+    stage, (ctx, the entry state, thresh, k_chain, last)."""
+    stages = []
+    run = fb.run_stage
+    monkeypatch.setattr(fb, "route", lambda *a, **k: True)
+
+    def keep(ctx, s, thresh, k_chain, last):
+        stages.append((ctx, clone_state(s), thresh, k_chain, last))
+        return run(ctx, s, thresh, k_chain, last)
+
+    monkeypatch.setattr(fb, "run_stage", keep)
+    cam = make_camera(res, res, device="cpu") if cam is None else cam
+    out = tfast.render_tile(scene, cam, settings, (res, res), torch.zeros(2),
+                            (res, res), spp, 7, base, with_stats=True, **kw)
+    monkeypatch.undo()
+    return out, stages
+
+
+def lane_lengths(ctx, s) -> torch.Tensor:
+    """Per lane, the plain body's evaluations until the lane is no longer
+    pending (0 for a lane that is not pending now)."""
+    spp = int(ctx.iparams[fb.IP_SPP])
+    length = torch.zeros(s.alive.shape[0], dtype=torch.int64)
+    s, n = clone_state(s), 0
+    while bool(pending_lanes(s, spp).any()):
+        s, n = ctx.plain(s), n + 1
+        length = torch.where((length == 0) & ~pending_lanes(s, spp), n,
+                             length)
+    return length
+
+
+FIXED_POINT_CASES = [
+    ("ggx-2l", {}, True), ("ggx-1l", {}, False),
+    ("null-2l", dict(bsdf_kind="null"), True),
+    ("null-1l", dict(bsdf_kind="null"), False),
+]
+
+
+@pytest.mark.parametrize("case", FIXED_POINT_CASES,
+                         ids=[c[0] for c in FIXED_POINT_CASES])
+def test_non_pending_lane_is_a_fixed_point_of_the_body(monkeypatch, case):
+    """Along the last stage of a 16^3 render, every lane that is not
+    pending (no path in flight, no sample left) leaves an evaluation of
+    the plain body with every field as it was; once no lane is pending,
+    an evaluation adds nothing to n_rays and n_busy and the width to
+    n_rows.  So the drain may stop a lane at its end (the loop's later
+    evaluations would not move it) and fold counts of 0 for it."""
+    _, settings_kw, two_level = case
+    scene = medical()[0]
+    settings = ttypes.RenderSettings.from_flags(True, **settings_kw)
+    _, stages = stage_render(monkeypatch, scene, settings, 24, 4,
+                             two_level=two_level, **CASCADE)
+    ctx, s, thresh, _, last = stages[-1]
+    assert thresh == 0 and last
+    spp = int(ctx.iparams[fb.IP_SPP])
+    done_lanes, n = 0, 0
+    while bool(pending_lanes(s, spp).any()):
+        idle = ~pending_lanes(s, spp)
+        nxt = ctx.plain(clone_state(s))
+        for (name, x), (_, y) in zip(lane_fields(s), lane_fields(nxt)):
+            assert same(x[idle], y[idle]), (name, n)
+        done_lanes, n, s = max(done_lanes, int(idle.sum())), n + 1, nxt
+    assert n > 10 and done_lanes > 0
+    nxt = ctx.plain(clone_state(s))
+    for (name, x), (_, y) in zip(lane_fields(s), lane_fields(nxt)):
+        assert same(x, y), name
+    width = s.alive.shape[0]
+    assert float(nxt.n_rays) == float(s.n_rays)
+    assert float(nxt.n_busy) == float(s.n_busy)
+    assert float(nxt.n_rows) == float(s.n_rows + float(width))
+
+
+def fold(n0: float, counts) -> np.float32:
+    """The drain's fold: n0 + counts[0] + counts[1] + ... in float32, one
+    add at a time in order (np.add.accumulate does not pair)."""
+    seq = np.concatenate([[np.float32(n0)], np.asarray(counts, np.float32)])
+    return np.add.accumulate(seq, dtype=np.float32)[-1]
+
+
+@pytest.mark.parametrize("n0, width, n_evals", [
+    (0.0, 16384, 3002), (16777215.0, 262144, 64), (1.5e7, 65536, 500)])
+def test_ordered_float32_fold_equals_sequential_adds(n0, width, n_evals):
+    """Per-evaluation integer counts folded in float32 in evaluation order
+    give the loop's counters (n + the evaluation's float32 sum, one
+    evaluation at a time), past 2^24 where float32 stops being exact and
+    the order matters: summing the integers first gives another value."""
+    gen = np.random.default_rng(n_evals)
+    counts = gen.integers(0, width + 1, n_evals)
+    counts[::7] = 0  # evaluations past a lane's end count nothing
+    n = torch.tensor(n0, dtype=torch.float32)
+    rows = torch.tensor(n0, dtype=torch.float32)
+    for c in counts:
+        n = n + torch.ones(int(c), dtype=torch.float32).sum()
+        rows = rows + float(width)
+    assert fold(n0, counts) == n.numpy()
+    assert fold(n0, np.full(n_evals, width)) == rows.numpy()
+    assert float(n) > 2 ** 24
+    assert np.float32(np.float64(n0) + counts.sum()) != n.numpy()
+
+
+STAGE_CASES = [
+    ("cascade2-chain1", 24, dict(two_level=True, **CASCADE)),
+    ("cascade2-chain8", 32, dict(two_level=True, cascade_factor=2,
+                                 min_width=256)),
+    ("champion", 48, fast_keywords(config_fields("2_medical_mhd_512", True))),
+]
+
+
+@pytest.mark.parametrize("case", STAGE_CASES, ids=[c[0] for c in STAGE_CASES])
+def test_drain_evaluations_equal_the_loops(monkeypatch, case):
+    """E = k_chain * ceil(L / k_chain), L the longest lane's evaluations
+    to its end, equals the evaluations the loop made in the last stage
+    (stage_rows / width), on CPU renders; --champion's cascade 1.25 with
+    min_width 64 and q4 tables too."""
+    _, res, kw = case
+    scene = medical()[0]
+    settings = ttypes.RenderSettings.from_flags(True)
+    out, stages = stage_render(monkeypatch, scene, settings, res, 4, **kw)
+    assert len(stages) > 1 and len(stages) == len(out[4])
+    ctx, s, thresh, k_chain, last = stages[-1]
+    assert thresh == 0 and last
+    length = int(lane_lengths(ctx, s).max())
+    evals = k_chain * -(-length // k_chain)
+    width = s.alive.shape[0]
+    assert length > 0 and evals == float(out[4][-1]) / width
+
+
+#: (id, scene pair maker, settings, render_tile keywords, against JAX too):
+#: JAX compiles a chain of 8 evaluations for ~2 minutes, so that case holds
+#: the port's eager loop only
+RUN_STAGE_CASES = [
+    ("null-2l", medical, dict(bsdf_kind="null"), dict(two_level=True), True),
+    ("full-1l", lambda: full_albedo_pair((16, 16, 16)), dict(bsdf_kind="null"),
+     dict(two_level=False), True),
+    ("chain8-2l", medical, {}, dict(two_level=True, tail_chain=8), False),
+]
+
+
+@pytest.mark.parametrize("case", RUN_STAGE_CASES,
+                         ids=[c[0] for c in RUN_STAGE_CASES])
+def test_run_stage_equals_the_loop_and_jax(monkeypatch, case):
+    """render_tile through run_stage (the gate forced open on the CPU)
+    leaves the image, n_rays, n_rows, n_busy and the per-stage rows as the
+    eager loop does, bit for bit, and agrees with JAX's render_tile under
+    the tolerances of assert_matches_jax."""
+    _, make, settings_kw, kw, with_jax = case
+    pair = make()
+    kw = {**CASCADE, **kw}
+    jc = jcam.make_camera(24, 24)
+    forced, stages = stage_render(
+        monkeypatch, pair[0], ttypes.RenderSettings.from_flags(True,
+                                                               **settings_kw),
+        24, 4, cam=convert.camera_from_arrays(jc.inv_view, jc.raster_to_view),
+        base=0, **kw)
+    assert len(stages) == len(forced[4]) > 1
+    if with_jax:
+        t, j = render_pair(pair, settings_kw, res=24, **kw)
+        assert_matches_jax([np.asarray(x) for x in forced], j)
+    else:
+        t = tfast.render_tile(
+            pair[0], convert.camera_from_arrays(jc.inv_view, jc.raster_to_view),
+            ttypes.RenderSettings.from_flags(True, **settings_kw), (24, 24),
+            torch.zeros(2), (24, 24), 4, 7, 0, with_stats=True, **kw)
+    for x, y in zip(forced, t):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_stage_mode_by_threshold_and_gate():
+    assert fb.stage_mode("cuda", 1, 0, 0) == "drain"
+    assert fb.stage_mode("cuda", 1, 0, 128) == "gated"
+    assert fb.stage_mode("cuda", 1, 0, 4096) == "gated"
+    assert fb.stage_mode("cuda", 4, 0, 0) == "eager"
+    assert fb.stage_mode("cuda", 1, 4, 0) == "eager"
+    assert fb.stage_mode("cuda", 1, 0, 0, eager_body=True) == "eager"
+    assert fb.stage_mode("cpu", 1, 0, 0) == "eager"
+    assert fb.stage_mode("cpu", 1, 0, 128) == "eager"
+
+
+@pytest.mark.parametrize("tail_pallas", [False, True], ids=["drain", "tail"])
+def test_stage_mode_of_render_tiles_stages(monkeypatch, tail_pallas):
+    """The thresholds render_tile hands run_stage: only the last stage of
+    a render without the tail kernel has 0 and drains; with the tail
+    kernel the last stage exits at its width and runs gated, as every
+    wider stage does."""
+    scene = medical()[0]
+    settings = ttypes.RenderSettings.from_flags(True, bsdf_kind="null")
+    out, stages = stage_render(monkeypatch, scene, settings, 24, 2,
+                               two_level=True, tail_pallas=tail_pallas,
+                               tail_pk_width=128, **CASCADE)
+    modes = [fb.stage_mode("cuda", 1, 0, thresh)
+             for _, _, thresh, _, _ in stages]
+    assert [last for *_, last in stages] == [False] * (len(stages) - 1) + [
+        True]
+    assert modes == ["gated"] * (len(stages) - 1) + [
+        "gated" if tail_pallas else "drain"]
+    assert stages[-1][2] == (128 if tail_pallas else 0)
+    assert len(out[4]) == len(stages) + tail_pallas
+
+
+def test_control_words_layout_equals_the_wrappers():
+    """csrc/fastbody.cu's C_* control words and N_CTRL give the indices
+    ops/fastbody.py reads the stage's control words at."""
+    c = enum_values(SOURCE.read_text())
+    py = {k: v for k, v in vars(fb).items()
+          if re.fullmatch(r"C_[A-Z_]+|N_CTRL", k) and isinstance(v, int)}
+    assert len(py) == 9
+    assert {k: c[k] for k in py} == py
