@@ -12,9 +12,9 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the four kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
-   csrc/pgather.cu and csrc/fastbody.cu, with one nvcc each, started
-   together with g++ on
+2. build the five kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
+   csrc/pgather.cu, csrc/fastbody.cu and csrc/replaybody.cu, with one
+   nvcc each, started together with g++ on
    the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -94,8 +94,9 @@ CPU or to a plain version on a CUDA tensor):
    the card against the same render on the CPU;
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
    -i 4 -r 400 400, two trials (the first discarded);
-13. the gradient on the card (the differentiable path has no kernel of
-   its own): render_diff one- and two-level, null and GGX BSDF, on a
+13. the gradient on the card (the two-level replay through the replay
+   kernels of csrc/replaybody.cu): render_diff one- and two-level, null
+   and GGX BSDF, on a
    random 16^3 grid with a per-voxel albedo at 16^2 x 4, against the
    same call on the CPU (images allclose at 1e-4 on the null scene, >= 90%
    of pixels on the GGX scene; both cotangents within rtol 1e-3, atol
@@ -109,13 +110,15 @@ CPU or to a plain version on a CUDA tensor):
    at the recipe's full width, n = 256, 128^2, spp 8 in 2 chunks, 2 views
    per step, cut in depth only (2 views, 8 target spp, steps 1 0 1):
    per level the seconds per step and per forward+backward program and
-   the replay's iterations; finite losses, a density that moved at each
-   level that took a step and stays within clip_density, the 128^3
-   level's checkpoint the upsampled 64^3 grid, the last checkpoint
-   reloaded with
-   its Adam moments; then torch.profiler over 20 iterations in the middle
-   of one pass-B replay at 256^3 (device kernels per iteration, the
-   card's busy share);
+   the replay's iterations, the replay kernels' launches, drain launches,
+   host reads and eager evaluations (counts set to 0 just before the run
+   and read just after; no eager evaluation); finite losses, a density
+   that moved at each level that took a step and stays within
+   clip_density, the 128^3 level's checkpoint the upsampled 64^3 grid,
+   the last checkpoint reloaded with its Adam moments; then one
+   forward+backward program at 256^3 twice: per pass (primal, pass B)
+   its launches, host reads and wall, then its device time and kernels
+   under torch.profiler; pass B as long as the primal;
 15. the native library's build time, and BASELINE config 3's smoke
    (128x128x50, albedo 0.9 d) written with write_vdb and read back with
    load_vdb_scene(device="cuda"), then through save_npz and
@@ -213,7 +216,35 @@ CPU or to a plain version on a CUDA tensor):
    equal to NaN) and the same pending count; the kernel's device time per
    evaluation from replays of a CUDA graph of 16 out-of-place evaluations
    of the kept state, the eager body's by CUDA events, and the byte
-   bound.
+   bound;
+23. render_diff's replay kernels (csrc/replaybody.cu) on phase 14's
+   256^3 problem (inverse_256's phantom, albedo 0.6, scale 12, its first
+   view at 128^2 x 4: 65,536 lanes in pools down to 4,096): (a) pass B
+   through the eager body, keeping the pool at evaluations 0, 4 (the
+   65,536-lane pool's tracking), 20 and 100, at the first 16,384- and
+   4,096-lane evaluations and at each
+   stage's entry; whole replays through the kernels against the eager
+   body (radiance bit for bit, cotangents within rtol 1e-4 and atol 1e-5
+   x max per voxel, sums within 1e-6, evaluations equal), wall, launches
+   and host reads; (b) on each kept pool one kernel evaluation against one
+   eager evaluation, primal and pass B: every _Lanes field and the alive
+   count equal, pass B's cotangents bit for bit under deterministic
+   algorithms and within those tolerances with atomics; the kernel's
+   device time per evaluation (replays of a CUDA graph of 16 out-of-place
+   evaluations), the eager body's (CUDA events) and the byte bound
+   (ops/replaybody.replay_bytes); (c) on each stage's entry the
+   per-evaluation loop against the stage path (gated chains, the drain),
+   primal and pass B, in turns: fields and evaluations equal, walls,
+   launches and reads; (d) the drain timed by CUDA events around one
+   launch, primal and pass B in turns, the longest lane L and us per
+   step, its plain version (the eager loop, wall) and its byte bound;
+24. the north-star benchmark, benchmarks/bench_1024.main at its defaults
+   with --bwd (1024^3 plume made on the card, the forward at 1024^2 x 4,
+   the fwd+bwd at 256^2 x 1, max_path_length 100, RR on), the replay
+   kernels' counts set to 0 just before and read just after: forward
+   Mrays/s, the primal replay and two fwd+bwd times, peak allocated
+   memory; finite numbers, pass B as long as the primal, every replay
+   through the kernels.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -270,7 +301,6 @@ TRAIN_ARGV = ("--n", "256", "--res", "128", "--spp", "8", "--spp-chunks", "2",
               "--views", "2", "--target-spp", "8", "--steps", "1", "0", "1")
 TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 8 (64)",
               "--steps 1 0 1 (80 60 40; 128^3 is upsampled through)")
-PROFILE_ITERS = 20  # pass-B replay iterations under torch.profiler
 CONFIG4_ITERS = 4  # phase 17: BASELINE config 4's 50 iterations, cut
 EVAL_WINDOW = (100, 60)  # phase 20's profiled body evaluations: first, count
 # phase 20's tail rows (benchmarks/micro_medical2.py:88-113), the first the
@@ -1411,23 +1441,36 @@ def gradient_on_card() -> None:
           "the albedo gradient disagrees with its finite difference")
 
 
-def training(tmp: str, card: str) -> None:
+def training(tmp: str, card: str) -> dict:
     """Phase 14: inverse_256.main at the recipe's full width with depth
-    cut, its checks, and torch.profiler over PROFILE_ITERS iterations in
-    the middle of one pass-B replay at the finest level."""
+    cut, the replay kernels' counts set to 0 just before it and read just
+    after, its checks, and one forward+backward program at the finest
+    level with its launches, host reads, wall and device time per pass.
+    Returns the main path's counts and the program's rows."""
     import torch
-    from torch.autograd import DeviceType
 
     from cudavolumerenderer_tpu_torch.benchmarks import inverse_256
     from cudavolumerenderer_tpu_torch.models import inverse
     from cudavolumerenderer_tpu_torch.models.differentiable import render_diff
+    from cudavolumerenderer_tpu_torch.ops import replaybody as rb
 
     ck = os.path.join(tmp, "inv256_ckpt")
     log(f"[14] inverse_256 {' '.join(TRAIN_ARGV)}; cut in depth only: "
         + ", ".join(TRAIN_CUTS))
+    k = rb.KERNEL
+    torch.cuda.synchronize()
+    k.launches = k.drain_launches = k.reads = k.plain_evals = 0
     t0 = time.perf_counter()
     result = inverse_256.main(list(TRAIN_ARGV) + ["--ckpt-dir", ck])
     wall = time.perf_counter() - t0
+    main_path = {"launches": k.launches, "drain_launches": k.drain_launches,
+                 "reads": k.reads, "plain_evals": k.plain_evals}
+    check(main_path["launches"] > 0 and main_path["drain_launches"] > 0
+          and main_path["plain_evals"] == 0,
+          f"inverse_256 did not replay through the kernels: {main_path}")
+    log(f"[14] main path: {main_path['launches']} replay-kernel launches, "
+        f"{main_path['drain_launches']} drain launches, {main_path['reads']} "
+        f"host reads, {main_path['plain_evals']} eager evaluations")
     losses = [l for level in result["losses"] for l in level]
     check(len(losses) == 2 and np.isfinite(losses).all(),
           f"the losses are not finite: {losses}")
@@ -1474,7 +1517,9 @@ def training(tmp: str, card: str) -> None:
         f"{moved[1]:.4f} at {n}^3 over its level), within [{lo}, {hi}]; "
         f"L{n}/step_1 reloads with Adam count {opt.count}")
 
-    # torch.profiler over PROFILE_ITERS iterations in the middle of pass B
+    # one forward+backward program at 256^3 through the replay kernel, run
+    # twice: per pass its launches, host reads and wall, then its device
+    # time and kernels under torch.profiler
     res = int(TRAIN_ARGV[3])
     spec = inverse_256.SceneSpec(scale=12.0, max_density=1.0)
     settings = inverse_256.RenderSettings.from_flags(
@@ -1486,42 +1531,61 @@ def training(tmp: str, card: str) -> None:
         if f.startswith("targets")))["targets"][0], device="cuda")
     albedo = torch.full((1, 1, 1, 4), 0.6, device="cuda")
     spp = int(TRAIN_ARGV[5]) // int(TRAIN_ARGV[7])
+    k = rb.KERNEL
+    rows = {}
+    for profiled in (False, True):
+        stats = {}
+        d = torch.tensor(d256, device="cuda", requires_grad=True)
+        passes = {}
 
-    # one forward+backward program; the window is placed once the primal
-    # has counted its iterations (pass B takes as many: the same paths)
-    stats = {}
-    d = torch.tensor(d256, device="cuda", requires_grad=True)
-    with PassCounter((1 << 62, PROFILE_ITERS)) as counted:
-        img = render_diff(d, albedo, 12345, spec, view, settings, (res, res),
-                          spp, True, stats=stats)
-        loss = torch.mean((img / spp - target) ** 2)
-        primal = stats["primal_iters"][0]
-        counted.window = (primal + primal // 2 - PROFILE_ITERS // 2,
-                          PROFILE_ITERS)
-        loss.backward()
-        torch.cuda.synchronize()
-    pass_b = stats["pass_b_iters"][0]
-    check(len(counted.clock) == 2 and pass_b == primal
-          and counted.passes == primal + pass_b,
-          f"the profiled program took {counted.passes} iterations (primal "
-          f"{primal}, pass B {pass_b})")
-    window_us = (counted.clock[1] - counted.clock[0]) * 1e6
-    on_card = [e for e in counted.prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_card)
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
-    per = PROFILE_ITERS
-    log(f"[14] pass-B replay at {n}^3, {res}^2 x {spp}, iterations "
-        f"{pass_b // 2 - per // 2}-{pass_b // 2 + per // 2 - 1} of {pass_b} "
-        f"(primal {primal}): {window_us / 1e3:.2f} ms of wall, "
-        f"{window_us / per / 1e3:.3f} ms per iteration (the profiler slows "
-        f"the host), device busy {busy_us / 1e3:.3f} ms "
-        + (f"({busy_us / window_us:.1%}; {busy_us / per / 1e3:.3f} ms per "
-           f"iteration), {sum(e.count for e in on_card) / per:.0f} device "
-           "kernels per iteration; top device time: " + "; ".join(
-               f"{e.key[:40]} x{e.count} {e.self_device_time_total:.0f} us"
-               for e in top) if busy_us else "(no device time in the trace: "
-           "the busy share is not measured)") + f"; card {card}")
+        def primal():
+            return render_diff(d, albedo, 12345, spec, view, settings,
+                               (res, res), spp, True, stats=stats)
+
+        def pass_b():
+            torch.mean((img / spp - target) ** 2).backward()
+
+        for name, fn in (("primal", primal), ("pass B", pass_b)):
+            torch.cuda.synchronize()
+            before = (k.launches, k.drain_launches, k.reads, k.plain_evals)
+            t0 = time.perf_counter()
+            if profiled:
+                out, kernels, busy = device_time(fn)
+            else:
+                out, kernels, busy = fn(), None, None
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if name == "primal":
+                img = out
+            after = (k.launches, k.drain_launches, k.reads, k.plain_evals)
+            counts = [x - y for x, y in zip(after, before)]
+            passes[name] = {"wall_ms": wall, "launches": counts[0],
+                            "drain_launches": counts[1], "reads": counts[2],
+                            "plain_evals": counts[3], "device_ms": busy,
+                            "device_kernels": kernels}
+        primal_n, pass_b_n = stats["primal_iters"][0], stats["pass_b_iters"][0]
+        check(pass_b_n == primal_n, f"pass B took {pass_b_n} evaluations, the "
+              f"primal {primal_n}")
+        for name, row in passes.items():
+            check(row["launches"] > 0 and row["drain_launches"] > 0
+                  and row["plain_evals"] == 0,
+                  f"the {name} replay did not run through the kernels: {row}")
+        rows["profiled" if profiled else "timed"] = passes
+    timed, prof = rows["timed"], rows["profiled"]
+    for name in ("primal", "pass B"):
+        t, p = timed[name], prof[name]
+        log(f"[14] {name} replay at {n}^3, {res}^2 x {spp} (65,536 lanes, "
+            f"{primal_n} evaluations): {t['wall_ms']:.2f} ms wall with the "
+            f"card synchronised, {t['launches']} replay-kernel launches "
+            f"(gated) + {t['drain_launches']} drain, {t['reads']} host reads, "
+            f"no eager evaluation; under torch.profiler {p['wall_ms']:.2f} ms "
+            f"wall, device " + (f"{p['device_ms']:.3f} ms in "
+                                f"{p['device_kernels']} kernels "
+                                f"({p['device_ms'] / p['wall_ms']:.1%} busy)"
+                                if p["device_ms"] else "time not in the trace")
+            + f"; card {card}")
+    return {"passes": rows, "evaluations": primal_n, "main_path": main_path,
+            "step_s": result["step_s"]}
 
 
 def native_and_vdb(tmp: str, card: str) -> str:
@@ -2616,6 +2680,376 @@ def body_states(scene, camera, card: str) -> dict:
             "stages": stage_rows, "drain": drain}
 
 
+# phase 23: the replay evaluations whose states are kept (0: every lane
+# starts a segment, no tracking step yet; 4: tracking in the 65,536-lane
+# pool, the widest; 20 and 100 in narrower pools, 32,768 and 4,096 lanes),
+# and the first evaluation of each of these pool widths
+REPLAY_KEEP = (0, 4, 20, 100)
+#: the kept state whose primal row the kernels line reports
+REPLAY_HEAD = "evaluation 4"
+REPLAY_WIDTHS = (16384, 4096)
+REPLAY_PLAIN_REPS = 5  # eager evaluations timed per kept state
+# atomic pass B against the eager body: per voxel, and the sums
+GRAD_RTOL, GRAD_ATOL, GRAD_SUM = 1e-4, 1e-5, 1e-6
+
+
+def grads_apart(got, want) -> float:
+    """The largest per-voxel excess over GRAD_RTOL |want| + GRAD_ATOL
+    max|want| (<= 0 within tolerance), checked with the sums' GRAD_SUM."""
+    got, want = got.double(), want.double()
+    excess = float(((got - want).abs() - GRAD_RTOL * want.abs()
+                    - GRAD_ATOL * want.abs().max()).max())
+    check(abs(float(got.sum() - want.sum()))
+          <= GRAD_SUM * float(want.abs().sum()),
+          "phase 23: the cotangents' sums disagree")
+    return excess
+
+
+def replay_problem(card: str):
+    """Phase 14's 256^3 problem: inverse_256's phantom (medical_volume, 40
+    blobs), albedo 0.6, scale 12, RR off, max_path_length 64, its first
+    orbit view at 128^2 x 4 (65,536 lanes); pass B's weights from the
+    kernel's primal and an image cotangent made with numpy from a seed."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.models import inverse
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    n, res, spp = int(TRAIN_ARGV[1]), int(TRAIN_ARGV[3]), 4
+    gt = procedural.medical_volume((n,) * 3, n_blobs=40)
+    spec = td.SceneSpec(scale=12.0, max_density=1.0)
+    scene = spec.build(gt, np.full((1, 1, 1, 4), 0.6, np.float32), "cuda")
+    view = inverse.orbit_camera_specs(2, radius=100.0, res=(res, res),
+                                      fov_x_deg=0.8)[0]
+    cam = view.build("cuda")
+    settings = RenderSettings.from_flags(True, russian_roulette=False,
+                                         max_path_length=64)
+    tables = td._build_brick_tab(scene.medium.density.data)
+    lanes, image_id, o0, d0, rng = td._lane_setup(cam, (res, res), spp, 12345)
+    prim = td._replay(scene, settings, o0, d0, rng,
+                      torch.zeros(lanes, device="cuda"),
+                      torch.zeros((lanes, 3), device="cuda"), False, None,
+                      None, tables)
+    g_img = torch.tensor(np.random.RandomState(23).rand(res, res, 3)
+                         .astype(np.float32), device="cuda")
+    g_lane = g_img.reshape(-1, 3)[image_id] * prim.radiance
+    return (scene, settings, tables, o0, d0, rng, torch.sum(g_lane, dim=-1),
+            g_lane)
+
+
+def cotangent_buffers(scene):
+    import torch
+
+    alb = scene.medium.albedo.data
+    return (torch.zeros(scene.medium.density.data.numel(), device="cuda"),
+            torch.zeros((alb.numel() // alb.shape[-1], alb.shape[-1]),
+                        device="cuda"))
+
+
+def replay_states(card: str) -> dict:
+    """Phase 23: render_diff's replay kernels on phase 14's 256^3 problem
+    (65,536 lanes, pools 65,536 to 4,096).  (a) Pass B through the eager
+    body (eager_body), keeping the pool at evaluations REPLAY_KEEP, at the
+    first evaluation of each REPLAY_WIDTHS pool and at each stage's entry;
+    the whole replay through the kernels against it, primal and pass B:
+    wall, launches, host reads, outputs (radiance bit for bit, cotangents
+    within GRAD_*).  (b) On each kept pool one kernel evaluation against
+    one eager evaluation: every _Lanes field and the alive count bit for
+    bit for the primal and pass B, pass B's cotangents bit for bit under
+    deterministic algorithms and within GRAD_* with atomics; the kernel's
+    device time per evaluation (replays of a CUDA graph of GRAPH_CALLS
+    out-of-place evaluations), the eager body's (CUDA events) and the byte
+    bound (ops/replaybody.replay_bytes).  (c) On each stage's entry the
+    per-evaluation loop (loop_stage, the kernel per evaluation) against the
+    stage path (gated chains, the drain): every field and the evaluations
+    equal, walls, launches and reads, primal and pass B.  (d) The drain of
+    the last stage timed by CUDA events around one launch (primal and pass
+    B, twice each in turns), the longest lane L and us per step, its plain
+    version (the eager loop over the stage, wall) and its byte bound over
+    every evaluation's taps."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.ops import replaybody as rb
+
+    problem = replay_problem(card)
+    scene, settings, tables, o0, d0, rng, s_lane, g_lane = problem
+    k = rb.KERNEL
+    lanes = o0.shape[0]
+
+    # -- (a) pass B through the eager body, keeping pools; whole replays ---
+    kept, stages, count, seen = {}, [], [0], set()
+    plain, loop = rb.plain_body, rb.loop_stage
+
+    def keep_body(ctx, s):
+        width = s.alive.shape[0]
+        if count[0] in REPLAY_KEEP:
+            kept[f"evaluation {count[0]}"] = (clone_state(s), count[0])
+        elif width in REPLAY_WIDTHS and width not in seen:
+            seen.add(width)
+            kept[f"first {width}-lane evaluation"] = (clone_state(s), count[0])
+        count[0] += 1
+        return plain(ctx, s)
+
+    def keep_stage(ctx, s, thresh, k_chain, body=rb.run_body):
+        stages.append((clone_state(s), thresh, k_chain))
+        return loop(ctx, s, thresh, k_chain, body)
+
+    def replay(record, eager, dd=None, da=None):
+        """(output, wall ms, launches, drain launches, reads, evaluations)"""
+        stats = {}
+        torch.cuda.synchronize()
+        before = (k.launches, k.drain_launches, k.reads)
+        t0 = time.perf_counter()
+        out = td._replay(scene, settings, o0, d0, rng, s_lane, g_lane, record,
+                         dd, da, tables, eager_body=eager, stats=stats)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return (out, wall, k.launches - before[0],
+                k.drain_launches - before[1], k.reads - before[2],
+                stats["iterations"])
+
+    walls = {}
+    de, ae = cotangent_buffers(scene)
+    rb.plain_body, rb.loop_stage = keep_body, keep_stage
+    try:
+        eager_b = replay(True, True, de, ae)
+    finally:
+        rb.plain_body, rb.loop_stage = plain, loop
+    walls["eager pass B"] = eager_b[1]
+    check(len(kept) == len(REPLAY_KEEP) + len(REPLAY_WIDTHS),
+          f"kept {list(kept)}")
+    head_pool = kept[REPLAY_HEAD][0]
+    check(head_pool.alive.shape[0] == lanes
+          and bool((head_pool.seg & head_pool.alive & head_pool.in_med).any()),
+          f"phase 23: {REPLAY_HEAD} is not a tracking evaluation of the "
+          f"{lanes}-lane pool")
+    eager_p = replay(False, True)
+    walls["eager primal"] = eager_p[1]
+    kernel_p = replay(False, False)
+    dk, ak = cotangent_buffers(scene)
+    kernel_b = replay(True, False, dk, ak)
+    walls["kernel primal"], walls["kernel pass B"] = kernel_p[1], kernel_b[1]
+    check(torch.equal(kernel_p[0].radiance, eager_p[0].radiance)
+          and torch.equal(kernel_b[0].radiance, eager_b[0].radiance),
+          "phase 23: the kernels' radiance differs from the eager body's")
+    check(kernel_p[5] == eager_p[5] == kernel_b[5] == eager_b[5],
+          "phase 23: the replays' evaluations differ")
+    err = max(grads_apart(dk, de), grads_apart(ak, ae))
+    check(err <= 0.0, f"phase 23: pass B's cotangents exceed GRAD_* by {err}")
+    log(f"[23] replay at 256^3, {lanes} lanes, {kernel_p[5]} evaluations: "
+        f"eager body {walls['eager primal']:.1f} / {walls['eager pass B']:.1f}"
+        f" ms (primal / pass B), kernels {walls['kernel primal']:.2f} / "
+        f"{walls['kernel pass B']:.2f} ms ({kernel_p[2]} / {kernel_b[2]} "
+        f"gated launches, {kernel_p[3]} / {kernel_b[3]} drain launches, "
+        f"{kernel_p[4]} / {kernel_b[4]} host reads); radiance bit-equal, "
+        f"cotangents within rtol {GRAD_RTOL}, atol {GRAD_ATOL} x max, sums "
+        f"{GRAD_SUM}; card {card}")
+
+    # -- (b) one evaluation on each kept pool -------------------------------
+    rows, max_err = {}, 0.0
+    was = torch.are_deterministic_algorithms_enabled()
+    for tag, (s, at) in kept.items():
+        width = s.alive.shape[0]
+        row = {"width": width, "evaluation": at,
+               "alive": int(s.alive.sum()), "tracking": int(
+                   (s.seg & s.alive & s.in_med).sum())}
+        for record in (False, True):
+            name = "pass B" if record else "primal"
+            dk, ak = cotangent_buffers(scene)
+            de, ae = cotangent_buffers(scene)
+            ctx_k = td.replay_context(scene, settings, tables, record, dk, ak)
+            ctx_e = td.replay_context(scene, settings, tables, record, de, ae)
+            got, alive = rb.run_body(ctx_k, clone_state(s))
+            taps = []
+            want = ctx_e.plain(clone_state(s), taps=taps)
+            diff, e = state_diff(got, want)
+            max_err = max(max_err, e)
+            check(not diff and int(alive) == int(want.alive.sum()),
+                  f"phase 23, {tag}, {name}: the kernel's evaluation differs "
+                  f"from the eager body's in {diff}")
+            if record:
+                err = max(grads_apart(dk, de), grads_apart(ak, ae))
+                check(err <= 0.0, f"phase 23, {tag}: pass B's cotangents "
+                      f"exceed GRAD_* by {err}")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    dk, ak = cotangent_buffers(scene)
+                    de, ae = cotangent_buffers(scene)
+                    got, _ = rb.run_body(td.replay_context(
+                        scene, settings, tables, True, dk, ak), clone_state(s))
+                    want = td.replay_context(scene, settings, tables, True, de,
+                                          ae).plain(clone_state(s))
+                finally:
+                    torch.use_deterministic_algorithms(was)
+                diff, _ = state_diff(got, want)
+                check(not diff and torch.equal(dk, de) and torch.equal(ak, ae),
+                      f"phase 23, {tag}: deterministic pass B differs in "
+                      f"{diff} or its cotangents")
+            out = clone_state(s)
+            ms = graph_ms([lambda: k.launch(ctx_k, s, out)] * GRAPH_CALLS)
+            plain_ms = cuda_ms(lambda: ctx_e.plain(clone_state(s)),
+                               REPLAY_PLAIN_REPS, 1)
+            n_bytes = rb.replay_bytes(ctx_k, taps)
+            bound, bound_by = bound_ms(n_bytes)
+            row[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": bound_by, "bytes": n_bytes}
+            log(f"[23] {tag} ({width} lanes, {row['alive']} alive, "
+                f"{row['tracking']} tracking), {name}: the kernel equals the "
+                "eager body in every _Lanes field and the alive count"
+                + (", its cotangents bit for bit under deterministic "
+                   "algorithms" if record else "") + f"; kernel "
+                f"{ms * 1e3:.2f} us per evaluation (graph of {GRAPH_CALLS}), "
+                f"eager body {plain_ms:.3f} ms (the copy of its input "
+                f"included); bound {n_bytes} B = {bound * 1e3:.2f} us "
+                f"({bound / ms:.1%} of the kernel's time); card {card}")
+        rows[tag] = row
+
+    # -- (c) each stage: the per-evaluation loop against the stage path ------
+    stage_rows = []
+    for i, (s, thresh, k_chain) in enumerate(stages):
+        width = s.alive.shape[0]
+        last = i == len(stages) - 1
+        for record in (False, True):
+            name = "pass B" if record else "primal"
+            runs = {}
+            for which in ("loop", "stage", "stage", "loop"):
+                dd, da = cotangent_buffers(scene)
+                ctx = td.replay_context(scene, settings, tables, record,
+                                        dd, da)
+                fn = rb.loop_stage if which == "loop" else (
+                    lambda c, p, t, kc: rb.run_stage(c, p, t, kc, last))
+                torch.cuda.synchronize()
+                before = (k.launches, k.drain_launches, k.reads)
+                t0 = time.perf_counter()
+                got, n = fn(ctx, clone_state(s), thresh, k_chain)
+                torch.cuda.synchronize()
+                runs.setdefault(which, []).append((
+                    got, n, (time.perf_counter() - t0) * 1e3,
+                    k.launches - before[0], k.drain_launches - before[1],
+                    k.reads - before[2], dd, da))
+            want, n_want = runs["loop"][0][:2]
+            got, n_got = runs["stage"][0][:2]
+            diff, _ = state_diff(got, want)
+            check(not diff and n_got == n_want, f"phase 23, {width}-lane "
+                  f"stage, {name}: the stage path differs from the loop in "
+                  f"{diff} or its evaluations ({n_got} against {n_want})")
+            if record:
+                err = max(grads_apart(runs["stage"][0][6], runs["loop"][0][6]),
+                          grads_apart(runs["stage"][0][7], runs["loop"][0][7]))
+                check(err <= 0.0, f"phase 23, {width}-lane stage: pass B's "
+                      f"cotangents exceed GRAD_* by {err}")
+            row = {"width": width, "pass": name, "evaluations": n_want,
+                   "mode": "drain" if thresh == 0 else "gated"}
+            for which in ("loop", "stage"):
+                (_, _, w1, l1, d1, r1, *_), (_, _, w2, *_) = runs[which]
+                row[which] = {"wall_ms": [w1, w2], "launches": l1,
+                              "drain_launches": d1, "reads": r1}
+            stage_rows.append(row)
+            lo, st = row["loop"], row["stage"]
+            log(f"[23] {width}-lane stage ({row['mode']}, {n_want} "
+                f"evaluations), {name}: per-evaluation loop {lo['wall_ms'][0]:.3f} / "
+                f"{lo['wall_ms'][1]:.3f} ms wall, {lo['launches']} launches, "
+                f"{lo['reads']} reads; stage path {st['wall_ms'][0]:.3f} / "
+                f"{st['wall_ms'][1]:.3f} ms wall, {st['launches']} gated + "
+                f"{st['drain_launches']} drain launches, {st['reads']} reads; "
+                f"equal; card {card}")
+
+    # -- (d) the drain: CUDA events around one launch, and its plain version
+    s, thresh, k_chain = stages[-1]
+    check(thresh == 0, "phase 23: the last stage does not drain")
+    width = s.alive.shape[0]
+    drain = {}
+    for record in (False, True, True, False):
+        name = "pass B" if record else "primal"
+        dd, da = cotangent_buffers(scene)
+        ctx = td.replay_context(scene, settings, tables, record, dd, da)
+        t = clone_state(s)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        k.drain(ctx, t, k_chain)
+        stop.record()
+        torch.cuda.synchronize()
+        drain.setdefault(name, []).append(start.elapsed_time(stop))
+    longest, total = k.last_drain["L"], k.last_drain["E"]
+    ctx = td.replay_context(scene, settings, tables, False)
+    taps, t = [], clone_state(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while bool(t.alive.any()):
+        for _ in range(k_chain):
+            t = ctx.plain(t, taps=taps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes = rb.replay_bytes(ctx, taps)
+    bound, bound_by = bound_ms(n_bytes)
+    ms = min(drain["primal"])
+    log(f"[23] drain of the {width}-lane stage: L = {longest}, E = {total} "
+        "evaluations; " + ", ".join(
+            f"{k_} {v[0]:.3f} / {v[1]:.3f} ms" for k_, v in drain.items())
+        + f" (CUDA events, one launch each, in turns); "
+        f"{ms * 1e3 / max(longest, 1):.3f} us per step of the longest lane; "
+        f"its plain version (the eager loop) {plain_ms:.1f} ms; bound "
+        f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.2%} of the drain); "
+        f"card {card}")
+    head = rows[REPLAY_HEAD]["primal"]
+    return {"rows": rows, "max_abs_err": max_err, "walls": walls,
+            "launches": {"primal": kernel_p[2], "pass B": kernel_b[2]},
+            "reads": {"primal": kernel_p[4], "pass B": kernel_b[4]},
+            "evaluations": kernel_p[5], "stages": stage_rows,
+            "head": head,
+            "drain": {"ms": ms, "ms_by_pass": drain, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "bytes": n_bytes, "L": longest, "E": total,
+                      "us_per_step": ms * 1e3 / max(longest, 1),
+                      "max_abs_err": max_err}}
+
+
+def north_star(card: str) -> dict:
+    """Phase 24: bench_1024.main at its defaults with --bwd (1024^3 plume,
+    the forward at 1024^2 x 4, the fwd+bwd at 256^2 x 1), the replay
+    kernels' counts set to 0 just before and read just after: its
+    forward Mrays/s, primal replay and two fwd+bwd times, peak memory;
+    finite numbers, pass B as long as the primal, and every replay through
+    the kernels."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import bench_1024
+    from cudavolumerenderer_tpu_torch.ops import replaybody as rb
+
+    k = rb.KERNEL
+    torch.cuda.synchronize()
+    k.launches = k.drain_launches = k.reads = k.plain_evals = 0
+    t0 = time.perf_counter()
+    result = bench_1024.main(["--bwd"])
+    wall = time.perf_counter() - t0
+    counts = {"launches": k.launches, "drain_launches": k.drain_launches,
+              "reads": k.reads, "plain_evals": k.plain_evals}
+    reps = result["fwdbwd"]
+    check(result["n_rays"] > 0 and all(np.isfinite(result["fwd_mrays"]))
+          and np.isfinite([r["s"] for r in reps] + [r["gsum"] for r in reps]
+                          + [result["primal_s"]]).all(),
+          f"bench_1024: numbers not finite: {result}")
+    check(all(r["primal_iters"] == r["pass_b_iters"] > 0 for r in reps),
+          "bench_1024: pass B's evaluations differ from the primal's")
+    check(counts["launches"] > 0 and counts["drain_launches"] > 0
+          and counts["plain_evals"] == 0,
+          f"bench_1024 did not replay through the kernels: {counts}")
+    log(f"[24] bench_1024 --bwd at its defaults: {wall:.1f} s in all; "
+        f"forward {', '.join(f'{x:.3f}' for x in result['fwd_s'])} s "
+        f"({result['best_mrays']:.2f} Mrays/s best, {result['n_rays']:.0f} "
+        f"rays); primal replay {result['primal_s']:.3f} s; fwd+bwd "
+        f"{', '.join(f'{r['s']:.3f}' for r in reps)} s; peak allocated "
+        f"{result['max_memory_allocated'] / 2**30:.2f} GiB; replay kernels "
+        f"{counts['launches']} gated + {counts['drain_launches']} drain "
+        f"launches, {counts['reads']} host reads; card {card}")
+    return {**result, "counts": counts, "wall_s": wall}
+
+
 def free_port() -> int:
     import socket
 
@@ -2918,16 +3352,17 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
+    from cudavolumerenderer_tpu_torch.ops import replaybody as rb
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the four libraries, one nvcc each, started together,
+    # -- phase 2: build the five libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
-    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL)
+    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -3100,7 +3535,7 @@ def main() -> int:
     log(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        training(tmp, card)
+        train = training(tmp, card)
         log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     # -- phases 15-18: the VDB/NPZ scene path, configs 3 and 4, the modes --
@@ -3144,6 +3579,19 @@ def main() -> int:
     t0 = time.perf_counter()
     body = body_states(scene, camera, card)
     log(f"[22] phase 22 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 23: the replay kernels against the eager body on kept pools --
+    del scene, camera, renderer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replay = replay_states(card)
+    log(f"[23] phase 23 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 24: the north-star benchmark, bench_1024 --bwd ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    star = north_star(card)
+    log(f"[24] phase 24 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -3207,6 +3655,43 @@ def main() -> int:
                   "lane runs to its end in registers; per-evaluation counts "
                   "by warp-aggregated atomics, folded in order by the last "
                   "block",
+    }, {
+        "name": "replaybody", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/replaybody.cu",
+        "replaces": "cudavolumerenderer_tpu/models/differentiable.py:623",
+        "launches": train["main_path"]["launches"],
+        "max_abs_err": replay["max_abs_err"],
+        **{k: replay["head"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "one thread per lane and evaluation; the _Lanes tensors "
+                  "read and written in place; pass B's adjoints by atomics "
+                  "(a constant albedo reduced per block first), or per-lane "
+                  "(index, value) buffers added by index_add_ under "
+                  "deterministic algorithms; a stage's evaluations enqueued "
+                  "in batches, each launch gated on the stage's control words",
+        "per_state": replay["rows"], "stages_256": replay["stages"],
+        "walls_256": replay["walls"], "launches_256": replay["launches"],
+        "reads_256": replay["reads"], "main_path_256": train["main_path"],
+        "training_passes": train["passes"],
+        "launches_bench_1024": star["counts"]["launches"],
+        "bench_1024": {k: star[k] for k in (
+            "best_mrays", "fwd_s", "primal_s", "fwdbwd",
+            "max_memory_allocated", "occupancy", "n_rays", "n_rays_bwd",
+            "device", "wall_s")},
+    }, {
+        "name": "replaybody_drain", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/replaybody.cu",
+        "replaces": "cudavolumerenderer_tpu/models/differentiable.py:623",
+        "launches": train["main_path"]["drain_launches"],
+        **{k: replay["drain"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "L",
+            "E", "us_per_step", "ms_by_pass")},
+        "library_ms": None,
+        "design": "the last stage in one launch: each lane runs to its end "
+                  "in registers; the longest lane's evaluations give the "
+                  "loop's E = k_chain * ceil(L / k_chain)",
+        "launches_bench_1024": star["counts"]["drain_launches"],
     }, *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
-// common.cuh — device helpers shared by the fastSK kernels (tailpk.cu,
-// fastbody.cu): the PCG generator, NaN-propagating min/max, the flight draw,
-// Henyey-Greenstein sampling, the turn of a direction after a scatter, and the
-// box's slab test.
+// common.cuh — device helpers shared by the kernels (tailpk.cu, fastbody.cu,
+// replaybody.cu): the PCG generator and masked draws, the path-id hash,
+// NaN-propagating min/max, float3 sums in the card's order, the flight draw,
+// Henyey-Greenstein sampling, the turn of a direction after a scatter, the
+// box's slab test and a brick's DDA exit, the GGX boundary event, the
+// stochastic tap, and a cascade stage's control words with the gate, the
+// last-block ticket and the drain's end of a launch (fastbody.cu,
+// replaybody.cu; the host side is ops/stages.py).
 //
 // Each follows the port's plain torch version operation by operation, so a
 // kernel built with -fmad=false and without --use_fast_math (utils/
@@ -122,6 +126,372 @@ __device__ __forceinline__ float dda_exit(const float bound[3], const float o[3]
     exit_t = jmin(exit_t, t_axis);
   }
   return jmax(exit_t, t_floor);
+}
+
+// ---- hashing, draws and small vectors --------------------------------------
+
+__device__ __forceinline__ uint32_t hash32(uint32_t x) {
+  x = x ^ (x >> 16);
+  x = x * 0x7FEB352Du;
+  x = x ^ (x >> 15);
+  x = x * 0x846CA68Bu;
+  x = x ^ (x >> 16);
+  return x;
+}
+
+// One masked draw: the lane's state steps, and its 32 bits.
+__device__ __forceinline__ uint32_t draw_bits(uint32_t& rs, uint32_t inc) {
+  rs = pcg_next(rs, inc);
+  return pcg_bits(rs);
+}
+__device__ __forceinline__ float draw_float(uint32_t& rs, uint32_t inc) {
+  rs = pcg_next(rs, inc);
+  return uniform(rs);
+}
+
+// math3.dot on the card: torch's CUDA sum over a last dim of 3 splits it over
+// two threads, (x0 + x2) + x1, from accumulators that start at +0 (so the sum
+// is never -0).
+__device__ __forceinline__ float sum3(float x0, float x1, float x2) {
+  return ((x0 + x2) + x1) + 0.0f;
+}
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return sum3(a[0] * b[0], a[1] * b[1], a[2] * b[2]);
+}
+// math3.normalize: a / max(sqrt(a . a), 1e-20)
+__device__ __forceinline__ void normalize3(const float a[3], float out[3]) {
+  const float n = jmax(sqrtf(dot3(a, a)), 1e-20f);
+  for (int k = 0; k < 3; ++k) out[k] = a[k] / n;
+}
+__device__ __forceinline__ void cross3(const float a[3], const float b[3], float out[3]) {
+  out[0] = a[1] * b[2] - a[2] * b[1];
+  out[1] = a[2] * b[0] - a[0] * b[2];
+  out[2] = a[0] * b[1] - a[1] * b[0];
+}
+// clamp(x, min=0): NaN stays NaN
+__device__ __forceinline__ float clamp0(float x) { return isnan(x) ? x : fmaxf(x, 0.0f); }
+// torch.sign on a float
+__device__ __forceinline__ float signf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// ---- GGX rough dielectric (ops/ggx.py) --------------------------------------
+
+// The BSDF's parameters: roughness (ax, ay), eta and its float32 reciprocal,
+// and the visible-normal sampler (Mitsuba's or Heitz's).
+struct Ggx {
+  float ax, ay, eta, inv_eta;
+  bool mitsuba;
+};
+
+// _sample_visible11: Mitsuba's slope sampling for alpha = 1.
+__device__ void sample_visible11(float theta, float s1, float s2, float& sx, float& sy_out) {
+  const float phi = (float)(2.0 * 3.1415926535897932384626433832795) * s2;
+  const float r_special = sqrtf(clamp0(s1 / jmax(1.0f - s1, 1e-20f)));
+  const float special_x = r_special * cosf(phi);
+  const float special_y = r_special * sinf(phi);
+  const bool is_special = theta < 1e-4f;
+  const float tan_theta = tanf(theta);
+  const float safe_tan = is_special ? 1.0f : tan_theta;
+  const float a = 1.0f + safe_tan * safe_tan;
+  const float g1 = (1.0f / (1.0f + sqrtf(a))) * 2.0f;
+  float big_a = ((2.0f * s1) / g1) - 1.0f;
+  if (fabsf(big_a) == 1.0f) big_a = big_a - signf(big_a) * EPS;
+  const float tmp = (1.0f / (big_a * big_a - 1.0f)) * 1.0f;
+  const float b = safe_tan;
+  const float dd = sqrtf(clamp0((b * b * tmp * tmp) - ((big_a * big_a - b * b) * tmp)));
+  const float sx1 = b * tmp - dd;
+  const float sx2 = b * tmp + dd;
+  const bool use_1 = big_a < 0.0f || sx2 > (1.0f / safe_tan) * 1.0f;
+  float slope_x = use_1 ? sx1 : sx2;
+  const float s_sign = s2 > 0.5f ? 1.0f : -1.0f;
+  const float sy = s2 > 0.5f ? 2.0f * (s2 - 0.5f) : 2.0f * (0.5f - s2);
+  const float z =
+      (sy * (sy * (sy * (float)(-0.365728915865723) + (float)0.790235037209296) -
+             (float)0.424965825137544) +
+       (float)0.000152998850436920) /
+      (sy * (sy * (sy * (sy * (float)0.169507819808272 - (float)0.397203533833404) -
+                   (float)0.232500544458471) +
+             1.0f) -
+       (float)0.539825872510702);
+  float slope_y = s_sign * z * sqrtf(1.0f + slope_x * slope_x);
+  if (is_special) {
+    slope_x = special_x;
+    slope_y = special_y;
+  }
+  sx = slope_x;
+  sy_out = slope_y;
+}
+
+__device__ void vndf_mitsuba(const float wi[3], float ax, float ay, float s1, float s2,
+                             float wh[3]) {
+  const float st[3] = {ax * wi[0], ay * wi[1], wi[2]};
+  float ws[3];
+  normalize3(st, ws);
+  const float wiz = jclip(ws[2], -1.0f, 1.0f);
+  const bool near_pole = wiz >= 0.999999f;
+  const float theta = near_pole ? 0.0f : acosf(wiz);
+  const float phi = near_pole ? 0.0f : atan2f(ws[1], ws[0]);
+  const float sin_phi = sinf(phi), cos_phi = cosf(phi);
+  float sx, sy;
+  sample_visible11(theta, s1, s2, sx, sy);
+  float rx = cos_phi * sx - sin_phi * sy;
+  float ry = sin_phi * sx + cos_phi * sy;
+  rx = rx * ax;
+  ry = ry * ay;
+  const float inv_norm = (1.0f / sqrtf(rx * rx + ry * ry + 1.0f)) * 1.0f;
+  wh[0] = -rx * inv_norm;
+  wh[1] = -ry * inv_norm;
+  wh[2] = inv_norm;
+}
+
+__device__ void vndf_heitz(const float wi[3], float ax, float ay, float s1, float s2,
+                           float wh[3]) {
+  const float PI_F = (float)3.1415926535897932384626433832795;
+  const float st[3] = {wi[0] * ax, wi[1] * ay, wi[2]};
+  float stretched[3];
+  normalize3(st, stretched);
+  const float z_axis[3] = {0.0f, 0.0f, 1.0f};
+  float c[3], t1[3], t2[3];
+  cross3(wi, z_axis, c);
+  normalize3(c, t1);
+  if (!(wi[2] < 0.9999f)) {
+    t1[0] = 1.0f;
+    t1[1] = 0.0f;
+    t1[2] = 0.0f;
+  }
+  cross3(t1, wi, t2);
+  const float a = (1.0f / (1.0f + wi[2])) * 1.0f;
+  const float r = sqrtf(s1);
+  const bool lower = s2 < a;
+  const float phi = lower ? s2 / jmax(a, 1e-12f) * PI_F
+                          : (s2 - a) / jmax(1.0f - a, 1e-12f) * PI_F + PI_F;
+  const float p1 = r * cosf(phi);
+  const float p2 = r * sinf(phi) * (lower ? 1.0f : wi[2]);
+  const float pz = sqrtf(clamp0(1.0f - p1 * p1 - p2 * p2));
+  float n[3];
+  for (int k = 0; k < 3; ++k) n[k] = p1 * t1[k] + p2 * t2[k] + pz * stretched[k];
+  const float m[3] = {ax * n[0], ay * n[1], clamp0(n[2])};
+  normalize3(m, wh);
+}
+
+// Smith G1 with projected roughness (ops/ggx.smith_g1, project_roughness).
+__device__ float smith_g1(float ax, float ay, const float v[3], const float m[3]) {
+  const float vz = v[2];
+  const bool back = dot3(v, m) * vz <= 0.0f;
+  const float temp = 1.0f - vz * vz;
+  const bool degenerate = temp <= 0.0f;
+  const float tan_v = fabsf(sqrtf(clamp0(temp)) / (vz == 0.0f ? 1.0f : vz));
+  const float inv_sin2 = (1.0f / jmax(1.0f - vz * vz, 1e-20f)) * 1.0f;
+  const float cos_phi2 = v[0] * v[0] * inv_sin2;
+  const float sin_phi2 = v[1] * v[1] * inv_sin2;
+  const float projected = sqrtf(cos_phi2 * ax * ax + sin_phi2 * ay * ay);
+  const bool iso = ax == ay || (1.0f - vz * vz) <= 0.0f;
+  const float proj = iso ? ax : projected;
+  const float root = proj * tan_v;
+  float g = (1.0f / (1.0f + sqrtf(1.0f + root * root))) * 2.0f;
+  if (tan_v == 0.0f) g = 1.0f;
+  if (degenerate) g = 0.0f;
+  if (back) g = 0.0f;
+  return g;
+}
+
+// ggx_sample: wo (local), weight, valid; draws s1, s2, then the choice.
+__device__ void ggx_sample(const Ggx& G, const float wi[3], uint32_t& rs, uint32_t inc,
+                           float wo[3], float& weight, bool& valid) {
+  const float ax = G.ax, ay = G.ay;
+  const float eta = G.eta, inv_eta = G.inv_eta;
+  const float ndotwi = wi[2];
+  const float sgn = ndotwi >= 0.0f ? 1.0f : -1.0f;
+  const float s1 = draw_float(rs, inc);
+  const float s2 = draw_float(rs, inc);
+  const float wis[3] = {sgn * wi[0], sgn * wi[1], sgn * wi[2]};
+  float wh[3];
+  if (G.mitsuba) {
+    vndf_mitsuba(wis, ax, ay, s1, s2, wh);
+  } else {
+    vndf_heitz(wis, ax, ay, s1, s2, wh);
+  }
+  const float whdotwi = dot3(wh, wi);
+  // fresnel_dielectric(eta, whdotwi)
+  const float scale = whdotwi > 0.0f ? inv_eta : eta;
+  const float sin_sqr = 1.0f - whdotwi * whdotwi;
+  const float ndotwt_sqr = 1.0f - sin_sqr * scale * scale;
+  const bool tir = ndotwt_sqr <= 0.0f;
+  const float abs_i = fabsf(whdotwi);
+  const float abs_t = sqrtf(clamp0(ndotwt_sqr));
+  const float rs_ = (abs_i - eta * abs_t) / (abs_i + eta * abs_t);
+  const float rp_ = (eta * abs_i - abs_t) / (eta * abs_i + abs_t);
+  float f = 0.5f * (rs_ * rs_ + rp_ * rp_);
+  float whdotwt = whdotwi > 0.0f ? -abs_t : abs_t;
+  if (tir) {
+    f = 1.0f;
+    whdotwt = 0.0f;
+  }
+  if (eta == 1.0f) {
+    f = 0.0f;
+    whdotwt = -whdotwi;
+  }
+  const float u_choice = draw_float(rs, inc);
+  const bool choose_reflect = u_choice <= f;
+  float wr[3], wt[3];
+  for (int k = 0; k < 3; ++k) wr[k] = 2.0f * whdotwi * wh[k] - wi[k];
+  const bool reflect_valid = ndotwi * wr[2] > 0.0f;
+  const float eta_used = whdotwt < 0.0f ? inv_eta : eta;
+  const float kk = whdotwi * eta_used + whdotwt;
+  for (int k = 0; k < 3; ++k) wt[k] = wh[k] * kk - wi[k] * eta_used;
+  const bool refract_valid = whdotwt != 0.0f && ndotwi * wt[2] < 0.0f;
+  for (int k = 0; k < 3; ++k) wo[k] = choose_reflect ? wr[k] : wt[k];
+  valid = (choose_reflect ? reflect_valid : refract_valid) && ndotwi != 0.0f;
+  weight = valid ? smith_g1(ax, ay, wo, wh) : 0.0f;
+}
+
+// integrator.boundary_event at o + d * tb with the cached face normal nrm: the
+// GGX sample in the normal's frame (ggx) or the null BSDF's pass-through.  A
+// valid sample moves o off the surface along the new direction and weights
+// tp; an invalid one leaves d and tp and puts o on the surface.
+__device__ __forceinline__ void boundary_event(bool ggx, const Ggx& G, const float nrm[3],
+                                               float tb, float o[3], float d[3], float tp[3],
+                                               uint32_t& rs, uint32_t inc) {
+  float o_bound[3];
+  for (int k = 0; k < 3; ++k) o_bound[k] = o[k] + d[k] * tb;
+  float d_bsdf[3];
+  float weight = 1.0f;
+  bool valid = true;
+  if (ggx) {
+    // the frame from the cached face normal
+    float zn[3], helper[3], c[3], fy[3], fx[3], nd[3], v[3], wi[3], wo[3];
+    normalize3(nrm, zn);
+    const bool helper_is_y = fabsf(zn[0]) > 0.99f;
+    helper[0] = helper_is_y ? 0.0f : 1.0f;
+    helper[1] = helper_is_y ? 1.0f : 0.0f;
+    helper[2] = 0.0f;
+    cross3(zn, helper, c);
+    normalize3(c, fy);
+    cross3(fy, zn, fx);
+    for (int k = 0; k < 3; ++k) nd[k] = -d[k];
+    normalize3(nd, v);
+    wi[0] = dot3(v, fx);
+    wi[1] = dot3(v, fy);
+    wi[2] = dot3(v, zn);
+    ggx_sample(G, wi, rs, inc, wo, weight, valid);
+    for (int k = 0; k < 3; ++k) d_bsdf[k] = wo[0] * fx[k] + wo[1] * fy[k] + wo[2] * zn[k];
+  } else {
+    for (int k = 0; k < 3; ++k) d_bsdf[k] = d[k];
+  }
+  for (int k = 0; k < 3; ++k) {
+    o[k] = valid ? o_bound[k] + d_bsdf[k] * EPS : o_bound[k];
+    if (valid) {
+      d[k] = d_bsdf[k];
+      tp[k] = tp[k] * weight;
+    }
+  }
+}
+
+// ---- the stochastic tap (models/fast.py _stochastic_tap) --------------------
+
+// brick-major layout (models/fast.py _BM_BRICK = (8, 8, 128), z, y, x)
+constexpr int BM_SZ = 3, BM_SY = 3, BM_SX = 7;
+
+// The flat table index of the stochastic tap at o + t d (bits: the tap draw)
+// in a grid of n = (nx, ny, nz) voxels over the box at bmin with extent ext
+// (rm1 = n - 1 as floats), row-major or brick-major.
+__device__ __forceinline__ long long tap_flat(const float bmin[3], const float ext[3],
+                                              const float rm1[3], const long long n[3],
+                                              bool brick_major, const float o[3],
+                                              const float d[3], float t, uint32_t bits) {
+  long long idx[3];
+  for (int a = 0; a < 3; ++a) {
+    const float p = o[a] + t * d[a];
+    const float coord = jclip((p - bmin[a]) / ext[a], 0.0f, 1.0f) * rm1[a];
+    const float c0 = floorf(coord);
+    const float frac = coord - c0;
+    const float u = (float)((bits >> (10 * a)) & 0x3FFu) * (1.0f / 1024.0f);
+    const long long tap = (long long)c0 + (u < frac ? 1 : 0);
+    idx[a] = tap < 0 ? 0 : (tap > n[a] - 1 ? n[a] - 1 : tap);
+  }
+  if (!brick_major) return (idx[2] * n[1] + idx[1]) * n[0] + idx[0];
+  return (((idx[2] >> BM_SZ) * (n[1] >> BM_SY) + (idx[1] >> BM_SY)) * (n[0] >> BM_SX) +
+          (idx[0] >> BM_SX)) * (8 * 8 * 128) +
+         (((idx[2] & 7) << (BM_SY + BM_SX)) + ((idx[1] & 7) << BM_SX) + (idx[0] & 127));
+}
+
+// ---- a cascade stage's control words (ops/stages.py) -----------------------
+
+// int64 words: the evaluations run (gated: before this launch; drain: before
+// this launch, then after it), the last count of pending (fastbody) or alive
+// (replaybody) lanes (gated; the replay's drain reads the stage's count
+// there), the drain's longest finished lane, its accumulators (lanes left at
+// the cap, the most evaluations a lane ran in the launch, the block ticket),
+// the lanes left after a drain launch and the stage's evaluations once no
+// lane is left.
+enum {
+  C_EVAL = 0, C_COUNT, C_LMAX, C_LEFT_ACC, C_JMAX, C_TICKET, C_LEFT, C_TOTAL,
+  N_CTRL,
+};
+
+// A gated launch: whether the stage's loop stopped before it, tested where
+// the loop tests it (at a chain's start, with the count at or under the
+// threshold).  Every block reads the same words (the last launch left them),
+// so all return or none does.
+__device__ __forceinline__ bool stage_stopped(const long long* ctrl, long long chain,
+                                              long long thresh) {
+  return ctrl[C_EVAL] % chain == 0 && ctrl[C_COUNT] <= thresh;
+}
+
+// Thread 0 of a block whose sums are in: whether the block is the grid's last
+// to take a ticket, and so sees every block's sums.
+__device__ __forceinline__ bool last_block(unsigned long long* ticket) {
+  __threadfence();
+  if (atomicAdd(ticket, 1ull) != gridDim.x - 1) return false;
+  __threadfence();
+  return true;
+}
+
+// The drain's sums of one launch, as the last block reads them.
+struct DrainEnd {
+  long long left;   // lanes left at the cap
+  long long jmax;   // the most evaluations a lane ran in the launch
+  long long total;  // E = chain * ceil(L / chain) once no lane is left, else -1
+};
+
+// The end of a drain launch, called by every thread: j, its lane's
+// evaluations in this launch (from evaluation e0 of the stage), `left` and
+// `finished` whether the lane is still pending or ended in the launch.  True
+// for thread 0 of the last block, with the launch's sums in `end` and, once
+// no lane is left, C_TOTAL written.
+__device__ __forceinline__ bool drain_end(unsigned long long* ctrl, long long e0,
+                                          long long chain, int j, bool left,
+                                          bool finished, DrainEnd& end) {
+  __shared__ int s_j, s_l;
+  if (threadIdx.x == 0) s_j = s_l = 0;
+  __syncthreads();
+  if (j > 0) atomicMax(&s_j, j);
+  if (finished) atomicMax(&s_l, j);
+  const int n_left = __syncthreads_count(left);
+  if (threadIdx.x != 0) return false;
+  atomicAdd(ctrl + C_LEFT_ACC, (unsigned long long)n_left);
+  atomicMax(ctrl + C_JMAX, (unsigned long long)s_j);
+  if (s_l > 0) atomicMax(ctrl + C_LMAX, (unsigned long long)(e0 + s_l));
+  if (!last_block(ctrl + C_TICKET)) return false;
+  end.left = (long long)atomicAdd(ctrl + C_LEFT_ACC, 0ull);
+  end.jmax = (long long)atomicAdd(ctrl + C_JMAX, 0ull);
+  end.total = -1;
+  if (end.left == 0) {
+    const long long lmax = (long long)atomicAdd(ctrl + C_LMAX, 0ull);
+    end.total = (lmax + chain - 1) / chain * chain;
+    ctrl[C_TOTAL] = (unsigned long long)end.total;
+  }
+  return true;
+}
+
+// The last block's close of a drain launch of at most `cap` evaluations per
+// lane: the words the host reads, and the accumulators zero again.
+__device__ __forceinline__ void drain_close(unsigned long long* ctrl, long long e0,
+                                            long long cap, long long left) {
+  ctrl[C_EVAL] = (unsigned long long)(e0 + cap);
+  ctrl[C_LEFT] = (unsigned long long)left;
+  ctrl[C_LEFT_ACC] = ctrl[C_JMAX] = ctrl[C_TICKET] = 0ull;
 }
 
 }  // namespace cvr

@@ -23,14 +23,17 @@ decisions are detached too, so gradient checks turn RR off.
 
 Port notes: the custom_vjp is a torch.autograd.Function called through
 render_diff.  The lax.while_loops are host loops: the Woodcock loops and
-the fused replay read their condition once every WOODCOCK_CHECK_EVERY and
-CHECK_EVERY steps (a step on which no lane runs changes nothing, and a
-fused-replay lane
-advances one step per evaluation whatever pool it is in), the bounce
-loops once per bounce.  `.at[].add` is `index_add_`; a lane that adds
-nothing adds 0.0 to row 0 instead of being dropped, which leaves every
-sum as it is.  On the card index_add_ adds with atomics, so cotangents
-agree with the CPU's to float-summation order.  The module globals
+the fused replay's plain version read their condition once every
+WOODCOCK_CHECK_EVERY and CHECK_EVERY steps (a step on which no lane runs
+changes nothing, and a fused-replay lane advances one step per
+evaluation whatever pool it is in), the bounce loops once per bounce.
+On the card the fused replay's stages run through csrc/replaybody.cu
+(ops/replaybody.run_stage), which stops where that loop stops.
+`.at[].add` is `index_add_`; a lane that adds nothing adds 0.0 to row 0
+instead of being dropped, which leaves every sum as it is.  On the card
+index_add_ and the kernel add with atomics, so cotangents agree with the
+CPU's to float-summation order, unless
+torch.use_deterministic_algorithms is on.  The module globals
 DIFF_MAX_BRICKS, DIFF_CASCADE_FACTOR and REPLAY_CASCADE are the keyword
 arguments max_bricks, cascade_factor and cascade, with the same
 defaults.
@@ -39,12 +42,13 @@ defaults.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, phase
+from ..ops import aabb, camera as cam, phase, replaybody
 from ..ops.grid import Grid, _to_index, sample, volume_to_grid
 from ..ops.rng import RngState, make_rng, next_float, next_uint32
 from ..scene.types import (
@@ -352,6 +356,8 @@ class _Step(NamedTuple):
     tap_flat: torch.Tensor
     overran_step: torch.Tensor
     overran_empty: torch.Tensor
+    need_brick: torch.Tensor
+    bflat: torch.Tensor
 
 
 def _track_step(scene, geo: _Geometry, o, d, running, t, brick_exit,
@@ -439,7 +445,7 @@ def _track_step(scene, geo: _Geometry, o, d, running, t, brick_exit,
     )
     brick_exit = torch.where(probe_empty, -1.0, brick_exit)
     return _Step(t, brick_exit, inv_sig, rho_loc, rng, inside, accepted, rho,
-                 tap_flat, overran_step, overran_empty)
+                 tap_flat, overran_step, overran_empty, need_brick, bflat)
 
 
 def _record_density(dd, s: _Step, s_lane):
@@ -555,10 +561,125 @@ class _Lanes(NamedTuple):
     g_lane: torch.Tensor
 
 
+def _replay_body(scene, settings, geo: _Geometry, record, dd, da, c: _Lanes,
+                 taps=None) -> _Lanes:
+    """One evaluation of the fused replay's per-lane state machine (the
+    plain version of csrc/replaybody.cu): a lane starts a segment (AABB
+    intersect), advances one tracking step, or applies its scatter or
+    boundary event, then Russian roulette and the bounce cap.  With
+    record, the adjoints are added into dd and da in place.  `taps`, when
+    a list, gains ("tap", flat density indices), ("brick", brick rows) and
+    ("albedo", albedo rows) of the lanes that read them, and ("state", the
+    lanes that read and that change each per-lane field)
+    (ops/replaybody.replay_bytes)."""
+    med = scene.medium
+    cap = settings.max_path_length
+    # -- A: segment start (the nested bounce preamble) --------------------
+    start = c.alive & ~c.seg
+    isect = aabb.aabb_intersect(med.box_min, med.box_max, c.o, c.d)
+    miss = start & ~isect.hit
+    rad = torch.where(miss[:, None], c.rad + c.tput * scene.le, c.rad)
+    alive = c.alive & ~miss
+    st2 = start & isect.hit
+    seg = c.seg | st2
+    t = torch.where(st2, 0.0, c.t)
+    brick_exit = torch.where(st2, -1.0, c.brick_exit)
+    inv_sig = torch.where(st2, 0.0, c.inv_sig)
+    rho_loc = torch.where(st2, 0.0, c.rho_loc)
+    max_t = torch.where(st2, isect.dist, c.max_t)
+    normal = torch.where(st2[:, None], isect.normal, c.normal)
+    in_med = torch.where(st2, isect.inside_volume, c.in_med)
+    # entering from outside: no tracking — straight to boundary
+    imm_bnd = st2 & ~isect.inside_volume
+
+    # -- B: one two-level tracking step -----------------------------------
+    o, d, tput = c.o, c.d, c.tput
+    running = seg & alive & in_med
+    s = _track_step(scene, geo, o, d, running, t, brick_exit, inv_sig,
+                    rho_loc, max_t, c.rng)
+    t, brick_exit, inv_sig, rho_loc, rng = s[:5]
+    if record:
+        _record_density(dd, s, c.s_lane)
+
+    # -- C: events for lanes whose segment just completed -----------------
+    scat_now = s.accepted
+    trk_done = s.accepted | s.overran_step | s.overran_empty
+    bnd_now = (trk_done & ~s.accepted) | imm_bnd
+    done_now = trk_done | imm_bnd
+    seg = seg & ~done_now
+
+    o_bound = o + d * max_t[:, None]
+    o_b, d_b, t_b, rng = integrator.boundary_event(
+        scene, settings, normal, o_bound, d, tput, rng, bnd_now
+    )
+
+    alb_idx = torch.zeros_like(s.tap_flat) if geo.const_alb else s.tap_flat
+    albedo = geo.albedo_flat[torch.where(scat_now, alb_idx, 0)][:, :3]
+    if record:
+        _record_albedo(da, geo, c.g_lane, albedo, scat_now, alb_idx)
+    d_s, rng = phase.sample_phase(d, med.g, rng, active=scat_now)
+
+    o_s = o + d * t[:, None] - d * EPSILON
+    sc, bd = scat_now[:, None], bnd_now[:, None]
+    o = torch.where(sc, o_s, torch.where(bd, o_b, o))
+    d = torch.where(sc, d_s, torch.where(bd, d_b, d))
+    tput = torch.where(sc, tput * albedo, torch.where(bd, t_b, tput))
+
+    if settings.russian_roulette:
+        tput, alive, _, rng = integrator.russian_roulette(
+            tput, alive, rng, done_now & alive
+        )
+
+    bounce = torch.where(done_now, c.bounce + 1, c.bounce)
+    alive = alive & ~(done_now & (bounce >= cap))
+    new = _Lanes(o, d, tput, rad, alive, rng, bounce, seg, in_med, t,
+                 brick_exit, inv_sig, rho_loc, max_t, normal, c.lane_id,
+                 c.s_lane, c.g_lane)
+    if taps is not None:
+        # the lanes whose evaluation reads each field before it writes it
+        ggx = settings.bsdf_kind == "ggx"
+        none = torch.zeros_like(c.alive)
+        in_seg = running & ~st2  # a segment that began before
+        no_probe = running & ~s.need_brick
+        reads = {
+            "alive": torch.ones_like(c.alive), "seg": c.alive,
+            "in_med": c.alive & c.seg, "o": start | running,
+            "d": start | running,
+            "tput": (miss | scat_now | (bnd_now if ggx else none)
+                     | (done_now if settings.russian_roulette else none)),
+            "rad": miss, "normal": bnd_now & ~st2 if ggx else none,
+            "t": in_seg, "brick_exit": in_seg, "max_t": in_seg,
+            "inv_sig": no_probe,
+            "rho_loc": (no_probe & s.inside & ~s.accepted if record
+                        else none),
+            "bounce": done_now,
+            "s_lane": s.inside if record else none,
+            "g_lane": scat_now if record else none,
+        }
+        taps += [("tap", s.tap_flat[s.inside]),
+                 ("brick", s.bflat[s.need_brick]),
+                 ("albedo", alb_idx[scat_now]),
+                 ("state", replaybody.lane_traffic(c, new, reads))]
+    return new
+
+
+def replay_context(scene, settings, tables, record, d_density=None,
+                   d_albedo=None) -> replaybody.ReplayContext:
+    """The replay kernel's context for `scene` and its brick tables; its
+    plain version is the eager body, adding into d_density and d_albedo
+    with record."""
+    geo = _geometry(scene, tables)
+    return replaybody.make_context(
+        scene, settings, geo, record, d_density, d_albedo,
+        functools.partial(_replay_body, scene, settings, geo, record,
+                          d_density, d_albedo),
+    )
+
+
 def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
                      record, d_density0, d_albedo0, tables,
                      cascade=True, cascade_factor=2, min_width=None,
-                     check_every=CHECK_EVERY, stats=None):
+                     check_every=CHECK_EVERY, stats=None, eager_body=False):
     """Fused single-loop two-level replay with cascade tail compaction.
 
     One loop over steps with a per-lane state machine (the fastSK
@@ -572,76 +693,19 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     lane-id-indexed output buffers and survivors are stably compacted
     into the narrower pool.  The RNG travels with the lane.
 
+    Each stage runs through ops/replaybody.run_stage on the card
+    (csrc/replaybody.cu: gated chains of one-evaluation launches, the last
+    stage one drain launch) and through the eager body, `_replay_body`,
+    on the CPU or with eager_body=True (replaybody.loop_stage: the
+    alive count read every check_every evaluations).
+
     `stats`, when a dict, gains "iterations" (body evaluations) and
     "rows" (their summed pool widths)."""
-    med = scene.medium
-    geo = _geometry(scene, tables)
     dev = o0.device
     n_total = o0.shape[0]
-    cap = settings.max_path_length
     dd, da = d_density0, d_albedo0
-
-    def body(c: _Lanes) -> _Lanes:
-        # -- A: segment start (the nested bounce preamble) ----------------
-        start = c.alive & ~c.seg
-        isect = aabb.aabb_intersect(med.box_min, med.box_max, c.o, c.d)
-        miss = start & ~isect.hit
-        rad = torch.where(miss[:, None], c.rad + c.tput * scene.le, c.rad)
-        alive = c.alive & ~miss
-        st2 = start & isect.hit
-        seg = c.seg | st2
-        t = torch.where(st2, 0.0, c.t)
-        brick_exit = torch.where(st2, -1.0, c.brick_exit)
-        inv_sig = torch.where(st2, 0.0, c.inv_sig)
-        rho_loc = torch.where(st2, 0.0, c.rho_loc)
-        max_t = torch.where(st2, isect.dist, c.max_t)
-        normal = torch.where(st2[:, None], isect.normal, c.normal)
-        in_med = torch.where(st2, isect.inside_volume, c.in_med)
-        # entering from outside: no tracking — straight to boundary
-        imm_bnd = st2 & ~isect.inside_volume
-
-        # -- B: one two-level tracking step -------------------------------
-        o, d, tput = c.o, c.d, c.tput
-        s = _track_step(scene, geo, o, d, seg & alive & in_med, t,
-                        brick_exit, inv_sig, rho_loc, max_t, c.rng)
-        t, brick_exit, inv_sig, rho_loc, rng = s[:5]
-        if record:
-            _record_density(dd, s, c.s_lane)
-
-        # -- C: events for lanes whose segment just completed -------------
-        scat_now = s.accepted
-        trk_done = s.accepted | s.overran_step | s.overran_empty
-        bnd_now = (trk_done & ~s.accepted) | imm_bnd
-        done_now = trk_done | imm_bnd
-        seg = seg & ~done_now
-
-        o_bound = o + d * max_t[:, None]
-        o_b, d_b, t_b, rng = integrator.boundary_event(
-            scene, settings, normal, o_bound, d, tput, rng, bnd_now
-        )
-
-        alb_idx = torch.zeros_like(s.tap_flat) if geo.const_alb else s.tap_flat
-        albedo = geo.albedo_flat[torch.where(scat_now, alb_idx, 0)][:, :3]
-        if record:
-            _record_albedo(da, geo, c.g_lane, albedo, scat_now, alb_idx)
-        d_s, rng = phase.sample_phase(d, med.g, rng, active=scat_now)
-
-        o_s = o + d * t[:, None] - d * EPSILON
-        sc, bd = scat_now[:, None], bnd_now[:, None]
-        o = torch.where(sc, o_s, torch.where(bd, o_b, o))
-        d = torch.where(sc, d_s, torch.where(bd, d_b, d))
-        tput = torch.where(sc, tput * albedo, torch.where(bd, t_b, tput))
-
-        if settings.russian_roulette:
-            tput, alive, _, rng = integrator.russian_roulette(
-                tput, alive, rng, done_now & alive
-            )
-
-        bounce = torch.where(done_now, c.bounce + 1, c.bounce)
-        alive = alive & ~(done_now & (bounce >= cap))
-        return _Lanes(o, d, tput, rad, alive, rng, bounce, seg, in_med, t,
-                      brick_exit, inv_sig, rho_loc, max_t, normal, c.lane_id,
-                      c.s_lane, c.g_lane)
+    ctx = replay_context(scene, settings, tables, record, dd, da)
+    use_kernel = replaybody.route(dev.type, eager_body)
 
     if cascade:
         widths = fast._cascade_widths(
@@ -656,21 +720,23 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     outs = [torch.zeros((n_total + 1, 3), dtype=torch.float32, device=dev)
             for _ in range(4)]
 
-    zero1 = torch.zeros((n_total,), dtype=torch.float32, device=dev)
-    zerob = torch.zeros((n_total,), dtype=torch.bool, device=dev)
+    # every per-lane field its own contiguous tensor: the kernel updates
+    # the pool in place
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((n_total,) + shape, dtype=dtype, device=dev)
+
     carry = _Lanes(
-        o=o0, d=d0,
+        o=o0.contiguous().clone(), d=d0.contiguous().clone(),
         tput=torch.ones((n_total, 3), dtype=torch.float32, device=dev),
-        rad=torch.zeros((n_total, 3), dtype=torch.float32, device=dev),
+        rad=zeros(3),
         alive=torch.ones((n_total,), dtype=torch.bool, device=dev),
-        rng=rng0,
-        bounce=torch.zeros((n_total,), dtype=torch.int64, device=dev),
-        seg=zerob, in_med=zerob,
-        t=zero1, brick_exit=zero1 - 1.0, inv_sig=zero1, rho_loc=zero1,
-        max_t=zero1,
-        normal=torch.zeros((n_total, 3), dtype=torch.float32, device=dev),
+        rng=RngState(rng0.state.contiguous().clone(), rng0.inc.contiguous()),
+        bounce=zeros(dtype=torch.int64),
+        seg=zeros(dtype=torch.bool), in_med=zeros(dtype=torch.bool),
+        t=zeros(), brick_exit=zeros() - 1.0, inv_sig=zeros(), rho_loc=zeros(),
+        max_t=zeros(), normal=zeros(3),
         lane_id=torch.arange(n_total, dtype=torch.int64, device=dev),
-        s_lane=s_lane, g_lane=g_lane,
+        s_lane=s_lane.contiguous(), g_lane=g_lane.contiguous(),
     )
 
     def flush(c: _Lanes):
@@ -685,11 +751,14 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     for stage, width in enumerate(widths):
         last = stage == len(widths) - 1
         thresh = 0 if last else widths[stage + 1]
-        while int(torch.count_nonzero(carry.alive)) > thresh:
-            for _ in range(check_every):
-                carry = body(carry)
-            n_iter += check_every
-            rows += check_every * width
+        if use_kernel:
+            carry, n = replaybody.run_stage(ctx, carry, thresh, check_every,
+                                            last)
+        else:
+            carry, n = replaybody.loop_stage(ctx, carry, thresh, check_every,
+                                             replaybody.plain_body)
+        n_iter += n
+        rows += n * width
         flush(carry)
         if not last:
             order = torch.argsort((~carry.alive).to(torch.int32), stable=True)
@@ -712,17 +781,18 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
 def _replay(scene, settings, o0, d0, rng0, s_lane, g_lane, record,
             d_density0, d_albedo0, tables=None, fused=True, cascade=True,
             cascade_factor=2, min_width=None, check_every=CHECK_EVERY,
-            stats=None):
+            stats=None, eager_body=False):
     """Replay every lane's path: the fused two-level replay (tables given,
-    fused=True), or the bounce-lockstep nested replay, one- or
-    two-level.  With record=True the adjoints are added into d_density0
-    and d_albedo0 in place; with record=False they are not touched."""
+    fused=True; on the card through csrc/replaybody.cu unless eager_body),
+    or the bounce-lockstep nested replay, one- or two-level (eager).  With
+    record=True the adjoints are added into d_density0 and d_albedo0 in
+    place; with record=False they are not touched."""
     if tables is not None and fused:
         return _replay_2l_fused(
             scene, settings, o0, d0, rng0, s_lane, g_lane, record,
             d_density0, d_albedo0, tables, cascade=cascade,
             cascade_factor=cascade_factor, min_width=min_width,
-            check_every=check_every, stats=stats,
+            check_every=check_every, stats=stats, eager_body=eager_body,
         )
     n = o0.shape[:-1]
     dev = o0.device
@@ -762,7 +832,7 @@ def _lane_setup(camera_obj: cam.Camera, resolution, spp, seed):
 
 def _primal_2l(scene, cam_obj, settings, resolution, spp, seed,
                density_data, albedo_data, max_bricks=None, cascade=True,
-               cascade_factor=2, stats=None):
+               cascade_factor=2, stats=None, eager_body=False):
     """Two-level primal: (image, per-lane radiance).  The single source
     of the primal estimator for render_diff's forward — the backward's
     pass-A elision is correct because the saved radiance IS this
@@ -776,7 +846,7 @@ def _primal_2l(scene, cam_obj, settings, resolution, spp, seed,
         torch.zeros((n_lanes,), dtype=torch.float32, device=dev),
         torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev),
         False, None, None, tables, cascade=cascade,
-        cascade_factor=cascade_factor, stats=stats,
+        cascade_factor=cascade_factor, stats=stats, eager_body=eager_body,
     )
     img = naive.splat(image_id, out.radiance, (tw, th))
     return img, out.radiance
@@ -792,12 +862,13 @@ class _RenderDiff(torch.autograd.Function):
         dev = density.device
         scene = scene_spec.build(density, albedo, device=dev)
         cam_obj = camera if camera is not None else camera_spec.build(dev)
-        max_bricks, cascade_factor, cascade, stats = opts
+        max_bricks, cascade_factor, cascade, stats, eager_body = opts
         if two_level:
             primal = {} if stats is not None else None
             img, radiance = _primal_2l(
                 scene, cam_obj, settings, resolution, spp, seed, density,
                 albedo, max_bricks, cascade, cascade_factor, primal,
+                eager_body,
             )
             if stats is not None:
                 stats.setdefault("primal_iters", []).append(primal["iterations"])
@@ -820,14 +891,15 @@ class _RenderDiff(torch.autograd.Function):
         density, albedo, *c_saved = ctx.saved_tensors
         (seed, scene_spec, cam_obj, settings, resolution, spp, two_level,
          opts) = ctx.args
-        max_bricks, cascade_factor, cascade, stats = opts
+        max_bricks, cascade_factor, cascade, stats, eager_body = opts
         dev = density.device
         scene = scene_spec.build(density.detach(), albedo.detach(), device=dev)
         tables = _build_brick_tab(density, max_bricks) if two_level else None
         n_lanes, image_id, o0, d0, rng = _lane_setup(
             cam_obj, resolution, spp, seed
         )
-        replay = dict(cascade=cascade, cascade_factor=cascade_factor)
+        replay = dict(cascade=cascade, cascade_factor=cascade_factor,
+                      eager_body=eager_body)
         if c_saved:
             c_lane = c_saved[0]  # the primal's own radiance: no pass A
         else:
@@ -873,6 +945,7 @@ def render_diff(
     cascade_factor: float = 2,
     cascade: bool = True,
     stats: Optional[dict] = None,
+    eager_body: bool = False,
 ) -> torch.Tensor:
     """Differentiable render: the (H, W, 3) image (the sum of spp samples
     per pixel) from the grid parameters, on their device.
@@ -884,9 +957,11 @@ def render_diff(
     fast.pick_brick's default); cascade and cascade_factor shape the
     fused replay's pools.  `stats`, when a dict, gains the fused replay's
     body evaluations per call: "primal_iters" (forward) and
-    "pass_b_iters" (backward)."""
+    "pass_b_iters" (backward).  On the card the fused replay runs through
+    csrc/replaybody.cu; eager_body=True runs its eager body instead (the
+    plain version the kernel is held against)."""
     return _RenderDiff.apply(
         density_data, albedo_data, seed, scene_spec, camera_spec, settings,
         tuple(resolution), spp, two_level, camera,
-        (max_bricks, cascade_factor, cascade, stats),
+        (max_bricks, cascade_factor, cascade, stats, eager_body),
     )

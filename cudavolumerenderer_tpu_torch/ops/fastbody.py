@@ -11,23 +11,27 @@ speculative tail steps and the deferred GGX flush stay eager: `route`).
 This module holds the gate (`route`), the kernel's parameter vectors
 (`make_context`, `stage_context`), the wrapper `run_body` (the plain
 version, the eager body, for CPU tensors; the kernel for CUDA tensors, or
-it raises) and the bound (`body_bytes`).  The kernel updates the state's
-per-lane tensors in place unless it is given `out`, and returns fresh
-0-d counters (n_rays, n_rows, n_busy) and the pool's pending count.
+it raises), the stage runners (`loop_stage`, `run_stage`; gated chains and
+the drain in ops/stages.py) and the bound (`body_bytes`).  The kernel
+updates the state's per-lane tensors in place unless it is given `out`,
+and returns fresh 0-d counters (n_rays, n_rows, n_busy) and the pool's
+pending count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from . import stages
 from .rng import M32, as_u32, mul32
+from .stages import C_COUNT, DRAIN_CAP, GATED_BATCH, N_CTRL
+from .stages import f32 as _f32
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastbody.cu"
 
@@ -78,17 +82,6 @@ S_PENDING, S_SCRATCH = S_COUNTS + 1, S_COUNTS + 2
  S_EVALS) = range(S_SCRATCH + 1, S_SCRATCH + 8)
 N_S = S_EVALS + 1
 
-# A stage's control words (csrc/fastbody.cu C_*, int64).
-(C_EVAL, C_PEND, C_LMAX, C_LEFT_ACC, C_JMAX, C_TICKET, C_LEFT, C_TOTAL,
- N_CTRL) = range(9)
-
-#: evaluations enqueued per host read in a gated stage (rounded up to a
-#: whole number of chains)
-GATED_BATCH = 32
-#: the drain's evaluations per lane and launch (its per-evaluation count
-#: arrays hold this many); a lane at the cap is stored, and the host
-#: launches again
-DRAIN_CAP = 8192
 #: the drain's threads per block: a narrow pool in small blocks spreads
 #: over the SMs (32, 64, 128 and 256 time alike on config 2's last pool,
 #: chip_smoke.py phase 22)
@@ -142,13 +135,6 @@ class BodyContext:
     tile_offset: Optional[torch.Tensor]  # (T, 2), multi-tile mode
     bases: Optional[torch.Tensor]  # (T,) int64, multi-tile mode
     plain: Optional[Callable] = None
-
-
-def _f32(x) -> np.ndarray:
-    """A tensor's (or number's) float32 values on the host."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).numpy().reshape(-1)
-    return np.asarray(x, np.float32).reshape(-1)
 
 
 def make_context(scene, camera, settings, full_resolution, tile_dim,
@@ -247,56 +233,14 @@ def stage_context(ctx: BodyContext, bt: Optional[dict], single_level: bool,
                                plain=plain)
 
 
-class FastBodyKernel:
-    """The CUDA body kernels: built from csrc/fastbody.cu at first use,
-    launched through their C entry points, and counted.  `launches` counts
-    body_kernel launches made now (one evaluation each, or a gated one
-    that may return untouched); a launch recorded into a CUDA graph being
-    captured counts in `captured` instead.  `drain_launches` counts
-    drain_kernel launches, `reads` the host's reads of a stage's control
-    words or pending count (loop_stage's too), `enqueue_s` the host's
-    seconds in gated stages' enqueue loops, and `last_drain` holds the
-    last drain's longest lane L, its evaluations E, launches and block
+class FastBodyKernel(stages.BodyKernel):
+    """The CUDA body kernels, built from csrc/fastbody.cu at first use and
+    counted (stages.BodyKernel); `last_drain` also holds the drain's block
     size."""
 
     def __init__(self):
-        self.launches = 0  # CUDA launches; the plain version is not counted
-        self.captured = 0
-        self.drain_launches = 0
-        self.reads = 0
-        self.enqueue_s = 0.0  # host seconds in gated stages' enqueue loops
-        self.last_drain = None
-        self._built = None
-        self._scratch = {}  # device -> (4,) int64 zeros the kernel reuses
-        self._evals = {}  # (device, cap) -> (2 cap,) int32 zeros (the drain)
-
-    def library(self):
-        """Build (or reuse) and load the kernel library; returns the
-        utils.cuda_build.BuiltLibrary."""
-        if self._built is None:
-            from ..utils import cuda_build  # noqa: PLC0415
-
-            built = cuda_build.build_library(_SOURCE)
-            args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            built.lib.fastbody_launch.argtypes = args + [ctypes.c_void_p]
-            built.lib.fastbody_drain.argtypes = args + [ctypes.c_int,
-                                                        ctypes.c_void_p]
-            built.lib.fastbody_launch.restype = ctypes.c_int
-            built.lib.fastbody_drain.restype = ctypes.c_int
-            sizes = (ctypes.c_int * 4)()
-            built.lib.fastbody_layout(sizes)
-            if tuple(sizes) != (N_FP, N_IP, N_S, N_CTRL):
-                raise RuntimeError(
-                    f"fastbody: csrc/fastbody.cu's layout {tuple(sizes)} is "
-                    f"not ops/fastbody.py's {(N_FP, N_IP, N_S, N_CTRL)}")
-            self._built = built
-        return self._built
-
-    def scratch(self, dev) -> torch.Tensor:
-        if dev not in self._scratch:
-            self._scratch[dev] = torch.zeros(4, dtype=torch.int64, device=dev)
-        return self._scratch[dev]
+        super().__init__("fastbody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL),
+                         drain_argtypes=(ctypes.c_int,))
 
     def _pointers(self, ctx: BodyContext, s, out, counts, pending, ctrl=None,
                   evals=None):
@@ -306,13 +250,13 @@ class FastBodyKernel:
         `pending` (a 0-d int64 tensor, or None)."""
         width = s.alive.shape[0]
         dev = s.alive.device
-        fields = [_lane_field(s, name) for name in LANE_FIELDS]
-        outs = [_lane_field(out, name) for name in LANE_FIELDS]
+        fields = [stages.lane_field(s, name) for name in LANE_FIELDS]
+        outs = [stages.lane_field(out, name) for name in LANE_FIELDS]
         for name, x, y in zip(LANE_FIELDS, fields, outs):
             _check(name, x, width, dev)
             if y is not x:
                 _check(name, y, width, dev)
-                if _overlaps(x, y):
+                if stages.overlaps(x, y):
                     raise ValueError(
                         f"fastbody: out.{name} overlaps the input partly")
         for name in ("pix", "slot"):
@@ -339,7 +283,7 @@ class FastBodyKernel:
         ptrs[S_NBUSY] = s.n_busy.data_ptr()
         ptrs[S_COUNTS] = counts.data_ptr()
         ptrs[S_PENDING] = 0 if pending is None else pending.data_ptr()
-        ptrs[S_SCRATCH] = self.scratch(dev).data_ptr()
+        ptrs[S_SCRATCH] = self.zeros("scratch", 4, torch.int64, dev).data_ptr()
         for slot_, x in ((S_TABLE, ctx.table), (S_ALB_ROWS, ctx.albedo_rows),
                          (S_BTAB, ctx.brick_tab), (S_TILE_OFF, ctx.tile_offset),
                          (S_BASES, ctx.bases), (S_CTRL, ctrl),
@@ -356,131 +300,56 @@ class FastBodyKernel:
         counts = torch.empty(3, dtype=torch.float32, device=dev)
         pending = torch.empty((), dtype=torch.int64, device=dev)
         addresses = self._pointers(ctx, s, out, counts, pending)
-        fn = self.library().lib.fastbody_launch
-        with torch.cuda.device(dev):
-            err = fn(ctx.fparams.ctypes.data, N_FP, ctx.iparams.ctypes.data,
-                     N_IP, ctypes.addressof(addresses), N_S, s.alive.shape[0],
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fastbody launch failed: CUDA error {err}")
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+        self.launch_one(self.args(ctx.fparams, ctx.iparams, addresses,
+                                  s.alive.shape[0]), dev)
         new = out._replace(pix=s.pix, slot=s.slot, pend_b=s.pend_b,
                            n_rays=counts[0], n_rows=counts[1],
                            n_busy=counts[2])
         return new, pending
 
-    def _read(self, ctrl: torch.Tensor) -> list:
-        self.reads += 1
-        return ctrl.tolist()
-
     def gated(self, ctx: BodyContext, s, thresh: int, k_chain: int,
               batch: int = GATED_BATCH):
         """A stage whose loop exits at a chain boundary once the pending
-        count is at most `thresh` (> 0): the state's per-lane tensors
-        updated in place, its counters fresh.  The launch is prepared once;
-        the host enqueues whole chains `batch` evaluations at a time and
-        reads the control words once per batch (and once at the start)."""
+        count is at most `thresh` (> 0), in gated chains
+        (stages.BodyKernel.gated): the state's per-lane tensors updated in
+        place, its counters fresh."""
         dev = s.alive.device
-        width = s.alive.shape[0]
         spp = int(ctx.iparams[IP_SPP])
         counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
         s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
         ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
-        ctrl[C_PEND] = torch.count_nonzero(s.alive | (s.samples_done < spp))
+        ctrl[C_COUNT] = torch.count_nonzero(s.alive | (s.samples_done < spp))
         iparams = ctx.iparams.copy()
         iparams[IP_THRESH], iparams[IP_CHAIN] = thresh, k_chain
-        addresses = self._pointers(ctx, s, s, counts, ctrl[C_PEND], ctrl)
-        n = k_chain * -(-batch // k_chain)
-        fn = self.library().lib.fastbody_launch
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("fastbody: a gated stage reads the card; it "
-                               "cannot be captured")
-        args = (ctx.fparams.ctypes.data, N_FP, iparams.ctypes.data, N_IP,
-                ctypes.addressof(addresses), N_S, width,
-                torch.cuda.current_stream(dev).cuda_stream)
-        with torch.cuda.device(dev):
-            while True:
-                e, pend = self._read(ctrl[:C_PEND + 1])
-                if e % k_chain == 0 and pend <= thresh:
-                    return s
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    err = fn(*args)
-                    if err != 0:
-                        raise RuntimeError(
-                            f"fastbody launch failed: CUDA error {err}")
-                    self.launches += 1
-                self.enqueue_s += time.perf_counter() - t0
+        addresses = self._pointers(ctx, s, s, counts, ctrl[C_COUNT], ctrl)
+        super().gated(self.args(ctx.fparams, iparams, addresses,
+                                s.alive.shape[0]), ctrl, thresh, k_chain,
+                      dev, batch)
+        return s
 
-    def drain(self, ctx: BodyContext, s, k_chain: int, cap: int = DRAIN_CAP,
-              threads: int = DRAIN_THREADS):
+    def drain(self, ctx: BodyContext, s, k_chain: int,
+              cap: int = DRAIN_CAP, threads: int = DRAIN_THREADS):
         """The last stage without the tail kernel (its loop exits at a
-        pending count of 0): each lane runs to its end, `cap` evaluations
-        per launch at most, in blocks of `threads` (32, 64, 128 or 256);
-        one host read per launch.  The state's per-lane tensors are updated
-        in place, its counters fresh."""
+        pending count of 0), drained (stages.BodyKernel.drain) in blocks of
+        `threads` (32, 64, 128 or 256).  The state's per-lane tensors are
+        updated in place, its counters fresh."""
         dev = s.alive.device
-        width = s.alive.shape[0]
         counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
         s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
         ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
-        if (dev, cap) not in self._evals:
-            self._evals[dev, cap] = torch.zeros(2 * cap, dtype=torch.int32,
-                                                device=dev)
         iparams = ctx.iparams.copy()
         iparams[IP_CHAIN], iparams[IP_CAP] = k_chain, cap
-        addresses = self._pointers(ctx, s, s, counts, None, ctrl,
-                                   self._evals[dev, cap])
-        fn = self.library().lib.fastbody_drain
-        launches = 0
-        while True:
-            with torch.cuda.device(dev):
-                err = fn(ctx.fparams.ctypes.data, N_FP, iparams.ctypes.data,
-                         N_IP, ctypes.addressof(addresses), N_S, width,
-                         threads, torch.cuda.current_stream(dev).cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"fastbody drain failed: CUDA error {err}")
-            self.drain_launches += 1
-            launches += 1
-            words = self._read(ctrl)
-            if words[C_LEFT] == 0:
-                break
-        self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
-                           "launches": launches, "threads": threads}
+        addresses = self._pointers(ctx, s, s, counts, None, ctrl, self.zeros(
+            "evals", 2 * cap, torch.int32, dev))
+        super().drain(self.args(ctx.fparams, iparams, addresses,
+                                s.alive.shape[0]), (threads,), ctrl, dev)
+        self.last_drain["threads"] = threads
         return s
 
 
-def _lane_field(s, name: str) -> torch.Tensor:
-    if name == "rng_state":
-        return s.rng.state
-    if name == "rng_inc":
-        return s.rng.inc
-    return getattr(s, name)
-
-
 def _check(name, x, width, dev):
-    want = _DTYPES[name]
     shape = (width, 3) if name in LANE_FIELDS[:5] else (width,)
-    if (x.device != dev or x.dtype != want or tuple(x.shape) != shape
-            or not x.is_contiguous()):
-        raise ValueError(
-            f"fastbody: {name} must be contiguous {want} {shape} on {dev}, "
-            f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-
-
-def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether two tensors share memory without being the same buffer
-    (in place is the same buffer; anything else must not overlap, as a
-    lane's thread reads all its fields before it writes any)."""
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    if a0 == b0:
-        return False
-    a1 = a0 + a.numel() * a.element_size()
-    b1 = b0 + b.numel() * b.element_size()
-    return a0 < b1 and b0 < a1
+    stages.check_lane("fastbody", name, x, _DTYPES[name], shape, dev)
 
 
 KERNEL = FastBodyKernel()
@@ -506,19 +375,13 @@ def pending_count(s, spp: int) -> int:
 
 
 def loop_stage(ctx: BodyContext, s, thresh: int, k_chain: int):
-    """The plain version of a stage: chains of k_chain `run_body`
-    evaluations while the pending count exceeds `thresh`, the count read
-    at each chain's end (the kernel's, or counted here on the CPU; each
-    read counts in KERNEL.reads)."""
+    """The plain version of a stage (stages.loop_chains): chains of
+    k_chain `run_body` evaluations while the pending count exceeds
+    `thresh`, the count read at each chain's end (the kernel's, or counted
+    here on the CPU; each read counts in KERNEL.reads)."""
     spp = int(ctx.iparams[IP_SPP])
-    pending = None  # the kernel's count of the last evaluation
-    while True:
-        n = pending_count(s, spp) if pending is None else int(pending)
-        KERNEL.reads += 1
-        if n <= thresh:
-            return s
-        for _ in range(k_chain):
-            s, pending = run_body(ctx, s)
+    return stages.loop_chains(KERNEL, s, lambda x: pending_count(x, spp),
+                              lambda x: run_body(ctx, x), thresh, k_chain)[0]
 
 
 def run_stage(ctx: BodyContext, s, thresh: int, k_chain: int, last: bool):

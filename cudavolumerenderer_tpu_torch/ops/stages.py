@@ -1,0 +1,246 @@
+"""The host side that the per-lane body kernels share (csrc/fastbody.cu and
+csrc/replaybody.cu; their device side of it in csrc/common.cuh).
+
+A body kernel runs one evaluation of every lane of a pool per launch.  A
+cascade stage of the body is a loop of such evaluations in chains of
+`k_chain`, whose count (pending or alive lanes) the host reads at each
+chain's end; the loop exits once the count is at or under the stage's
+threshold.  On the card a stage runs in one of two ways:
+
+* gated chains (a threshold above 0): each launch reads the stage's control
+  words and returns untouched where the loop would have stopped (at a
+  chain's start, with the count at or under the threshold); the host
+  enqueues whole chains `GATED_BATCH` evaluations at a time and reads the
+  words once per batch (`BodyKernel.gated`);
+* the drain (the last stage, threshold 0, so no lane waits for another):
+  each lane runs to its end in registers, `DRAIN_CAP` evaluations per
+  launch at most; the host reads the words once per launch and launches
+  again while lanes are left (`BodyKernel.drain`).
+
+`loop_chains` is the plain version of a stage, and both ways equal it.
+This module also holds the library loading and layout check, and the
+checks of the per-lane tensors a launch is given.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+# A stage's control words (csrc/common.cuh C_*, int64): the evaluations run,
+# the last count, the drain's longest finished lane, its accumulators (lanes
+# left at the cap, the most evaluations a lane ran in the launch, the block
+# ticket), the lanes left after a drain launch and the stage's evaluations
+# once no lane is left.
+(C_EVAL, C_COUNT, C_LMAX, C_LEFT_ACC, C_JMAX, C_TICKET, C_LEFT, C_TOTAL,
+ N_CTRL) = range(9)
+
+#: evaluations enqueued per host read in a gated stage (rounded up to a
+#: whole number of chains)
+GATED_BATCH = 32
+#: the drain's evaluations per lane and launch; a lane at the cap is
+#: stored, and the host launches again
+DRAIN_CAP = 8192
+
+# The leading arguments of every C entry point: fparams, n_fp, iparams,
+# n_ip, ptrs, n_s, width.
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+
+
+def f32(x) -> np.ndarray:
+    """A tensor's (or number's) float32 values on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy().reshape(-1)
+    return np.asarray(x, np.float32).reshape(-1)
+
+
+def lane_field(s, name: str) -> torch.Tensor:
+    """A pool's per-lane field by its kernel name (the RNG's two words
+    split into rng_state and rng_inc)."""
+    if name == "rng_state":
+        return s.rng.state
+    if name == "rng_inc":
+        return s.rng.inc
+    return getattr(s, name)
+
+
+def check_lane(kernel: str, name: str, x: torch.Tensor, dtype, shape,
+               dev) -> None:
+    """Raise unless the per-lane tensor `x` is contiguous `dtype` of
+    `shape` on `dev`."""
+    if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"{kernel}: {name} must be contiguous {dtype} {shape} on {dev}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors share memory without being the same buffer
+    (in place is the same buffer; anything else must not overlap, as a
+    lane's thread reads all its fields before it writes any)."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    if a0 == b0:
+        return False
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a0 < b1 and b0 < a1
+
+
+def loop_chains(kernel: "BodyKernel", s, count_of: Callable,
+                body: Callable, thresh: int, k_chain: int):
+    """The plain version of a stage: chains of k_chain `body` evaluations
+    (body(s) -> (s, its count as a 0-d tensor or None)) while the count
+    exceeds `thresh`, read at each chain's end: the body's, or count_of(s)
+    where it gave none.  Each read counts in kernel.reads.  Returns the
+    pool and its evaluations."""
+    count, n = None, 0
+    while True:
+        c = count_of(s) if count is None else int(count)
+        kernel.reads += 1
+        if c <= thresh:
+            return s, n
+        for _ in range(k_chain):
+            s, count = body(s)
+        n += k_chain
+
+
+class BodyKernel:
+    """A body kernel library: built from `source` at first use, its C entry
+    points `<name>_launch`, `<name>_drain` and `<name>_layout` loaded with
+    ctypes, and its launches counted.  `launches` counts one-evaluation
+    launches made now (a gated one may return untouched); a launch recorded
+    into a CUDA graph being captured counts in `captured` instead.
+    `drain_launches` counts drain launches, `reads` the host's reads of a
+    stage's control words or count (loop_chains' too), `enqueue_s` the
+    host's seconds in gated stages' enqueue loops, and `last_drain` holds
+    the last drain's longest lane L, its evaluations E and its launches."""
+
+    def __init__(self, name: str, source: Path, layout: tuple,
+                 drain_argtypes: tuple = ()):
+        self.name = name
+        self.source = source
+        self.layout = tuple(layout)  # (N_FP, N_IP, N_S, N_CTRL)
+        self.drain_argtypes = list(drain_argtypes)
+        self.launches = 0  # CUDA launches; the plain version is not counted
+        self.captured = 0
+        self.drain_launches = 0
+        self.reads = 0
+        self.enqueue_s = 0.0
+        self.last_drain = None
+        self._built = None
+        self._zeros = {}
+
+    def library(self):
+        """Build (or reuse) and load the kernel library; returns the
+        utils.cuda_build.BuiltLibrary."""
+        if self._built is None:
+            from ..utils import cuda_build  # noqa: PLC0415
+
+            built = cuda_build.build_library(self.source)
+            launch, drain = self._entry(built, "launch"), self._entry(
+                built, "drain")
+            launch.argtypes = _ARGTYPES + [ctypes.c_void_p]
+            drain.argtypes = _ARGTYPES + self.drain_argtypes + [
+                ctypes.c_void_p]
+            launch.restype = drain.restype = ctypes.c_int
+            sizes = (ctypes.c_int * 4)()
+            self._entry(built, "layout")(sizes)
+            if tuple(sizes) != self.layout:
+                raise RuntimeError(
+                    f"{self.name}: {self.source.name}'s layout {tuple(sizes)} "
+                    f"is not the wrapper's {self.layout}")
+            self._built = built
+        return self._built
+
+    def _entry(self, built, what: str):
+        return getattr(built.lib, f"{self.name}_{what}")
+
+    def zeros(self, key: str, n: int, dtype, dev) -> torch.Tensor:
+        """A zeroed device buffer the kernels reuse and leave zero (the
+        scratch of a launch's reductions, a drain's per-evaluation sums)."""
+        k = (key, dev, n, dtype)
+        if k not in self._zeros:
+            self._zeros[k] = torch.zeros(n, dtype=dtype, device=dev)
+        return self._zeros[k]
+
+    @staticmethod
+    def args(fparams: np.ndarray, iparams: np.ndarray, addresses,
+             width: int) -> tuple:
+        """The leading arguments of a C entry point."""
+        return (fparams.ctypes.data, len(fparams), iparams.ctypes.data,
+                len(iparams), ctypes.addressof(addresses), len(addresses),
+                width)
+
+    def _raise(self, err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{self.name} {what} failed: CUDA error {err}")
+
+    def launch_one(self, args: tuple, dev) -> None:
+        """One evaluation launch on the current stream, counted."""
+        fn = self._entry(self.library(), "launch")
+        with torch.cuda.device(dev):
+            self._raise(fn(*args, torch.cuda.current_stream(dev).cuda_stream),
+                        "launch")
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+
+    def read(self, words: torch.Tensor) -> list:
+        """A host read of control words (or a count), counted."""
+        self.reads += 1
+        return words.tolist()
+
+    def gated(self, args: tuple, ctrl: torch.Tensor, thresh: int,
+              k_chain: int, dev, batch: int = GATED_BATCH) -> int:
+        """Gated chains of a stage whose loop exits at a chain boundary once
+        the count is at most `thresh` (> 0): `args` launch one gated
+        evaluation whose control words are `ctrl` (C_COUNT holding the
+        stage's count at its start).  The host enqueues whole chains
+        `batch` evaluations at a time and reads the words once per batch
+        (and once at the start).  Returns the stage's evaluations."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{self.name}: a gated stage reads the card; "
+                               "it cannot be captured")
+        fn = self._entry(self.library(), "launch")
+        full = args + (torch.cuda.current_stream(dev).cuda_stream,)
+        n = k_chain * -(-batch // k_chain)
+        with torch.cuda.device(dev):
+            while True:
+                e, count = self.read(ctrl[:C_COUNT + 1])
+                if e % k_chain == 0 and count <= thresh:
+                    return e
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    self._raise(fn(*full), "launch")
+                    self.launches += 1
+                self.enqueue_s += time.perf_counter() - t0
+
+    def drain(self, args: tuple, extra: tuple, ctrl: torch.Tensor,
+              dev) -> list:
+        """The drain of a last stage: `args` (and the entry's `extra`
+        arguments) launch it on control words `ctrl` that were zero at the
+        stage's start (but for what the kernel reads there); the host reads
+        them once per launch and launches again while lanes are left.
+        Returns the last launch's control words."""
+        fn = self._entry(self.library(), "drain")
+        launches = 0
+        while True:
+            with torch.cuda.device(dev):
+                self._raise(fn(*args, *extra, torch.cuda.current_stream(
+                    dev).cuda_stream), "drain")
+            self.drain_launches += 1
+            launches += 1
+            words = self.read(ctrl)
+            if words[C_LEFT] == 0:
+                break
+        self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
+                           "launches": launches}
+        return words

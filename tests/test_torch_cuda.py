@@ -12,7 +12,13 @@ and one run_inverse step the CPU's loss and grid.  The scene and camera
 constructors build on the card by default, and fastSK's defer_ggx,
 brick_major and 'split' table give the default render bit for bit there.
 A rank of parallel/ takes the card by default, and a 1-rank NCCL
-render_sharded equals fast.render_tile bit for bit.
+render_sharded equals fast.render_tile bit for bit.  fastSK's body kernels
+(csrc/fastbody.cu) equal its eager body bit for bit per evaluation, per
+stage and per render; render_diff's replay kernels (csrc/replaybody.cu)
+equal the replay's eager body per evaluation (the primal, and pass B with
+atomics or, under deterministic algorithms, bit for bit) and per stage,
+and render_diff through them gives the eager body's image and
+cotangents.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -22,6 +28,8 @@ jax, so on a machine with a card and no jax it runs on its own:
 It also holds the kernel-input helper that tests/test_torch_tailpk.py
 uses against the JAX kernel.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -975,3 +983,295 @@ def test_body_wrapper_runs_kernel_or_plain_by_device(cuda):
     bad = s._replace(o=s.o.T.contiguous().T)
     with pytest.raises(ValueError, match="contiguous"):
         fastbody.run_body(ctx, bad)
+
+
+# -- render_diff's replay body kernel (csrc/replaybody.cu) ------------------
+
+#: the evaluations whose states are kept (0: every lane starts a segment,
+#: no tracking step yet; 4: tracking in the widest pool; 20 and 100 deeper,
+#: in narrower pools), and the first evaluation of these pool widths
+REPLAY_KEEP = (0, 4, 20, 100)
+REPLAY_WIDTHS = (16384, 4096)
+#: atomic pass B against the eager body: per voxel, and the sums
+GRAD_RTOL, GRAD_ATOL, GRAD_SUM = 1e-4, 1e-5, 1e-6
+
+
+def replay_problem(device, bsdf="ggx", const_albedo=False, res=128, spp=4,
+                   n=32, rr=True, fov=0.8):
+    """A blob volume (scale 12, as inverse_256's), a per-voxel or constant
+    albedo, the camera's lanes and a random image cotangent:
+    (scene, settings, tables, image_id, o0, d0, rng, g_img)."""
+    d = procedural.medical_volume((n,) * 3, n_blobs=6).astype(np.float32)
+    rs = np.random.RandomState(3)
+    alb = (np.full((1, 1, 1, 4), 0.7, np.float32) if const_albedo
+           else (0.3 + 0.6 * rs.rand(n, n, n, 4)).astype(np.float32))
+    scene = differentiable.SceneSpec(scale=12.0).build(d, alb, device)
+    cam = differentiable.CameraSpec(res_x=res, res_y=res,
+                                    fov_x_deg=fov).build(device)
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=rr, max_path_length=64, bsdf_kind=bsdf)
+    _, image_id, o0, d0, rng = differentiable._lane_setup(
+        cam, (res, res), spp, 5)
+    g_img = torch.tensor(rs.rand(res, res, 3).astype(np.float32),
+                         device=device)
+    tables = differentiable._build_brick_tab(scene.medium.density.data)
+    return scene, settings, tables, image_id, o0, d0, rng, g_img
+
+
+def cotangents(scene, device):
+    n_chan = scene.medium.albedo.data.shape[-1]
+    rows = scene.medium.albedo.data.numel() // n_chan
+    return (torch.zeros(scene.medium.density.data.numel(), device=device),
+            torch.zeros((rows, n_chan), device=device))
+
+
+def pass_b_weights(problem, device):
+    """The primal's per-lane radiance through the eager replay, and pass B's
+    (s_lane, g_lane) from it."""
+    scene, settings, tables, image_id, o0, d0, rng, g_img = problem
+    n = o0.shape[0]
+    prim = differentiable._replay(
+        scene, settings, o0, d0, rng, torch.zeros(n, device=device),
+        torch.zeros((n, 3), device=device), False, None, None, tables,
+        eager_body=True)
+    g_lane = g_img.reshape(-1, 3)[image_id] * prim.radiance
+    return torch.sum(g_lane, dim=-1), g_lane
+
+
+def kept_replay(problem, device, keep_evals=REPLAY_KEEP,
+                keep_widths=REPLAY_WIDTHS):
+    """Pass B of `problem` through the eager body on the card, keeping
+    copies of the pool at the evaluations `keep_evals`, at the first
+    evaluation of each `keep_widths` pool, and at each stage's entry:
+    ({tag: pool}, [(pool, thresh, k_chain, last)])."""
+    from cudavolumerenderer_tpu_torch.ops import replaybody
+
+    scene, settings, tables, image_id, o0, d0, rng, g_img = problem
+    s_lane, g_lane = pass_b_weights(problem, device)
+    dd, da = cotangents(scene, device)
+    kept, stages, count, seen = {}, [], [0], set()
+    plain, loop = replaybody.plain_body, replaybody.loop_stage
+
+    def keep_body(ctx, s):
+        width = s.alive.shape[0]
+        if count[0] in keep_evals:
+            kept[f"evaluation {count[0]}"] = clone_state(s)
+        elif width in keep_widths and width not in seen:
+            seen.add(width)
+            kept[f"first {width}-lane evaluation"] = clone_state(s)
+        count[0] += 1
+        return plain(ctx, s)
+
+    def keep_stage(ctx, s, thresh, k_chain, body=replaybody.run_body):
+        stages.append((clone_state(s), thresh, k_chain))
+        return loop(ctx, s, thresh, k_chain, body)
+
+    replaybody.plain_body, replaybody.loop_stage = keep_body, keep_stage
+    try:
+        differentiable._replay(scene, settings, o0, d0, rng, s_lane, g_lane,
+                               True, dd, da, tables, eager_body=True)
+    finally:
+        replaybody.plain_body, replaybody.loop_stage = plain, loop
+    last = len(stages) - 1
+    return kept, [(s, t, k, i == last) for i, (s, t, k) in enumerate(stages)]
+
+
+def assert_grads_close(got, want):
+    """Atomic adds reorder each voxel's float32 sum: per voxel within
+    GRAD_RTOL of it and GRAD_ATOL of the largest, the sums within GRAD_SUM
+    of the absolute sum."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max())
+    assert bool(((got - want).abs() <= GRAD_RTOL * want.abs()
+                 + GRAD_ATOL * scale).all())
+    assert abs(float(got.sum() - want.sum())) <= GRAD_SUM * float(
+        want.abs().sum())
+
+
+REPLAY_CASES = [("ggx", False), ("ggx", True), ("null", False),
+                ("null", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsdf, const_albedo", REPLAY_CASES,
+                         ids=[f"{b}-{'const' if c else 'grid'}"
+                              for b, c in REPLAY_CASES])
+def test_replay_kernel_evaluation_equals_eager_body(cuda, bsdf, const_albedo):
+    """On pools kept at evaluations 0, 4, 20 and 100 of a 65,536-lane pass B
+    (128^2 x 4, the volume filling the view, Russian roulette off so the
+    16,384-lane pool has evaluations) and at the first 16,384- and
+    4,096-lane evaluations: one
+    kernel evaluation equals one eager evaluation in every _Lanes field and
+    the alive count, for the primal and for pass B; pass B's cotangents are
+    bit-equal under deterministic algorithms (buffer mode) and within
+    GRAD_* with atomics."""
+    from cudavolumerenderer_tpu_torch.ops import replaybody
+
+    problem = replay_problem(cuda, bsdf, const_albedo, rr=False, fov=0.6)
+    scene, settings, tables = problem[:3]
+    context = functools.partial(differentiable.replay_context, scene,
+                                settings, tables)
+    kept, _ = kept_replay(problem, cuda)
+    assert len(kept) == len(REPLAY_KEEP) + len(REPLAY_WIDTHS), list(kept)
+    assert kept["evaluation 0"].alive.shape[0] == 65536
+    tracking = kept["evaluation 4"]
+    assert tracking.alive.shape[0] == 65536
+    assert bool((tracking.seg & tracking.alive & tracking.in_med).any())
+    was = torch.are_deterministic_algorithms_enabled()
+    for tag, s in kept.items():
+        ctx = context(False)
+        got, count = replaybody.run_body(ctx, clone_state(s))
+        want = ctx.plain(clone_state(s))
+        assert not state_mismatches(got, want), (tag, "primal")
+        assert int(count) == int(want.alive.sum())
+        for deterministic in (False, True):
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                dk, ak = cotangents(scene, cuda)
+                de, ae = cotangents(scene, cuda)
+                ctx_k = context(True, dk, ak)
+                ctx_e = context(True, de, ae)
+                assert ctx_k.record == (replaybody.REC_BUFFERS if deterministic
+                                        else replaybody.REC_ATOMIC)
+                got, _ = replaybody.run_body(ctx_k, clone_state(s))
+                want = ctx_e.plain(clone_state(s))
+            finally:
+                torch.use_deterministic_algorithms(was)
+            assert not state_mismatches(got, want), (tag, "pass B")
+            if deterministic:
+                assert torch.equal(dk, de) and torch.equal(ak, ae), tag
+            else:
+                assert_grads_close(dk, de)
+                assert_grads_close(ak, ae)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("record", [False, True], ids=["primal", "pass-b"])
+def test_replay_stages_equal_the_loop(cuda, record):
+    """Every stage of a 65,536-lane replay (GGX, per-voxel albedo):
+    gated chains at batches 1, 3 and 32 and the drain at caps 1, 5 and
+    8,192 equal loop_stage (the kernel per evaluation) in every _Lanes
+    field and in the evaluations they report (so `iterations` and `rows`);
+    the host reads the control words once per batch and once at the start,
+    the drain once per launch, and E = k_chain * ceil(L / k_chain).  Pass
+    B's cotangents agree within GRAD_*."""
+    from cudavolumerenderer_tpu_torch.ops import replaybody
+
+    problem = replay_problem(cuda)
+    scene, settings, tables = problem[:3]
+    context = functools.partial(differentiable.replay_context, scene,
+                                settings, tables)
+    _, stages = kept_replay(problem, cuda, keep_evals=(), keep_widths=())
+    assert [t for _, t, _, _ in stages][-1] == 0 and len(stages) == 5
+    k = replaybody.KERNEL
+    for s, thresh, k_chain, last in stages:
+        dw, aw = cotangents(scene, cuda)
+        want, n_want = replaybody.loop_stage(
+            context(record, dw, aw),
+            clone_state(s), thresh, k_chain)
+        runs = ((1, 3, 32) if thresh else (1, 5, replaybody.DRAIN_CAP))
+        for arg in runs:
+            dg, ag = cotangents(scene, cuda)
+            ctx = context(record, dg, ag)
+            reads = k.reads
+            if thresh:
+                got, n = k.gated(ctx, clone_state(s), thresh, k_chain,
+                                 batch=arg)
+                per = k_chain * -(-arg // k_chain)
+                assert k.reads - reads == 1 + -(-n_want // per)
+            else:
+                got, n = k.drain(ctx, clone_state(s), k_chain, cap=arg)
+                info = k.last_drain
+                assert n == info["E"] == k_chain * -(-info["L"] // k_chain)
+                assert info["launches"] == max(1, -(-info["L"] // arg))
+                assert k.reads - reads == info["launches"]
+            assert n == n_want, (thresh, arg)
+            assert not state_mismatches(got, want), (thresh, arg)
+            if record:
+                assert_grads_close(dg, dw)
+                assert_grads_close(ag, aw)
+
+
+def replay_diff_render(device, eager_body, bsdf="ggx", const_albedo=False,
+                res=64, spp=4):
+    d = procedural.medical_volume((32,) * 3, n_blobs=6).astype(np.float32)
+    rs = np.random.RandomState(3)
+    alb = (np.full((1, 1, 1, 4), 0.7, np.float32) if const_albedo
+           else (0.3 + 0.6 * rs.rand(32, 32, 32, 4)).astype(np.float32))
+    dt = torch.tensor(d, device=device, requires_grad=True)
+    at = torch.tensor(alb, device=device, requires_grad=True)
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=True, max_path_length=64, bsdf_kind=bsdf)
+    stats = {}
+    img = differentiable.render_diff(
+        dt, at, 9, differentiable.SceneSpec(scale=12.0),
+        differentiable.CameraSpec(res_x=res, res_y=res, fov_x_deg=0.8),
+        settings, (res, res), spp, True, stats=stats, eager_body=eager_body)
+    img.backward(torch.tensor(rs.rand(res, res, 3).astype(np.float32),
+                              device=device))
+    return img.detach(), dt.grad, at.grad, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("const_albedo", [False, True], ids=["grid", "const"])
+def test_render_diff_through_replay_kernel(cuda, const_albedo):
+    """render_diff (64^2 x 4, pools 16,384 / 8,192 / 4,096, GGX, RR on)
+    through the kernel against eager_body=True: the replay iterations
+    equal, the image and the cotangents within GRAD_* with atomics (the
+    image's splat adds a pixel's samples with atomics too) and bit for bit
+    under deterministic algorithms; the kernel path launches the kernels
+    and never the eager body."""
+    from cudavolumerenderer_tpu_torch.ops import replaybody
+
+    k = replaybody.KERNEL
+    want = replay_diff_render(cuda, True, const_albedo=const_albedo)
+    before = (k.launches, k.drain_launches, k.plain_evals)
+    got = replay_diff_render(cuda, False, const_albedo=const_albedo)
+    assert k.launches > before[0] and k.drain_launches > before[1]
+    assert k.plain_evals == before[2]
+    assert got[3] == want[3] and got[3]["primal_iters"] == got[3][
+        "pass_b_iters"]
+    for g, w in zip(got[:3], want[:3]):
+        assert_grads_close(g, w)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = replay_diff_render(cuda, False, const_albedo=const_albedo)
+        want = replay_diff_render(cuda, True, const_albedo=const_albedo)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_replay_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
+    """run_body launches the kernel (counted) and writes the `out` pool it
+    is given; a wrong dtype raises; a failed build raises out of
+    render_diff, with no fallback to the eager body."""
+    from cudavolumerenderer_tpu_torch.ops import replaybody
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    problem = replay_problem(cuda, res=32, spp=1)
+    scene, settings, tables = problem[:3]
+    kept, _ = kept_replay(problem, cuda, keep_evals=(3,), keep_widths=())
+    s = kept["evaluation 3"]
+    ctx = differentiable.replay_context(scene, settings, tables, False)
+    out = clone_state(s)
+    launches = replaybody.KERNEL.launches
+    got, _ = replaybody.run_body(ctx, clone_state(s), out=out)
+    assert replaybody.KERNEL.launches == launches + 1
+    assert got.o.data_ptr() == out.o.data_ptr()
+    assert not state_mismatches(got, ctx.plain(clone_state(s)))
+    with pytest.raises(ValueError, match="t must be"):
+        replaybody.run_body(ctx, s._replace(t=s.t.double()))
+
+    def broken(source):
+        raise RuntimeError("nvcc failed on replaybody.cu")
+
+    monkeypatch.setattr(replaybody, "KERNEL", replaybody.ReplayBodyKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    plain = replaybody.KERNEL.plain_evals
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        replay_diff_render(cuda, False, res=16, spp=1)
+    assert replaybody.KERNEL.plain_evals == plain

@@ -28,6 +28,7 @@ from cudavolumerenderer_tpu_torch.config import Config, Kernel
 from cudavolumerenderer_tpu_torch.models import fast as tfast
 from cudavolumerenderer_tpu_torch.models.renderer import fast_keywords
 from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+from cudavolumerenderer_tpu_torch.ops import stages
 from cudavolumerenderer_tpu_torch.ops.camera import make_camera
 from cudavolumerenderer_tpu_torch.scene import types as ttypes
 from cudavolumerenderer_tpu_torch.utils import occupancy as tocc
@@ -379,7 +380,7 @@ def pending_lanes(s, spp: int) -> torch.Tensor:
 
 def lane_fields(s):
     """(name, per-lane tensor) of every field the body may update."""
-    return [(name, fb._lane_field(s, name)) for name in fb.LANE_FIELDS]
+    return [(name, stages.lane_field(s, name)) for name in fb.LANE_FIELDS]
 
 
 def same(x, y):
@@ -593,10 +594,13 @@ def test_stage_mode_of_render_tiles_stages(monkeypatch, tail_pallas):
 
 
 def test_control_words_layout_equals_the_wrappers():
-    """csrc/fastbody.cu's C_* control words and N_CTRL give the indices
-    ops/fastbody.py reads the stage's control words at."""
-    c = enum_values(SOURCE.read_text())
-    py = {k: v for k, v in vars(fb).items()
+    """csrc/common.cuh's C_* control words and N_CTRL (the ones fastbody.cu
+    reads) give the indices ops/stages.py reads the stage's control words
+    at, and fastbody.cu defines none of its own."""
+    c = enum_values((SOURCE.parent / "common.cuh").read_text())
+    py = {k: v for k, v in vars(stages).items()
           if re.fullmatch(r"C_[A-Z_]+|N_CTRL", k) and isinstance(v, int)}
     assert len(py) == 9
     assert {k: c[k] for k in py} == py
+    assert not set(py) & set(enum_values(SOURCE.read_text()))
+    assert fb.N_CTRL == stages.N_CTRL
