@@ -12,9 +12,9 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the five kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
-   csrc/pgather.cu, csrc/fastbody.cu and csrc/replaybody.cu, with one
-   nvcc each, started together with g++ on
+2. build the six kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
+   csrc/pgather.cu, csrc/fastbody.cu, csrc/replaybody.cu and
+   csrc/familybody.cu, with one nvcc each, started together with g++ on
    the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -78,22 +78,25 @@ CPU or to a plain version on a CUDA tensor):
    xla_big, xla_sorted, xla_packed, xla_packed8f and pallas_binned with 3
    reps; each variant's M rows/s printed, the JSON checked, and every
    gather kernel's launch count must rise;
-11. the scheduler family, which has no kernel of its own (naiveSK,
-   naiveMK with and without compaction, regenerationSK at levels 0/1/2,
-   streamingSK, sortingSK, streamingMK, fastQ), each through
-   create_renderer(...).render() on the brickSK slice's scene (thesis
-   Table 6.2: smoke 128x128x50, scale 800, Mitsuba XML + .vol, 400^2)
-   at 1 iteration and one seed: wall seconds with the image copied to
-   the host, the host's wavefront passes (calls of the shared boundary
-   event: one per bounce or streaming step) and Mrays/s per row; every
-   integrator-family row must give naiveSK's n_rays exactly and an image
-   allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays
-   within 2% of naiveSK's; torch.profiler over streamingSK's passes
-   60-119 (the card's busy share); the white furnace exact on the card
-   through naiveSK, streamingSK and fastQ; and each row's 16^2 render on
-   the card against the same render on the CPU;
+11. the scheduler family (naiveSK, naiveMK with and without compaction,
+   regenerationSK at levels 0/1/2, streamingSK, sortingSK, streamingMK,
+   whose bodies run as csrc/familybody.cu's kernels, and fastQ),
+   each through create_renderer(...).render() on the brickSK slice's
+   scene (thesis Table 6.2: smoke 128x128x50, scale 800, Mitsuba XML +
+   .vol, 400^2) at 1 iteration and one seed, through the kernels (their
+   counts set to 0 just before each render and read just after) and then
+   with eager_body=True (the eager bodies): wall seconds with the image
+   copied to the host, the wavefront passes (bounce or extend
+   evaluations of the loop), kernel launches, host reads and Mrays/s of
+   both; both give the same n_rays and passes; every integrator-family
+   row must give naiveSK's n_rays exactly and an image allclose to
+   naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays within 2% of
+   naiveSK's; torch.profiler over streamingSK's whole render through the
+   kernels (the card's busy share); the white furnace exact on the card
+   through every row; and each row's 16^2 render on the card against the
+   same render on the CPU;
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
-   -i 4 -r 400 400, two trials (the first discarded);
+   -i 4 -r 400 400, two trials (the first discarded), through the drain;
 13. the gradient on the card (the two-level replay through the replay
    kernels of csrc/replaybody.cu): render_diff one- and two-level, null
    and GGX BSDF, on a
@@ -244,7 +247,21 @@ CPU or to a plain version on a CUDA tensor):
    kernels' counts set to 0 just before and read just after: forward
    Mrays/s, the primal replay and two fwd+bwd times, peak allocated
    memory; finite numbers, pass B as long as the primal, every replay
-   through the kernels.
+   through the kernels;
+25. the family's kernels (csrc/familybody.cu) on phase 11's scene: for
+   pools of 65,536, 16,384 and 4,096 lanes whose paths start at the
+   image's middle rows, kept after plain iterations (regenerationSK's
+   first iteration for the refill, and one more refill
+   for the bounce with the splat; streamingSK's sixth for the extend;
+   sortingSK's seventh, lanes pending, for the flush), one kernel evaluation against one eager evaluation (every lane field
+   equal bit for bit), the kernel's device time per evaluation (CUDA
+   events over replays of a graph of 16 out-of-place evaluations), the
+   eager function's (CUDA events, its input's copy included) and the
+   byte bound (ops/familybody.family_bytes from the eager function's
+   taps); then naiveSK's drain at 400^2 x 1 (160,000 lanes) twice by CUDA
+   events around one launch, equal to trace's eager loop bit for bit,
+   the longest lane L and the drain's us per bounce of it, the eager
+   loop's wall and the drain's byte bound (every bounce's taps).
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -293,7 +310,14 @@ FAMILY_ROWS = (
     ("streamingMK", "streamingMK", {}, {}),
     ("fastQ", "fastQ", {}, {}),
 )
-FAMILY_WINDOW = (60, 60)  # streamingSK's profiled passes: first, count
+FAMILY_WIDTHS = (65536, 16384, 4096)  # phase 25's pool widths
+# phase 25: the JAX function each family entry point replaces
+FAMILY_REPLACES = {
+    "bounce": "cudavolumerenderer_tpu/models/integrator.py:237",
+    "refill": "cudavolumerenderer_tpu/models/regeneration.py:30",
+    "extend": "cudavolumerenderer_tpu/models/streaming.py:217",
+    "flush": "cudavolumerenderer_tpu/models/streaming.py:363",
+}
 # phase 13's gradient case (tests/test_torch_diff.py's): grid, image, spp, seed
 DIFF_N, DIFF_RES, DIFF_SPP, DIFF_SEED = 16, (16, 16), 4, 7
 # phase 14: inverse_256 at the recipe's full width, depth cut to the run's time
@@ -1113,114 +1137,124 @@ def row_kernel_fn(kernel: str, fields: dict, keywords: dict):
     return make_kernel_fn(Config(kernel=Kernel.from_name(kernel), **fields))
 
 
-class PassCounter:
-    """Counts calls of the shared boundary event, which every scheduler
-    of the family makes once per bounce (naiveSK, naiveMK,
-    regenerationSK) or once per streaming step (streamingSK, sortingSK,
-    streamingMK, fastQ): the host's wavefront passes.  With `window`
-    (first, count) it runs torch.profiler over those passes."""
-
-    def __init__(self, window=None):
-        from cudavolumerenderer_tpu_torch.models import integrator
-
-        self.integrator, self.event = integrator, integrator.boundary_event
-        self.window, self.passes, self.clock = window, 0, []
-        self.prof = None
-
-    def __enter__(self):
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        if self.window:
-            self.prof = profile(activities=[ProfilerActivity.CUDA])
-
-        def counted(*args, **kw):
-            if self.window and self.passes == self.window[0]:
-                torch.cuda.synchronize()
-                self.prof.start()
-                self.clock.append(time.perf_counter())
-            out = self.event(*args, **kw)
-            self.passes += 1
-            if self.window and self.passes == sum(self.window):
-                torch.cuda.synchronize()
-                self.clock.append(time.perf_counter())
-                self.prof.stop()
-            return out
-
-        self.integrator.boundary_event = counted
-        return self
-
-    def __exit__(self, *exc):
-        self.integrator.boundary_event = self.event
+def family_counts(fam) -> dict:
+    """The family kernels' counts since their last reset: launches per entry
+    point and of the drain, host reads, the loops' evaluations (passes)
+    and the plain versions' evaluations."""
+    k = fam.KERNEL
+    return {**k.by_op, "drain": k.drain_launches, "reads": k.reads,
+            "passes": k.evals, "plain": sum(k.plain_evals.values()),
+            "launches": sum(k.by_op.values()) + k.drain_launches}
 
 
 def family_rows(xml: str, card: str) -> dict:
-    """Phase 11's rows on the slice's scene: each row's image, n_rays,
-    wall and passes."""
+    """Phase 11's rows on the slice's scene: each row's image, n_rays, walls
+    and passes through the kernels and with the eager bodies, in turns;
+    the kernels' counts summed over the rows' kernel renders (each render
+    the main path: the counts set to 0 just before it, read just after)."""
+    import functools
+
     import torch
 
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 
     base = dict(scene_file=xml, iterations=1, resolution=(400, 400),
                 n_tiles=(1, 1))
     scene, camera = load_scene(Config(**base), device="cuda")
-    rows = {}
+    # one untimed render through the kernels and one eager (first calls)
+    warm = create_renderer(scene, camera, Config(
+        kernel=Kernel.NAIVE_SK, **{**base, "resolution": (64, 64)}))
+    warm.render()
+    warm.kernel_fn = functools.partial(warm.kernel_fn, eager_body=True)
+    warm.render()
+    rows, totals = {}, {}
     for label, kernel, fields, keywords in FAMILY_ROWS:
         cfg = Config(kernel=Kernel.from_name(kernel), **base, **fields)
-        renderer = create_renderer(scene, camera, cfg)
-        if keywords:
-            renderer.kernel_fn = row_kernel_fn(kernel, fields, keywords)
-        torch.cuda.synchronize()
-        with PassCounter() as passes:
+        family = label != "fastQ"
+        runs = {}
+        for mode in ("kernels", "eager") if family else ("kernels",):
+            renderer = create_renderer(scene, camera, cfg)
+            fn = (row_kernel_fn(kernel, fields, keywords) if keywords
+                  else renderer.kernel_fn)
+            if mode == "eager":
+                fn = functools.partial(fn, eager_body=True)
+            renderer.kernel_fn = fn
+            torch.cuda.synchronize()
+            fam.KERNEL.reset()
             t0 = time.perf_counter()
             img = renderer.render()
             wall = time.perf_counter() - t0
-        n_rays = renderer.n_rays
-        check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
-              f"{label}: image not finite or wrong shape")
-        rows[label] = dict(img=img, n_rays=n_rays, wall=wall,
-                           passes=passes.passes)
-        log(f"[11] {label:22s} 400^2 x 1: {wall:8.3f} s wall (incl. image "
-            f"copy), {passes.passes:5d} passes, {n_rays:.0f} rays, "
-            f"{n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes "
-            f"{cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
+            n_rays = renderer.n_rays
+            counts = family_counts(fam)
+            check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
+                  f"{label} ({mode}): image not finite or wrong shape")
+            runs[mode] = dict(img=img, n_rays=n_rays, wall=wall, **counts)
+            if family:
+                log(f"[11] {label:22s} {mode:7s} 400^2 x 1: {wall:8.4f} s "
+                    f"wall (incl. image copy), {counts['passes']:5d} passes, "
+                    f"{counts['launches']:5d} kernel launches ("
+                    + ", ".join(f"{op} {counts[op]}" for op in (
+                        *fam.OPS, "drain") if counts[op])
+                    + f"), {counts['reads']:4d} host reads, {n_rays:.0f} "
+                    f"rays, {n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes"
+                    f" {cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
+            else:
+                log(f"[11] {label:22s} 400^2 x 1: {wall:8.4f} s wall (incl. "
+                    f"image copy), {n_rays:.0f} rays, "
+                    f"{n_rays / wall / 1e6:.4f} Mrays/s, image mean "
+                    f"{img.mean():.6f}; card {card}")
+        got = runs["kernels"]
+        row = dict(img=got["img"], n_rays=got["n_rays"], wall=got["wall"],
+                   passes=got["passes"])
+        if family:
+            eager = runs["eager"]
+            check(got["launches"] > 0 and got["plain"] == 0,
+                  f"{label}: the kernel render ran {got['plain']} eager "
+                  f"evaluations and {got['launches']} launches")
+            check(eager["launches"] == 0 and eager["plain"] > 0,
+                  f"{label}: the eager render launched a kernel")
+            check(got["n_rays"] == eager["n_rays"]
+                  and got["passes"] == eager["passes"],
+                  f"{label}: kernels {got['n_rays']:.0f} rays in "
+                  f"{got['passes']} passes, eager {eager['n_rays']:.0f} in "
+                  f"{eager['passes']}")
+            err = float(np.abs(got["img"] - eager["img"]).max())
+            log(f"[11] {label:22s} kernels / eager: wall {got['wall']:.4f} / "
+                f"{eager['wall']:.4f} s ({eager['wall'] / got['wall']:.1f}x),"
+                f" max |image - eager's| {err:.3g}")
+            row.update(eager_wall=eager["wall"], launches=got["launches"],
+                       reads=got["reads"], eager_reads=eager["reads"])
+            for key in (*fam.OPS, "drain"):
+                totals[key] = totals.get(key, 0) + got[key]
+        rows[label] = row
 
-    # streamingSK again, with torch.profiler over a window of passes
-    from torch.autograd import DeviceType
-
+    # streamingSK through the kernels again, under torch.profiler
     cfg = Config(kernel=Kernel.STREAMING_SK, **base)
     renderer = create_renderer(scene, camera, cfg)
-    with PassCounter(FAMILY_WINDOW) as counted:
-        renderer.render()
-    first, n = FAMILY_WINDOW
-    check(len(counted.clock) == 2, f"streamingSK took {counted.passes} "
-          f"passes, fewer than the window's {first + n}")
-    window_us = (counted.clock[1] - counted.clock[0]) * 1e6
-    on_card = [e for e in counted.prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_card)
-    if busy_us == 0.0:
-        log("[11] streamingSK profiler window: no device time in the trace; "
-            "the busy share is not measured")
+    torch.cuda.synchronize()
+    fam.KERNEL.reset()
+    _, n_kernels, busy_ms = device_time(renderer.render)
+    passes, wall_ms = fam.KERNEL.evals, rows["streamingSK"]["wall"] * 1e3
+    if busy_ms is None:
+        log("[11] streamingSK under the profiler: no device time in the "
+            "trace; the busy share is not measured")
     else:
-        top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:4]
-        log(f"[11] streamingSK profiler window, passes {first}-{first + n - 1}:"
-            f" {window_us / 1e3:.2f} ms of wall, {window_us / n / 1e3:.3f} ms "
-            f"per pass (the profiler slows the host), device busy "
-            f"{busy_us / 1e3:.3f} ms ({busy_us / window_us:.1%}; "
-            f"{busy_us / n / 1e3:.3f} ms per pass), "
-            f"{sum(e.count for e in on_card) / n:.0f} device kernels per pass;"
-            " top device time: " + "; ".join(
-                f"{e.key[:40]} x{e.count} {e.self_device_time_total:.0f} us"
-                for e in top) + f"; card {card}")
-    return rows
+        log(f"[11] streamingSK through the kernels under torch.profiler: "
+            f"{passes} passes, device busy {busy_ms:.3f} ms "
+            f"({busy_ms / passes * 1e3:.2f} us per pass), "
+            f"{n_kernels / passes:.1f} device kernels per pass; the card "
+            f"{busy_ms / wall_ms:.1%} busy over the unprofiled render's "
+            f"{wall_ms:.2f} ms; card {card}")
+    return {"rows": rows, "launches": totals}
 
 
 def check_family(rows: dict) -> None:
     """Phase 11's checks: the integrator family gives naiveSK's estimate
     and ray count, fastQ (stochastic tap: another estimator) is within 2%."""
+    rows = rows["rows"]
     ref = rows["naiveSK"]
     for label, row in rows.items():
         if label == "fastQ":
@@ -1242,8 +1276,8 @@ def check_family(rows: dict) -> None:
 
 
 def family_furnace_and_small_renders() -> None:
-    """Phase 11: the exact white furnace on the card through naiveSK,
-    streamingSK and fastQ, then every row's 16^2 render on the card
+    """Phase 11: the exact white furnace on the card through every row (the
+    family's through the kernels), then every row's 16^2 render on the card
     against the same render on the CPU."""
     import torch
 
@@ -1268,7 +1302,7 @@ def family_furnace_and_small_renders() -> None:
         return img.cpu().numpy() / 2, float(n_rays)
 
     furnace = RenderSettings.from_flags(True, bsdf_kind="null")
-    for label in ("naiveSK", "streamingSK", "fastQ"):
+    for label, *_ in FAMILY_ROWS:
         img, n_rays = render(label, "cuda", 1.0, furnace, 64)
         check(np.array_equal(img, np.ones_like(img)),
               f"{label}: white furnace not exact on the card "
@@ -1291,17 +1325,23 @@ def family_furnace_and_small_renders() -> None:
 
 
 def naive_cli(xml: str, tmp: str, card: str) -> None:
-    """Phase 12: naiveSK through the CLI's batch mode."""
+    """Phase 12: naiveSK through the CLI's batch mode (the drain)."""
     from cudavolumerenderer_tpu_torch import cli
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
     argv = [xml, "-k", "naiveSK", "-i", "4", "-r", "400", "400", "--trials",
             "2", "-o", os.path.join(tmp, "naive_slice")]
     args = cli.build_parser().parse_args(argv)
     cfg = cli.config_from_args(args)
+    fam.KERNEL.reset()
     t0 = time.perf_counter()
     result = cli.run_test(cfg, cli.device_of(args.platform))
     wall = time.perf_counter() - t0
+    counts = family_counts(fam)
+    check(counts["drain"] > 0 and counts["plain"] == 0,
+          f"the CLI's naiveSK ran {counts['plain']} eager evaluations and "
+          f"{counts['drain']} drain launches")
     saved = load_hdr(cfg.output_name + ".hdr")
     check(saved.shape == (400, 400, 3) and np.isfinite(saved).all(),
           "the CLI's naiveSK image is not finite or has the wrong shape")
@@ -1310,7 +1350,9 @@ def naive_cli(xml: str, tmp: str, card: str) -> None:
     log(f"[12] cli.run_test naiveSK 400^2 x 4, 2 trials: {wall:.2f} s in all; "
         f"mean time {result['mean_time']:.3f} s (image copy excluded), "
         f"{result['n_rays']:.0f} rays, {result['mrays_per_sec']:.4f} Mrays/s, "
-        f"image mean {saved.mean():.5f}; card {card}")
+        f"image mean {saved.mean():.5f}, {counts['drain']} drain launches, "
+        f"{counts['reads']} host reads; card {card}")
+    return counts["drain"]
 
 
 def diff_case(device: str, bsdf: str, two_level: bool, rr: bool = False):
@@ -2624,7 +2666,7 @@ def body_states(scene, camera, card: str) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     diff, _ = state_diff(t, want)
     check(not diff, f"phase 22: the eager drain differs in {diff}")
-    n_bytes = fb.body_bytes(ctx, width, taps)
+    n_bytes = fb.body_bytes(ctx, taps)
     bound, bound_by = bound_ms(n_bytes)
     ms = min(drain_ms[default])
     log(f"[22] drain of the {width}-lane stage: longest lane L = {longest} "
@@ -2660,7 +2702,7 @@ def body_states(scene, camera, card: str) -> dict:
         ms = graph_ms([lambda: fb.KERNEL.launch(ctx, s, out)] * GRAPH_CALLS)
         plain_ms = cuda_ms(lambda: ctx.plain(clone_state(s)), BODY_PLAIN_REPS,
                            1)
-        n_bytes = fb.body_bytes(ctx, width, taps)
+        n_bytes = fb.body_bytes(ctx, taps)
         bound, bound_by = bound_ms(n_bytes)
         rows[tag] = {"width": width, "evaluation": at, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
@@ -3331,6 +3373,244 @@ def sharded(tmp: str, card: str, slice_result=None, scene=None, camera=None,
     return launches
 
 
+def family_pool(fam, ctx, width: int, kind: str):
+    """Phase 25's kept pool of `width` lanes (its tensors its own) on phase
+    11's scene, its paths from the image's middle rows: "refill" a
+    regenerationSK pool (PathState, image_id,
+    paths_issued) after one iteration, with lanes to refill; "bounce" the
+    same after one more refill, every lane alive; "extend" a streamingSK
+    pool after 6 iterations, lanes tracking; "flush" a sortingSK pool
+    (extend with the stall) after 7, lanes pending."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import integrator, regeneration
+    from cudavolumerenderer_tpu_torch.models import streaming
+
+    dev = torch.device("cuda")
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=dev)
+    # the queue starts with the image's middle rows, where rays meet the
+    # medium (its top rows miss it)
+    issued = torch.tensor(max(0, ctx.n_paths // 2 - width // 2), device=dev)
+    if kind in ("refill", "bounce"):
+        p = integrator.PathState(**regeneration.empty_pool(width, ctx.seed,
+                                                           dev))
+        img = torch.zeros(width, dtype=torch.int64, device=dev)
+        for op in ("refill", "bounce", "refill")[:2 + (kind == "bounce")]:
+            if op == "refill":
+                p, img, issued = fam.plain_body(ctx, op, p, image_id=img,
+                                                issued=issued)
+            else:
+                p, _ = fam.plain_body(ctx, op, p, image_id=img, accum=accum)
+        return fam.own(p), img, issued, accum
+    s = streaming.initial_stream_state(width, ctx.seed, dev)
+    for _ in range(6 if kind == "extend" else 7):
+        s, _, issued = fam.plain_body(ctx, "refill", s, issued=issued)
+        s, _ = fam.plain_body(ctx, "extend", s, accum=accum,
+                              defer=kind == "flush")
+    return fam.own(s), None, issued, accum
+
+
+def family_entry(fam, ctx, op: str, pool, card: str, width: int) -> dict:
+    """Phase 25, one entry point on a kept pool: one kernel evaluation
+    against one eager evaluation (every lane field bit for bit, the splat's
+    image within 1e-5), the kernel's device time per evaluation over graph
+    replays of 16 out-of-place evaluations, the eager function's (its
+    input's copy included) and the byte bound from its taps."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    s, img, issued, accum = pool
+    stream = img is None
+    defer = op == "flush" or (op == "extend" and bool(s.pending.any()))
+    kw = {"defer": defer} if op == "extend" else {}
+    if op == "refill":
+        kw.update(issued=issued)
+    if not stream:
+        kw.update(image_id=img)
+    if op != "refill":
+        kw.update(accum=accum.clone())
+
+    def args():
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+
+    got = fam.run_body(ctx, op, fam.own(s), **args())
+    taps = []
+    want = fam.plain_body(ctx, op, fam.own(s), taps=taps, **args())
+    names = fam.LANE_FIELDS if stream else fam.PATH_FIELDS
+    err, bad = 0.0, []
+    for n in names:
+        x, y = lane_field(got[0], n), lane_field(want[0], n)
+        if x.dtype == torch.float32:
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if bool(fin.any()):
+                err = max(err, float((x - y)[fin].abs().max()))
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    if op == "refill":
+        bad += [] if torch.equal(got[1], want[1]) else ["image_id"]
+        bad += [] if int(got[2]) == int(want[2]) else ["paths_issued"]
+    check(not bad, f"phase 25, {op} at {width} lanes: the kernel differs "
+          f"from the eager function in {bad}")
+    n_bytes = fam.family_bytes(ctx, taps)
+    bound, bound_by = bound_ms(n_bytes)
+    src = fam.own(s)
+    out = fam.own(s)
+    fixed = args()
+    ms = graph_ms([lambda: fam.run_body(ctx, op, src, out=out, **fixed)]
+                  * GRAPH_CALLS)
+    plain = cuda_ms(lambda: fam.plain_body(ctx, op, fam.own(s), **args()),
+                    reps=3, warmup=1)
+    alive = int(torch.count_nonzero(s.pending if op == "flush" else
+                                    s.alive))
+    log(f"[25] {op:6s} {width:6d} lanes ({alive} "
+        f"{'pending' if op == 'flush' else 'alive'}): kernel "
+        f"{ms * 1e3:8.2f} us per evaluation, eager {plain:8.3f} ms; bound "
+        f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; "
+        f"card {card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": n_bytes, "alive": alive,
+            "max_abs_err": err}
+
+
+def family_kernels(xml: str, card: str) -> dict:
+    """Phase 25: the family's entry points per evaluation on kept pools of
+    phase 11's scene, then naiveSK's drain at 400^2 x 1 against trace's
+    eager loop."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config
+    from cudavolumerenderer_tpu_torch.models import naive
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    cfg = Config(scene_file=xml, iterations=1, resolution=(400, 400),
+                 n_tiles=(1, 1))
+    scene, camera = load_scene(cfg, device="cuda")
+    settings = cfg.settings
+    zero = torch.zeros(2, device="cuda")
+    ctx = fam.make_context(scene, settings, camera, (400, 400), zero,
+                           (400, 400), 400 * 400, cfg.seed, 0)
+    rows = {op: {} for op in fam.OPS}
+    for width in FAMILY_WIDTHS:
+        for op in fam.OPS:
+            pool = family_pool(fam, ctx, width, op)
+            rows[op][width] = family_entry(fam, ctx, op, pool, card, width)
+
+    # naiveSK's drain: 160,000 lanes, each to its death in one launch
+    _, s = naive.start_batch(camera, (400, 400), zero, (400, 400), 1,
+                             cfg.seed, 0)
+    drains = []
+    for _ in range(2):
+        pool = fam.own(s)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got = fam.KERNEL.drain(ctx, pool)
+        stop.record()
+        torch.cuda.synchronize()
+        drains.append(start.elapsed_time(stop))
+    length = fam.KERNEL.last_drain["L"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fam.trace(ctx, s, False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = []
+    for n in fam.PATH_FIELDS:
+        x, y = lane_field(got, n), lane_field(want, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    check(not bad and float(got.n_rays) == float(want.n_rays),
+          f"phase 25: the drain differs from trace's eager loop in {bad} "
+          f"(n_rays {float(got.n_rays):.0f} / {float(want.n_rays):.0f})")
+    # the drain's bound: every bounce's taps, in order
+    traffic, t, bounces = fam.Traffic(ctx), s, 0
+    while bounces < settings.max_path_length and bool(torch.any(t.alive)):
+        taps = []
+        t, _ = fam.plain_body(ctx, "bounce", t, taps=taps)
+        traffic.add(taps)
+        bounces += 1
+    n_bytes = traffic.total()
+    bound, bound_by = bound_ms(n_bytes)
+    ms = min(drains)
+    log(f"[25] naiveSK drain, 160,000 lanes: {drains[0]:.3f} and "
+        f"{drains[1]:.3f} ms (one launch each), longest lane L = {length} "
+        f"bounces ({bounces} in the eager loop), {ms * 1e3 / length:.2f} us "
+        f"per bounce of it; n_rays {float(got.n_rays):.0f} bit-equal to "
+        f"trace's eager loop ({plain_ms:.1f} ms wall); bound {n_bytes} B = "
+        f"{bound * 1e3:.3f} us ({bound / ms:.3%}); card {card}")
+    check(bounces == length, f"the drain's L = {length}, the loop "
+          f"{bounces} bounces")
+    drain = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": bound_by, "bytes": n_bytes, "L": length,
+             "ms_runs": drains, "us_per_step": ms * 1e3 / length,
+             "max_abs_err": 0.0}
+    return {"rows": rows, "drain": drain}
+
+
+FAMILY_DESIGN = {
+    "bounce": "one thread per lane and evaluation, the whole Woodcock chain "
+              "in registers; the pool's tensors read and written in place; "
+              "counts reduced per block and by the last block; regeneration"
+              "SK's iterations enqueued in batches behind the refill, each "
+              "launch gated on the loop's control words",
+    "refill": "1,024 lanes per block (a refill group inside a block, its "
+              "all-dead test a ballot); ranks by a block scan and a "
+              "decoupled look-back over the blocks in start-ticket order; "
+              "a separate gated launch before each bounce or extend",
+    "extend": "one thread per lane and step; the StreamState tensors read "
+              "and written in place; streamingSK's and sortingSK's "
+              "iterations enqueued in gated chains of 8, the Morton sort in "
+              "torch between them",
+    "flush": "sortingSK's deferred albedo fetches and roulette after each "
+             "sort, a mode of the extend kernel",
+}
+
+
+def family_lines(family: dict, k: dict, cli_drains: int) -> list:
+    """The `kernels` JSON entries of csrc/familybody.cu: launches from
+    phase 11's kernel renders (the main path), the rest from phase 25."""
+    lines = []
+    source = "cudavolumerenderer_tpu_torch/csrc/familybody.cu"
+    for op, rows in k["rows"].items():
+        head = rows[FAMILY_WIDTHS[0]]
+        lines.append({
+            "name": f"familybody_{op}", "route": "cuda", "source": source,
+            "replaces": FAMILY_REPLACES[op],
+            "launches": family["launches"][op],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            **{x: head[x] for x in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "design": FAMILY_DESIGN[op],
+            "per_width": {w: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
+                                                "bytes", "alive")}
+                          for w, r in rows.items()},
+        })
+    d = k["drain"]
+    lines.append({
+        "name": "familybody_drain", "route": "cuda", "source": source,
+        "replaces": "cudavolumerenderer_tpu/models/integrator.py:350",
+        "launches": family["launches"]["drain"],
+        **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "L", "us_per_step", "ms_runs")},
+        "library_ms": None, "launches_cli": cli_drains,
+        "design": "naiveSK's trace in one launch: each lane bounces in "
+                  "registers until it dies; its bounce count into a "
+                  "histogram, folded into n_rays in order by the last block",
+        "walls_400": {label: {x: row.get(x) for x in (
+            "wall", "eager_wall", "passes", "launches", "reads",
+            "eager_reads")} for label, row in family["rows"].items()},
+    })
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -3350,6 +3630,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.models import brick, fast
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import replaybody as rb
@@ -3358,11 +3639,12 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the five libraries, one nvcc each, started together,
+    # -- phase 2: build the six libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
-    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL)
+    libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL,
+                 fam.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -3524,10 +3806,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         xml = write_smoke_xml(tmp)
         t0 = time.perf_counter()
-        check_family(family_rows(xml, card))
+        family = family_rows(xml, card)
+        check_family(family)
         family_furnace_and_small_renders()
         log(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
-        naive_cli(xml, tmp, card)
+        cli_drains = naive_cli(xml, tmp, card)
+        # -- phase 25 (run here, on phase 11's scene): the family's kernels
+        t0 = time.perf_counter()
+        family_k = family_kernels(xml, card)
+        log(f"[25] phase 25 took {time.perf_counter() - t0:.1f} s")
 
     # -- phases 13-14: the differentiable path and training ----------------
     t0 = time.perf_counter()
@@ -3692,7 +3979,8 @@ def main() -> int:
                   "in registers; the longest lane's evaluations give the "
                   "loop's E = k_chain * ceil(L / k_chain)",
         "launches_bench_1024": star["counts"]["drain_launches"],
-    }, *gather_lines]}))
+    }, *family_lines(family, family_k, cli_drains)
+    , *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

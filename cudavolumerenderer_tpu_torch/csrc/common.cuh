@@ -1,11 +1,11 @@
 // common.cuh — device helpers shared by the kernels (tailpk.cu, fastbody.cu,
-// replaybody.cu): the PCG generator and masked draws, the path-id hash,
-// NaN-propagating min/max, float3 sums in the card's order, the flight draw,
-// Henyey-Greenstein sampling, the turn of a direction after a scatter, the
-// box's slab test and a brick's DDA exit, the GGX boundary event, the
-// stochastic tap, and a cascade stage's control words with the gate, the
-// last-block ticket and the drain's end of a launch (fastbody.cu,
-// replaybody.cu; the host side is ops/stages.py).
+// replaybody.cu, familybody.cu): the PCG generator and masked draws, the
+// path-id hash, NaN-propagating min/max, float3 sums in the card's order,
+// the flight draw, Henyey-Greenstein sampling, the turn of a direction after
+// a scatter, the box's slab test and a brick's DDA exit, the GGX boundary
+// event, the stochastic tap, and a cascade stage's control words with the
+// gate, the last-block ticket and the drain's end of a launch (fastbody.cu,
+// replaybody.cu, familybody.cu; the host side is ops/stages.py).
 //
 // Each follows the port's plain torch version operation by operation, so a
 // kernel built with -fmad=false and without --use_fast_math (utils/

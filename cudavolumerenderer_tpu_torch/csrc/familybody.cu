@@ -1,0 +1,783 @@
+// familybody.cu — the bodies of the integrator-family schedulers (naiveSK,
+// naiveMK, regenerationSK, streamingSK, sortingSK, streamingMK) for every
+// lane of a pool, for Hopper (sm_90a).
+//
+// Replaces the loop bodies that XLA compiled into one device program under
+// each scheduler's lax.while_loop (no Pallas kernel):
+//   * cudavolumerenderer_tpu/models/integrator.py:237 `bounce_step` (under
+//     `trace`'s loop, :350; Woodcock's own loop, ops/woodcock.py:87), the
+//     body of naiveSK, naiveMK and regenerationSK;
+//   * models/regeneration.py:30 `_regenerate` (its `queue_refill`) and
+//     models/streaming.py:64 `_refill`, the deterministic work queue;
+//   * models/streaming.py:217 `extend_step` and :363 `flush_pending`, the
+//     body of streamingSK, sortingSK and streamingMK.
+// Each computes what the port's eager torch function (the plain version)
+// computes on the card, bit for bit, in the same order:
+//   bounce  (integrator.bounce_step) per live lane: the AABB slab test (a miss
+//           adds throughput * Le and ends the path); inside the box the whole
+//           Woodcock chain in registers (flight, the density at o + t d, the
+//           acceptance test, until an event or the exit); a boundary event
+//           (GGX or the null BSDF) or an HG scatter with the albedo at
+//           o + d t - d eps; Russian roulette.  With the splat on
+//           (regenerationSK) a lane that died adds its radiance into
+//           accum[image_id] and zeroes it.
+//   refill  (queue_refill with _regenerate's group rule and _refill's field
+//           resets): the k-th dead lane (a whole group of G lanes once all
+//           are dead; lanes past the last whole group one by one) takes path
+//           id paths_issued + k while ids last, a fresh (seed, path id) PCG
+//           stream and its jittered camera ray; paths_issued stays on the
+//           card.
+//   extend  (streaming.extend_step): the segment start, one Woodcock step,
+//           the boundary or scatter event, Russian roulette after an event,
+//           the splat; with defer (sortingSK) a scatter records its fetch
+//           point and stalls; flush (flush_pending) fetches the deferred
+//           albedos and runs their Russian roulette.
+// Grids are sampled as ops/grid.py does: 8 clamped taps lerped in its order
+// ('trilinear') or the truncated point ('nearest'), over a dense float32
+// density and an albedo of 1 or >= 3 channels (the first 3 read).  Every draw
+// is taken only under the eager function's mask, so each path's stream is
+// the plain version's; a dead lane is a fixed point of bounce and extend.
+//
+// Launches (ops/familybody.py):
+//   * bounce_kernel, extend_kernel: one evaluation of every lane, one thread
+//     per lane, the pool's tensors read and written in place (SoA; int64
+//     words holding the u32 RNG) or into another pool.  The counts (lanes
+//     alive at the start, or segment starts, for n_rays; lanes alive after)
+//     reduce per block with __syncthreads_count and across blocks with
+//     atomics; the last block adds n_rays once in float32 and writes the
+//     count.  Gated (a stage's control words given, common.cuh): each launch
+//     returns untouched where the host's loop would have stopped, and the
+//     last block advances the evaluation index and leaves the loop's count
+//     (lanes alive + paths not yet issued).
+//   * refill_kernel: 1,024 lanes per block, so a refill group (a power of
+//     two up to 1,024) lies inside a block and its all-dead test is a warp
+//     ballot or the block's ballots; the ranks are a block scan and a
+//     single-pass decoupled look-back over the blocks' totals, in the order
+//     of a start ticket; the last block advances paths_issued and clears the
+//     look-back words.  A separate launch before each bounce or extend: a
+//     group of 1,024 lanes spans four of bounce's blocks, whose alive flags
+//     the bounce rewrites.
+//   * drain_kernel (naiveSK's trace): each lane loads once, runs bounce after
+//     bounce in registers until it dies or reaches max_path_length (a dead
+//     lane is a fixed point, so this is the loop), and stores once; each
+//     lane's evaluation count goes into a histogram by warp-aggregated
+//     atomics, and the last block folds the live counts into n_rays in
+//     float32, one evaluation after another, as the loop adds them.
+//
+#include "common.cuh"
+
+namespace {
+
+using namespace cvr;
+
+constexpr int THREADS = 256;
+constexpr int REFILL_THREADS = 1024;
+constexpr int DRAIN_THREADS = 64;
+// ops/grid.py _COORD_LIMIT: coordinates clamp here before the int64 cast
+constexpr float COORD_LIMIT = 4611686018427387904.0f;  // 2^62
+
+// Float parameters (ops/familybody.py FP_*).
+enum {
+  FP_BMIN = 0, FP_BMAX = FP_BMIN + 3, FP_EXT = FP_BMAX + 3,
+  FP_RMD = FP_EXT + 3,  // the density's (nx, ny, nz) - 1
+  FP_RMA = FP_RMD + 3,  // the albedo's
+  FP_SCALE = FP_RMA + 3, FP_INV_SIGMAT, FP_G, FP_LE,
+  FP_ROUGH = FP_LE + 3, FP_ETA = FP_ROUGH + 2, FP_INV_ETA,
+  FP_TILEX, FP_TILEY, FP_INV_TW, FP_INV_RESX, FP_INV_RESY,
+  FP_CAM,  // the camera's (3, 4) inv_view, row-major
+  FP_R2VX = FP_CAM + 12, FP_R2VY, N_FP,
+};
+
+// Integer parameters (ops/familybody.py IP_*).
+enum {
+  IP_OP = 0, IP_NX, IP_NY, IP_NZ, IP_AX, IP_AY, IP_AZ, IP_NCH, IP_NEAREST,
+  IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_SPLAT, IP_DEFER, IP_GROUP,
+  IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH,
+  IP_THRESH, IP_CHAIN, IP_CAP,  // a stage's exit threshold, chain, drain cap
+  N_IP,
+};
+
+// Entry points (IP_OP).
+enum { OP_BOUNCE = 0, OP_REFILL, OP_EXTEND, OP_FLUSH };
+
+// Pointer slots (ops/familybody.py S_*): the per-lane fields (a PathState's
+// first seven, image_id, then StreamState's), the outputs (the same again),
+// n_rays in and out, the count, paths_issued in and out, the image, the
+// grids, the scratch, the refill's look-back words, a stage's control words
+// and the drain's histogram (null where a launch uses none).
+enum {
+  S_O = 0, S_D, S_TP, S_RAD, S_ALIVE, S_RS, S_RINC, S_IMG,
+  S_TRACK, S_T, S_MAXT, S_NRM, S_PEND, S_PSCAT,
+  N_LANE,
+  S_OUT = N_LANE, S_NRAYS = S_OUT + N_LANE, S_NRAYS_OUT, S_COUNT,
+  S_ISSUED, S_ISSUED_OUT, S_ACCUM, S_DENSITY, S_ALBEDO, S_SCRATCH, S_STATUS,
+  S_CTRL, S_HIST, N_S,
+};
+
+// The scratch's uint64 words: the two counts, the last-block ticket, the
+// refill's start ticket and its paths taken.  Zero before and after a launch.
+enum { SC_COUNT = 0, SC_RAYS, SC_TICKET, SC_START, SC_TAKES, N_SCRATCH };
+
+struct Params {
+  float f[N_FP];
+  long long i[N_IP];
+};
+struct Ptrs {
+  void* p[N_S];
+};
+
+// One lane, in registers.
+struct Lane {
+  float o[3], d[3], tp[3], rad[3], nrm[3], ps[3];
+  float t, maxt;
+  uint32_t rs, inc;
+  bool alive, trk, pend;
+};
+
+// What a launch reads and writes of a lane beyond alive: the path fields, and
+// StreamState's.
+__device__ __forceinline__ void load_lane(const Ptrs& Q, int i, bool stream, Lane& L) {
+  const float* fo = (const float*)Q.p[S_O];
+  const float* fd = (const float*)Q.p[S_D];
+  const float* ftp = (const float*)Q.p[S_TP];
+  const float* frad = (const float*)Q.p[S_RAD];
+  for (int k = 0; k < 3; ++k) {
+    L.o[k] = fo[3 * i + k];
+    L.d[k] = fd[3 * i + k];
+    L.tp[k] = ftp[3 * i + k];
+    L.rad[k] = frad[3 * i + k];
+  }
+  L.rs = (uint32_t)((const long long*)Q.p[S_RS])[i];
+  L.inc = (uint32_t)((const long long*)Q.p[S_RINC])[i];
+  if (!stream) return;
+  L.t = ((const float*)Q.p[S_T])[i];
+  L.maxt = ((const float*)Q.p[S_MAXT])[i];
+  const float* fn = (const float*)Q.p[S_NRM];
+  const float* fp = (const float*)Q.p[S_PSCAT];
+  for (int k = 0; k < 3; ++k) {
+    L.nrm[k] = fn[3 * i + k];
+    L.ps[k] = fp[3 * i + k];
+  }
+}
+
+// Stores the fields a launch may change; the RNG's increment only where it
+// can change (a refill) or when writing another pool.
+__device__ __forceinline__ void store_lane(const Ptrs& Q, int i, bool stream, bool inc,
+                                           const Lane& L) {
+  float* go = (float*)Q.p[S_OUT + S_O];
+  float* gd = (float*)Q.p[S_OUT + S_D];
+  float* gtp = (float*)Q.p[S_OUT + S_TP];
+  float* grad = (float*)Q.p[S_OUT + S_RAD];
+  for (int k = 0; k < 3; ++k) {
+    go[3 * i + k] = L.o[k];
+    gd[3 * i + k] = L.d[k];
+    gtp[3 * i + k] = L.tp[k];
+    grad[3 * i + k] = L.rad[k];
+  }
+  ((bool*)Q.p[S_OUT + S_ALIVE])[i] = L.alive;
+  ((long long*)Q.p[S_OUT + S_RS])[i] = (long long)L.rs;
+  if (inc) ((long long*)Q.p[S_OUT + S_RINC])[i] = (long long)L.inc;
+  if (!stream) return;
+  ((bool*)Q.p[S_OUT + S_TRACK])[i] = L.trk;
+  ((float*)Q.p[S_OUT + S_T])[i] = L.t;
+  ((float*)Q.p[S_OUT + S_MAXT])[i] = L.maxt;
+  ((bool*)Q.p[S_OUT + S_PEND])[i] = L.pend;
+  float* gn = (float*)Q.p[S_OUT + S_NRM];
+  float* gp = (float*)Q.p[S_OUT + S_PSCAT];
+  for (int k = 0; k < 3; ++k) {
+    gn[3 * i + k] = L.nrm[k];
+    gp[3 * i + k] = L.ps[k];
+  }
+}
+
+// ---- the grids (ops/grid.py) ------------------------------------------------
+
+// _to_index: truncation toward zero of a coordinate clamped to +-2^62.
+__device__ __forceinline__ long long to_index(float c) {
+  return (long long)jclip(c, -COORD_LIMIT, COORD_LIMIT);
+}
+__device__ __forceinline__ long long clampll(long long x, long long hi) {
+  return x < 0 ? 0 : (x > hi ? hi : x);
+}
+
+// sample(grid, p01): the first `nout` channels of a (nz, ny, nx, nch) grid at
+// the box coordinates p01, scaled by rm1 = n - 1 (volume_to_grid); 8 clamped
+// taps lerped as sample_trilinear does, or sample_nearest's point.
+__device__ __forceinline__ void sample_grid(const float* g, long long nx, long long ny,
+                                            long long nz, int nch, int nout,
+                                            const float rm1[3], const float p01[3],
+                                            bool nearest, float* out) {
+  float coord[3];
+  for (int a = 0; a < 3; ++a) coord[a] = p01[a] * rm1[a];
+  if (nearest) {
+    const long long ix = clampll(to_index(coord[0]), nx - 1);
+    const long long iy = clampll(to_index(coord[1]), ny - 1);
+    const long long iz = clampll(to_index(coord[2]), nz - 1);
+    const float* v = g + ((iz * ny + iy) * nx + ix) * nch;
+    for (int c = 0; c < nout; ++c) out[c] = v[c];
+    return;
+  }
+  float c0[3];
+  long long i0[3];
+  for (int a = 0; a < 3; ++a) {
+    c0[a] = floorf(coord[a]);
+    i0[a] = to_index(c0[a]);
+  }
+  const float fx = coord[0] - c0[0], fy = coord[1] - c0[1], fz = coord[2] - c0[2];
+  const long long xa = clampll(i0[0], nx - 1), xb = clampll(i0[0] + 1, nx - 1);
+  const long long ya = clampll(i0[1], ny - 1), yb = clampll(i0[1] + 1, ny - 1);
+  const long long za = clampll(i0[2], nz - 1), zb = clampll(i0[2] + 1, nz - 1);
+  const float* r00 = g + (za * ny + ya) * nx * nch;  // (z, y) rows
+  const float* r01 = g + (za * ny + yb) * nx * nch;
+  const float* r10 = g + (zb * ny + ya) * nx * nch;
+  const float* r11 = g + (zb * ny + yb) * nx * nch;
+  const float ofx = 1.0f - fx, ofy = 1.0f - fy, ofz = 1.0f - fz;
+  for (int c = 0; c < nout; ++c) {
+    const float d000 = r00[xa * nch + c], d001 = r00[xb * nch + c];
+    const float d010 = r01[xa * nch + c], d011 = r01[xb * nch + c];
+    const float d100 = r10[xa * nch + c], d101 = r10[xb * nch + c];
+    const float d110 = r11[xa * nch + c], d111 = r11[xb * nch + c];
+    out[c] = ((d000 * ofx + d001 * fx) * ofy + (d010 * ofx + d011 * fx) * fy) * ofz +
+             ((d100 * ofx + d101 * fx) * ofy + (d110 * ofx + d111 * fx) * fy) * fz;
+  }
+}
+
+// The box coordinates of a world point: (p - box_min) / extent.
+__device__ __forceinline__ void box01(const Params& P, const float p[3], float p01[3]) {
+  for (int a = 0; a < 3; ++a) p01[a] = (p[a] - P.f[FP_BMIN + a]) / P.f[FP_EXT + a];
+}
+
+// The density at o + t d.
+__device__ __forceinline__ float density_at(const Params& P, const Ptrs& Q, const float o[3],
+                                            const float d[3], float t) {
+  float p[3], p01[3], rho;
+  for (int a = 0; a < 3; ++a) p[a] = o[a] + t * d[a];
+  box01(P, p, p01);
+  sample_grid((const float*)Q.p[S_DENSITY], P.i[IP_NX], P.i[IP_NY], P.i[IP_NZ], 1, 1,
+              P.f + FP_RMD, p01, P.i[IP_NEAREST] != 0, &rho);
+  return rho;
+}
+
+// integrator.sample_albedo at p: rgb (a 1-channel grid broadcast).
+__device__ __forceinline__ void albedo_at(const Params& P, const Ptrs& Q, const float p[3],
+                                          float alb[3]) {
+  float p01[3];
+  box01(P, p, p01);
+  const int nch = (int)P.i[IP_NCH];
+  sample_grid((const float*)Q.p[S_ALBEDO], P.i[IP_AX], P.i[IP_AY], P.i[IP_AZ], nch,
+              nch < 3 ? 1 : 3, P.f + FP_RMA, p01, P.i[IP_NEAREST] != 0, alb);
+  if (nch < 3) alb[1] = alb[2] = alb[0];
+}
+
+// ---- the bodies -------------------------------------------------------------
+
+__device__ __forceinline__ Ggx ggx_of(const Params& P) {
+  return Ggx{P.f[FP_ROUGH], P.f[FP_ROUGH + 1], P.f[FP_ETA], P.f[FP_INV_ETA],
+             P.i[IP_MITSUBA] != 0};
+}
+
+// Russian roulette (integrator.russian_roulette) on a lane of its mask.
+__device__ __forceinline__ void roulette(Lane& L) {
+  const float p = jmin(jmax(jmax(L.tp[0], L.tp[1]), L.tp[2]), 1.0f);
+  const float u = draw_float(L.rs, L.inc);
+  if (u > p) {
+    L.alive = false;
+  } else {
+    const float q = jmax(p, 1e-20f);
+    for (int k = 0; k < 3; ++k) L.tp[k] = L.tp[k] / q;
+  }
+}
+
+// An HG scatter at o + d t - d eps (phase.sample_phase): the new o and d.
+__device__ __forceinline__ void scatter(const Params& P, Lane& L, float t, float os[3]) {
+  float nd[3];
+  for (int k = 0; k < 3; ++k) os[k] = L.o[k] + L.d[k] * t - L.d[k] * EPS;
+  const float e1 = draw_float(L.rs, L.inc);
+  const float e2 = draw_float(L.rs, L.inc);
+  float cos_th, sin_th;
+  hg(P.f[FP_G], e1, cos_th, sin_th);
+  const float phi = TWO_PI_F * e2;
+  turn(L.d, sin_th * cosf(phi), sin_th * sinf(phi), cos_th, nd);
+  for (int k = 0; k < 3; ++k) {
+    L.o[k] = os[k];
+    L.d[k] = nd[k];
+  }
+}
+
+// integrator.bounce_step for a live lane.
+__device__ __forceinline__ void bounce(const Params& P, const Ptrs& Q, Lane& L) {
+  const BoxHit h = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, L.o, L.d);
+  const bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+  if (!hit) {
+    for (int k = 0; k < 3; ++k) L.rad[k] = L.rad[k] + L.tp[k] * P.f[FP_LE + k];
+    L.alive = false;
+    return;
+  }
+  const bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
+  // woodcock_track: the whole chain of this lane
+  float t = 0.0f;
+  bool scattered = false;
+  if (inside) {
+    const float isig = P.f[FP_INV_SIGMAT], scale = P.f[FP_SCALE];
+    bool running = true;
+    while (running) {
+      const float t_new = t + flight(L.rs = pcg_next(L.rs, L.inc), isig);
+      const float rho = density_at(P, Q, L.o, L.d, t_new);
+      const float u2 = draw_float(L.rs, L.inc);
+      running = t_new <= h.dist && scale * rho * isig < u2;
+      t = t_new;
+    }
+    scattered = t < h.dist;
+  }
+  if (!scattered) {
+    boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), h.nrm, h.dist, L.o, L.d, L.tp, L.rs, L.inc);
+  } else {
+    float os[3], alb[3];
+    scatter(P, L, t, os);
+    albedo_at(P, Q, os, alb);
+    for (int k = 0; k < 3; ++k) L.tp[k] = L.tp[k] * alb[k];
+  }
+  if (P.i[IP_RR]) roulette(L);
+}
+
+// The radiance of a lane that died into its pixel, then zero.
+__device__ __forceinline__ void splat(const Ptrs& Q, int i, Lane& L) {
+  const long long img = ((const long long*)Q.p[S_IMG])[i];
+  float* acc = (float*)Q.p[S_ACCUM] + 3 * img;
+  for (int k = 0; k < 3; ++k) {
+    atomicAdd(acc + k, L.rad[k]);
+    L.rad[k] = 0.0f;
+  }
+}
+
+// streaming.extend_step for a lane that is alive or tracking; returns whether
+// it started a segment (n_rays).
+__device__ __forceinline__ bool extend(const Params& P, const Ptrs& Q, Lane& L, bool defer) {
+  const bool need_isect = L.alive && !L.trk && !(defer && L.pend);
+  bool enters = false, boundary_now = false;
+  float dist = 0.0f;
+  if (need_isect) {
+    const BoxHit h = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, L.o, L.d);
+    const bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+    const bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
+    if (!hit) {
+      for (int k = 0; k < 3; ++k) L.rad[k] = L.rad[k] + L.tp[k] * P.f[FP_LE + k];
+      L.alive = false;
+    }
+    enters = hit && inside;
+    boundary_now = hit && !inside;
+    dist = h.dist;
+    if (enters) {
+      L.trk = true;
+      L.t = 0.0f;
+      L.maxt = h.dist;
+    }
+    for (int k = 0; k < 3; ++k) L.nrm[k] = h.nrm[k];
+  }
+  // woodcock_step_masked: one step of a lane already tracking
+  bool terminated = false, scattered = false;
+  if (L.trk && !enters) {
+    const float isig = P.f[FP_INV_SIGMAT], scale = P.f[FP_SCALE];
+    const float t_new = L.t + flight(L.rs = pcg_next(L.rs, L.inc), isig);
+    const float rho = density_at(P, Q, L.o, L.d, t_new);
+    const float u2 = draw_float(L.rs, L.inc);
+    const bool overran = t_new > L.maxt;
+    const bool accepted = !(scale * rho * isig < u2);
+    terminated = overran || accepted;
+    scattered = terminated && !overran;
+    L.t = t_new;
+  }
+  L.trk = L.trk && !terminated;
+  const bool boundary = boundary_now || (terminated && !scattered);
+  if (boundary) {
+    boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), L.nrm, boundary_now ? dist : L.maxt, L.o,
+                   L.d, L.tp, L.rs, L.inc);
+  }
+  if (scattered) {
+    float os[3];
+    scatter(P, L, L.t, os);
+    if (defer) {
+      L.pend = true;
+      for (int k = 0; k < 3; ++k) L.ps[k] = os[k];
+    } else {
+      float alb[3];
+      albedo_at(P, Q, os, alb);
+      for (int k = 0; k < 3; ++k) L.tp[k] = L.tp[k] * alb[k];
+    }
+  }
+  const bool had_event = L.alive && ((scattered && !defer) || boundary);
+  if (P.i[IP_RR] && had_event) roulette(L);
+  return need_isect;
+}
+
+// streaming.flush_pending for a pending lane.
+__device__ __forceinline__ void flush(const Params& P, const Ptrs& Q, Lane& L) {
+  float alb[3];
+  albedo_at(P, Q, L.ps, alb);
+  for (int k = 0; k < 3; ++k) L.tp[k] = L.tp[k] * alb[k];
+  if (P.i[IP_RR]) roulette(L);
+  L.pend = false;
+}
+
+// ---- launches ----------------------------------------------------------------
+
+// The count the host's loop reads: lanes alive, plus paths not yet issued
+// where the pool is queue-fed.
+__device__ __forceinline__ long long loop_count(const Params& P, const Ptrs& Q, long long alive) {
+  if (Q.p[S_ISSUED] == nullptr) return alive;
+  return alive + P.i[IP_NPATHS] - *(const long long*)Q.p[S_ISSUED];
+}
+
+// The counts of one evaluation over the grid; the last block adds n_rays and
+// writes the count (the stage's C_COUNT when gated), and clears the scratch.
+__device__ __forceinline__ void reduce_counts(const Params& P, const Ptrs& Q, bool rays,
+                                              bool alive, long long* ctrl, long long e) {
+  const int n_rays = __syncthreads_count(rays);
+  const int n_alive = __syncthreads_count(alive);
+  if (threadIdx.x != 0) return;
+  unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
+  atomicAdd(scratch + SC_RAYS, (unsigned long long)n_rays);
+  atomicAdd(scratch + SC_COUNT, (unsigned long long)n_alive);
+  if (!last_block(scratch + SC_TICKET)) return;  // the last block: every count is in
+  const unsigned long long r = atomicAdd(scratch + SC_RAYS, 0ull);
+  const unsigned long long c = atomicAdd(scratch + SC_COUNT, 0ull);
+  *(float*)Q.p[S_NRAYS_OUT] = *(const float*)Q.p[S_NRAYS] + (float)r;
+  *(long long*)Q.p[S_COUNT] = loop_count(P, Q, (long long)c);
+  scratch[SC_RAYS] = scratch[SC_COUNT] = scratch[SC_TICKET] = 0ull;
+  if (ctrl != nullptr) ctrl[C_EVAL] = e + 1;
+}
+
+// Whether the launch writes another pool (every lane's fields then copied).
+__device__ __forceinline__ bool out_of_place(const Ptrs& Q) {
+  return Q.p[S_OUT + S_ALIVE] != Q.p[S_ALIVE];
+}
+
+// One bounce of every lane; gated when S_CTRL is set.
+__global__ void __launch_bounds__(THREADS) bounce_kernel(Params P, Ptrs Q, int width) {
+  long long* ctrl = (long long*)Q.p[S_CTRL];
+  long long e = 0;
+  if (ctrl != nullptr) {
+    if (stage_stopped(ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])) return;
+    e = ctrl[C_EVAL];
+  }
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  bool was = false, alive = false;
+  if (i < width) {
+    Lane L;
+    L.alive = was = ((const bool*)Q.p[S_ALIVE])[i];
+    const bool copy = out_of_place(Q);
+    if (was || copy) {
+      load_lane(Q, i, false, L);
+      if (was) {
+        bounce(P, Q, L);
+        if (P.i[IP_SPLAT] && !L.alive) splat(Q, i, L);
+      }
+      store_lane(Q, i, false, copy, L);
+    }
+    alive = L.alive;
+  }
+  reduce_counts(P, Q, was, alive, ctrl, e);
+}
+
+// One extend (or, with OP_FLUSH, one flush) of every lane; gated when S_CTRL
+// is set.
+__global__ void __launch_bounds__(THREADS) extend_kernel(Params P, Ptrs Q, int width) {
+  long long* ctrl = (long long*)Q.p[S_CTRL];
+  long long e = 0;
+  if (ctrl != nullptr) {
+    if (stage_stopped(ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])) return;
+    e = ctrl[C_EVAL];
+  }
+  const bool is_flush = P.i[IP_OP] == OP_FLUSH;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  bool isect = false, alive = false;
+  if (i < width) {
+    Lane L;
+    L.alive = ((const bool*)Q.p[S_ALIVE])[i];
+    L.trk = ((const bool*)Q.p[S_TRACK])[i];
+    L.pend = ((const bool*)Q.p[S_PEND])[i];
+    const bool act = is_flush ? L.pend : (L.alive || L.trk);
+    const bool copy = out_of_place(Q);
+    if (act || copy) {
+      load_lane(Q, i, true, L);
+      if (act) {
+        const bool was = L.alive;
+        if (is_flush) {
+          flush(P, Q, L);
+        } else {
+          isect = extend(P, Q, L, P.i[IP_DEFER] != 0);
+        }
+        if (was && !L.alive) splat(Q, i, L);
+      }
+      store_lane(Q, i, true, copy, L);
+    }
+    alive = L.alive;
+  }
+  if (is_flush) return;  // no counts: the loop reads the next extend's
+  reduce_counts(P, Q, isect, alive, ctrl, e);
+}
+
+// ---- the refill ----------------------------------------------------------------
+
+// Decoupled look-back over the blocks' totals (status words: 0, or a total
+// with bit 62 (the block's own) or bit 63 (its inclusive prefix)): the
+// exclusive prefix of block b, whose own total is agg.
+__device__ __forceinline__ long long look_back(unsigned long long* status, int b,
+                                               long long agg) {
+  constexpr unsigned long long OWN = 1ull << 62, INCL = 1ull << 63, VAL = OWN - 1ull;
+  if (b == 0) {
+    atomicExch(status, INCL | (unsigned long long)agg);
+    return 0;
+  }
+  atomicExch(status + b, OWN | (unsigned long long)agg);
+  long long excl = 0;
+  int k = b - 1;
+  while (true) {
+    const unsigned long long v = *(volatile unsigned long long*)(status + k);
+    if (v == 0ull) continue;  // block k has not published yet
+    excl += (long long)(v & VAL);
+    if (v & INCL) break;
+    --k;
+  }
+  atomicExch(status + b, INCL | (unsigned long long)(excl + agg));
+  return excl;
+}
+
+// The queue refill of every lane: ranks of the dead lanes (groups of
+// IP_GROUP) in lane order, path ids from paths_issued while they last.
+__global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q, int width) {
+  long long* ctrl = (long long*)Q.p[S_CTRL];
+  if (ctrl != nullptr && stage_stopped(ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])) return;
+  unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
+  unsigned long long* status = (unsigned long long*)Q.p[S_STATUS];
+  __shared__ int s_block;
+  __shared__ unsigned s_ball[REFILL_THREADS / 32];
+  __shared__ int s_warp[REFILL_THREADS / 32];
+  __shared__ long long s_prefix;
+  if (threadIdx.x == 0) s_block = (int)atomicAdd(scratch + SC_START, 1ull);
+  __syncthreads();
+  const int b = s_block;  // the blocks' order of start: the look-back's order
+  const int i = b * REFILL_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool dead = i < width && !((const bool*)Q.p[S_ALIVE])[i];
+  const unsigned ball = __ballot_sync(0xffffffffu, dead);
+  if (lane == 0) s_ball[warp] = ball;
+  __syncthreads();
+  // _regenerate's group rule: a group refills once all its lanes are dead
+  const long long g = P.i[IP_GROUP];
+  bool want = dead;
+  if (g > 1 && i < (width / g) * g) {
+    if (g <= 32) {
+      const unsigned m = g == 32 ? 0xffffffffu : ((1u << g) - 1u);
+      want = ((ball >> (lane & ~(int)(g - 1))) & m) == m;
+    } else {
+      const int wg = (int)(g / 32), w0 = warp / wg * wg;
+      want = true;
+      for (int w = w0; w < w0 + wg; ++w) want = want && s_ball[w] == 0xffffffffu;
+    }
+  }
+  // the ranks: a block scan, then the blocks before
+  const unsigned wb = __ballot_sync(0xffffffffu, want);
+  const int in_warp = __popc(wb & ((1u << lane) - 1u));
+  if (lane == 0) s_warp[warp] = __popc(wb);
+  __syncthreads();
+  if (warp == 0) {
+    int v = s_warp[lane];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    s_warp[lane] = v;  // inclusive
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_prefix = look_back(status, b, s_warp[REFILL_THREADS / 32 - 1]);
+  __syncthreads();
+  const long long issued = *(const long long*)Q.p[S_ISSUED];
+  const long long rank = s_prefix + (warp == 0 ? 0 : s_warp[warp - 1]) + in_warp;
+  const long long pid = issued + rank;
+  const bool takes = want && pid < P.i[IP_NPATHS];
+  const bool stream = P.i[IP_STREAM] != 0;
+  const bool copy = out_of_place(Q);
+  if (takes) {
+    // the path's pixel, its (seed, path id) stream and camera ray
+    Lane L;
+    const long long img = pid % P.i[IP_NPIX];
+    const float px = (float)(img % P.i[IP_TW]) + P.f[FP_TILEX];
+    const float py = floorf((float)img * P.f[FP_INV_TW]) + P.f[FP_TILEY];
+    const uint32_t path = (uint32_t)(pid + P.i[IP_BASE]);
+    L.rs = hash32(path ^ (uint32_t)P.i[IP_SEEDH]);
+    L.inc = (hash32(path + 0x632BE5ABu) << 1) | 1u;
+    const float u1 = draw_float(L.rs, L.inc);
+    const float u2 = draw_float(L.rs, L.inc);
+    float rx = (px + u1) * 2.0f * P.f[FP_INV_RESX] - 1.0f;
+    float ry = (py + u2) * 2.0f * P.f[FP_INV_RESY] - 1.0f;
+    rx = rx * P.f[FP_R2VX];
+    ry = ry * P.f[FP_R2VY];
+    const float v[3] = {rx, ry, 1.0f};
+    float dv[3];
+    normalize3(v, dv);
+    const float* m = P.f + FP_CAM;
+    for (int k = 0; k < 3; ++k) {
+      L.d[k] = m[4 * k] * dv[0] + m[4 * k + 1] * dv[1] + m[4 * k + 2] * dv[2];
+      L.o[k] = m[4 * k + 3];
+      L.tp[k] = 1.0f;
+      L.rad[k] = 0.0f;
+    }
+    L.alive = true;
+    float* go = (float*)Q.p[S_OUT + S_O];
+    float* gd = (float*)Q.p[S_OUT + S_D];
+    float* gtp = (float*)Q.p[S_OUT + S_TP];
+    float* grad = (float*)Q.p[S_OUT + S_RAD];
+    for (int k = 0; k < 3; ++k) {
+      go[3 * i + k] = L.o[k];
+      gd[3 * i + k] = L.d[k];
+      gtp[3 * i + k] = L.tp[k];
+      grad[3 * i + k] = L.rad[k];
+    }
+    ((bool*)Q.p[S_OUT + S_ALIVE])[i] = true;
+    ((long long*)Q.p[S_OUT + S_RS])[i] = (long long)L.rs;
+    ((long long*)Q.p[S_OUT + S_RINC])[i] = (long long)L.inc;
+    ((long long*)Q.p[S_OUT + S_IMG])[i] = img;
+    if (stream) ((bool*)Q.p[S_OUT + S_TRACK])[i] = false;
+  } else if (copy && i < width) {
+    Lane L;
+    L.alive = !dead;
+    load_lane(Q, i, false, L);
+    store_lane(Q, i, false, true, L);
+    ((long long*)Q.p[S_OUT + S_IMG])[i] = ((const long long*)Q.p[S_IMG])[i];
+    if (stream) ((bool*)Q.p[S_OUT + S_TRACK])[i] = ((const bool*)Q.p[S_TRACK])[i];
+  }
+  const int n_takes = __syncthreads_count(takes);
+  if (threadIdx.x != 0) return;
+  atomicAdd(scratch + SC_TAKES, (unsigned long long)n_takes);
+  if (!last_block(scratch + SC_TICKET)) return;  // the last block: every block is done
+  *(long long*)Q.p[S_ISSUED_OUT] = issued + (long long)atomicAdd(scratch + SC_TAKES, 0ull);
+  scratch[SC_TAKES] = scratch[SC_TICKET] = scratch[SC_START] = 0ull;
+  for (unsigned k = 0; k < gridDim.x; ++k) status[k] = 0ull;
+}
+
+// ---- the drain (naiveSK's trace) ---------------------------------------------
+
+// Adds each lane's count j (where j > 0) to hist[j]: one atomic per group of a
+// warp's lanes at the same j.  Every thread of the warp calls it.
+__device__ __forceinline__ void warp_count(unsigned long long* hist, int j) {
+  const unsigned same = __match_any_sync(0xffffffffu, j);
+  if (j > 0 && (int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(hist + j, (unsigned long long)__popc(same));
+}
+
+// Every lane bounces until it dies or reaches max_path_length (or the cap).
+__global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, int width) {
+  unsigned long long* ctrl = (unsigned long long*)Q.p[S_CTRL];
+  unsigned long long* hist = (unsigned long long*)Q.p[S_HIST];  // [cap + 1]
+  unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
+  const long long cap = P.i[IP_CAP], maxpath = P.i[IP_MAXPATH];
+  const long long e0 = (long long)ctrl[C_EVAL];
+  const int i = blockIdx.x * DRAIN_THREADS + threadIdx.x;
+  int j = 0;  // this lane's evaluations in this launch
+  bool left = false, finished = false;
+  if (i < width && ((const bool*)Q.p[S_ALIVE])[i] && e0 < maxpath) {
+    Lane L;
+    L.alive = true;
+    load_lane(Q, i, false, L);
+    do {
+      bounce(P, Q, L);
+      ++j;
+    } while (L.alive && j < cap && e0 + j < maxpath);
+    store_lane(Q, i, false, false, L);
+    left = L.alive && e0 + j < maxpath;
+    finished = !left;
+  }
+  warp_count(hist, j);
+  const int ran = __syncthreads_count(j > 0);
+  if (threadIdx.x == 0 && ran > 0) atomicAdd(scratch + SC_RAYS, (unsigned long long)ran);
+  DrainEnd end;
+  if (!drain_end(ctrl, e0, 1, j, left, finished, end)) return;
+  // the last block: every lane is in.  Evaluation e of this launch started
+  // with the lanes that ran more than e evaluations.
+  long long live = (long long)atomicAdd(scratch + SC_RAYS, 0ull);
+  float n = *(const float*)Q.p[S_NRAYS];
+  for (long long e = 0; e < end.jmax; ++e) {
+    n = n + (float)live;
+    live -= (long long)__ldcg(hist + e + 1);
+  }
+  *(float*)Q.p[S_NRAYS_OUT] = n;
+  for (long long e = 1; e <= end.jmax; ++e) hist[e] = 0ull;
+  scratch[SC_RAYS] = 0ull;
+  drain_close(ctrl, e0, cap, end.left);
+}
+
+Params params_of(const float* fparams, const long long* iparams) {
+  Params P;
+  for (int k = 0; k < N_FP; ++k) P.f[k] = fparams[k];
+  for (int k = 0; k < N_IP; ++k) P.i[k] = iparams[k];
+  return P;
+}
+
+Ptrs ptrs_of(void* const* ptrs) {
+  Ptrs Q;
+  for (int k = 0; k < N_S; ++k) Q.p[k] = ptrs[k];
+  return Q;
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes (ops/familybody.py).  fparams
+// (N_FP,) float32, iparams (N_IP,) int64 and ptrs (N_S,) device addresses,
+// all in host memory and copied into the launch; width lanes.  Each returns
+// cudaGetLastError(), or -1 when a size does not match this build's.
+
+// One evaluation of the entry point IP_OP (bounce, refill, extend or flush):
+// the scratch (N_SCRATCH uint64) and, for a refill, the look-back words (one
+// uint64 per 1,024 lanes) zero before the launch, and zero after it; with
+// ptrs[S_CTRL] set, gated on a stage's control words (IP_THRESH, IP_CHAIN)
+// that the host set at its start.
+extern "C" int familybody_launch(const float* fparams, int n_fp, const long long* iparams,
+                                 int n_ip, void* const* ptrs, int n_s, int width,
+                                 void* stream) {
+  if (n_fp != N_FP || n_ip != N_IP || n_s != N_S) return -1;
+  if (width <= 0) return 0;
+  const Params P = params_of(fparams, iparams);
+  const Ptrs Q = ptrs_of(ptrs);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (P.i[IP_OP]) {
+    case OP_BOUNCE:
+      bounce_kernel<<<(width + THREADS - 1) / THREADS, THREADS, 0, st>>>(P, Q, width);
+      break;
+    case OP_REFILL:
+      refill_kernel<<<(width + REFILL_THREADS - 1) / REFILL_THREADS, REFILL_THREADS, 0, st>>>(
+          P, Q, width);
+      break;
+    case OP_EXTEND:
+    case OP_FLUSH:
+      extend_kernel<<<(width + THREADS - 1) / THREADS, THREADS, 0, st>>>(P, Q, width);
+      break;
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// drain_kernel: the control words zero at the trace's start, the histogram
+// (IP_CAP + 1 uint64) and the scratch zero before each launch (each launch
+// leaves them zero).
+extern "C" int familybody_drain(const float* fparams, int n_fp, const long long* iparams,
+                                int n_ip, void* const* ptrs, int n_s, int width,
+                                void* stream) {
+  if (n_fp != N_FP || n_ip != N_IP || n_s != N_S) return -1;
+  if (width > 0) {
+    const int blocks = (width + DRAIN_THREADS - 1) / DRAIN_THREADS;
+    drain_kernel<<<blocks, DRAIN_THREADS, 0, (cudaStream_t)stream>>>(
+        params_of(fparams, iparams), ptrs_of(ptrs), width);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The layout sizes this build expects (N_FP, N_IP, N_S, N_CTRL), for the
+// wrapper's check.
+extern "C" void familybody_layout(int* sizes) {
+  sizes[0] = N_FP;
+  sizes[1] = N_IP;
+  sizes[2] = N_S;
+  sizes[3] = N_CTRL;
+}

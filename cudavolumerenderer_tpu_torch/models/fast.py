@@ -59,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, fastbody, phase
+from ..ops import aabb, camera as cam, fastbody, phase, stages
 from ..ops import tailpk as tpk
 from ..ops.rng import M32, RngState, make_rng, next_float, next_uint32
 from ..scene.types import RenderSettings, Scene
@@ -582,8 +582,8 @@ def render_tile(
     def body(s: FastState, spec_k=1, single_level=False, bt=None,
              taps=None) -> FastState:
         """One evaluation of every lane; a list given as `taps` receives
-        the flat table indices and brick rows the evaluation reads
-        (fastbody.body_bytes)."""
+        the flat table indices and brick rows the evaluation reads and its
+        per-lane state traffic (fastbody.body_bytes)."""
         width = s.alive.shape[0]
         # --- regenerate: next sample of the lane's pixel -----------------
         needs = ~s.alive & (s.samples_done < spp_per_lane)
@@ -859,7 +859,7 @@ def render_tile(
             cap_on=alive)
         tracking = tracking & ~capped
 
-        return FastState(
+        new = FastState(
             o=o, d=d, throughput=tput, accum=accum, normal=normal,
             t=t, max_t=max_t,
             brick_exit=brick_exit, inv_sig_local=inv_sig_local,
@@ -871,6 +871,32 @@ def render_tile(
             n_busy=s.n_busy + tracking.to(torch.float32).sum(),
             pend_b=pend_b,
         )
+        if taps is not None:
+            # the lanes whose evaluation reads each field before it writes
+            # it (a regenerated lane writes its path's fields unread)
+            none = torch.zeros_like(s.alive)
+            live, trk = s.alive, s.alive & s.tracking
+            two = two_level and not single_level
+            drew = stages.changed(s.rng.state, rng.state) & ~needs
+            ggx_on = settings.bsdf_kind == "ggx"
+            rr = settings.russian_roulette
+            reads = {
+                "alive": torch.ones_like(live), "tracking": live,
+                "samples_done": ~live | (samples_done != s.samples_done),
+                "pix": needs, "slot": needs, "o": live, "d": live,
+                "throughput": live & (miss | scattered
+                                      | (boundary if ggx_on else none)
+                                      | (had_event if rr else none)),
+                "accum": miss,
+                "normal": boundary & ~boundary_now if ggx_on else none,
+                "t": trk, "max_t": trk,
+                "brick_exit": trk if two else none,
+                "inv_sig_local": trk & ~need_brick if two else none,
+                "bounce": had_event, "rng_state": drew, "rng_inc": drew,
+            }
+            taps.append(("state", stages.lane_traffic(
+                s, new, reads, tuple(fastbody.FIELD_BYTES))))
+        return new
 
     def pending_of(s):
         return s.alive | (s.samples_done < spp_per_lane)

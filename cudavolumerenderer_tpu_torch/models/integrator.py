@@ -24,8 +24,9 @@ from typing import NamedTuple
 import torch
 
 from ..constants import EPSILON
-from ..ops import aabb, ggx, gradient, math3, phase, woodcock
-from ..ops.grid import sample
+from ..ops import aabb, familybody, ggx, gradient, math3, phase, stages
+from ..ops import woodcock
+from ..ops.grid import sample, tap_voxels
 from ..ops.rng import RngState, next_float
 from ..scene.types import RenderSettings, Scene
 
@@ -206,7 +207,7 @@ def russian_roulette(tput, alive, rng, mask):
 
 
 def bounce_step(
-    scene: Scene, settings: RenderSettings, state: PathState
+    scene: Scene, settings: RenderSettings, state: PathState, taps=None,
 ) -> PathState:
     """Advance every live lane by one path vertex
     (reference: NaiveVolPTsk_kernel.cuh:35-86):
@@ -215,6 +216,8 @@ def bounce_step(
       boundary    → GGX reflect/refract (weight = G1), or on an invalid
                     microfacet sample continue unchanged from the boundary;
       then Russian roulette on max(throughput).
+    A list given as `taps` receives the flat density and albedo voxels the
+    bounce reads and its per-lane state traffic (ops/familybody.family_bytes).
     """
     med = scene.medium
     o, d, tput, rad, alive, rng = (
@@ -242,6 +245,7 @@ def bounce_step(
     wres = woodcock.woodcock_track(
         med.density, med.box_min, med.box_max, med.scale, med.max_density,
         o, d, isect.dist, rng, in_medium, settings.interpolation,
+        taps=taps,
     )
     rng = wres.rng
     scattered = wres.scattered
@@ -264,13 +268,31 @@ def bounce_step(
     tput = torch.where(sc, tput * albedo, torch.where(bd, t_boundary, tput))
 
     # --- Russian roulette (reference: NaiveVolPTsk_kernel.cuh:75-84) -----
+    rr_lanes = alive
     if settings.russian_roulette:
         tput, alive, _, rng = russian_roulette(tput, alive, rng, alive)
 
-    return PathState(
+    new = PathState(
         o=o, d=d, throughput=tput, radiance=rad, alive=alive, rng=rng,
         n_rays=n_rays,
     )
+    if taps is not None:
+        # the lanes whose bounce reads each field before it writes it
+        none = torch.zeros_like(state.alive)
+        ggx_on = settings.bsdf_kind == "ggx"
+        p01 = aabb.aabb_transform(med.box_min, med.box_max, o_scat)
+        reads = {
+            "alive": torch.ones_like(state.alive), "o": state.alive,
+            "d": state.alive, "radiance": miss,
+            "throughput": (miss | scattered | (boundary if ggx_on else none)
+                           | (rr_lanes if settings.russian_roulette
+                              else none)),
+        }
+        taps += [("albedo", tap_voxels(med.albedo, p01,
+                                       settings.interpolation)[scattered]),
+                 ("state", stages.lane_traffic(state, new, reads,
+                                               familybody.PATH_FIELDS))]
+    return new
 
 
 def trace(

@@ -6,6 +6,10 @@ every path of the tile batch gets a lane up front and the wavefront runs
 the shared bounce loop until all lanes die.  Dead lanes idle until the
 slowest path finishes, the inefficiency the reference measures for this
 strategy, as masked lanes instead of idle CUDA threads.
+
+On the card the loop is one launch of csrc/familybody.cu's drain: every
+lane bounces in registers until it dies, the reference's megakernel
+(ops/familybody.trace); the CPU and `eager_body=True` run the eager loop.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..ops import camera as cam
+from ..ops import familybody
 from ..ops.rng import as_u32, make_rng
 from ..scene.types import RenderSettings, Scene
 from . import integrator
@@ -69,6 +74,7 @@ def render_tile(
     spp: int,
     seed,
     path_id_base,
+    eager_body: bool = False,
 ):
     """Render spp samples for every pixel of a tile in one wavefront.
 
@@ -81,5 +87,7 @@ def render_tile(
                                   device=scene.device)
     image_id, state = start_batch(camera, tile_dim, tile_offset,
                                   full_resolution, spp, seed, path_id_base)
-    final = integrator.trace(scene, settings, state)
+    final = familybody.trace(
+        familybody.make_context(scene, settings), state,
+        familybody.route(scene.device.type, settings, eager_body))
     return splat(image_id, final.radiance, tile_dim), final.n_rays

@@ -10,7 +10,10 @@ lanes splat their radiance into the tile accumulator with a masked
 scatter-add (the reference's atomicVectorAdd, Utilities.cuh:15-22).
 
 Port note: the lax.while_loop is a host loop that reads its condition
-once per iteration; the image is accumulated with index_add_.
+once per iteration; the image is accumulated with index_add_.  On the card
+each iteration is a refill and a bounce (with the splat) of
+csrc/familybody.cu, in gated chains read once per batch
+(ops/familybody.regenerate_loop).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Tuple
 import torch
 
 from ..ops import camera as cam
+from ..ops import familybody
 from ..ops.rng import RngState, as_u32, make_rng
 from ..scene.types import RenderSettings, Scene
 from . import integrator
@@ -134,6 +138,7 @@ def render_tile(
     path_id_base,
     n_lanes: int = 1 << 16,
     refill_group: int = 1,
+    eager_body: bool = False,
 ):
     """Render a tile with a fixed lane pool regenerated from a path queue.
 
@@ -153,19 +158,10 @@ def render_tile(
     image_id = torch.zeros((n_lanes,), dtype=torch.int64, device=dev)
     paths_issued = torch.zeros((), dtype=torch.int64, device=dev)
 
-    while bool(torch.any(state.alive) | (paths_issued < n_paths)):
-        state, image_id, paths_issued = _regenerate(
-            state, image_id, paths_issued, n_paths, tile_dim, tile_offset,
-            full_resolution, camera, seed, path_id_base,
-            refill_group=refill_group,
-        )
-        was_alive = state.alive
-        state = integrator.bounce_step(scene, settings, state)
-        died = torch.logical_and(was_alive, torch.logical_not(state.alive))
-        accum.index_add_(
-            0, image_id, torch.where(died[..., None], state.radiance, 0.0)
-        )
-        state = state._replace(
-            radiance=torch.where(died[..., None], 0.0, state.radiance)
-        )
+    ctx = familybody.make_context(
+        scene, settings, camera, tile_dim, tile_offset, full_resolution,
+        n_paths, seed, path_id_base, group=refill_group)
+    state, _ = familybody.regenerate_loop(
+        ctx, state, image_id, paths_issued, accum,
+        familybody.route(dev.type, settings, eager_body))
     return accum.reshape(th, tw, 3), state.n_rays

@@ -245,7 +245,8 @@ def fast_keywords(config: Config) -> dict:
 def make_kernel_fn(config: Config):
     """Scheduler dispatch (reference: RendererFactory::createRenderer's
     kernel matrix, RendererFactory.h:43-113), row for row the JAX
-    package's."""
+    package's.  The integrator family's functions take render_tile's
+    keywords beside (eager_body=True runs the eager bodies on the card)."""
     k = config.kernel
     if (
         config.settings.boundary == "variable"
@@ -276,32 +277,32 @@ def make_kernel_fn(config: Config):
     if k == Kernel.REGENERATION_SK:
         group = regeneration.LEVEL_GROUPS[config.regeneration_level]
 
-        def regen(*args):
+        def regen(*args, **kw):
             return regeneration.render_tile(
-                *args, n_lanes=config.n_lanes, refill_group=group
+                *args, n_lanes=config.n_lanes, refill_group=group, **kw
             )
         return regen
     if k == Kernel.STREAMING_SK:
-        def stream(*args):
-            return streaming.render_tile(*args, n_lanes=config.n_lanes)
+        def stream(*args, **kw):
+            return streaming.render_tile(*args, n_lanes=config.n_lanes, **kw)
         return stream
     if k == Kernel.SORTING_SK:
-        def sort(*args):
+        def sort(*args, **kw):
             # Morton reorder + deferred coherent albedo access, the two
             # halves of the reference strategy
             # (SortingVolPTsk_kernel.cuh:105-176)
             return streaming.render_tile(
                 *args, n_lanes=config.n_lanes, sort_every=8,
-                defer_access=True,
+                defer_access=True, **kw
             )
         return sort
     if k == Kernel.STREAMING_MK:
-        def stream_mk(*args):
+        def stream_mk(*args, **kw):
             # host-looped regenerate/extend/compact super-iterations with
             # a device→host active-count read per dispatch (reference:
             # RenderKernelLauncher.cu:435-472)
             return wavefront_mk.render_tile_streaming_mk(
-                *args, n_lanes=max(1024, config.n_lanes // 8)
+                *args, n_lanes=max(1024, config.n_lanes // 8), **kw
             )
         return stream_mk
     raise ValueError(f"unhandled kernel {k}")

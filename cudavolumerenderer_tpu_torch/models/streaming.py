@@ -23,7 +23,10 @@ once every `check_every` iterations (an iteration after the last path
 finished changes nothing, so the image does not depend on it); the
 lax.cond on `it % sort_every` is a Python `if` on the host's iteration
 counter, so the sort and the deferred flush fall on the JAX package's
-iterations; the three argsorts are stable, as jnp.argsort is.
+iterations; the three argsorts are stable, as jnp.argsort is.  On the card
+each iteration is a refill and an extend (and the flush) of
+csrc/familybody.cu, in gated chains read once per batch, the sort in torch
+between them (ops/familybody.stream_loop).
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, morton, phase, woodcock
+from ..ops import aabb, camera as cam, familybody, morton, phase, stages
+from ..ops import woodcock
+from ..ops.grid import tap_voxels
 from ..ops.rng import RngState
 from ..scene.types import RenderSettings, Scene
 from . import integrator
@@ -132,6 +137,7 @@ def render_tile(
     sort_every: int = 0,
     defer_access: bool = False,
     check_every: int = CHECK_EVERY,
+    eager_body: bool = False,
 ):
     """Render a tile; returns (accum (th, tw, 3), n_rays)."""
     if defer_access and sort_every <= 0:
@@ -142,34 +148,37 @@ def render_tile(
     n_pix = tw * th
     n_paths = n_pix * spp
     n_lanes = min(n_lanes, n_paths)
-    med = scene.medium
 
     s = initial_stream_state(n_lanes, seed, dev)
     accum = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     paths_issued = torch.zeros((), dtype=torch.int64, device=dev)
 
-    it = 0
-    while bool(torch.any(s.alive) | (paths_issued < n_paths)):
-        for _ in range(check_every):
-            if sort_every > 0 and it % sort_every == 0:
-                s = _morton_reorder(s, med.box_min, med.box_max)
-                if defer_access:
-                    # coherent deferred fetches right after the sort
-                    s, accum = flush_pending(scene, settings, s, accum)
-            s, paths_issued = _refill(
-                s, paths_issued, n_paths, tile_dim, tile_offset,
-                full_resolution, camera, seed, path_id_base,
-            )
-            s, accum = extend_step(
-                scene, settings, s, accum, defer_albedo=defer_access
-            )
-            it += 1
+    ctx = familybody.make_context(
+        scene, settings, camera, tile_dim, tile_offset, full_resolution,
+        n_paths, seed, path_id_base)
+    s, _ = familybody.stream_loop(
+        ctx, s, paths_issued, accum, sort_every=sort_every,
+        defer=defer_access, check_every=check_every,
+        kernel=familybody.route(dev.type, settings, eager_body))
     return accum.reshape(th, tw, 3), s.n_rays
+
+
+def _splat_taps(taps, s, new, reads, died, scene, settings, points, fetch):
+    """A step's traffic into `taps` (ops/familybody.family_bytes): the
+    per-lane fields, the albedo voxels at `points` of the `fetch` lanes and
+    the pixels the lanes that `died` add to."""
+    med = scene.medium
+    p01 = aabb.aabb_transform(med.box_min, med.box_max, points)
+    taps += [("albedo", tap_voxels(med.albedo, p01,
+                                   settings.interpolation)[fetch]),
+             ("accum", s.image_id[died]),
+             ("state", stages.lane_traffic(s, new, reads,
+                                           familybody.LANE_FIELDS))]
 
 
 def extend_step(
     scene: Scene, settings: RenderSettings, s: StreamState,
-    accum: torch.Tensor, defer_albedo: bool = False,
+    accum: torch.Tensor, defer_albedo: bool = False, taps=None,
 ):
     """One fused streaming step (phases 2-4 + Russian roulette) for every
     lane, and a masked splat of finished paths into `accum` (in place).
@@ -181,7 +190,8 @@ def extend_step(
     flush_pending performs all outstanding fetches after the Morton sort
     (reference: SortingVolPTsk_kernel.cuh:105-147,232-241).  The RR draw
     moves with the fetch, still after the phase draw in the path's own
-    stream, so estimates are identical lane for lane."""
+    stream, so estimates are identical lane for lane.  A list given as
+    `taps` receives the step's traffic (ops/familybody.family_bytes)."""
     med = scene.medium
     was_alive = s.alive
 
@@ -213,6 +223,7 @@ def extend_step(
     t, terminated, scattered, rng = woodcock.woodcock_step_masked(
         med.density, med.box_min, med.box_max, med.scale, med.max_density,
         s.o, s.d, t, max_t, s.rng, step_mask, settings.interpolation,
+        taps=taps,
     )
     tracking = torch.logical_and(tracking, torch.logical_not(terminated))
     overran = torch.logical_and(terminated, torch.logical_not(scattered))
@@ -260,23 +271,44 @@ def extend_step(
     accum.index_add_(0, s.image_id, torch.where(died[..., None], radiance, 0.0))
     radiance = torch.where(died[..., None], 0.0, radiance)
 
-    s = s._replace(
+    new = s._replace(
         o=o, d=d, throughput=throughput, radiance=radiance,
         alive=alive, tracking=tracking, t=t, max_t=max_t,
         normal=normal, rng=rng, pending=pending, p_scat=p_scat,
         n_rays=n_rays,
     )
-    return s, accum
+    if taps is not None:
+        # the lanes whose step reads each field before it writes it
+        none = torch.zeros_like(s.alive)
+        ggx_on = settings.bsdf_kind == "ggx"
+        fetch = none if defer_albedo else scattered
+        reads = {
+            "alive": torch.ones_like(s.alive),
+            "tracking": torch.ones_like(s.alive),
+            "pending": (s.alive & ~s.tracking) if defer_albedo else none,
+            "o": s.alive | s.tracking, "d": s.alive | s.tracking,
+            "throughput": (miss | fetch | (boundary if ggx_on else none)
+                           | (had_event if settings.russian_roulette
+                              else none)),
+            "radiance": miss | died, "image_id": died,
+            "t": step_mask, "max_t": step_mask,
+            "normal": (overran if ggx_on else none), "p_scat": none,
+        }
+        _splat_taps(taps, s, new, reads, died, scene, settings, o_scat,
+                    fetch)
+    return new, accum
 
 
 def flush_pending(
     scene: Scene, settings: RenderSettings, s: StreamState,
-    accum: torch.Tensor,
+    accum: torch.Tensor, taps=None,
 ):
     """Perform all deferred albedo fetches as one batched gather
     (reference: swapThreadAndAccessTexture,
     SortingVolPTsk_kernel.cuh:105-147), apply the deferred throughput
-    multiply, and run the deferred scatter-event Russian roulette."""
+    multiply, and run the deferred scatter-event Russian roulette.  A list
+    given as `taps` receives the flush's traffic."""
+    before = s
     was_alive = s.alive
     albedo = integrator.sample_albedo(scene, s.p_scat, settings)
     throughput = torch.where(
@@ -292,10 +324,21 @@ def flush_pending(
             0, s.image_id, torch.where(died[..., None], s.radiance, 0.0)
         )
         s = s._replace(radiance=torch.where(died[..., None], 0.0, s.radiance))
-    return (
-        s._replace(
-            throughput=throughput, alive=alive, rng=rng,
-            pending=torch.zeros_like(s.pending),
-        ),
-        accum,
+    else:
+        died = torch.zeros_like(s.alive)
+    new = s._replace(
+        throughput=throughput, alive=alive, rng=rng,
+        pending=torch.zeros_like(s.pending),
     )
+    if taps is not None:
+        none = torch.zeros_like(s.alive)
+        reads = {n: none for n in familybody.LANE_FIELDS
+                 if not n.startswith("rng")}
+        reads.update(pending=torch.ones_like(s.alive),
+                     throughput=before.pending, p_scat=before.pending,
+                     radiance=died, image_id=died)
+        if settings.russian_roulette:
+            reads["alive"] = before.pending
+        _splat_taps(taps, before, new, reads, died, scene, settings,
+                    before.p_scat, before.pending)
+    return new, accum

@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from ..ops import camera as cam
+from ..ops import familybody
 from ..scene.types import RenderSettings, Scene
 from . import integrator, naive, streaming
 from .fast import _take_lanes
@@ -50,20 +51,38 @@ def render_tile(
     seed,
     path_id_base,
     compaction: bool = True,
+    eager_body: bool = False,
 ):
-    """naiveMK: host-controlled wavefront, one bounce per dispatch."""
+    """naiveMK: host-controlled wavefront, one bounce per dispatch (on the
+    card one launch of csrc/familybody.cu's bounce, whose alive count is
+    the host's read; the compaction stays torch)."""
     tile_offset = torch.as_tensor(tile_offset, dtype=torch.float32,
                                   device=scene.device)
     image_id, state = naive.start_batch(camera, tile_dim, tile_offset,
                                         full_resolution, spp, seed,
                                         path_id_base)
+    ctx = familybody.make_context(scene, settings)
+    kernel = familybody.route(scene.device.type, settings, eager_body)
+    if kernel:
+        state = familybody.own(state)
+        count = torch.empty((), dtype=torch.int64, device=scene.device)
+        bounce = familybody.KERNEL.prepare(ctx, "bounce", state, count=count)
     for _ in range(settings.max_path_length):
-        state = integrator.bounce_step(scene, settings, state)
+        if kernel:
+            familybody.KERNEL.launch(bounce, scene.device)
+        else:
+            state, _ = familybody.plain_body(ctx, "bounce", state)
+        familybody.KERNEL.evals += 1
         # device→host read of the active count, as in the reference
-        if int(torch.sum(state.alive)) == 0:
+        if familybody.KERNEL.read(count if kernel
+                                  else torch.sum(state.alive)) == 0:
             break
         if compaction:
-            state, image_id = _compact(state, image_id)
+            compacted, image_id = _compact(state, image_id)
+            if kernel:
+                familybody.copy_lanes_(state, compacted)
+            else:
+                state = compacted
 
     return naive.splat(image_id, state.radiance, tile_dim), state.n_rays
 
@@ -76,22 +95,18 @@ def _compact_stream(s: streaming.StreamState) -> streaming.StreamState:
     return _take_lanes(s, _alive_first(s.alive))
 
 
-def _super_iteration(
-    scene, camera, settings, tile_dim, tile_offset, full_resolution,
-    n_paths, seed, path_id_base, s, paths_issued, accum, k_steps,
-):
+def _super_iteration(ctx, s, paths_issued, accum, k_steps):
     """d_regenerate + d_extend + compaction as one dispatch (reference:
     the per-super-iteration launch pair, RenderKernelLauncher.cu:440-458);
     k_steps streaming steps play the extend kernel's inner bounce loop
-    (StreamingVolPTmk_kernel.cuh:162-216)."""
-    s, paths_issued = streaming._refill(
-        s, paths_issued, n_paths, tile_dim, tile_offset,
-        full_resolution, camera, seed, path_id_base,
-    )
+    (StreamingVolPTmk_kernel.cuh:162-216).  The plain bodies."""
+    s, _, paths_issued = familybody.plain_body(ctx, "refill", s,
+                                               issued=paths_issued)
     for _ in range(k_steps):
-        s, accum = streaming.extend_step(scene, settings, s, accum)
+        s, _ = familybody.plain_body(ctx, "extend", s, accum=accum)
+    familybody.KERNEL.evals += k_steps
     s = _compact_stream(s)
-    return s, paths_issued, accum, torch.sum(s.alive)
+    return s, paths_issued, torch.sum(s.alive)
 
 
 def render_tile_streaming_mk(
@@ -106,12 +121,15 @@ def render_tile_streaming_mk(
     path_id_base,
     n_lanes: int = 1 << 14,
     k_steps: int = 8,
+    eager_body: bool = False,
 ):
     """streamingMK: the host drives regenerate/extend super-iterations
     over a fixed pool and reads the active count back each dispatch
     (reference: the `while (n_active || queue)` host loop,
     RenderKernelLauncher.cu:435-472).  Same per-path streams as
-    streamingSK and naiveSK, so the estimate is identical lane for lane."""
+    streamingSK and naiveSK, so the estimate is identical lane for lane.
+    On the card a super-iteration is one refill and k_steps extend
+    launches of csrc/familybody.cu, then the torch compaction."""
     dev = scene.device
     tile_offset = torch.as_tensor(tile_offset, dtype=torch.float32, device=dev)
     tw, th = tile_dim
@@ -122,13 +140,39 @@ def render_tile_streaming_mk(
     s = streaming.initial_stream_state(n_lanes, seed, dev)
     accum = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     paths_issued = torch.zeros((), dtype=torch.int64, device=dev)
+    ctx = familybody.make_context(
+        scene, settings, camera, tile_dim, tile_offset, full_resolution,
+        n_paths, seed, path_id_base)
+    if familybody.route(dev.type, settings, eager_body):
+        return _streaming_mk_kernels(ctx, s, paths_issued, accum, k_steps)
     while True:
-        s, paths_issued, accum, n_active = _super_iteration(
-            scene, camera, settings, tile_dim, tile_offset,
-            full_resolution, n_paths, seed, path_id_base,
-            s, paths_issued, accum, k_steps,
-        )
+        s, paths_issued, n_active = _super_iteration(
+            ctx, s, paths_issued, accum, k_steps)
         # device→host read each super-iteration, as in the reference
-        if int(n_active) == 0 and int(paths_issued) >= n_paths:
+        if (familybody.KERNEL.read(n_active) == 0
+                and familybody.KERNEL.read(paths_issued) >= n_paths):
             break
+    return accum.reshape(th, tw, 3), s.n_rays
+
+
+def _streaming_mk_kernels(ctx, s, paths_issued, accum, k_steps):
+    """streamingMK's super-iterations on the card: a refill and k_steps
+    extends of csrc/familybody.cu on a pool whose buffers stay put (the
+    compaction copied back into them), the active count and paths_issued
+    read once per super-iteration."""
+    kern, dev = familybody.KERNEL, accum.device
+    s, paths_issued = familybody.own(s), paths_issued.clone()
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    refill = kern.prepare(ctx, "refill", s, issued=paths_issued)
+    extend = kern.prepare(ctx, "extend", s, accum=accum, count=count)
+    while True:
+        kern.launch(refill, dev)
+        for _ in range(k_steps):
+            kern.launch(extend, dev)
+        kern.evals += k_steps
+        familybody.copy_lanes_(s, _compact_stream(s))
+        n_active, issued = kern.read(torch.stack([count, paths_issued]))
+        if n_active == 0 and issued >= ctx.n_paths:
+            break
+    tw, th = ctx.tile_dim
     return accum.reshape(th, tw, 3), s.n_rays

@@ -91,12 +91,12 @@ DRAIN_THREADS = 32
 TAB_F32, TAB_ROWS, TAB_PACKED = range(3)
 ALBEDO_MODES = {"const": 0, "affine": 1, "full": 2, "split": 3}
 
-#: bytes of one lane's state the kernel reads (o, d, throughput, accum,
-#: normal; t, max_t, brick_exit, inv_sig_local; pix, slot, samples_done,
-#: bounce; alive, tracking; the RNG's two words) and writes (all but pix
-#: and slot)
-LANE_READ_BYTES = 15 * 4 + 4 * 4 + 4 * 8 + 2 + 2 * 8
-LANE_WRITTEN_BYTES = LANE_READ_BYTES - 2 * 8
+#: bytes of each per-lane field of the state (the RNG's two words split),
+#: for body_bytes
+FIELD_BYTES = dict(o=12, d=12, throughput=12, accum=12, normal=12, t=4,
+                   max_t=4, brick_exit=4, inv_sig_local=4, samples_done=8,
+                   bounce=8, alive=1, tracking=1, rng_state=8, rng_inc=8,
+                   pix=8, slot=8)
 
 
 def route(device_type: str, spec_k: int, defer_ggx: int,
@@ -400,18 +400,20 @@ def run_stage(ctx: BodyContext, s, thresh: int, k_chain: int, last: bool):
     return KERNEL.gated(ctx, s, thresh, k_chain)
 
 
-def body_bytes(ctx: BodyContext, width: int, taps) -> int:
-    """The least bytes one evaluation of a width-lane pool moves: each
-    lane's state read once and written once, and the distinct table
-    entries its taps read, counted from the plain version's `taps` (a
-    list the eager body fills with ("tap", flat indices) and ("brick",
-    brick rows) of the lanes that read them).  Given the taps of every
-    evaluation of a drained stage, the drain's: it reads and writes each
-    lane's state once however many evaluations the lane runs."""
+def body_bytes(ctx: BodyContext, taps) -> int:
+    """The least bytes the evaluations whose `taps` are given move (the
+    lists the eager body fills: ("state", stages.lane_traffic), and ("tap",
+    flat indices), ("brick", brick rows) of the lanes that read them):
+    each lane reads the fields its evaluation reads (a dead lane with no
+    sample left its alive flag and sample count alone) and writes the
+    fields it changes, and the distinct table entries are read once.
+    Given the taps of every evaluation of a drained stage, in order, the
+    drain's: a lane's field is read once, unless an earlier evaluation
+    wrote it, and written once."""
     kind = int(ctx.iparams[IP_TABLE])
     tap_idx = [x for k, x in taps if k == "tap"]
     bricks = [x for k, x in taps if k == "brick"]
-    n = width * (LANE_READ_BYTES + LANE_WRITTEN_BYTES)
+    n = stages.state_bytes(taps, FIELD_BYTES)
     if tap_idx:
         j = torch.cat(tap_idx)
         if kind == TAB_PACKED:

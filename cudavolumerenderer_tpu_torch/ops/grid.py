@@ -109,6 +109,28 @@ def sample_trilinear(grid: Grid, p01: torch.Tensor) -> torch.Tensor:
     )
 
 
+def tap_voxels(grid: Grid, p01: torch.Tensor,
+               interpolation: str = "trilinear") -> torch.Tensor:
+    """The flat voxel indices `sample` reads at p01: (..., 8) for
+    'trilinear', (..., 1) for 'nearest' (a bound's count of the distinct
+    voxels a kernel must read)."""
+    nz, ny, nx = grid.data.shape[:3]
+    coord = volume_to_grid(grid.data.shape, p01)
+    if interpolation == "nearest":
+        i0, offsets = _to_index(coord), ((0, 0, 0),)
+    else:
+        i0 = _to_index(torch.floor(coord))
+        offsets = [(dx, dy, dz) for dz in (0, 1) for dy in (0, 1)
+                   for dx in (0, 1)]
+    taps = []
+    for dx, dy, dz in offsets:
+        ix = torch.clamp(i0[..., 0] + dx, 0, nx - 1)
+        iy = torch.clamp(i0[..., 1] + dy, 0, ny - 1)
+        iz = torch.clamp(i0[..., 2] + dz, 0, nz - 1)
+        taps.append((iz * ny + iy) * nx + ix)
+    return torch.stack(taps, dim=-1)
+
+
 def sample(grid: Grid, p01: torch.Tensor, interpolation: str = "trilinear"):
     if interpolation == "trilinear":
         return sample_trilinear(grid, p01)

@@ -368,32 +368,10 @@ FIELD_BYTES = dict(o=12, d=12, tput=12, rad=12, normal=12, t=4, brick_exit=4,
                    rng_inc=8, alive=1, seg=1, in_med=1, s_lane=4, g_lane=12)
 
 
-def _changed(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Per lane, whether any element differs bit for bit."""
-    if x.dtype == torch.float32:
-        x, y = x.view(torch.int32), y.view(torch.int32)
-    ne = x != y
-    return ne.any(dim=-1) if ne.ndim == 2 else ne
-
-
 def lane_traffic(before, after, reads: dict) -> dict:
-    """One evaluation's per-lane state traffic, for replay_bytes: {field:
-    (the lanes that read it, the lanes that write it)}.  `reads` maps
-    fields to the lanes whose evaluation reads them before writing them
-    (the eager body's masks); a lane writes a field whose value changed bit
-    for bit, and reads and writes the RNG's state (and reads its increment)
-    where a draw advanced it."""
-    drew = _changed(before.rng.state, after.rng.state)
-    out = {}
-    for name in FIELD_BYTES:
-        if name == "rng_inc":
-            out[name] = (drew, torch.zeros_like(drew))
-        elif name == "rng_state":
-            out[name] = (drew, drew)
-        else:
-            out[name] = (reads[name], _changed(lane_field(before, name),
-                                               lane_field(after, name)))
-    return out
+    """One evaluation's per-lane state traffic, for replay_bytes
+    (stages.lane_traffic over the pool's fields)."""
+    return stages.lane_traffic(before, after, reads, FIELD_BYTES)
 
 
 def replay_bytes(ctx: ReplayContext, taps) -> int:
@@ -408,19 +386,7 @@ def replay_bytes(ctx: ReplayContext, taps) -> int:
     read once, unless an earlier evaluation wrote it, and written once."""
     nch = int(ctx.iparams[IP_NCHAN])
     record = ctx.record != REC_NONE
-    read, written = {}, {}
-    for kind, x in taps:
-        if kind != "state":
-            continue
-        for name, (r, w) in x.items():
-            if name in read:
-                read[name] = read[name] | (r & ~written[name])
-                written[name] = written[name] | w
-            else:
-                read[name], written[name] = r, w
-    n = sum(FIELD_BYTES[k] * int(torch.count_nonzero(read[k])
-                                 + torch.count_nonzero(written[k]))
-            for k in read)
+    n = stages.state_bytes(taps, FIELD_BYTES)
 
     def distinct(kind):
         xs = [x for k, x in taps if k == kind]

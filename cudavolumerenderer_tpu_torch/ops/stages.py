@@ -1,5 +1,6 @@
-"""The host side that the per-lane body kernels share (csrc/fastbody.cu and
-csrc/replaybody.cu; their device side of it in csrc/common.cuh).
+"""The host side that the per-lane body kernels share (csrc/fastbody.cu,
+csrc/replaybody.cu and csrc/familybody.cu; their device side of it in
+csrc/common.cuh).
 
 A body kernel runs one evaluation of every lane of a pool per launch.  A
 cascade stage of the body is a loop of such evaluations in chains of
@@ -7,7 +8,8 @@ cascade stage of the body is a loop of such evaluations in chains of
 chain's end; the loop exits once the count is at or under the stage's
 threshold.  On the card a stage runs in one of two ways:
 
-* gated chains (a threshold above 0): each launch reads the stage's control
+* gated chains (a threshold above 0, or a loop whose count is read only at a
+  chain's end): each launch reads the stage's control
   words and returns untouched where the loop would have stopped (at a
   chain's start, with the count at or under the threshold); the host
   enqueues whole chains `GATED_BATCH` evaluations at a time and reads the
@@ -18,8 +20,9 @@ threshold.  On the card a stage runs in one of two ways:
   again while lanes are left (`BodyKernel.drain`).
 
 `loop_chains` is the plain version of a stage, and both ways equal it.
-This module also holds the library loading and layout check, and the
-checks of the per-lane tensors a launch is given.
+This module also holds the library loading and layout check, the checks of
+the per-lane tensors a launch is given, and the per-lane state traffic
+that the bounds count (`lane_traffic`, `state_bytes`).
 """
 
 from __future__ import annotations
@@ -91,6 +94,65 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     a1 = a0 + a.numel() * a.element_size()
     b1 = b0 + b.numel() * b.element_size()
     return a0 < b1 and b0 < a1
+
+
+def changed(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per lane, whether any element differs bit for bit."""
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    ne = x != y
+    return ne.any(dim=-1) if ne.ndim == 2 else ne
+
+
+def lane_traffic(before, after, reads: dict, names) -> dict:
+    """One evaluation's per-lane state traffic: {field: (the lanes that read
+    it, the lanes that write it)} for the fields `names` of the pools.
+    `reads` maps fields to the lanes whose evaluation reads them before
+    writing them (the eager body's masks); a lane writes a field whose value
+    changed bit for bit.  The RNG's state, unless `reads` names it, is read
+    and written where a draw advanced it, its increment read there."""
+    drew = changed(before.rng.state, after.rng.state)
+    out = {}
+    for name in names:
+        w = changed(lane_field(before, name), lane_field(after, name))
+        if name in reads:
+            out[name] = (reads[name], w)
+        elif name == "rng_inc":
+            out[name] = (drew, w)
+        elif name == "rng_state":
+            out[name] = (drew, drew)
+        else:
+            raise ValueError(f"lane_traffic: no read mask for {name}")
+    return out
+
+
+def merge_traffic(read: dict, written: dict, traffic: dict) -> None:
+    """Add one evaluation's lane_traffic to the running masks of a run of
+    evaluations: a lane reads a field once, unless an earlier evaluation
+    wrote it, and writes it once."""
+    for name, (r, w) in traffic.items():
+        if name in read:
+            read[name] = read[name] | (r & ~written[name])
+            written[name] = written[name] | w
+        else:
+            read[name], written[name] = r, w
+
+
+def traffic_bytes(read: dict, written: dict, field_bytes: dict) -> int:
+    """The bytes of the lanes' reads and writes, at each field's size."""
+    return sum(field_bytes[k] * int(torch.count_nonzero(read[k])
+                                    + torch.count_nonzero(written[k]))
+               for k in read)
+
+
+def state_bytes(taps, field_bytes: dict) -> int:
+    """The per-lane state bytes of the evaluations whose ("state",
+    lane_traffic) entries are in `taps`, in order (merge_traffic)."""
+    read, written = {}, {}
+    for kind, x in taps:
+        if kind == "state":
+            merge_traffic(read, written, x)
+    return traffic_bytes(read, written, field_bytes)
 
 
 def loop_chains(kernel: "BodyKernel", s, count_of: Callable,
@@ -198,20 +260,29 @@ class BodyKernel:
         self.reads += 1
         return words.tolist()
 
-    def gated(self, args: tuple, ctrl: torch.Tensor, thresh: int,
-              k_chain: int, dev, batch: int = GATED_BATCH) -> int:
+    def gated(self, args, ctrl: torch.Tensor, thresh: int, k_chain: int,
+              dev, batch: int = GATED_BATCH) -> int:
         """Gated chains of a stage whose loop exits at a chain boundary once
-        the count is at most `thresh` (> 0): `args` launch one gated
-        evaluation whose control words are `ctrl` (C_COUNT holding the
-        stage's count at its start).  The host enqueues whole chains
+        the count is at most `thresh`: `args` launch one gated evaluation
+        whose control words are `ctrl` (C_COUNT holding the stage's count
+        at its start), or are a function that enqueues one whole chain of
+        gated launches (and counts them).  The host enqueues whole chains
         `batch` evaluations at a time and reads the words once per batch
         (and once at the start).  Returns the stage's evaluations."""
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{self.name}: a gated stage reads the card; "
                                "it cannot be captured")
-        fn = self._entry(self.library(), "launch")
-        full = args + (torch.cuda.current_stream(dev).cuda_stream,)
-        n = k_chain * -(-batch // k_chain)
+        if callable(args):
+            enqueue = args
+        else:
+            fn = self._entry(self.library(), "launch")
+            full = args + (torch.cuda.current_stream(dev).cuda_stream,)
+
+            def enqueue():
+                for _ in range(k_chain):
+                    self._raise(fn(*full), "launch")
+                    self.launches += 1
+        n = -(-batch // k_chain)
         with torch.cuda.device(dev):
             while True:
                 e, count = self.read(ctrl[:C_COUNT + 1])
@@ -219,8 +290,7 @@ class BodyKernel:
                     return e
                 t0 = time.perf_counter()
                 for _ in range(n):
-                    self._raise(fn(*full), "launch")
-                    self.launches += 1
+                    enqueue()
                 self.enqueue_s += time.perf_counter() - t0
 
     def drain(self, args: tuple, extra: tuple, ctrl: torch.Tensor,

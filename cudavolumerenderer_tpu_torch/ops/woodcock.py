@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import EPSILON
-from .grid import Grid, sample
+from .grid import Grid, sample, tap_voxels
 from .rng import RngState, next_float
 
 #: steps per host read of the running mask in woodcock_track
@@ -55,12 +55,14 @@ def woodcock_track(
     active: torch.Tensor,  # (...,) bool — lanes that should track at all
     interpolation: str = "trilinear",
     check_every: int = CHECK_EVERY,
+    taps=None,
 ) -> WoodcockResult:
     """Sample free-flight distances for all active lanes.
 
     t += -log(max(u, EPS)) / (scale * rho_max); accept when
     rho(x)/rho_max >= u'; stop when t > max_t.  Inactive lanes return
-    t = 0, scattered = False, untouched RNG.
+    t = 0, scattered = False, untouched RNG.  A list given as `taps`
+    receives ("density", the flat voxels) of each step's running lanes.
     """
     inv_sigmat, scale = _inv_sigmat(density_scale, max_density, o.device)
     extent = box_max - box_min
@@ -77,6 +79,9 @@ def woodcock_track(
             p = o + t_new[..., None] * d
             p01 = (p - box_min) / extent
             rho = sample(density, p01, interpolation)
+            if taps is not None:
+                taps.append(("density", tap_voxels(density, p01,
+                                                   interpolation)[running]))
             u2, rng = next_float(rng, running)
             keep = torch.logical_and(
                 t_new <= max_t, scale * rho * inv_sigmat < u2
@@ -100,11 +105,13 @@ def woodcock_step_masked(
     rng: RngState,
     tracking: torch.Tensor,  # (...,) bool — lanes currently mid-tracking
     interpolation: str = "trilinear",
+    taps=None,
 ):
     """One fused tracking step for the wavefront schedulers (streaming,
     sorting, streamingMK).  Returns (t_new, terminated, scattered, rng):
     ``terminated`` lanes finished their segment this step; ``scattered``
-    distinguishes a real medium event from a boundary overrun."""
+    distinguishes a real medium event from a boundary overrun.  A list
+    given as `taps` receives ("density", the stepping lanes' voxels)."""
     inv_sigmat, scale = _inv_sigmat(density_scale, max_density, o.device)
     extent = box_max - box_min
 
@@ -114,6 +121,9 @@ def woodcock_step_masked(
     p = o + t_new[..., None] * d
     p01 = (p - box_min) / extent
     rho = sample(density, p01, interpolation)
+    if taps is not None:
+        taps.append(("density", tap_voxels(density, p01,
+                                           interpolation)[tracking]))
     u2, rng = next_float(rng, tracking)
 
     overran = t_new > max_t

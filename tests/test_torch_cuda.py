@@ -18,7 +18,12 @@ stage and per render; render_diff's replay kernels (csrc/replaybody.cu)
 equal the replay's eager body per evaluation (the primal, and pass B with
 atomics or, under deterministic algorithms, bit for bit) and per stage,
 and render_diff through them gives the eager body's image and
-cotangents.
+cotangents.  The integrator family's kernels (csrc/familybody.cu: bounce,
+refill, extend and flush, the drain and the gated chains) equal the eager
+functions bit for bit per launch at 65,536, 4,096, 24^2 and 40^2 lanes,
+every row through them gives the eager row's n_rays and evaluations and
+its image to float-summation order, and the white furnace is exact
+through each.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -1275,3 +1280,291 @@ def test_replay_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         replay_diff_render(cuda, False, res=16, spp=1)
     assert replaybody.KERNEL.plain_evals == plain
+
+
+# -- the integrator family's body kernels (csrc/familybody.cu) ------------------------
+
+# pool widths: two powers of two and two tiles that are not (24^2, 40^2 lanes:
+# powers of two cannot tell the float rules apart)
+FAMILY_WIDTHS = [65536, 4096, 24 * 24, 40 * 40]
+FAMILY_TILES = {65536: (128, 128, 4), 4096: (64, 64, 1), 576: (24, 24, 1),
+                1600: (40, 40, 1)}
+FAMILY_SETTINGS = {
+    "default": dict(),
+    "nearest": dict(mitsuba_comparable=False),
+    "null-no-rr": dict(bsdf_kind="null", russian_roulette=False,
+                       max_path_length=6),
+}
+FAMILY_MODES = ["bounce", "bounce-splat", "refill-1", "refill-8",
+                "refill-1024", "refill-stream", "extend", "extend-defer",
+                "flush"]
+
+
+def family_settings(name):
+    kw = dict(FAMILY_SETTINGS[name])
+    return types.RenderSettings.from_flags(kw.pop("mitsuba_comparable", True),
+                                           **kw)
+
+
+def family_ctx(device, width, settings, group=1):
+    """The blob scene of scheduler_render and a context whose queue holds 3
+    paths per lane of a `width`-lane pool."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    tw, th, _ = FAMILY_TILES[width]
+    d = procedural.blob_volume()
+    albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(d, albedo, scale=40.0,
+                                               max_density=1.0, device=device))
+    camera = make_camera(tw, th, device=device)
+    n_paths = 3 * width
+    return familybody.make_context(
+        scene, settings, camera, (tw, th), torch.tensor([2.0, 1.0],
+                                                        device=device),
+        (tw + 4, th + 2), n_paths, 9, 5, group=group)
+
+
+def family_pool(ctx, width, stream, defer=False, iters=4):
+    """A pool of `width` lanes after `iters` plain iterations (a refill and
+    a bounce or an extend), some lanes alive, some dead, some pending."""
+    from cudavolumerenderer_tpu_torch.models import (
+        integrator, regeneration, streaming,
+    )
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    dev = ctx.scene.device
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=dev)
+    issued = torch.zeros((), dtype=torch.int64, device=dev)
+    if stream:
+        s = streaming.initial_stream_state(width, ctx.seed, dev)
+        for _ in range(iters):
+            s, _, issued = familybody.plain_body(ctx, "refill", s,
+                                                 issued=issued)
+            s, _ = familybody.plain_body(ctx, "extend", s, accum=accum,
+                                         defer=defer)
+        return familybody.own(s), None, issued, accum
+    p = integrator.PathState(**regeneration.empty_pool(width, ctx.seed, dev))
+    img = torch.zeros(width, dtype=torch.int64, device=dev)
+    for _ in range(iters):
+        p, img, issued = familybody.plain_body(ctx, "refill", p, image_id=img,
+                                               issued=issued)
+        p, _ = familybody.plain_body(ctx, "bounce", p, image_id=img,
+                                     accum=accum)
+    return familybody.own(p), img, issued, accum
+
+
+def family_mismatches(a, b, names):
+    """The fields of two pools that differ bit for bit (NaN equal to NaN)."""
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    bad = []
+    for n in names:
+        x, y = lane_field(a, n), lane_field(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    if a.n_rays.view(torch.int32).item() != b.n_rays.view(torch.int32).item():
+        bad.append("n_rays")
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", FAMILY_WIDTHS)
+@pytest.mark.parametrize("mode", FAMILY_MODES)
+def test_family_entry_equals_eager(cuda, mode, width):
+    """One launch of each entry point and mode equals its eager function
+    in every lane field bit for bit (o, d, throughput, radiance, alive, the
+    RNG words, image_id, paths_issued, and a stream pool's tracking, t,
+    max_t, normal, pending and p_scat), n_rays and the alive count; the
+    splat's image to float-summation order (both add with atomics)."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    op = mode.split("-")[0]
+    group = int(mode.split("-")[1]) if mode in (
+        "refill-1", "refill-8", "refill-1024") else 1
+    stream = mode in ("refill-stream", "extend", "extend-defer", "flush")
+    defer = mode in ("extend-defer", "flush")
+    ctx = family_ctx(cuda, width, family_settings("default"), group)
+    s, img, issued, accum = family_pool(ctx, width, stream, defer)
+    names = familybody.LANE_FIELDS if stream else familybody.PATH_FIELDS
+    splat = mode == "bounce-splat" or op in ("extend", "flush")
+    a_acc, b_acc = accum.clone(), accum.clone()
+
+    def args(acc):
+        kw = dict(defer=defer) if op == "extend" else {}
+        if img is not None and (op == "refill" or splat):
+            kw["image_id"] = img.clone()
+        if op == "refill":
+            kw["issued"] = issued.clone()
+        if splat:
+            kw["accum"] = acc
+        return kw
+
+    before = familybody.KERNEL.by_op[op]
+    got = familybody.run_body(ctx, op, familybody.own(s), **args(a_acc))
+    want = familybody.plain_body(ctx, op, familybody.own(s), **args(b_acc))
+    torch.cuda.synchronize()
+    assert familybody.KERNEL.by_op[op] == before + 1
+    assert not family_mismatches(got[0], want[0], names)
+    if op == "refill":
+        assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2])
+    elif op != "flush":
+        assert int(got[1]) == int(torch.count_nonzero(want[0].alive))
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", ["nearest", "null-no-rr"])
+@pytest.mark.parametrize("mode", ["bounce-splat", "extend", "flush"])
+def test_family_entry_equals_eager_in_other_settings(cuda, mode, settings):
+    """The nearest sampler, the null BSDF and no Russian roulette, at 40^2
+    lanes."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    op = mode.split("-")[0]
+    stream = op != "bounce"
+    ctx = family_ctx(cuda, 1600, family_settings(settings))
+    s, img, _, accum = family_pool(ctx, 1600, stream, defer=op == "flush")
+    names = familybody.LANE_FIELDS if stream else familybody.PATH_FIELDS
+    kw = {} if stream else dict(image_id=img)
+    a_acc, b_acc = accum.clone(), accum.clone()
+    got = familybody.run_body(ctx, op, familybody.own(s), accum=a_acc, **kw)
+    want = familybody.plain_body(ctx, op, familybody.own(s), accum=b_acc,
+                                 **kw)
+    assert not family_mismatches(got[0], want[0], names)
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", list(FAMILY_SETTINGS))
+@pytest.mark.parametrize("width", FAMILY_WIDTHS)
+def test_family_drain_equals_trace(cuda, width, settings):
+    """naiveSK's drain (one launch: every lane bounces in registers until it
+    dies or reaches max_path_length) equals trace's loop of eager bounces
+    in every lane field and n_rays bit for bit, in as many bounces."""
+    from cudavolumerenderer_tpu_torch.models import naive
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    ctx = family_ctx(cuda, width, family_settings(settings))
+    tw, th, spp = FAMILY_TILES[width]
+    _, s = naive.start_batch(ctx.camera, (tw, th), ctx.tile_offset,
+                             ctx.full_resolution, spp, 9, 5)
+    familybody.KERNEL.reset()
+    got = familybody.trace(ctx, s, True)
+    n_kernel = familybody.KERNEL.evals
+    want = familybody.trace(ctx, s, False)
+    assert familybody.KERNEL.drain_launches == 1
+    assert not family_mismatches(got, want, familybody.PATH_FIELDS)
+    assert familybody.KERNEL.evals == 2 * n_kernel > 0
+
+
+# the family's rows: (label, render_tile, keywords)
+def family_rows():
+    from cudavolumerenderer_tpu_torch.models import (
+        naive, regeneration, streaming, wavefront_mk,
+    )
+    return [
+        ("naiveSK", naive.render_tile, {}),
+        ("naiveMK", wavefront_mk.render_tile, {}),
+        ("naiveMK no compaction", wavefront_mk.render_tile,
+         {"compaction": False}),
+        ("regenerationSK 0", regeneration.render_tile, {"n_lanes": 1000}),
+        ("regenerationSK 1", regeneration.render_tile,
+         {"n_lanes": 1003, "refill_group": 8}),
+        ("regenerationSK 2", regeneration.render_tile,
+         {"n_lanes": 2100, "refill_group": 1024}),
+        ("streamingSK", streaming.render_tile, {"n_lanes": 1000}),
+        ("sortingSK", streaming.render_tile,
+         {"n_lanes": 1000, "sort_every": 8, "defer_access": True}),
+        ("streamingMK", wavefront_mk.render_tile_streaming_mk,
+         {"n_lanes": 1024}),
+    ]
+
+
+FAMILY_LABELS = ["naiveSK", "naiveMK", "naiveMK no compaction",
+                 "regenerationSK 0", "regenerationSK 1", "regenerationSK 2",
+                 "streamingSK", "sortingSK", "streamingMK"]
+
+
+def family_render(cuda, label, res, eager_body, settings=None, albedo=None):
+    """A res^2 x 2 render of the blob scene through the row's render_tile:
+    (image, n_rays, the loop's evaluations, the kernels' launches)."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    _, fn, kw = next(r for r in family_rows() if r[0] == label)
+    d = procedural.blob_volume()
+    if albedo is None:
+        albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(d, albedo, scale=40.0,
+                                               max_density=1.0, device=cuda))
+    settings = settings or types.RenderSettings.from_flags(True)
+    familybody.KERNEL.reset()
+    img, n_rays = fn(scene, make_camera(res, res, device=cuda), settings,
+                     (res, res), torch.zeros(2, device=cuda), (res, res), 2,
+                     9, 0, eager_body=eager_body, **kw)
+    k = familybody.KERNEL
+    return (img, float(n_rays), k.evals,
+            sum(k.by_op.values()) + k.drain_launches, sum(
+                k.plain_evals.values()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [24, 40])
+@pytest.mark.parametrize("label", FAMILY_LABELS)
+def test_family_row_kernels_equal_eager(cuda, label, res):
+    """Each row through the kernels (the drain, one launch per bounce,
+    gated chains of refill and bounce or extend) gives the eager row's
+    n_rays and evaluations exactly and its image to float-summation order
+    (the splat's atomics), with no eager evaluation."""
+    img, n_rays, evals, launches, plain = family_render(cuda, label, res,
+                                                        False)
+    want, want_rays, want_evals, no_launch, _ = family_render(cuda, label,
+                                                             res, True)
+    assert launches > 0 and plain == 0 and no_launch == 0
+    assert n_rays == want_rays and evals == want_evals
+    torch.testing.assert_close(img, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FAMILY_LABELS)
+def test_family_white_furnace_through_kernels(cuda, label):
+    """Null BSDF, albedo 1: every pixel exactly 1.0 through every kernel
+    path."""
+    settings = types.RenderSettings.from_flags(True, bsdf_kind="null")
+    img, _, _, launches, plain = family_render(cuda, label, 24, False,
+                                               settings=settings, albedo=1.0)
+    assert launches > 0 and plain == 0
+    assert torch.equal(img / 2, torch.ones_like(img))
+
+
+@pytest.mark.cuda
+def test_family_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
+    """run_body launches the entry point (counted) and writes the `out`
+    pool it is given; a wrong dtype raises; a failed build raises out of
+    every row's render, with no fallback to the eager functions."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    ctx = family_ctx(cuda, 576, family_settings("default"))
+    s, img, _, accum = family_pool(ctx, 576, False)
+    out = familybody.own(s)
+    before = familybody.KERNEL.by_op["bounce"]
+    got, _ = familybody.run_body(ctx, "bounce", familybody.own(s), out=out)
+    assert familybody.KERNEL.by_op["bounce"] == before + 1
+    assert got.o.data_ptr() == out.o.data_ptr()
+    want, _ = familybody.plain_body(ctx, "bounce", familybody.own(s))
+    assert not family_mismatches(got, want, familybody.PATH_FIELDS)
+    with pytest.raises(ValueError, match="throughput must be"):
+        familybody.run_body(ctx, "bounce",
+                            s._replace(throughput=s.throughput.double()))
+
+    def broken(source):
+        raise RuntimeError("nvcc failed on familybody.cu")
+
+    monkeypatch.setattr(familybody, "KERNEL", familybody.FamilyBodyKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    for label in FAMILY_LABELS:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            family_render(cuda, label, 24, False)
+        assert sum(familybody.KERNEL.plain_evals.values()) == 0, label

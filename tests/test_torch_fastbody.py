@@ -288,14 +288,21 @@ def test_body_bytes_counts_state_and_distinct_taps():
         fparams=np.zeros(fb.N_FP, np.float32),
         iparams=np.zeros(fb.N_IP, np.int64), table=torch.zeros(1),
         albedo_rows=None, brick_tab=None, tile_offset=None, bases=None)
-    taps = [("tap", torch.tensor([3, 3, 9])), ("brick", torch.tensor([1, 1])),
-            ("tap", torch.tensor([9, 12]))]
-    assert fb.body_bytes(ctx, 10, taps) == 10 * 236 + 3 * 4 + 8
+    yes, no = torch.tensor([True] * 3), torch.tensor([False] * 3)
+    # per lane, the fields it reads and the ones it changes: three alive
+    # flags read, one written; one lane's o read and written
+    state = {"alive": (yes, torch.tensor([False, True, False])),
+             "o": (torch.tensor([True, False, False]),) * 2,
+             "accum": (no, no)}
+    lanes = 3 + 1 + 2 * 12
+    taps = [("state", state), ("tap", torch.tensor([3, 3, 9])),
+            ("brick", torch.tensor([1, 1])), ("tap", torch.tensor([9, 12]))]
+    assert fb.body_bytes(ctx, taps) == lanes + 3 * 4 + 8
     ctx.iparams[fb.IP_TABLE], ctx.iparams[fb.IP_BITS] = fb.TAB_PACKED, 4
     # packed: voxels 3, 9 and 12 share word 3, 9, 12 of row group 0
-    assert fb.body_bytes(ctx, 10, taps) == 10 * 236 + 3 * 4 + 8
+    assert fb.body_bytes(ctx, taps) == lanes + 3 * 4 + 8
     j = torch.tensor([0, 128, 8 * 128, 8 * 128 + 1])  # words 0, 0, 128, 129
-    assert fb.body_bytes(ctx, 1, [("tap", j)]) == 236 + 3 * 4
+    assert fb.body_bytes(ctx, [("tap", j)]) == 3 * 4
 
 
 def test_run_body_raises_on_other_devices():
@@ -604,3 +611,34 @@ def test_control_words_layout_equals_the_wrappers():
     assert {k: c[k] for k in py} == py
     assert not set(py) & set(enum_values(SOURCE.read_text()))
     assert fb.N_CTRL == stages.N_CTRL
+
+
+def test_body_reports_per_lane_traffic(monkeypatch):
+    """The eager body's taps leave its result unchanged and report each
+    lane's reads and changed fields (body_bytes counts per lane): a lane
+    with no path in flight and no sample left reads its alive flag and its
+    sample count and writes nothing, so the bound lies under the whole
+    state's 236 B a lane."""
+    scene = medical()[0]
+    settings = ttypes.RenderSettings.from_flags(True)
+    _, stages_ = stage_render(monkeypatch, scene, settings, 24, 4,
+                              two_level=True, **CASCADE)
+    ctx, s, _, _, _ = stages_[-1]
+    spp = int(ctx.iparams[fb.IP_SPP])
+    for _ in range(40):  # on into the last stage, where lanes have ended
+        s = ctx.plain(s)
+    idle = ~pending_lanes(s, spp)
+    assert idle.any() and (~idle).any()
+    taps = []
+    got = ctx.plain(clone_state(s), taps=taps)
+    want = ctx.plain(clone_state(s))
+    for (name, x), (_, y) in zip(lane_fields(got), lane_fields(want)):
+        assert same(x, y), name
+    (traffic,) = [x for k, x in taps if k == "state"]
+    for name, (read, written) in traffic.items():
+        assert not written[idle].any(), name
+        assert bool(read[idle].all()) == (name in ("alive", "samples_done")), name
+    width = s.alive.shape[0]
+    n = fb.body_bytes(ctx, taps)
+    assert 0 < n - fb.body_bytes(ctx, [x for x in taps if x[0] != "state"])
+    assert fb.body_bytes(ctx, [("state", traffic)]) < width * 236
