@@ -12,9 +12,10 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the six kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
-   csrc/pgather.cu, csrc/fastbody.cu, csrc/replaybody.cu and
-   csrc/familybody.cu, with one nvcc each, started together with g++ on
+2. build the seven kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
+   csrc/pgather.cu, csrc/fastbody.cu, csrc/replaybody.cu,
+   csrc/familybody.cu and csrc/brickbody.cu, with one nvcc each, started
+   together with g++ on
    the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -51,14 +52,21 @@ CPU or to a plain version on a CUDA tensor):
    >= 99.9% of lanes, t allclose (rtol 1e-5, atol 1e-6) on those; timed
    and bounded as in phase 3, and at R = 1,250, K = 8 also timed with cold
    inputs;
-7. white furnace through brickSK on the card (every pixel == spp), and a
-   small brickSK render on the card against the same render on the CPU;
+7. white furnace through brickSK's round kernels (csrc/brickbody.cu) on
+   the card (every pixel == spp), and a small brickSK render on the card
+   against the same render on the CPU;
 8. the brickSK slice (the smoke class of benchmarks/micro_smoke_brick.py:
    smoke 128x128x50, albedo 0.9 d, scale 800, written as Mitsuba XML +
    .vol files like BASELINE config 4) through the CLI's batch mode:
    -k brickSK -i 4 -r 400 400, one trial, timed with the image copy,
-   brick.render_tile (the function make_kernel_fn returns) counting its
-   rounds: the tracking kernel launches once per round;
+   brick.render_tile (the function make_kernel_fn returns) wrapped to count
+   its rounds and keep its image: once through the round kernels (phase A,
+   torch's stable sort and the round launch per round, gated batches with
+   a host read per batch; the kernels' counts set to 0 just before and
+   read just after) and once with eager_body=True (the eager loop, the
+   tracking kernel once per round): both exactly 1,151,411 rays and the
+   same rounds, the images bit-equal; walls, launches, sorts and host
+   reads of both;
 9. each of the five gather kernels (csrc/pgather.cu) against its plain
    torch version at the gather benchmark's published shapes (67 MB
    table, N = 262,144, S = 16): bit-equal outputs; the kernel, its plain
@@ -262,6 +270,23 @@ CPU or to a plain version on a CUDA tensor):
    events around one launch, equal to trace's eager loop bit for bit,
    the longest lane L and the drain's us per bounce of it, the eager
    loop's wall and the drain's byte bound (every bounce's taps).
+26. (run right after phase 8, on its scene) brickSK's round kernels on
+   rounds kept from the slice (400^2 x 4, 160,000 lanes: rounds 0, 100
+   and 600) and from a 48x40 tile in its middle (1,920 lanes in 15 rows:
+   rounds 0, 20 and 100), reached through the kernels: phase_a_kernel
+   against the eager phase A in the kernels' layout (every lane field,
+   keys, perm, the count, n_rays) and round_kernel against the eager
+   tracking round on the sorted keys (every lane field, pos), bit for bit;
+   each kernel's device time per launch (CUDA events over replays of a
+   graph of 16 out-of-place launches of the kept state), its plain
+   version's (CUDA events, the input's copy included), the stable sort's
+   (graph of 16), and the byte bound (ops/brickbody.brick_bytes from the
+   plain versions' taps); then 100 rounds of the 160,000-lane render
+   from round 601, in place as the render runs them, under
+   torch.profiler: each kernel's device time per launch, the sort's,
+   device kernels per round and the busy share, each kernel's byte bound
+   over the same rounds by the plain versions, whose state after them
+   must equal the kernels' bit for bit.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -289,6 +314,24 @@ PEAK_OPS_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 T/s
 GRAPH_CALLS = 16  # calls per timed CUDA graph
 SWEEP_STEPS = (1, 2, 4, 8, 16)  # K of phase 3's step sweep, at R = 128
 SLICE_RAYS = 6040005  # n_rays of the fastSK slice (phase 5), first tail kernel
+BRICK_RAYS = 1151411  # n_rays of the brickSK slice (phase 8), the eager loop's
+# phase 26: (label, tile w, h, tile offset, rounds run before each kept state)
+BRICK_STATES = (("160000", 400, 400, (0, 0), (0, 100, 600)),
+                ("1920", 48, 40, (176, 180), (0, 20, 100)))
+BRICK_PROFILE_ROUNDS = 100  # phase 26's profiled rounds (160,000 lanes)
+BRICK_REPLACES = {"phase_a": "cudavolumerenderer_tpu/models/brick.py:185",
+                  "round": "cudavolumerenderer_tpu/models/brick.py:365"}
+BRICK_DESIGN = {
+    "phase_a": "one thread per lane, the lanes kept in place (they carry "
+               "their sorted position); phase A in registers, the sort key "
+               "and perm written in position order; n_rays and the loop's "
+               "count by the last block; rounds enqueued in gated batches",
+    "round": "one block per row of 128 sorted positions, each reading its "
+             "lane through perm[order]; the row's brick table staged in "
+             "shared memory, tracking.cu's step loop (common.cuh) for the "
+             "usable lanes; the last block moves the loop's count into the "
+             "control words",
+}
 WINDOW = (100, 60)  # phase 5's profiler window: first tail round, rounds
 NULL, SCATTER, DIED, CROSSED = 1, 2, 3, 4  # what a traced step did
 COLD = ("taa1", "taa0", "stream", "vmem", "binned")  # also timed on fresh indices
@@ -1071,12 +1114,13 @@ def track_cold(tables, major, card: str) -> None:
 
 
 def brick_furnace_and_small_render():
-    """Phase 7: exact white furnace through brickSK on the card, then a
-    small smoke render on the card against the CPU (plain-version)
-    render."""
+    """Phase 7: exact white furnace through brickSK's round kernels
+    (csrc/brickbody.cu) on the card, then a small smoke render on the card
+    (the kernels) against the CPU (plain-version) render."""
     import torch
 
     from cudavolumerenderer_tpu_torch.models import brick
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.ops.camera import make_camera
     from cudavolumerenderer_tpu_torch.scene import procedural
@@ -1089,17 +1133,21 @@ def brick_furnace_and_small_render():
                                    device="cuda"))
     settings = RenderSettings.from_flags(
         True, russian_roulette=False, bsdf_kind="null")
+    bb.KERNEL.reset()
     before = tk.KERNEL.launches
     img, _, rounds = brick.render_tile(
         scene, make_camera(16, 16, device="cuda"), settings, (16, 16),
         torch.zeros(2, device="cuda"), (16, 16), 2, 3, 0, with_stats=True)
     img = img.cpu().numpy()
-    launched = tk.KERNEL.launches - before
-    check(launched == rounds > 0, f"{launched} launches in {rounds} rounds")
+    launched = dict(bb.KERNEL.by_op)
+    check(launched["phase_a"] == launched["round"] >= rounds > 0
+          and tk.KERNEL.launches == before,
+          f"{launched} round-kernel launches in {rounds} rounds")
     check(np.array_equal(img, np.full_like(img, 2.0)),
           "brickSK white furnace not exact")
-    log(f"[7] brickSK white furnace exact ({rounds} rounds, {launched} "
-        "launches)")
+    log(f"[7] brickSK white furnace exact through csrc/brickbody.cu "
+        f"({rounds} rounds, {launched} launches, {bb.KERNEL.reads} host "
+        "reads)")
 
     d = procedural.smoke_volume((32, 32, 16))
     alb = np.stack([d, d, d], axis=-1) * 0.9
@@ -1120,6 +1168,332 @@ def brick_furnace_and_small_render():
     check(np.isfinite(a).all(), "small brickSK render not finite")
     check(abs(a.mean() - b.mean()) < 0.02 and abs(ra - rb) <= 0.01 * rb,
           "small brickSK render on the card disagrees with the CPU render")
+
+
+def brick_slice(bcfg, dev, card: str) -> dict:
+    """Phase 8: the brickSK slice through the CLI's batch mode, once
+    through the round kernels (counts set to 0 just before and read just
+    after: rounds, launches, sorts, host reads) and once with
+    eager_body=True (the eager loop, one tracking-kernel launch a round);
+    brick.render_tile is wrapped to count rounds and keep the image.  Both
+    must give 1,151,411 rays, the same rounds and the same image bit for
+    bit."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch import cli
+    from cudavolumerenderer_tpu_torch.models import brick
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import tracking as tk
+    from cudavolumerenderer_tpu_torch.utils.image import load_hdr
+
+    tile_fn = brick.render_tile
+    runs = {}
+    for label, eager in (("kernels", False), ("eager", True)):
+        kept = []
+
+        def counted(*args, _eager=eager, _kept=kept, **kw):
+            img, n_rays, rounds = tile_fn(*args, with_stats=True,
+                                          eager_body=_eager, **kw)
+            _kept.append((img, int(rounds)))
+            return img, n_rays
+
+        torch.cuda.synchronize()
+        bb.KERNEL.reset()
+        tk.KERNEL.launches = 0
+        brick.render_tile = counted
+        t0 = time.perf_counter()
+        try:
+            result = cli.run_test(bcfg, dev)
+        finally:
+            brick.render_tile = tile_fn
+        cli_wall = time.perf_counter() - t0
+        saved = load_hdr(bcfg.output_name + ".hdr")
+        check(saved.shape == (400, 400, 3) and np.isfinite(saved).all(),
+              f"phase 8 ({label}): the CLI's saved image is not finite or "
+              "has the wrong shape")
+        check(len(kept) == 1, f"phase 8 ({label}): {len(kept)} tiles")
+        img, rounds = kept[0]
+        wall, n_rays = result["mean_time_with_copy"], result["n_rays"]
+        row = {
+            "wall": wall, "mean_time": result["mean_time"], "cli_wall":
+            cli_wall, "n_rays": n_rays, "rounds": rounds,
+            "mrays": n_rays / wall / 1e6, "mean": float(saved.mean()),
+            "track_launches": tk.KERNEL.launches,
+            "launches": dict(bb.KERNEL.by_op), "sorts": bb.KERNEL.sorts,
+            "reads": bb.KERNEL.reads,
+            "image": img,
+        }
+        runs[label] = row
+        log(f"[8] brickSK slice 400^2 x 4 ({label}): {wall:.4f} s wall "
+            f"(incl. image copy; CLI {cli_wall:.2f} s in all), {n_rays:.0f} "
+            f"rays, {row['mrays']:.4f} Mrays/s, {rounds} rounds, "
+            f"{wall / rounds * 1e3:.4f} ms per round, round-kernel launches "
+            f"{row['launches']}, sorts {row['sorts']}, tracking-kernel "
+            f"launches {row['track_launches']}, host reads {row['reads']}, "
+            f"image mean {row['mean']:.5f}; card {card}")
+    k, e = runs["kernels"], runs["eager"]
+    check(k["n_rays"] == e["n_rays"] == BRICK_RAYS,
+          f"phase 8: {k['n_rays']:.0f} / {e['n_rays']:.0f} rays, not "
+          f"{BRICK_RAYS}")
+    check(k["rounds"] == e["rounds"] > 0,
+          f"phase 8: {k['rounds']} rounds through the kernels, "
+          f"{e['rounds']} eager")
+    check(torch.equal(k["image"], e["image"]),
+          "phase 8: the kernels' image differs from the eager loop's")
+    check(0.05 < k["mean"] < 1.5, f"brickSK slice image mean {k['mean']} "
+          "implausible")
+    check(k["launches"]["phase_a"] >= k["rounds"]
+          and k["launches"]["round"] >= k["rounds"]
+          and k["track_launches"] == 0,
+          f"phase 8: the kernel render launched {k['launches']} for "
+          f"{k['rounds']} rounds and {k['track_launches']} tracking kernels")
+    check(e["track_launches"] == e["rounds"],
+          f"phase 8: the eager loop launched {e['track_launches']} tracking "
+          f"kernels in {e['rounds']} rounds")
+    check(k["reads"] < k["rounds"] // 8,
+          f"phase 8: {k['reads']} host reads in {k['rounds']} rounds")
+    log(f"[8] brickSK slice: the kernels' image bit-equal to the eager "
+        f"loop's, {BRICK_RAYS} rays and {k['rounds']} rounds each; wall "
+        f"{k['wall']:.4f} s against {e['wall']:.3f} s "
+        f"({e['wall'] / k['wall']:.1f}x); card {card}")
+    for row in runs.values():
+        del row["image"]
+    return runs
+
+
+def brick_float_err(a, b) -> float:
+    """The largest absolute difference of two brick states' finite float
+    fields (0 when they are equal)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    err = 0.0
+    for n in bb.STATE_FIELDS:
+        x, y = lane_field(a, n), lane_field(b, n)
+        if x.dtype == torch.float32:
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if bool(fin.any()):
+                err = max(err, float((x - y)[fin].abs().max()))
+    return err
+
+
+def brick_differs(a, b) -> list:
+    """The brick-state fields that differ bit for bit (and n_rays)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    bad = []
+    for n in bb.STATE_FIELDS:
+        x, y = lane_field(a, n), lane_field(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    if not torch.equal(a.n_rays.view(torch.int32), b.n_rays.view(torch.int32)):
+        bad.append("n_rays")
+    return bad
+
+
+def brick_state_row(ctx, s, pos, bufs, tag: str, card: str):
+    """Phase 26 on one kept state (lanes in place at positions pos): each
+    kernel against its plain version (every lane field bit for bit, the
+    keys, perm, count and pos), timed per launch by CUDA events over graph
+    replays of 16 out-of-place launches, its plain version by CUDA events
+    (the input's copy included), the sort between them, and each kernel's
+    byte bound (ops/brickbody.brick_bytes).  Returns (row, the state after
+    the kernels' round, its pos, the largest float difference)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    dev = torch.device("cuda")
+    k = bb.KERNEL
+    # phase A
+    got, keys, perm, count = bb.phase_a(ctx, bb.own(s), pos.clone(), bufs)
+    taps_a = []
+    want, wkeys, wperm, wcount = bb.plain_phase_a(ctx, bb.own(s), pos,
+                                                  taps=taps_a)
+    bad = brick_differs(got, want)
+    bad += [] if torch.equal(keys, wkeys) else ["keys"]
+    bad += [] if torch.equal(perm, wperm) else ["perm"]
+    bad += [] if int(count) == int(wcount) else ["count"]
+    err = brick_float_err(got, want)
+    check(not bad, f"phase 26, {tag}: phase_a_kernel differs from its plain "
+          f"version in {bad}")
+    spare = bb.RoundBuffers.make(ctx.n_lanes, dev)
+    src, out = bb.own(s), bb.own(s)
+    prep = k.prepare(ctx, "phase_a", src, pos.clone(), spare, out=out,
+                     pos_out=torch.empty_like(pos),
+                     n_rays_out=torch.empty((), device=dev))
+    ms_a = graph_ms([lambda: k.launch(prep, dev)] * GRAPH_CALLS)
+    plain_a = cuda_ms(lambda: bb.plain_phase_a(ctx, bb.own(s), pos), reps=3,
+                      warmup=1)
+    bytes_a = bb.brick_bytes(ctx, taps_a)
+    # the sort
+    bufs.sort()
+    spare.keys.copy_(bufs.keys)
+    sort_ms = graph_ms([spare.sort] * GRAPH_CALLS)
+    # the tracking round
+    base, bpos = want, pos
+    got_r, got_pos = bb.round_(ctx, bb.own(base), bpos.clone(), bufs)
+    taps_r = []
+    want_r, want_pos = bb.plain_round(ctx, bb.own(base), bpos, bufs.perm,
+                                      bufs.skeys, bufs.order, taps=taps_r)
+    bad = brick_differs(got_r, want_r)
+    bad += [] if torch.equal(got_pos, want_pos) else ["pos"]
+    err = max(err, brick_float_err(got_r, want_r))
+    check(not bad, f"phase 26, {tag}: round_kernel differs from its plain "
+          f"version in {bad}")
+    src, out = bb.own(base), bb.own(base)
+    prep = k.prepare(ctx, "round", src, bpos.clone(), bufs, out=out,
+                     pos_out=torch.empty_like(bpos))
+    ms_r = graph_ms([lambda: k.launch(prep, dev)] * GRAPH_CALLS)
+    plain_r = cuda_ms(lambda: bb.plain_round(
+        ctx, bb.own(base), bpos, bufs.perm, bufs.skeys, bufs.order),
+        reps=3, warmup=1)
+    bytes_r = bb.brick_bytes(ctx, taps_r)
+    key_rows = bufs.skeys.reshape(-1, 128)
+    usable = int(((key_rows == key_rows[:, :1])
+                  & (key_rows[:, :1] != bb.SENTINEL)).sum())
+    pending, tracking = int(wcount), int(want.tracking.sum())
+    row = {"pending": pending, "tracking": tracking, "usable": usable,
+           "sort_ms": sort_ms}
+    for op, ms, plain, n_bytes in (("phase_a", ms_a, plain_a, bytes_a),
+                                   ("round", ms_r, plain_r, bytes_r)):
+        bound, bound_by = bound_ms(n_bytes)
+        row[op] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": bound_by, "bytes": n_bytes}
+        log(f"[26] {tag}: {op:7s} kernel {ms * 1e3:8.2f} us per launch, "
+            f"plain {plain:8.3f} ms; bound {n_bytes} B = "
+            f"{bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; card {card}")
+    log(f"[26] {tag}: {pending} lanes pending, {tracking} tracking, "
+        f"{usable} usable in the round; the stable sort "
+        f"{sort_ms * 1e3:.2f} us per call; card {card}")
+    return row, got_r, got_pos, err
+
+
+def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
+    """Phase 26: BRICK_PROFILE_ROUNDS rounds of a render from the state
+    (s, pos) kept at round `first`: the gated runner's launches (prepared
+    once, in place, without the gate) under torch.profiler, with the wall
+    inside its window, each kernel's mean device time per launch there and
+    the sort's; then the same rounds by the plain versions from the same
+    state, whose taps give each kernel's mean byte bound per launch over
+    those rounds, and whose final state must equal the kernels' bit for
+    bit."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    dev = torch.device("cuda")
+    n = BRICK_PROFILE_ROUNDS
+    ks, kpos = bb.own(s), pos.clone()
+    bufs = bb.RoundBuffers.make(ctx.n_lanes, dev)
+    phase = bb.KERNEL.prepare(ctx, "phase_a", ks, kpos, bufs)
+    rnd = bb.KERNEL.prepare(ctx, "round", ks, kpos, bufs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            bb.KERNEL.launch(phase, dev)
+            bufs.sort()
+            bb.KERNEL.launch(rnd, dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    check(busy > 0, "phase 26: the profiler saw no device time")
+
+    def per_launch(name):
+        """Mean device ms of the launches the profiler recorded (CUPTI
+        can miss the first launch of a window)."""
+        hits = [e for e in on_card if name in e.key]
+        count = sum(e.count for e in hits)
+        check(n - 1 <= count <= n,
+              f"phase 26: the profiler saw {count} {name} launches of {n}")
+        return sum(e.self_device_time_total for e in hits) / 1e3 / count
+
+    ms = {"phase_a": per_launch("phase_a_kernel"),
+          "round": per_launch("round_kernel")}
+    sort_ms = busy / n - ms["phase_a"] - ms["round"]
+    # the same rounds by the plain versions: their taps, and the state
+    ps, ppos, n_bytes = bb.own(s), pos.clone(), {"phase_a": 0, "round": 0}
+    for _ in range(n):
+        taps_a, taps_r = [], []
+        ps, keys, perm, _ = bb.plain_phase_a(ctx, ps, ppos, taps=taps_a)
+        skeys, order = torch.sort(keys, stable=True)
+        ps, ppos = bb.plain_round(ctx, ps, ppos, perm, skeys, order,
+                                  taps=taps_r)
+        n_bytes["phase_a"] += bb.brick_bytes(ctx, taps_a)
+        n_bytes["round"] += bb.brick_bytes(ctx, taps_r)
+    bad = brick_differs(ks, ps) + ([] if torch.equal(kpos, ppos)
+                                   else ["pos"])
+    check(not bad, f"phase 26: {n} kernel rounds differ from the plain "
+          f"versions' in {bad}")
+    out = {"rounds": n, "first": first, "wall_ms": wall, "busy_ms": busy,
+           "busy_share": busy / wall,
+           "kernels_per_round": sum(e.count for e in on_card) / n,
+           "sort_ms": sort_ms, "pending_after": int(
+               (ks.alive | (ks.samples_done < ctx.spp_per_lane)).sum())}
+    for op in ("phase_a", "round"):
+        bound, bound_by = bound_ms(n_bytes[op] / n)
+        out[op] = {"ms": ms[op], "bound_ms": bound, "bound_by": bound_by,
+                   "bytes": n_bytes[op] / n}
+        log(f"[26] 160000 lanes, rounds {first}-{first + n - 1} in place "
+            f"(torch.profiler): {op:7s} kernel {ms[op] * 1e3:.2f} us per "
+            f"launch; bound {n_bytes[op] / n:.0f} B = {bound * 1e3:.3f} us "
+            f"({bound / ms[op]:.1%}); card {card}")
+    log(f"[26] 160000 lanes, rounds {first}-{first + n - 1}: {wall:.2f} ms "
+        f"wall, {busy:.3f} ms of device time ({busy / wall:.1%} busy), "
+        f"{out['kernels_per_round']:.1f} device kernels a round, the sort "
+        f"and the rest {sort_ms * 1e3:.2f} us a round; bit-equal to the "
+        f"plain versions' {n} rounds; card {card}")
+    return out
+
+
+def brick_kernels(scene, camera, bcfg, card: str) -> dict:
+    """Phase 26: brickSK's round kernels on rounds kept from the slice (its
+    scene and settings, 400^2 x 4: 160,000 lanes) and from a 48x40 tile in
+    its middle (1,920 lanes, 15 rows): at each kept round each kernel
+    against its plain version and timed (brick_state_row); then
+    BRICK_PROFILE_ROUNDS rounds of the 160,000-lane render under
+    torch.profiler (device kernels per round, the card's busy share)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import brick
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    dev = torch.device("cuda")
+    rows, err, profiled = {}, 0.0, None
+    for label, tw, th, off, kept in BRICK_STATES:
+        ctx = brick.make_context(
+            scene, camera, bcfg.settings, (tw, th),
+            torch.tensor(off, dtype=torch.float32, device=dev),
+            tuple(bcfg.resolution), bcfg.iterations, bcfg.seed, 0)
+        s = bb.own(brick.initial_state(ctx))
+        pos = torch.arange(ctx.n_lanes, device=dev)
+        bufs = bb.RoundBuffers.make(ctx.n_lanes, dev)
+        done = 0
+        rows[label] = {}
+        for r in kept:
+            for _ in range(r - done):
+                s, pos = bb.one_round(ctx, s, pos, bufs)
+            row, s, pos, e = brick_state_row(ctx, s, pos, bufs,
+                                             f"{label} lanes, round {r}",
+                                             card)
+            rows[label][r] = row
+            err = max(err, e)
+            done = r + 1
+        if label == "160000":
+            profiled = brick_profile(ctx, s, pos, done, card)
+    return {"rows": rows, "max_abs_err": err, "profile": profiled}
 
 
 def row_kernel_fn(kernel: str, fields: dict, keywords: dict):
@@ -3611,6 +3985,41 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
     return lines
 
 
+def brick_lines(bslice: dict, bkern: dict) -> list:
+    """The `kernels` JSON entries of csrc/brickbody.cu: launches from phase
+    8's kernel render (the main path), the rest from phase 26: ms and the
+    bound over the 100 profiled rounds of the 160,000-lane render (in
+    place, as the render runs them), the plain version's time on the
+    state kept at round 100."""
+    head = bkern["rows"]["160000"][100]
+    prof = bkern["profile"]
+    k = bslice["kernels"]
+    lines = []
+    for op in ("phase_a", "round"):
+        lines.append({
+            "name": f"brickbody_{op}", "route": "cuda",
+            "source": "cudavolumerenderer_tpu_torch/csrc/brickbody.cu",
+            "replaces": BRICK_REPLACES[op], "launches": k["launches"][op],
+            "max_abs_err": bkern["max_abs_err"],
+            **{x: prof[op][x] for x in ("ms", "bound_ms", "bound_by")},
+            "plain_ms": head[op]["plain_ms"],
+            "library_ms": None, "design": BRICK_DESIGN[op],
+            "ms_out_of_place_round_100": head[op]["ms"],
+            "sort_ms": prof["sort_ms"],
+            "per_state": {f"{label} lanes, round {r}": {
+                x: row[op][x] for x in ("ms", "plain_ms", "bound_ms",
+                                        "bytes")} | {"sort_ms": row["sort_ms"]}
+                for label, rows in bkern["rows"].items()
+                for r, row in rows.items()},
+            "slice_400": {x: k[x] for x in ("wall", "rounds", "reads",
+                                            "sorts", "n_rays", "mrays")},
+            "slice_400_eager": {x: bslice["eager"][x] for x in (
+                "wall", "rounds", "reads", "track_launches", "mrays")},
+            "profile_100_rounds": bkern["profile"],
+        })
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -3630,6 +4039,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.models import brick, fast
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.benchmarks import micro_pgather as mpg
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bk
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
@@ -3639,12 +4049,12 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the six libraries, one nvcc each, started together,
+    # -- phase 2: build the seven libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
     libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL,
-                 fam.KERNEL)
+                 fam.KERNEL, bk.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -3718,7 +4128,7 @@ def main() -> int:
         args = cli.build_parser().parse_args(argv)
         bcfg = cli.config_from_args(args)
         dev = cli.device_of(args.platform)
-        bscene, _ = load_scene(bcfg, device=dev)
+        bscene, bcamera = load_scene(bcfg, device=dev)
         log(f"[6] brickSK smoke scene written and loaded in "
             f"{time.perf_counter() - t0:.1f} s; albedo mode "
             f"{fast._albedo_mode(bscene)}")
@@ -3738,44 +4148,15 @@ def main() -> int:
         brick_furnace_and_small_render()
 
         # -- phase 8: the brickSK slice through the CLI --------------------
-        # brick.render_tile (what make_kernel_fn returns for brickSK) is
-        # called with_stats inside the CLI's trial to count its rounds
-        rounds_of, tile_fn = [], brick.render_tile
-
-        def counted(*args, **kw):
-            img, n_rays, rounds = tile_fn(*args, with_stats=True, **kw)
-            rounds_of.append(int(rounds))
-            return img, n_rays
-
-        torch.cuda.synchronize()
-        tk.KERNEL.launches = 0
-        brick.render_tile = counted
         t0 = time.perf_counter()
-        try:
-            result = cli.run_test(bcfg, dev)
-        finally:
-            brick.render_tile = tile_fn
-        cli_wall = time.perf_counter() - t0
-        track_launches = tk.KERNEL.launches
-        check(track_launches > 0, "the brickSK slice launched no tracking kernel")
-        saved = load_hdr(bcfg.output_name + ".hdr")
-        check(saved.shape == (400, 400, 3) and np.isfinite(saved).all(),
-              "the CLI's saved image is not finite or has the wrong shape")
-        log(f"[8] cli.run_test brickSK 400^2 x 4, 1 trial: {cli_wall:.2f} s "
-            f"in all, {track_launches} tracking-kernel launches; mean time "
-            f"{result['mean_time']:.3f} s (image copy excluded), "
-            f"{result['mrays_per_sec']:.4f} Mrays/s")
-    rounds = sum(rounds_of)
-    bwall, bn_rays = result["mean_time_with_copy"], result["n_rays"]
-    bmean = float(saved.mean())
-    check(0.05 < bmean < 1.5, f"brickSK slice image mean {bmean} implausible")
-    check(len(rounds_of) == 1 and track_launches == rounds > 0,
-          f"{track_launches} launches in {rounds_of} rounds")
-    log(f"[8] brickSK slice 400^2 x 4: {bwall:.3f} s wall (incl. image copy), "
-        f"{bn_rays:.0f} rays, {bn_rays / bwall / 1e6:.4f} Mrays/s, "
-        f"{rounds} rounds, {track_launches} tracking-kernel launches, "
-        f"{bwall / rounds * 1e3:.2f} ms per round, image mean {bmean:.5f}; "
-        f"card {card}")
+        bslice = brick_slice(bcfg, dev, card)
+        log(f"[8] phase 8 took {time.perf_counter() - t0:.1f} s")
+
+        # -- phase 26 (run here, on phase 8's scene): the round kernels ----
+        t0 = time.perf_counter()
+        bkern = brick_kernels(bscene, bcamera, bcfg, card)
+        log(f"[26] phase 26 took {time.perf_counter() - t0:.1f} s")
+    del bscene, bcamera
 
     # -- phase 9: the gather kernels against their plain versions ----------
     t0 = time.perf_counter()
@@ -3912,9 +4293,11 @@ def main() -> int:
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tracking.py:123",
-        "launches": track_launches, "max_abs_err": max(terrs),
-        **timed(*ttimes[1250, 8]),
-    }, {
+        "launches": bslice["eager"]["track_launches"],
+        "max_abs_err": max(terrs), **timed(*ttimes[1250, 8]),
+        "launches_path": "phase 8's eager_body=True render (the round "
+                         "kernel runs its step loop on the main path)",
+    }, *brick_lines(bslice, bkern), {
         "name": "fastbody", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/fastbody.cu",
         "replaces": "cudavolumerenderer_tpu/models/fast.py:744",

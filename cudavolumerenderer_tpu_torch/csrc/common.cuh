@@ -1,11 +1,14 @@
-// common.cuh — device helpers shared by the kernels (tailpk.cu, fastbody.cu,
-// replaybody.cu, familybody.cu): the PCG generator and masked draws, the
-// path-id hash, NaN-propagating min/max, float3 sums in the card's order,
-// the flight draw, Henyey-Greenstein sampling, the turn of a direction after
-// a scatter, the box's slab test and a brick's DDA exit, the GGX boundary
-// event, the stochastic tap, and a cascade stage's control words with the
+// common.cuh — device helpers shared by the kernels (tailpk.cu, tracking.cu,
+// fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu): the PCG generator
+// and masked draws, the path-id hash, a path's stream and camera ray,
+// NaN-propagating min/max, float3 sums in the card's order, the flight draw,
+// Henyey-Greenstein sampling, the turn of a direction after a scatter, the
+// box's slab test and a brick's DDA exit, the GGX boundary event, Russian
+// roulette, the stochastic tap and the fused table's density and albedo, the
+// brick-binned tracking steps, and a cascade stage's control words with the
 // gate, the last-block ticket and the drain's end of a launch (fastbody.cu,
-// replaybody.cu, familybody.cu; the host side is ops/stages.py).
+// replaybody.cu, familybody.cu, brickbody.cu; the host side is
+// ops/stages.py).
 //
 // Each follows the port's plain torch version operation by operation, so a
 // kernel built with -fmad=false and without --use_fast_math (utils/
@@ -393,17 +396,16 @@ __device__ __forceinline__ void boundary_event(bool ggx, const Ggx& G, const flo
 // brick-major layout (models/fast.py _BM_BRICK = (8, 8, 128), z, y, x)
 constexpr int BM_SZ = 3, BM_SY = 3, BM_SX = 7;
 
-// The flat table index of the stochastic tap at o + t d (bits: the tap draw)
-// in a grid of n = (nx, ny, nz) voxels over the box at bmin with extent ext
-// (rm1 = n - 1 as floats), row-major or brick-major.
-__device__ __forceinline__ long long tap_flat(const float bmin[3], const float ext[3],
-                                              const float rm1[3], const long long n[3],
-                                              bool brick_major, const float o[3],
-                                              const float d[3], float t, uint32_t bits) {
+// The flat table index of the stochastic tap at the world point p (bits: the
+// tap draw) in a grid of n = (nx, ny, nz) voxels over the box at bmin with
+// extent ext (rm1 = n - 1 as floats), row-major or brick-major.
+__device__ __forceinline__ long long tap_flat_at(const float bmin[3], const float ext[3],
+                                                 const float rm1[3], const long long n[3],
+                                                 bool brick_major, const float p[3],
+                                                 uint32_t bits) {
   long long idx[3];
   for (int a = 0; a < 3; ++a) {
-    const float p = o[a] + t * d[a];
-    const float coord = jclip((p - bmin[a]) / ext[a], 0.0f, 1.0f) * rm1[a];
+    const float coord = jclip((p[a] - bmin[a]) / ext[a], 0.0f, 1.0f) * rm1[a];
     const float c0 = floorf(coord);
     const float frac = coord - c0;
     const float u = (float)((bits >> (10 * a)) & 0x3FFu) * (1.0f / 1024.0f);
@@ -414,6 +416,171 @@ __device__ __forceinline__ long long tap_flat(const float bmin[3], const float e
   return (((idx[2] >> BM_SZ) * (n[1] >> BM_SY) + (idx[1] >> BM_SY)) * (n[0] >> BM_SX) +
           (idx[0] >> BM_SX)) * (8 * 8 * 128) +
          (((idx[2] & 7) << (BM_SY + BM_SX)) + ((idx[1] & 7) << BM_SX) + (idx[0] & 127));
+}
+
+// The same tap at o + t d.
+__device__ __forceinline__ long long tap_flat(const float bmin[3], const float ext[3],
+                                              const float rm1[3], const long long n[3],
+                                              bool brick_major, const float o[3],
+                                              const float d[3], float t, uint32_t bits) {
+  float p[3];
+  for (int a = 0; a < 3; ++a) p[a] = o[a] + t * d[a];
+  return tap_flat_at(bmin, ext, rm1, n, brick_major, p, bits);
+}
+
+// ---- the fused table (models/fast.py make_fused_grid, fused_row_decode) ----
+
+// Its layouts (fastbody.cu's TAB_*): the flat f32 density, the 'full' rows
+// (albedo rgb, density), the packed 8/4-bit density words.
+constexpr int FUSED_F32 = 0, FUSED_ROWS = 1, FUSED_PACKED = 2;
+// The scatter albedo (fastbody.cu's ALB_*): constant b, affine rho * a + b,
+// the row's, the scene's albedo grid at the tap ('split').
+constexpr int ALBEDO_CONST = 0, ALBEDO_AFFINE = 1, ALBEDO_ROW = 2, ALBEDO_SPLIT = 3;
+
+// The density at flat index j: the table's float, the row's 4th, or the
+// packed level (per = 32 / bits levels a word, strided by 128 rows) times
+// qscale (fast.packed_take).
+__device__ __forceinline__ float fused_rho(const void* table, int layout, int bits,
+                                           float qscale, long long j) {
+  if (layout == FUSED_F32) return ((const float*)table)[j];
+  if (layout == FUSED_ROWS) return ((const float*)table)[4 * j + 3];
+  const int per = 32 / bits;
+  const long long r = j >> 7, c = j & 127;
+  const uint32_t word = ((const uint32_t*)table)[(r / per) * 128 + c];
+  const uint32_t level = (word >> (uint32_t)((r % per) * bits)) & ((1u << bits) - 1u);
+  return (float)level * qscale;
+}
+
+// The scatter albedo of an accepted tap at flat index j with density rho.
+__device__ __forceinline__ void fused_albedo(int mode, const float a[3], const float b[3],
+                                             const void* table, const float* alb_rows,
+                                             long long stride, long long j, float rho,
+                                             float alb[3]) {
+  switch (mode) {
+    case ALBEDO_CONST:
+      for (int k = 0; k < 3; ++k) alb[k] = b[k];
+      break;
+    case ALBEDO_AFFINE:
+      for (int k = 0; k < 3; ++k) alb[k] = rho * a[k] + b[k];
+      break;
+    case ALBEDO_ROW:
+      for (int k = 0; k < 3; ++k) alb[k] = ((const float*)table)[4 * j + k];
+      break;
+    default: {
+      const float* row = alb_rows + j * stride;
+      for (int k = 0; k < 3; ++k) alb[k] = row[k];
+    }
+  }
+}
+
+// ---- a path's start (cam.generate_rays after rng.make_rng) -----------------
+
+// The (seed, path id) PCG stream of a path: seedh = seed * 0x9E3779B9.
+__device__ __forceinline__ void path_stream(uint32_t pid, uint32_t seedh, uint32_t& rs,
+                                            uint32_t& inc) {
+  rs = hash32(pid ^ seedh);
+  inc = (hash32(pid + 0x632BE5ABu) << 1) | 1u;
+}
+
+// The pixel of tile-local pixel id pix in a tile tw wide at (tile_x, tile_y):
+// x from pix % tw, y = floor(pix * float32(1 / tw)).
+__device__ __forceinline__ void pixel_of(long long pix, long long tw, float inv_tw,
+                                         float tile_x, float tile_y, float& px, float& py) {
+  px = (float)(pix % tw) + tile_x;
+  py = floorf((float)pix * inv_tw) + tile_y;
+}
+
+// The jittered camera ray through pixel (px, py) (two draws): cam the (3, 4)
+// inv_view row-major, r2v the raster-to-view scale, inv_res the float32
+// reciprocals of the full resolution.
+__device__ __forceinline__ void camera_ray(const float cam[12], float r2vx, float r2vy,
+                                           float inv_resx, float inv_resy, float px,
+                                           float py, uint32_t& rs, uint32_t inc, float o[3],
+                                           float d[3]) {
+  const float u1 = draw_float(rs, inc);
+  const float u2 = draw_float(rs, inc);
+  float rx = (px + u1) * 2.0f * inv_resx - 1.0f;
+  float ry = (py + u2) * 2.0f * inv_resy - 1.0f;
+  rx = rx * r2vx;
+  ry = ry * r2vy;
+  const float v[3] = {rx, ry, 1.0f};
+  float dv[3];
+  normalize3(v, dv);
+  for (int k = 0; k < 3; ++k) {
+    d[k] = cam[4 * k] * dv[0] + cam[4 * k + 1] * dv[1] + cam[4 * k + 2] * dv[2];
+    o[k] = cam[4 * k + 3];
+  }
+}
+
+// Russian roulette (integrator.russian_roulette) on a lane of its mask, one
+// draw: true when the lane is killed, else its throughput divided by the
+// survival probability.
+__device__ __forceinline__ bool roulette_kills(float tp[3], uint32_t& rs, uint32_t inc) {
+  const float p = jmin(jmax(jmax(tp[0], tp[1]), tp[2]), 1.0f);
+  const float u = draw_float(rs, inc);
+  if (u > p) return true;
+  const float q = jmax(p, 1e-20f);
+  for (int k = 0; k < 3; ++k) tp[k] = tp[k] / q;
+  return false;
+}
+
+// ---- brick-binned tracking (tracking.cu, brickbody.cu) -----------------------
+
+// Lane status codes (ops/tracking.py).
+constexpr int TRK_RUNNING = 0, TRK_SCATTER = 1, TRK_EXIT_BRICK = 2, TRK_EXIT_BOX = 3;
+// One brick's dilated table: 5x5x9 (z, y, x) entries, zero-padded to 256.
+constexpr int TRK_DZ = 5, TRK_DY = 5, TRK_DX = 9, TRK_ROW = 256;
+
+// Tap index along one axis: floor(local), plus one with probability
+// frac(local) (u = 10 random bits / 1024), clipped to the dilated table.
+// The float-to-int conversion saturates and maps NaN to 0; the pre-clip
+// keeps the + 1 from overflowing and changes no clipped result.
+__device__ __forceinline__ int brick_tap_axis(float local, uint32_t bits10, int n) {
+  const float fl = floorf(local);
+  const float u = (float)bits10 * (1.0f / 1024.0f);
+  const int i = iclip(__float2int_rz(fl), -1, n);
+  return iclip(i + (u < local - fl ? 1 : 0), 0, n - 1);
+}
+
+// Up to n_steps Woodcock steps of a RUNNING lane inside one brick whose
+// dilated table is row_tab: o, d and base (the brick's lowest voxel) in voxel
+// space, t, max_t and bexit in world t, inv_sig the reciprocal brick
+// majorant and inv_rho = inv_sig * scale.  Each step: a flight draw, the exit
+// test (status EXIT_BOX where max_t <= bexit, else EXIT_BRICK), a 30-bit
+// stochastic-trilinear tap and the acceptance test (SCATTER, with the tap's
+// flat index).  A lane not RUNNING takes no step.
+__device__ __forceinline__ void brick_steps(const float* row_tab, const float o[3],
+                                            const float d[3], const float base[3],
+                                            float max_t, float bexit, float inv_sig,
+                                            float inv_rho, int n_steps, float& t,
+                                            int& status, int& tap, uint32_t& state,
+                                            uint32_t inc) {
+  const float eff_exit = jmin(bexit, max_t);
+  const int exit_code = max_t <= bexit ? TRK_EXIT_BOX : TRK_EXIT_BRICK;
+  for (int k = 0; k < n_steps && status == TRK_RUNNING; ++k) {
+    // flight draw and exit test
+    const float u1 = draw_float(state, inc);
+    const float step = -logf(jmax(u1, EPS)) * inv_sig;
+    t = t + step;
+    if (t >= eff_exit) {
+      status = exit_code;
+      break;
+    }
+    // stochastic-trilinear tap into the dilated table
+    const uint32_t bits2 = draw_bits(state, inc);
+    const int ix = brick_tap_axis(o[0] + t * d[0] - base[0], bits2 & 0x3FFu, TRK_DX);
+    const int iy = brick_tap_axis(o[1] + t * d[1] - base[1], (bits2 >> 10) & 0x3FFu, TRK_DY);
+    const int iz = brick_tap_axis(o[2] + t * d[2] - base[2], (bits2 >> 20) & 0x3FFu, TRK_DZ);
+    const int flat = (iz * TRK_DY + iy) * TRK_DX + ix;
+    const float rho = row_tab[flat];
+    // acceptance
+    const float u2 = draw_float(state, inc);
+    if (!(rho * inv_rho < u2)) {
+      status = TRK_SCATTER;
+      tap = flat;
+      break;
+    }
+  }
 }
 
 // ---- a cascade stage's control words (ops/stages.py) -----------------------

@@ -278,14 +278,7 @@ __device__ __forceinline__ Ggx ggx_of(const Params& P) {
 
 // Russian roulette (integrator.russian_roulette) on a lane of its mask.
 __device__ __forceinline__ void roulette(Lane& L) {
-  const float p = jmin(jmax(jmax(L.tp[0], L.tp[1]), L.tp[2]), 1.0f);
-  const float u = draw_float(L.rs, L.inc);
-  if (u > p) {
-    L.alive = false;
-  } else {
-    const float q = jmax(p, 1e-20f);
-    for (int k = 0; k < 3; ++k) L.tp[k] = L.tp[k] / q;
-  }
+  if (roulette_kills(L.tp, L.rs, L.inc)) L.alive = false;
 }
 
 // An HG scatter at o + d t - d eps (phase.sample_phase): the new o and d.
@@ -602,24 +595,12 @@ __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q
     // the path's pixel, its (seed, path id) stream and camera ray
     Lane L;
     const long long img = pid % P.i[IP_NPIX];
-    const float px = (float)(img % P.i[IP_TW]) + P.f[FP_TILEX];
-    const float py = floorf((float)img * P.f[FP_INV_TW]) + P.f[FP_TILEY];
-    const uint32_t path = (uint32_t)(pid + P.i[IP_BASE]);
-    L.rs = hash32(path ^ (uint32_t)P.i[IP_SEEDH]);
-    L.inc = (hash32(path + 0x632BE5ABu) << 1) | 1u;
-    const float u1 = draw_float(L.rs, L.inc);
-    const float u2 = draw_float(L.rs, L.inc);
-    float rx = (px + u1) * 2.0f * P.f[FP_INV_RESX] - 1.0f;
-    float ry = (py + u2) * 2.0f * P.f[FP_INV_RESY] - 1.0f;
-    rx = rx * P.f[FP_R2VX];
-    ry = ry * P.f[FP_R2VY];
-    const float v[3] = {rx, ry, 1.0f};
-    float dv[3];
-    normalize3(v, dv);
-    const float* m = P.f + FP_CAM;
+    float px, py;
+    pixel_of(img, P.i[IP_TW], P.f[FP_INV_TW], P.f[FP_TILEX], P.f[FP_TILEY], px, py);
+    path_stream((uint32_t)(pid + P.i[IP_BASE]), (uint32_t)P.i[IP_SEEDH], L.rs, L.inc);
+    camera_ray(P.f + FP_CAM, P.f[FP_R2VX], P.f[FP_R2VY], P.f[FP_INV_RESX], P.f[FP_INV_RESY],
+               px, py, L.rs, L.inc, L.o, L.d);
     for (int k = 0; k < 3; ++k) {
-      L.d[k] = m[4 * k] * dv[0] + m[4 * k + 1] * dv[1] + m[4 * k + 2] * dv[2];
-      L.o[k] = m[4 * k + 3];
       L.tp[k] = 1.0f;
       L.rad[k] = 0.0f;
     }

@@ -106,6 +106,11 @@ enum {
 // Table modes (IP_TABLE), albedo modes (IP_ALBEDO).
 enum { TAB_F32 = 0, TAB_ROWS = 1, TAB_PACKED = 2 };
 enum { ALB_CONST = 0, ALB_AFFINE = 1, ALB_ROW = 2, ALB_SPLIT = 3 };
+static_assert(TAB_F32 == FUSED_F32 && TAB_ROWS == FUSED_ROWS && TAB_PACKED == FUSED_PACKED,
+              "common.cuh's fused layouts");
+static_assert(ALB_CONST == ALBEDO_CONST && ALB_AFFINE == ALBEDO_AFFINE &&
+                  ALB_ROW == ALBEDO_ROW && ALB_SPLIT == ALBEDO_SPLIT,
+              "common.cuh's albedo modes");
 
 struct Params {
   float f[N_FP];
@@ -126,35 +131,14 @@ __device__ __forceinline__ long long tap_index(const Params& P, const float o[3]
 
 // The tap's density (the fused table's rho).
 __device__ __forceinline__ float tap_rho(const Params& P, const Ptrs& Q, long long j) {
-  const int mode = (int)P.i[IP_TABLE];
-  if (mode == TAB_F32) return ((const float*)Q.p[S_TABLE])[j];
-  if (mode == TAB_ROWS) return ((const float*)Q.p[S_TABLE])[4 * j + 3];
-  const int bits = (int)P.i[IP_BITS];
-  const int per = 32 / bits;
-  const long long r = j >> 7, c = j & 127;
-  const uint32_t word = ((const uint32_t*)Q.p[S_TABLE])[(r / per) * 128 + c];
-  const uint32_t level = (word >> (uint32_t)((r % per) * bits)) & ((1u << bits) - 1u);
-  return (float)level * P.f[FP_QSCALE];
+  return fused_rho(Q.p[S_TABLE], (int)P.i[IP_TABLE], (int)P.i[IP_BITS], P.f[FP_QSCALE], j);
 }
 
 // The scatter albedo of an accepted tap (tap_albedo / fused_row_decode).
 __device__ __forceinline__ void tap_albedo(const Params& P, const Ptrs& Q, long long j,
                                            float rho, float alb[3]) {
-  switch ((int)P.i[IP_ALBEDO]) {
-    case ALB_CONST:
-      for (int k = 0; k < 3; ++k) alb[k] = P.f[FP_ALB_B + k];
-      break;
-    case ALB_AFFINE:
-      for (int k = 0; k < 3; ++k) alb[k] = rho * P.f[FP_ALB_A + k] + P.f[FP_ALB_B + k];
-      break;
-    case ALB_ROW:
-      for (int k = 0; k < 3; ++k) alb[k] = ((const float*)Q.p[S_TABLE])[4 * j + k];
-      break;
-    default: {
-      const float* row = (const float*)Q.p[S_ALB_ROWS] + j * P.i[IP_ALB_STRIDE];
-      for (int k = 0; k < 3; ++k) alb[k] = row[k];
-    }
-  }
+  fused_albedo((int)P.i[IP_ALBEDO], P.f + FP_ALB_A, P.f + FP_ALB_B, Q.p[S_TABLE],
+               (const float*)Q.p[S_ALB_ROWS], P.i[IP_ALB_STRIDE], j, rho, alb);
 }
 
 // ---- the body -------------------------------------------------------------
@@ -258,31 +242,15 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
       const float* off = (const float*)Q.p[S_TILE_OFF] + 2 * tile;
       const uint32_t base = (uint32_t)((const long long*)Q.p[S_BASES])[tile];
       pid = s * (uint32_t)npix + (uint32_t)local + base;
-      px = (float)(local % tw) + off[0];
-      py = floorf((float)local * P.f[FP_INV_TW]) + off[1];
+      pixel_of(local, tw, P.f[FP_INV_TW], off[0], off[1], px, py);
     } else {
       pid = s * (uint32_t)npix + (uint32_t)pix + (uint32_t)P.i[IP_BASE];
-      px = (float)(pix % tw) + P.f[FP_TILEX];
-      py = floorf((float)pix * P.f[FP_INV_TW]) + P.f[FP_TILEY];
+      pixel_of(pix, tw, P.f[FP_INV_TW], P.f[FP_TILEX], P.f[FP_TILEY], px, py);
     }
-    rs = hash32(pid ^ (uint32_t)P.i[IP_SEEDH]);
-    inc = (hash32(pid + 0x632BE5ABu) << 1) | 1u;
-    // cam.generate_rays
-    const float u1 = draw_float(rs, inc);
-    const float u2 = draw_float(rs, inc);
-    float rx = (px + u1) * 2.0f * P.f[FP_INV_RESX] - 1.0f;
-    float ry = (py + u2) * 2.0f * P.f[FP_INV_RESY] - 1.0f;
-    rx = rx * P.f[FP_R2VX];
-    ry = ry * P.f[FP_R2VY];
-    const float v[3] = {rx, ry, 1.0f};
-    float dv[3];
-    normalize3(v, dv);
-    const float* m = P.f + FP_CAM;
-    for (int k = 0; k < 3; ++k) {
-      d[k] = m[4 * k] * dv[0] + m[4 * k + 1] * dv[1] + m[4 * k + 2] * dv[2];
-      o[k] = m[4 * k + 3];
-      tp[k] = 1.0f;
-    }
+    path_stream(pid, (uint32_t)P.i[IP_SEEDH], rs, inc);
+    camera_ray(P.f + FP_CAM, P.f[FP_R2VX], P.f[FP_R2VY], P.f[FP_INV_RESX], P.f[FP_INV_RESY],
+               px, py, rs, inc, o, d);
+    for (int k = 0; k < 3; ++k) tp[k] = 1.0f;
     alive = true;
     tracking = false;
     bounce = 0;
@@ -435,16 +403,9 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
   const bool capped = alive && bounce >= P.i[IP_MAXPATH];
   alive = alive && !capped;
   if (capped) sd = sd + 1;
-  if (P.i[IP_RR] && had_event && !capped) {
-    const float p = jmin(jmax(jmax(tp[0], tp[1]), tp[2]), 1.0f);
-    const float u = draw_float(rs, inc);
-    if (u > p) {
-      alive = false;
-      sd = sd + 1;
-    } else {
-      const float q = jmax(p, 1e-20f);
-      for (int k = 0; k < 3; ++k) tp[k] = tp[k] / q;
-    }
+  if (P.i[IP_RR] && had_event && !capped && roulette_kills(tp, rs, inc)) {
+    alive = false;
+    sd = sd + 1;
   }
   tracking = tracking && !capped;
 

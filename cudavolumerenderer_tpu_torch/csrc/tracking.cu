@@ -20,7 +20,8 @@
 //    threads read neighbouring words.
 //  * Native uint32_t PCG, bit-equal to ops/rng.py; draws consume the lane's
 //    own stream in the plain version's order (a masked draw of a lane that
-//    has stopped changes nothing, so the loop stops there).
+//    has stopped changes nothing, so the loop stops there).  The step loop
+//    is common.cuh's brick_steps, which brickbody.cu's round kernel runs too.
 //  * float math follows the plain version op for op: built without
 //    --use_fast_math and with -fmad=false, so logf stays IEEE-accurate and no
 //    multiply-add is contracted.  min propagates NaN like torch.minimum.
@@ -35,21 +36,13 @@
 // outputs, which the 50 MB L2 can hold, so it can beat the device-memory
 // bound there.  The kernel allocates nothing and does not synchronise.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TABLE_W = 128;  // lanes per row
-constexpr int ROW = 256;      // one brick's dilated table, zero-padded past 225
-constexpr int DZ = 5, DY = 5, DX = 9;
+using namespace cvr;
 
-// Lane status codes (ops/tracking.py).
-constexpr int RUNNING = 0;
-constexpr int SCATTER = 1;
-constexpr int EXIT_BRICK = 2;
-constexpr int EXIT_BOX = 3;
+constexpr int TABLE_W = 128;  // lanes per row
 
 // Float input rows (ops/tracking.py F_*).
 enum {
@@ -57,100 +50,33 @@ enum {
   F_BASEX, F_BASEY, F_BASEZ, F_INVSIG, F_INVRHO, N_F,
 };
 
-constexpr uint32_t PCG_MULT = 747796405u;
-constexpr float EPS = 1e-5f;  // constants.EPSILON
-
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
-}
-__device__ __forceinline__ int iclip(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-
-// One PCG-RXS-M-XS-32 draw (ops/rng.py semantics) that advances the state.
-__device__ __forceinline__ uint32_t pcg(uint32_t& state, uint32_t inc) {
-  const uint32_t s = state * PCG_MULT + inc;
-  const uint32_t word = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
-  state = s;
-  return (word >> 22u) ^ word;
-}
-
-__device__ __forceinline__ float uniform(uint32_t bits) {
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-// Tap index along one axis: floor(local), plus one with probability
-// frac(local) (u = 10 random bits / 1024), clipped to the dilated table.
-// The float-to-int conversion saturates and maps NaN to 0; the pre-clip
-// keeps the + 1 from overflowing and changes no clipped result.
-__device__ __forceinline__ int tap_axis(float local, uint32_t bits10, int n) {
-  const float fl = floorf(local);
-  const float u = (float)bits10 * (1.0f / 1024.0f);
-  const int i = iclip(__float2int_rz(fl), -1, n);
-  return iclip(i + (u < local - fl ? 1 : 0), 0, n - 1);
-}
-
 __global__ void __launch_bounds__(TABLE_W) track_kernel(
     const float* __restrict__ tab, const int64_t* __restrict__ row_brick,
     const float* __restrict__ f, const int64_t* __restrict__ rng_in,
     const int32_t* __restrict__ status_in, float* __restrict__ t_out,
     int32_t* __restrict__ status_out, int32_t* __restrict__ tap_out,
     int64_t* __restrict__ rng_out, int R, int n_steps) {
-  __shared__ float row_tab[ROW];
+  __shared__ float row_tab[TRK_ROW];
   const int lane = threadIdx.x;
   const int64_t n = (int64_t)R * TABLE_W;
   const int64_t i = (int64_t)blockIdx.x * TABLE_W + lane;
 
-  const float* __restrict__ src = tab + row_brick[blockIdx.x] * (int64_t)ROW;
+  const float* __restrict__ src = tab + row_brick[blockIdx.x] * (int64_t)TRK_ROW;
   row_tab[lane] = src[lane];
   row_tab[lane + TABLE_W] = src[lane + TABLE_W];
   __syncthreads();
 
-  const float ox = f[F_OX * n + i], oy = f[F_OY * n + i], oz = f[F_OZ * n + i];
-  const float dx = f[F_DX * n + i], dy = f[F_DY * n + i], dz = f[F_DZ * n + i];
+  const float o[3] = {f[F_OX * n + i], f[F_OY * n + i], f[F_OZ * n + i]};
+  const float d[3] = {f[F_DX * n + i], f[F_DY * n + i], f[F_DZ * n + i]};
+  const float base[3] = {f[F_BASEX * n + i], f[F_BASEY * n + i], f[F_BASEZ * n + i]};
   float t = f[F_T * n + i];
-  const float max_t = f[F_MAXT * n + i];
-  const float bexit = f[F_BEXIT * n + i];
-  const float bx = f[F_BASEX * n + i], by = f[F_BASEY * n + i], bz = f[F_BASEZ * n + i];
-  const float inv_sig = f[F_INVSIG * n + i];
-  const float inv_rho = f[F_INVRHO * n + i];
   uint32_t state = (uint32_t)rng_in[i];
-  const uint32_t inc = (uint32_t)rng_in[n + i];
   int status = status_in[i];
   int tap = 0;
-
-  const float eff_exit = jmin(bexit, max_t);
-  const int exit_code = max_t <= bexit ? EXIT_BOX : EXIT_BRICK;
-
-  for (int k = 0; k < n_steps && status == RUNNING; ++k) {
-    // ---- flight draw and exit test ----------------------------------------
-    const float u1 = uniform(pcg(state, inc));
-    const float step = -logf(jmax(u1, EPS)) * inv_sig;
-    t = t + step;
-    if (t >= eff_exit) {
-      status = exit_code;
-      break;
-    }
-
-    // ---- stochastic-trilinear tap into the dilated table -------------------
-    const uint32_t bits2 = pcg(state, inc);
-    const int ix = tap_axis(ox + t * dx - bx, bits2 & 0x3FFu, DX);
-    const int iy = tap_axis(oy + t * dy - by, (bits2 >> 10) & 0x3FFu, DY);
-    const int iz = tap_axis(oz + t * dz - bz, (bits2 >> 20) & 0x3FFu, DZ);
-    const int flat = (iz * DY + iy) * DX + ix;
-    const float rho = row_tab[flat];
-
-    // ---- acceptance ---------------------------------------------------------
-    const float u2 = uniform(pcg(state, inc));
-    if (!(rho * inv_rho < u2)) {
-      status = SCATTER;
-      tap = flat;
-      break;
-    }
-  }
+  // the step loop is shared with brickbody.cu's round kernel (common.cuh)
+  brick_steps(row_tab, o, d, base, f[F_MAXT * n + i], f[F_BEXIT * n + i],
+              f[F_INVSIG * n + i], f[F_INVRHO * n + i], n_steps, t, status, tap, state,
+              (uint32_t)rng_in[n + i]);
 
   t_out[i] = t;
   status_out[i] = status;

@@ -41,7 +41,7 @@ import torch
 
 from . import stages
 from .rng import as_u32, mul32
-from .stages import C_COUNT, DRAIN_CAP, N_CTRL, lane_field
+from .stages import C_COUNT, DRAIN_CAP, N_CTRL, lane_field, own
 from .stages import f32 as _f32
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "familybody.cu"
@@ -532,17 +532,6 @@ def run_body(ctx: FamilyContext, op: str, s, image_id=None, accum=None,
 
 
 # -- the schedulers' loops -----------------------------------------------------
-
-def own(s):
-    """The pool with every tensor its own contiguous copy, for the kernels'
-    in-place updates (an eager pool may share or broadcast tensors)."""
-    def copy(v):
-        if isinstance(v, torch.Tensor):
-            return v.contiguous().clone()
-        return type(v)(*(copy(x) for x in v))
-
-    return type(s)(*(copy(v) for v in s))
-
 
 def copy_lanes_(dst, src) -> None:
     """Copy the pool `src`'s per-lane fields into `dst`'s tensors (a

@@ -1,6 +1,6 @@
 """The host side that the per-lane body kernels share (csrc/fastbody.cu,
-csrc/replaybody.cu and csrc/familybody.cu; their device side of it in
-csrc/common.cuh).
+csrc/replaybody.cu, csrc/familybody.cu and csrc/brickbody.cu; their device
+side of it in csrc/common.cuh).
 
 A body kernel runs one evaluation of every lane of a pool per launch.  A
 cascade stage of the body is a loop of such evaluations in chains of
@@ -71,6 +71,17 @@ def lane_field(s, name: str) -> torch.Tensor:
     if name == "rng_inc":
         return s.rng.inc
     return getattr(s, name)
+
+
+def own(s):
+    """The pool with every tensor its own contiguous copy, for the kernels'
+    in-place updates (an eager pool may share or broadcast tensors)."""
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.contiguous().clone()
+        return type(v)(*(copy(x) for x in v))
+
+    return type(s)(*(copy(v) for v in s))
 
 
 def check_lane(kernel: str, name: str, x: torch.Tensor, dtype, shape,
@@ -175,8 +186,8 @@ def loop_chains(kernel: "BodyKernel", s, count_of: Callable,
 
 class BodyKernel:
     """A body kernel library: built from `source` at first use, its C entry
-    points `<name>_launch`, `<name>_drain` and `<name>_layout` loaded with
-    ctypes, and its launches counted.  `launches` counts one-evaluation
+    points `<name>_launch`, `<name>_drain` (where `has_drain`) and
+    `<name>_layout` loaded with ctypes, and its launches counted.  `launches` counts one-evaluation
     launches made now (a gated one may return untouched); a launch recorded
     into a CUDA graph being captured counts in `captured` instead.
     `drain_launches` counts drain launches, `reads` the host's reads of a
@@ -185,11 +196,12 @@ class BodyKernel:
     the last drain's longest lane L, its evaluations E and its launches."""
 
     def __init__(self, name: str, source: Path, layout: tuple,
-                 drain_argtypes: tuple = ()):
+                 drain_argtypes: tuple = (), has_drain: bool = True):
         self.name = name
         self.source = source
         self.layout = tuple(layout)  # (N_FP, N_IP, N_S, N_CTRL)
         self.drain_argtypes = list(drain_argtypes)
+        self.has_drain = has_drain  # whether the library has <name>_drain
         self.launches = 0  # CUDA launches; the plain version is not counted
         self.captured = 0
         self.drain_launches = 0
@@ -206,12 +218,14 @@ class BodyKernel:
             from ..utils import cuda_build  # noqa: PLC0415
 
             built = cuda_build.build_library(self.source)
-            launch, drain = self._entry(built, "launch"), self._entry(
-                built, "drain")
+            launch = self._entry(built, "launch")
             launch.argtypes = _ARGTYPES + [ctypes.c_void_p]
-            drain.argtypes = _ARGTYPES + self.drain_argtypes + [
-                ctypes.c_void_p]
-            launch.restype = drain.restype = ctypes.c_int
+            launch.restype = ctypes.c_int
+            if self.has_drain:
+                drain = self._entry(built, "drain")
+                drain.argtypes = _ARGTYPES + self.drain_argtypes + [
+                    ctypes.c_void_p]
+                drain.restype = ctypes.c_int
             sizes = (ctypes.c_int * 4)()
             self._entry(built, "layout")(sizes)
             if tuple(sizes) != self.layout:

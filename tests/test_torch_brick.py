@@ -1,7 +1,8 @@
 """brickSK on the CPU: the port's brick.render_tile (the tracking kernel's
 plain version on CPU tensors) against the JAX package's
 brick.render_tile with the Pallas kernel in interpret mode, on the same
-converted smoke scene; the exact white furnace; create_renderer's
+converted smoke scene (n_rays exactly, pixels to 1e-4); the exact white
+furnace; create_renderer's
 brickSK against render_tile; and the errors brickSK raises."""
 
 import jax.numpy as jnp
@@ -24,6 +25,9 @@ from cudavolumerenderer_tpu_torch.scene import procedural
 from cudavolumerenderer_tpu_torch.scene import types as ttypes
 
 torch.set_num_threads(2)
+
+#: images agree with JAX to XLA's transcendentals (tests/test_torch_schedulers.py)
+JAX_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def smoke_scenes(scale):
@@ -64,8 +68,9 @@ def test_render_tile_agrees_with_jax(scale):
           f"means {a.mean():.6f} vs {b.mean():.6f}; pixels equal within "
           f"1e-4: {share:.3f}")
     assert np.isfinite(a).all() and a.shape == (res, res, 3)
-    assert abs(t_rays - j_rays) / j_rays < 0.01
-    assert abs(a.mean() - b.mean()) < 0.02
+    # the same paths: every ray counted, every pixel to XLA's last bits
+    assert t_rays == j_rays
+    np.testing.assert_allclose(a, b, **JAX_TOL)
     assert rounds > 0
 
 

@@ -23,7 +23,12 @@ refill, extend and flush, the drain and the gated chains) equal the eager
 functions bit for bit per launch at 65,536, 4,096, 24^2 and 40^2 lanes,
 every row through them gives the eager row's n_rays and evaluations and
 its image to float-summation order, and the white furnace is exact
-through each.
+through each.  brickSK's round kernels (csrc/brickbody.cu: phase A and
+the tracking round) equal their plain versions bit for bit in every lane
+field at 1,920 and 160,000 lanes, with two lanes per pixel and on a
+'full' albedo grid, on rounds kept from a render; a render through them
+equals the eager loop's (image, n_rays, rounds), and the white furnace is
+exact through them.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -195,9 +200,12 @@ def test_white_furnace_through_tracking_kernel(cuda):
         True, russian_roulette=False, bsdf_kind="null"
     )
     launches = tracking.KERNEL.launches
+    # the eager loop launches the tracking kernel once a round (the default
+    # path runs csrc/brickbody.cu's round kernel instead)
     img, _, rounds = brick.render_tile(
         scene, make_camera(16, 16, device=cuda), settings, (16, 16),
         torch.zeros(2, device=cuda), (16, 16), 2, 3, 0, with_stats=True,
+        eager_body=True,
     )
     assert tracking.KERNEL.launches == launches + rounds
     np.testing.assert_array_equal(img.cpu().numpy(), 2.0)
@@ -1568,3 +1576,181 @@ def test_family_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             family_render(cuda, label, 24, False)
         assert sum(familybody.KERNEL.plain_evals.values()) == 0, label
+
+
+# -- brickSK's round kernels (csrc/brickbody.cu) ---------------------------------------
+
+# (tile w, h, lanes per pixel, scene): 1,920 lanes in 15 rows (no power of
+# two), the slice's 160,000 lanes, two lanes per pixel, a 'full' albedo grid
+BRICK_CASES = {
+    "48x40": (48, 40, 1, "smoke"), "400x400": (400, 400, 1, "smoke"),
+    "48x40-m2": (48, 40, 2, "smoke"), "48x40-full": (48, 40, 1, "full"),
+}
+BRICK_KEPT = (0, 3, 40)  # rounds run before the kept state
+
+
+def brick_scene(kind, device):
+    """The brickSK slice's smoke (128x128x50, albedo 0.9 d: affine, scale
+    800), or a random 20x33x17 density with an independent per-voxel
+    albedo ('full'), a non-cube box and g = 0.3."""
+    if kind == "smoke":
+        d = procedural.smoke_volume((128, 128, 50))
+        alb = np.stack([d, d, d], axis=-1) * 0.9
+        medium = types.make_medium(d, alb, scale=800.0,
+                                   max_density=float(d.max()), device=device)
+    else:
+        rs = np.random.RandomState(4)
+        d = rs.rand(20, 33, 17).astype(np.float32)
+        alb = rs.rand(20, 33, 17, 3).astype(np.float32)
+        medium = types.make_medium(
+            d, alb, box_min=(-0.5, -0.4, -0.6), box_max=(0.6, 0.5, 0.4),
+            scale=20.0, max_density=1.0, g=0.3, device=device)
+    return types.make_scene(medium)
+
+
+def brick_ctx(cuda, case, spp=4):
+    tw, th, m, kind = BRICK_CASES[case]
+    scene = brick_scene(kind, cuda)
+    return brick.make_context(
+        scene, make_camera(tw, th, device=cuda), types.RenderSettings(),
+        (tw, th), torch.zeros(2, device=cuda), (tw, th), spp, 5, 7,
+        lanes_per_pixel=m)
+
+
+def brick_mismatches(a, b):
+    from cudavolumerenderer_tpu_torch.ops import brickbody, stages
+
+    bad = []
+    for n in brickbody.STATE_FIELDS:
+        x, y = stages.lane_field(a, n), stages.lane_field(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", BRICK_KEPT)
+@pytest.mark.parametrize("case", list(BRICK_CASES))
+def test_brick_kernels_equal_plain_versions(cuda, case, kept):
+    """On a state kept after `kept` kernel rounds: phase_a_kernel against
+    the eager phase A in this layout (every lane field, the keys, perm,
+    n_rays, the count), then the round kernel against the eager tracking
+    round on the sorted keys (every lane field, pos), bit for bit; each
+    launch counted."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    ctx = brick_ctx(cuda, case)
+    s, pos = bb.own(brick.initial_state(ctx)), torch.arange(
+        ctx.n_lanes, device=cuda)
+    bufs = bb.RoundBuffers.make(ctx.n_lanes, cuda)
+    for _ in range(kept):
+        s, pos = bb.one_round(ctx, s, pos, bufs)
+    before = dict(bb.KERNEL.by_op)
+    got, keys, perm, count = bb.phase_a(ctx, bb.own(s), pos.clone(), bufs)
+    want, wkeys, wperm, wcount = bb.plain_phase_a(ctx, bb.own(s), pos)
+    torch.cuda.synchronize()
+    assert bb.KERNEL.by_op["phase_a"] == before["phase_a"] + 1
+    assert not brick_mismatches(got, want)
+    assert got.n_rays.view(torch.int32) == want.n_rays.view(torch.int32)
+    assert torch.equal(keys, wkeys) and torch.equal(perm, wperm)
+    assert int(count) == int(wcount)
+    bufs.sort()
+    got_r, got_pos = bb.round_(ctx, bb.own(want), pos.clone(), bufs)
+    want_r, want_pos = bb.plain_round(ctx, bb.own(want), pos, bufs.perm,
+                                      bufs.skeys, bufs.order)
+    torch.cuda.synchronize()
+    assert bb.KERNEL.by_op["round"] == before["round"] + 1
+    assert not brick_mismatches(got_r, want_r)
+    assert torch.equal(got_pos, want_pos)
+    if kept == BRICK_KEPT[-1]:
+        assert bool((bufs.skeys != bb.SENTINEL).any())  # lanes tracked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["48x40", "48x40-m2", "48x40-full",
+                                  "400x400"])
+def test_brick_render_through_kernels_equals_eager(cuda, case):
+    """render_tile through the round kernels (gated batches) gives the
+    eager loop's image bit for bit, its n_rays and its rounds, with one
+    host read per batch of rounds and no tracking-kernel launch."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    tw, th, m, kind = BRICK_CASES[case]
+    scene = brick_scene(kind, cuda)
+    spp = 1 if case == "400x400" else 4
+    args = (scene, make_camera(tw, th, device=cuda), types.RenderSettings(),
+            (tw, th), torch.zeros(2, device=cuda), (tw, th), spp, 5, 7)
+    bb.KERNEL.reset()
+    track = tracking.KERNEL.launches
+    img, n_rays, rounds = brick.render_tile(*args, lanes_per_pixel=m,
+                                            with_stats=True)
+    torch.cuda.synchronize()
+    assert tracking.KERNEL.launches == track
+    launches, reads = dict(bb.KERNEL.by_op), bb.KERNEL.reads
+    want_img, want_rays, want_rounds = brick.render_tile(
+        *args, lanes_per_pixel=m, with_stats=True, eager_body=True)
+    assert rounds == want_rounds > 0
+    assert float(n_rays) == float(want_rays)
+    assert torch.equal(img, want_img)
+    assert launches["phase_a"] == launches["round"] >= rounds
+    assert reads <= rounds // 32 + 2
+
+
+@pytest.mark.cuda
+def test_brick_white_furnace_through_kernels(cuda):
+    """albedo 1, the null boundary, no roulette: every pixel exactly spp
+    through the round kernels (a constant albedo)."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+
+    d = procedural.blob_volume((24, 24, 24), n_blobs=3)
+    scene = types.make_scene(types.make_medium(d, 1.0, scale=8.0,
+                                               max_density=1.0, device=cuda))
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, bsdf_kind="null")
+    bb.KERNEL.reset()
+    img, _, rounds = brick.render_tile(
+        scene, make_camera(16, 16, device=cuda), settings, (16, 16),
+        torch.zeros(2, device=cuda), (16, 16), 2, 3, 0, with_stats=True)
+    assert bb.KERNEL.by_op["round"] >= rounds > 1
+    np.testing.assert_array_equal(img.cpu().numpy(), 2.0)
+
+
+@pytest.mark.cuda
+def test_brick_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
+    """The wrappers write the `out` state they are given (out of place, as
+    the timing graphs use them) and equal the in-place launch; a wrong
+    dtype raises; a failed build raises out of render_tile, with no
+    fallback to the eager loop."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    ctx = brick_ctx(cuda, "48x40")
+    s, pos = bb.own(brick.initial_state(ctx)), torch.arange(
+        ctx.n_lanes, device=cuda)
+    bufs = bb.RoundBuffers.make(ctx.n_lanes, cuda)
+    for _ in range(5):
+        s, pos = bb.one_round(ctx, s, pos, bufs)
+    out, pos_out = bb.own(s), torch.empty_like(pos)
+    got, *_ = bb.phase_a(ctx, s, pos, bufs, out=out, pos_out=pos_out)
+    assert got.o.data_ptr() == out.o.data_ptr()
+    assert torch.equal(pos_out, pos)
+    want, *_ = bb.phase_a(ctx, bb.own(s), pos.clone(), bufs)
+    assert not brick_mismatches(got, want)
+    with pytest.raises(ValueError, match="throughput must be"):
+        bb.phase_a(ctx, s._replace(throughput=s.throughput.double()), pos,
+                   bufs)
+
+    def broken(source):
+        raise RuntimeError("nvcc failed on brickbody.cu")
+
+    monkeypatch.setattr(bb, "KERNEL", bb.BrickBodyKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    track = tracking.KERNEL.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        brick.render_tile(ctx.scene, ctx.camera, ctx.settings, ctx.tile_dim,
+                          torch.zeros(2, device=cuda), ctx.full_resolution,
+                          4, 5, 7)
+    assert tracking.KERNEL.launches == track
+    assert sum(bb.KERNEL.plain_evals.values()) == 0
