@@ -12,7 +12,8 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the seven kernel libraries, csrc/tailpk.cu, csrc/tracking.cu,
+2. build the seven kernel libraries, csrc/tailpk.cu (the tail kernel and
+   the tail stage's drain), csrc/tracking.cu,
    csrc/pgather.cu, csrc/fastbody.cu, csrc/replaybody.cu,
    csrc/familybody.cu and csrc/brickbody.cu, with one nvcc each, started
    together with g++ on
@@ -32,20 +33,28 @@ CPU or to a plain version on a CUDA tensor):
    operations; the step sweep (R = 128, K = 1, 2, 4, 8, 16: the slope is
    the time of a step); the kernel's ptxas registers, spills and shared
    memory;
-4. white furnace through the kernel (every pixel == spp, rtol 2e-5), and
-   a small render on the card against the same render on the CPU;
+4. white furnace through the tail stage's drain and through its eager
+   loop's tail kernel (every pixel == spp, rtol 2e-5), and a small render
+   on the card against the same render on the CPU;
 5. the slice: BASELINE config 2 (medical 256^3 MHD, red-channel albedo,
    scale 100, 512^2 x 4 iterations, one tile) through load_scene and
    create_renderer(...).render() with fastSK two-level and the tail
    kernel on, every cascade stage gated chains of the body kernel
-   (csrc/fastbody.cu; launches and host reads counted); one render, timed
-   with the image copy to the host, with
-   torch.profiler over tail rounds 100-159 (the kernel's device time per
-   launch at the slice's own state, and the card's busy share in that
-   window) and the inputs of round 130 kept (the kernel against its plain
-   version on them, their paths traced, and timed as in phase 3); the
-   kernel's launch count must rise, and n_rays must be the 6,040,005 of
-   the kernel's first design (the same draws give the same render);
+   (csrc/fastbody.cu) and the tail stage one drain launch (csrc/tailpk.cu's
+   drain_kernel): three renders timed with the image copy to the host, the
+   counts set to 0 just before the first and read just after it (one drain
+   launch, one host read of the tail stage, no tail-kernel launch); one
+   more with torch.profiler over the tail stage alone (the drain's device
+   time, and the card's busy share: the union of the device intervals over
+   the stage's wall); then the slice with the tail stage's eager loop (its
+   eager_body=True path; a tail-kernel launch and a host read a round),
+   with torch.profiler over its tail rounds 100-159 (the kernel's device
+   time per launch at the slice's own state, the busy share as above) and
+   the inputs of round 130 kept (the kernel against its plain version on
+   them, their paths traced, and timed as in phase 3): both runs give the
+   6,040,005 rays of the kernel's first design, the same n_rows and
+   n_busy, bit-equal images and tail-stage states; walls, drain launches,
+   host reads and tail-kernel launches of both;
 6. the tracking kernel against its plain torch version on the brickSK
    slice's own dilated table (smoke 128x128x50, scale 800) with R = 8
    and R = 1,250 rows at K = 8 and K = 32 steps: integer outputs equal on
@@ -138,7 +147,8 @@ CPU or to a plain version on a CUDA tensor):
 16. BASELINE config 3 at its published size (1024^2 x 4, one tile,
    fastSK two-level) through the port's baseline_configs driver (one
    trial), then through the CLI's batch mode with
-   --tail-pallas, whose tail-kernel launch count must rise; wall seconds
+   --tail-pallas, whose tail stage's drain must launch (and the tail
+   kernel not); wall seconds
    with the image copy, n_rays and Mrays/s for both; then BASELINE config
    1 at its published size (256^2 x 20, the RAW scene whose transfer-
    function albedo makes the 'full' table, fastSK two-level) through
@@ -191,7 +201,7 @@ CPU or to a plain version on a CUDA tensor):
    at 128^2 x 1: wall, peak allocated memory, image mean;
 21. parallel/ (torch.distributed) on the card: (a) phase 5's render
    through render_sharded on a 1-rank NCCL group, image and n_rays equal
-   to phase 5's bit for bit, the tail kernel's launch count rising, wall
+   to phase 5's bit for bit, the tail stage's drain launching, wall
    with the image copy and the all_reduce of the image timed by CUDA
    events; (b) two processes of a gloo group sharing the card (NCCL
    refuses two ranks on one device) render config 2's scene at 64^2 x 5
@@ -287,6 +297,14 @@ CPU or to a plain version on a CUDA tensor):
    device kernels per round and the busy share, each kernel's byte bound
    over the same rounds by the plain versions, whose state after them
    must equal the kernels' bit for bit.
+27. (run last, on phase 5's kept tail stage) the tail stage's drain on
+   the state kept at its entry: two launches in turns, each timed by CUDA
+   events around the launch and bit-equal to the eager loop's state; the
+   longest lane's rounds and the drain's us per round of it; the eager
+   loop's wall; the byte bound (ops/taildrain.drain_bytes over the taps
+   of every round of the plain loop run with the tail kernel's plain
+   version) and the drain's share of it; drain_kernel's ptxas registers
+   and spills.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -950,7 +968,8 @@ def profile_tail_window(renderer, card: str):
     window_us = (clock[1] - clock[0]) * 1e6
     on_card = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_card)
+    summed_us = sum(e.self_device_time_total for e in on_card)
+    busy_us = busy_union_us(prof)
     tail = [e for e in on_card if "tail_kernel" in e.key]
     if not tail or busy_us == 0.0:
         log(f"[5] profiler window: no device time in the trace; the tail "
@@ -959,13 +978,192 @@ def profile_tail_window(renderer, card: str):
     launches = sum(e.count for e in tail)
     per_launch = sum(e.self_device_time_total for e in tail) / launches
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[5] profiler window, tail rounds {first}-{first + n - 1}: "
-        f"{window_us / 1e3:.2f} ms of wall, device busy {busy_us / 1e3:.3f} "
-        f"ms ({busy_us / window_us:.1%}); tail kernel {launches} launches, "
-        f"{per_launch:.2f} us of device time per launch; top device time: "
+    log(f"[5] profiler window of the eager loop, tail rounds {first}-"
+        f"{first + n - 1}: {window_us / 1e3:.2f} ms of wall, device busy "
+        f"{busy_us / 1e3:.3f} ms ({busy_us / window_us:.1%}; the union of "
+        f"the device intervals; their sum {summed_us / 1e3:.3f} ms); tail "
+        f"kernel {launches} launches, {per_launch:.2f} us of device time per "
+        f"launch; top device time: "
         + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total:.0f} us"
                     for e in top) + f"; card {card}")
     return per_launch, kept, img, wall
+
+
+def busy_union_us(prof) -> float:
+    """Microseconds in which the card ran anything (kernels, copies, sets)
+    in a torch.profiler trace: the union of the device intervals, so work
+    that overlaps counts once."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+@contextlib.contextmanager
+def tail_stage_kept(kept: list, eager: bool = False, prof=None):
+    """models/fast.py's _run_tailpk_stage wrapped to keep, per stage, its
+    context, a copy of its entry state, its result and its wall (the card
+    synchronised around it): with `eager` the stage runs its eager loop
+    (the stage's eager_body=True path, the cascade staying on the body
+    kernel), and with `prof` a torch.profiler runs over the stage alone."""
+    import dataclasses
+
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fast
+
+    run = fast._run_tailpk_stage
+
+    def stage(state, ctx):
+        if eager:
+            ctx = dataclasses.replace(ctx, eager_body=True)
+        entry = clone_state(state)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        out = run(state, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        kept.append({"ctx": ctx, "entry": entry, "out": out, "wall": wall,
+                     "window_us": wall * 1e6})
+        return out
+
+    fast._run_tailpk_stage = stage
+    try:
+        yield kept
+    finally:
+        fast._run_tailpk_stage = run
+
+
+def slice_runs(renderer, card: str) -> dict:
+    """Phase 5: the slice through the drain (three timed renders, the
+    counts set to 0 just before the first and read just after it), once
+    more with its tail stage kept and under torch.profiler (the drain's
+    device time, the card's busy share over the stage), then with the
+    tail stage's eager loop (profile_tail_window: its rounds 100-159
+    profiled, round 130's inputs kept): both 6,040,005 rays, the same
+    n_rows and n_busy, bit-equal images and stage states."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    torch.cuda.synchronize()
+    tpk.KERNEL.launches = fb.KERNEL.launches = fb.KERNEL.reads = 0
+    td.KERNEL.reset()
+    t0 = time.perf_counter()
+    img = renderer.render()
+    walls = [time.perf_counter() - t0]
+    drain = {"drain_launches": td.KERNEL.drain_launches,
+             "reads": td.KERNEL.reads, "tail_launches": tpk.KERNEL.launches,
+             "body_launches": fb.KERNEL.launches,
+             "body_reads": fb.KERNEL.reads, **td.KERNEL.last_drain,
+             "n_rays": renderer.n_rays}
+    check(drain["drain_launches"] == 1 and drain["reads"] == 1,
+          f"the slice's tail stage took {drain['drain_launches']} drain "
+          f"launches and {drain['reads']} host reads, not 1 and 1")
+    check(drain["tail_launches"] == 0, "the drain's render launched the tail "
+          "kernel")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = renderer.render()
+        walls.append(time.perf_counter() - t0)
+        check(np.array_equal(again, img), "two renders through the drain "
+              "differ")
+    drain["walls"] = walls
+
+    kept = []
+    with tail_stage_kept(kept):
+        renderer.render()
+    drain["stage_walls"] = [kept[0]["wall"]]
+    # the profiler's first session in a process pays its set-up inside the
+    # window: one on a tiny op first
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    kept, prof = [], profile(activities=[ProfilerActivity.CUDA])
+    with tail_stage_kept(kept, prof=prof):
+        renderer.render()
+    check(len(kept) == 1, f"{len(kept)} tail stages in one render")
+    stage = kept[0]
+    drain["stage_walls"].append(stage["wall"])
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    mine = [e for e in on_card if "drain_kernel" in e.key]
+    busy_us = busy_union_us(prof)
+    if mine and busy_us:
+        stage["device_us"] = sum(e.self_device_time_total for e in mine)
+        stage["busy"] = busy_us / stage["window_us"]
+        log(f"[5] the drain's tail stage under torch.profiler: "
+            f"{stage['window_us'] / 1e3:.3f} ms of wall, the drain "
+            f"{stage['device_us'] / 1e3:.3f} ms of device time in "
+            f"{sum(e.count for e in mine)} launch, the card busy "
+            f"{busy_us / 1e3:.3f} ms ({stage['busy']:.1%}, the union of the "
+            f"device intervals over the stage's wall) in "
+            f"{sum(e.count for e in on_card)} device operations; card {card}")
+    else:
+        stage["device_us"] = stage["busy"] = None
+        log("[5] the drain's tail stage: no device time in the profiler's "
+            "trace; its device time and busy share are not measured")
+    drain["stage"] = stage
+
+    eager_kept = []
+    torch.cuda.synchronize()
+    tpk.KERNEL.launches = 0
+    td.KERNEL.reset()
+    with tail_stage_kept(eager_kept, eager=True):
+        in_slice_us, round_inputs, eager_img, eager_wall = profile_tail_window(
+            renderer, card)
+    eager = {"walls": [eager_wall], "tail_launches": tpk.KERNEL.launches,
+             "reads": td.KERNEL.reads, "drain_launches": td.KERNEL.drain_launches,
+             "rounds": td.KERNEL.plain_rounds, "n_rays": renderer.n_rays,
+             "stage": eager_kept[0], "in_slice_us": in_slice_us}
+    check(eager["drain_launches"] == 0 and eager["tail_launches"] ==
+          eager["rounds"] == drain["E"] > 0,
+          f"the eager loop ran {eager['rounds']} rounds with "
+          f"{eager['tail_launches']} tail-kernel launches, the drain "
+          f"{drain['E']} rounds")
+    diff, err = state_diff(stage["out"], eager["stage"]["out"])
+    check(not state_diff(stage["entry"], eager["stage"]["entry"])[0],
+          "the two renders enter the tail stage in different states")
+    check(not diff, f"the drain's tail stage differs from the eager loop's: "
+          f"{diff}")
+    check(np.array_equal(img, eager_img), "the slice through the drain and "
+          "through the eager loop give different images")
+    check(drain["n_rays"] == eager["n_rays"], "n_rays differs between the "
+          "drain and the eager loop")
+    drain["max_abs_err"] = err
+    for tag, run in (("drain", drain), ("eager loop", eager)):
+        out = run["stage"]["out"]
+        log(f"[5] slice through the {tag}: walls "
+            + ", ".join(f"{w:.4f}" for w in run["walls"])
+            + f" s (incl. image copy), {run['n_rays']:.0f} rays, n_rows "
+            f"{float(out.n_rows):.0f}, n_busy {float(out.n_busy):.0f}; tail "
+            f"stage " + ", ".join(f"{w * 1e3:.3f}" for w in run.get(
+                "stage_walls", [run["stage"]["wall"]]))
+            + f" ms (the card synchronised around it); drain launches "
+            f"{run['drain_launches']}, host reads of the tail stage "
+            f"{run['reads']}, tail-kernel launches {run['tail_launches']}; "
+            f"card {card}")
+    log(f"[5] the drain and the eager loop: images, n_rays, n_rows, n_busy "
+        f"and every lane field of the tail stage bit-equal; {drain['E']} "
+        f"rounds, the longest lane's {drain['L']}")
+    return {"drain": drain, "eager": eager, "img": img,
+            "round_inputs": round_inputs}
 
 
 def slice_round(kept, card: str) -> float:
@@ -997,12 +1195,108 @@ def slice_round(kept, card: str) -> float:
     return ms
 
 
+def tail_drain_alone(drain_stage: dict, eager_stage: dict, ptxas: str,
+                     card: str) -> dict:
+    """Phase 27: the tail stage's drain on the state kept at the slice's
+    tail stage: two launches in turns, each timed by CUDA events around
+    the launch and equal to the eager loop's state bit for bit; the
+    longest lane's rounds and us per round; the byte bound (ops/taildrain
+    .drain_bytes over every round's taps of the plain loop, with the tail
+    kernel's plain version) and its share; the eager loop's wall."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+
+    from cudavolumerenderer_tpu_torch.ops.stages import C_LEFT, C_LMAX, C_TOTAL
+
+    ctx, entry = drain_stage["ctx"], drain_stage["entry"]
+    want = eager_stage["out"]
+    ms = []
+    for _ in range(2):
+        prep = td.KERNEL.prepare(ctx, clone_state(entry))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        td.KERNEL.launch(prep)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        words = prep.ctrl.tolist()
+        check(words[C_LEFT] == 0, "the timed drain left lanes at its cap")
+        diff, _ = state_diff(prep.state, want)
+        check(not diff, f"the drain on the kept state differs from the eager "
+              f"loop: {diff}")
+    info = {"L": words[C_LMAX], "E": words[C_TOTAL]}
+    taps = []
+    t0 = time.perf_counter()
+    plain = fast.plain_stage(ctx, clone_state(entry), taps)
+    taps_s = time.perf_counter() - t0
+    n_bytes = td.drain_bytes(taps)
+    n_taps = sum(x.numel() for k, x in taps if k == "tab")
+    bound, bound_by = bound_ms(n_bytes, tpk.STEP_OPS * n_taps)
+    close = state_diff(plain, want)[0]
+    per_round = min(ms) * 1e3 / info["L"]
+    plain_ms = eager_stage["wall"] * 1e3
+    log(f"[27] the tail stage's drain, R = {entry.alive.shape[0]}, "
+        f"K = {ctx.pk_steps}: {ms[0]:.3f} and {ms[1]:.3f} ms (CUDA events "
+        f"around one launch, two in turns), each bit-equal to the eager "
+        f"loop; the longest lane {info['L']} rounds (E = {info['E']}), "
+        f"{per_round:.2f} us per round of it; the eager loop's wall "
+        f"{plain_ms:.1f} ms; bound {bound * 1e3:.3f} us by {bound_by} "
+        f"({n_bytes} B: state, {n_taps} taps' distinct words, per-round "
+        f"counts), the drain at {bound / min(ms):.3%} of it; the plain "
+        f"loop with the tail kernel's plain version {taps_s:.1f} s, lanes "
+        f"apart from the eager loop's: {close or 'none'}; drain_kernel "
+        f"ptxas: {ptxas}; card {card}")
+    return {"ms": sum(ms) / len(ms), "ms_runs": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "bound_bytes": n_bytes,
+            "L": info["L"], "E": info["E"], "us_per_round": per_round,
+            "ptxas": ptxas}
+
+
+def tail_phases(card: str) -> dict:
+    """Phases 5 and 27 alone: config 2's scene written and loaded, the
+    slice through the drain and through the eager loop, round 130's tail
+    kernel, then the drain on the kept state."""
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(scene_file=write_medical_mhd(tmp), kernel=Kernel.FAST_SK,
+                     two_level=True, tail_pallas=True, resolution=(512, 512),
+                     iterations=4, n_tiles=(1, 1))
+        scene, camera = load_scene(cfg, device="cuda")
+    runs = slice_runs(create_renderer(scene, camera, cfg), card)
+    slice_round(runs["round_inputs"], card)
+    ptxas = ptxas_of(tpk.KERNEL.library().log, "drain_kernel")
+    return tail_drain_alone(runs["drain"]["stage"], runs["eager"]["stage"],
+                            ptxas, card)
+
+
+def ptxas_of(log_text: str, kernel: str) -> str:
+    """The ptxas lines (spills, registers) of the entry function whose
+    mangled name holds `kernel`, from a build log."""
+    out, mine = [], False
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            mine = kernel in line
+        elif mine and ("spill" in line or "Used" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return "; ".join(out) or "not in the build log"
+
+
 def furnace_and_small_render():
     """Phase 4: exact white furnace through the kernel, then a small
     medical render on the card against the CPU (plain-version) render."""
     import torch
 
     from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.ops.camera import make_camera
     from cudavolumerenderer_tpu_torch.scene import procedural
@@ -1017,15 +1311,22 @@ def furnace_and_small_render():
                                    device="cuda"))
     settings = RenderSettings.from_flags(
         True, russian_roulette=False, max_path_length=200, bsdf_kind="null")
-    before = tpk.KERNEL.launches
-    img, _ = fast.render_tile(
-        scene, make_camera(6, 6, device="cuda"), settings, (6, 6),
-        torch.zeros(2, device="cuda"), (6, 6), 2, 3, 0, **tail)
-    img = img.cpu().numpy()
-    launched = tpk.KERNEL.launches - before
-    check(launched > 0, "white furnace launched no tail kernel")
-    np.testing.assert_allclose(img, 2.0, rtol=2e-5)
-    log(f"[4] white furnace exact through the kernel ({launched} launches)")
+    for eager in (False, True):
+        before = tpk.KERNEL.launches, td.KERNEL.drain_launches
+        img, _ = fast.render_tile(
+            scene, make_camera(6, 6, device="cuda"), settings, (6, 6),
+            torch.zeros(2, device="cuda"), (6, 6), 2, 3, 0, eager_body=eager,
+            **tail)
+        img = img.cpu().numpy()
+        launched = (tpk.KERNEL.launches - before[0],
+                    td.KERNEL.drain_launches - before[1])
+        check(launched[eager == False] > 0,  # noqa: E712
+              "white furnace launched no " + ("tail kernel" if eager else
+                                              "drain"))
+        np.testing.assert_allclose(img, 2.0, rtol=2e-5)
+        log(f"[4] white furnace exact through the "
+            + (f"eager loop's tail kernel ({launched[0]} launches)" if eager
+               else f"tail stage's drain ({launched[1]} launch)"))
 
     d = procedural.medical_volume((24, 24, 24), n_blobs=6)
     albedo = np.zeros(d.shape + (3,), np.float32)
@@ -2047,11 +2348,13 @@ def native_and_vdb(tmp: str, card: str) -> str:
 def config3(vdb_path: str, tmp: str, card: str) -> int:
     """Phase 16: BASELINE config 3 at its published size, through the
     port's baseline_configs driver and then the CLI's batch mode with the
-    tail kernel; returns the tail kernel's launches in the second run."""
+    tail kernel, whose stage runs as the drain; returns the drain's
+    launches in the second run."""
     import torch
 
     from cudavolumerenderer_tpu_torch import cli
     from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
@@ -2078,10 +2381,13 @@ def config3(vdb_path: str, tmp: str, card: str) -> int:
     cfg = cli.config_from_args(args)
     torch.cuda.synchronize()
     tpk.KERNEL.launches = 0
+    td.KERNEL.reset()
     result = cli.run_test(cfg, cli.device_of(args.platform))
-    launches = tpk.KERNEL.launches
+    launches, reads = td.KERNEL.drain_launches, td.KERNEL.reads
     saved = load_hdr(cfg.output_name + ".hdr")
-    check(launches > 0, "config 3 with --tail-pallas launched no tail kernel")
+    check(launches > 0, "config 3 with --tail-pallas launched no drain")
+    check(tpk.KERNEL.launches == 0, "config 3's drain render launched the "
+          "tail kernel")
     check(saved.shape == (1024, 1024, 3) and np.isfinite(saved).all(),
           "config 3's tail-kernel image is not finite or has the wrong shape")
     check(abs(result["n_rays"] - row["n_rays"]) <= 0.02 * row["n_rays"],
@@ -2090,7 +2396,8 @@ def config3(vdb_path: str, tmp: str, card: str) -> int:
         f"{result['mean_time_with_copy']:.3f} s wall with the image copy "
         f"({result['mean_time']:.3f} without), {result['n_rays']:.0f} rays, "
         f"{result['n_rays'] / result['mean_time_with_copy'] / 1e6:.4f} "
-        f"Mrays/s with the copy, {launches} tail-kernel launches, image mean "
+        f"Mrays/s with the copy, {launches} drain launches and {reads} host "
+        f"reads of the tail stage in the run's trials, image mean "
         f"{saved.mean():.5f}; card {card}")
     return launches
 
@@ -3495,24 +3802,24 @@ def sharded_config2(mesh, scene, camera, cfg, want, card: str) -> int:
     NCCL mesh.  create_renderer renders phase 5's one tile with one
     fast.render_tile call of all spp from path id 0, so image and n_rays
     must equal phase 5's `want` = (image, n_rays) bit for bit, and the
-    tail kernel must launch.  Returns its launches."""
+    tail stage's drain must launch.  Returns its launches."""
     import torch
     import torch.distributed as dist
 
     from cudavolumerenderer_tpu_torch.models.renderer import fast_keywords
-    from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
     from cudavolumerenderer_tpu_torch.parallel.shard import render_sharded
 
     torch.cuda.synchronize()
-    tpk.KERNEL.launches = 0
+    td.KERNEL.reset()
     t0 = time.perf_counter()
     img, n_rays = render_sharded(
         scene, camera, cfg.settings, cfg.resolution, cfg.iterations,
         cfg.seed, mesh, kernel="fast", path_id_base=0, **fast_keywords(cfg))
     host = img.cpu().numpy() / cfg.iterations
     wall = time.perf_counter() - t0
-    launches = tpk.KERNEL.launches
-    check(launches > 0, "the sharded config-2 render launched no tail kernel")
+    launches = td.KERNEL.drain_launches
+    check(launches > 0, "the sharded config-2 render launched no drain")
     check(np.array_equal(host, want[0]) and float(n_rays) == want[1],
           f"sharded config 2: {float(n_rays):.0f} rays against phase 5's "
           f"{want[1]:.0f}, max |image diff| "
@@ -3521,7 +3828,7 @@ def sharded_config2(mesh, scene, camera, cfg, want, card: str) -> int:
     ar_ms = cuda_ms(lambda: dist.all_reduce(buf), ALL_REDUCE_REPS, 3)
     log(f"[21] render_sharded on 1 NCCL rank, config 2 512^2 x "
         f"{cfg.iterations}: {wall:.3f} s wall (incl. image copy), "
-        f"{float(n_rays):.0f} rays, {launches} tail-kernel launches; image "
+        f"{float(n_rays):.0f} rays, {launches} drain launch(es); image "
         f"and n_rays equal phase 5's bit for bit; all_reduce of the "
         f"{tuple(img.shape)} image {ar_ms * 1e3:.1f} us (CUDA events, mean "
         f"of {ALL_REDUCE_REPS}); card {card}")
@@ -4044,6 +4351,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import replaybody as rb
+    from cudavolumerenderer_tpu_torch.ops import taildrain as td
     from cudavolumerenderer_tpu_torch.ops import tailpk as tpk
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
@@ -4060,11 +4368,15 @@ def main() -> int:
         builds = [pool.submit(k.library) for k in libraries]
         builds = [b.result() for b in builds]
         native_build.result()
+    td.KERNEL.library()  # the drain: csrc/tailpk.cu's library, built above
     for built in builds:
         log(f"[2] built {os.path.relpath(built.path)} in {built.seconds:.2f} s")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"[2] ptxas: {line.strip()}")
+    drain_ptxas = ptxas_of(builds[0].log, "drain_kernel")
+    log(f"[2] the tail stage's drain_kernel (csrc/tailpk.cu): {drain_ptxas}")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4096,29 +4408,28 @@ def main() -> int:
 
     # -- phase 5: the slice -------------------------------------------------
     renderer = create_renderer(scene, camera, cfg)
-    torch.cuda.synchronize()
-    tpk.KERNEL.launches = fb.KERNEL.launches = fb.KERNEL.reads = 0
-    in_slice_us, kept, img, wall = profile_tail_window(renderer, card)
-    launches, body_launches = tpk.KERNEL.launches, fb.KERNEL.launches
-    body_reads = fb.KERNEL.reads
-    slice_ms = slice_round(kept, card)
-    n_rays = renderer.n_rays
+    slice5 = slice_runs(renderer, card)
+    drain5, eager5, img = slice5["drain"], slice5["eager"], slice5["img"]
+    slice_ms = slice_round(slice5["round_inputs"], card)
+    n_rays, wall = drain5["n_rays"], min(drain5["walls"])
+    body_launches, body_reads = drain5["body_launches"], drain5["body_reads"]
     mean = float(img.mean())
     check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
           "slice image not finite or wrong shape")
     check(0.05 < mean < 1.5, f"slice image mean {mean} implausible")
     check(n_rays > 0, "no rays traced")
-    check(launches > 0, "the slice launched no tail kernel")
     check(body_launches > 0, "the slice launched no body kernel")
-    log(f"[5] slice 512^2 x 4: {wall:.3f} s wall (incl. image copy), "
-        f"{n_rays:.0f} rays, {n_rays / wall / 1e6:.4f} Mrays/s, "
-        f"{launches} tail-kernel launches, {body_launches} body-kernel "
-        f"launches (gated chains), {body_reads} host reads of the pending "
-        f"count, image mean {mean:.5f}; card {card}")
+    log(f"[5] slice 512^2 x 4 through the drain: {wall:.4f} s wall (the "
+        f"least of {len(drain5['walls'])}, incl. image copy), {n_rays:.0f} "
+        f"rays, {n_rays / wall / 1e6:.4f} Mrays/s, "
+        f"{drain5['drain_launches']} drain launch, {body_launches} "
+        f"body-kernel launches (gated chains), {body_reads} host reads of "
+        f"the pending count, image mean {mean:.5f}; card {card}")
     log(f"[5] n_rays {n_rays:.0f} against {SLICE_RAYS} of the first tail kernel: "
         f"difference {n_rays - SLICE_RAYS:+.0f}")
-    check(abs(n_rays - SLICE_RAYS) <= 1e-4 * SLICE_RAYS,
-          f"the slice traced {n_rays:.0f} rays, not {SLICE_RAYS}")
+    check(n_rays == eager5["n_rays"] == SLICE_RAYS,
+          f"the slice traced {n_rays:.0f} rays through the drain and "
+          f"{eager5['n_rays']:.0f} through the eager loop, not {SLICE_RAYS}")
 
     # -- phase 6: tracking kernel against plain version ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4260,6 +4571,12 @@ def main() -> int:
     t0 = time.perf_counter()
     star = north_star(card)
     log(f"[24] phase 24 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 27: the tail stage's drain alone, on phase 5's kept state ----
+    t0 = time.perf_counter()
+    tail = tail_drain_alone(drain5["stage"], eager5["stage"], drain_ptxas,
+                            card)
+    log(f"[27] phase 27 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -4278,16 +4595,42 @@ def main() -> int:
         "replaces": GATHER_REPLACES[name], "launches": glaunches[name],
         **gathers[name], **extra.get(name, {}),
     } for name in pg.NAMES]
+    stage5 = drain5["stage"]
     print(json.dumps({"kernels": [{
         "name": "tailpk", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tailpk.cu",
         "replaces": "cudavolumerenderer_tpu/ops/pallas/tailpk.py:152",
-        "launches": launches, "max_abs_err": max(errs), **timed(*times[128]),
+        "launches": eager5["tail_launches"], "max_abs_err": max(errs),
+        **timed(*times[128]),
         "design": "one warp per path; rounds that each take a run of null "
                   "collisions or of scatters, a lane per step",
+        "launches_path": "phase 5's render with the tail stage's eager loop "
+                         "(the drain runs the same run code on the main "
+                         "path, where the tail kernel launches 0 times)",
         "ms_r4096": times[4096][0],
-        "step_sweep_ms": sweep["ms"], "in_slice_us": in_slice_us,
-        "slice_round_ms": slice_ms, "launches_config3": config3_launches,
+        "step_sweep_ms": sweep["ms"], "in_slice_us": eager5["in_slice_us"],
+        "slice_round_ms": slice_ms,
+    }, {
+        "name": "taildrain", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/tailpk.cu",
+        "replaces": "cudavolumerenderer_tpu/models/fast.py:1421",
+        "launches": drain5["drain_launches"],
+        "max_abs_err": drain5["max_abs_err"],
+        **{k: tail[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "the tail stage in one launch: a warp per lane of the pool "
+                  "runs its rounds to its end (the service computed by every "
+                  "thread, the run by the warp); per-round counts by atomics, "
+                  "folded in order by the last block",
+        **{k: tail[k] for k in ("ms_runs", "bound_bytes", "L", "E",
+                                "us_per_round", "ptxas")},
+        "host_reads": drain5["reads"], "slice_walls_s": drain5["walls"],
+        "slice_wall_eager_s": eager5["walls"][0],
+        "stage_walls_ms": [w * 1e3 for w in drain5["stage_walls"]],
+        "stage_device_ms": (None if stage5["device_us"] is None
+                            else stage5["device_us"] / 1e3),
+        "stage_busy": stage5["busy"],
+        "launches_config3": config3_launches,
         "launches_sharded": sharded_launches,
     }, {
         "name": "track", "route": "cuda",

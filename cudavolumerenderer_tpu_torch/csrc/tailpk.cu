@@ -8,8 +8,8 @@
 // 30-bit stochastic-trilinear tap, the acceptance test, and on a scatter the
 // HG direction, albedo A*rho+B, bounce+1, the path cap and Russian roulette,
 // then the re-derived box exit (aabb tie-break order) and DDA brick exit.  A
-// path leaves with status RUN / NEED_WINDOW / EXIT_BOX / DEAD, and the torch
-// service loop (models/fast.py _run_tailpk_stage) handles the rest.
+// path leaves with status RUN / NEED_WINDOW / EXIT_BOX / DEAD, and the
+// stage's service round (below) handles the rest.
 //
 // What bounds it on this card: the latency of each path's chain of steps,
 // not bytes.  A call moves 196 bytes of state per path plus the table words
@@ -59,6 +59,36 @@
 // stay IEEE-accurate and no multiply-add is contracted; min/max propagate NaN
 // like torch.minimum/maximum.  The kernel allocates nothing and does not
 // synchronise.
+//
+// The tail stage as one launch (drain_kernel; host side ops/taildrain.py).
+// It replaces the service loop around this kernel,
+// cudavolumerenderer_tpu/models/fast.py:1421 (_run_tailpk_stage's body under
+// its lax.while_loop :1604, one XLA program on the TPU), which the port runs
+// eagerly as its plain version (models/fast.py plain_round): per round a few
+// hundred torch ops for the service, a tail_kernel launch and a host read of
+// the pending count, ~300 rounds per fastSK image.  Per lane, a round
+// regenerates a finished path, runs the box entry or miss, the boundary event
+// (a run's EXIT_BOX or a fresh outside hit) with bounce + 1, the cap and
+// Russian roulette, and for a tracking lane refreshes the brick window
+// (tpk.brick_window's arithmetic) and runs the K steps above.
+//  * A warp holds one lane across rounds.  A lane's round reads only its own
+//    fields (its regeneration only its pixel, slot and sample count), and a
+//    lane that is no longer pending is a fixed point of the round, so each
+//    lane runs its rounds to its end without waiting for another; its runs
+//    need the whole warp anyway.  The service is warp-uniform, and every
+//    thread computes it on the same values: the warp issues each instruction
+//    once either way, so this costs no time, where lane 0 alone would need a
+//    divergent branch and some twenty shuffles to hand the pose on.
+//  * Counts.  Per round, the warp's lane 0 adds its lane's segment start and
+//    tracking bit by atomics to integer arrays indexed by the round (one lane
+//    per warp: nothing to aggregate within it).  The last block folds them in
+//    float32 one round after another through E, the longest lane's rounds:
+//    n_rays + starts, n_rows + R, n_busy + tracking lanes, the eager loop's
+//    sums in its order.  n_rows is far above 2^24 by the tail, where adding
+//    R * E at once would round differently.
+//  * At most DI_CAP rounds per launch; a lane at the cap is stored with its
+//    exit_box flag, and the host launches again while lanes are left
+//    (common.cuh's drain_end and drain_close, ops/stages.py's drain).
 
 #include "common.cuh"
 
@@ -86,7 +116,7 @@ enum {
   P_SCALE = 0, P_G,
   P_AR, P_AG, P_AB, P_BR, P_BG, P_BB,
   P_BMINX, P_BMINY, P_BMINZ, P_EXTX, P_EXTY, P_EXTZ,
-  P_RM1X, P_RM1Y, P_RM1Z, P_MAXPATH, P_RR, P_NX, P_NY, P_NZ,
+  P_RM1X, P_RM1Y, P_RM1Z, P_MAXPATH, P_RR, P_NX, P_NY, P_NZ, N_PARAMS,
 };
 
 // Float state rows (ops/tailpk.py F_*), int rows (I_*).
@@ -161,18 +191,8 @@ __device__ __forceinline__ Path from_lane(const Path& x, int src) {
   return y;
 }
 
-__global__ void __launch_bounds__(32 * WARPS) tail_kernel(
-    const float* __restrict__ tab, const int64_t* __restrict__ brick,
-    const float* __restrict__ params, const int64_t* __restrict__ jump,
-    const float* __restrict__ fin, const int32_t* __restrict__ iin,
-    const int64_t* __restrict__ rng_in, float* __restrict__ fout,
-    int32_t* __restrict__ iout, int64_t* __restrict__ rng_out, int R,
-    int n_steps) {
-  const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (p >= R) return;  // the whole warp leaves together
-
-  Consts c;
+// The parameter vector's constants (all but the window).
+__device__ __forceinline__ void load_consts(Consts& c, const float* params) {
   c.scale = params[P_SCALE];
   c.g = params[P_G];
   for (int a = 0; a < 3; ++a) {
@@ -183,42 +203,48 @@ __global__ void __launch_bounds__(32 * WARPS) tail_kernel(
     c.rm1[a] = params[P_RM1X + a];
     c.bmax[a] = c.bmin[a] + c.ext[a];
     c.ngrid[a] = (int)params[P_NX + a];
-    c.worg[a] = iin[(I_WX + a) * R + p];
+  }
+  c.max_path = params[P_MAXPATH];
+  c.rr_on = params[P_RR] > 0.5f;
+  c.epsw = jmax(jmax(c.ext[0], c.ext[1]), c.ext[2]) * 1e-6f;
+}
+
+// A path's window: the brick at voxel origin worg, its interior's faces, and
+// its dilated table row.
+__device__ __forceinline__ void set_window(Consts& c, const int worg[3], const float* win) {
+  for (int a = 0; a < 3; ++a) {
+    c.worg[a] = worg[a];
     // bmin + ext * bound_vox / rm1 with bound_vox = worg + up * 16
     const float lo = (float)c.worg[a] + 0.0f * (float)TBRICK;
     const float hi = (float)c.worg[a] + 1.0f * (float)TBRICK;
     c.plane_lo[a] = c.bmin[a] + c.ext[a] * lo / c.rm1[a];
     c.plane_hi[a] = c.bmin[a] + c.ext[a] * hi / c.rm1[a];
   }
-  c.max_path = params[P_MAXPATH];
-  c.rr_on = params[P_RR] > 0.5f;
-  c.epsw = jmax(jmax(c.ext[0], c.ext[1]), c.ext[2]) * 1e-6f;
-  c.win = tab + brick[p] * (int64_t)TROW;
+  c.win = win;
+}
 
-  Path cur;
-  for (int a = 0; a < 3; ++a) {
-    cur.o[a] = fin[(F_OX + a) * R + p];
-    cur.d[a] = fin[(F_DX + a) * R + p];
-    cur.tp[a] = fin[(F_TR + a) * R + p];
-    cur.nrm[a] = fin[(F_NX + a) * R + p];
-  }
-  cur.t = fin[F_T * R + p];
-  cur.max_t = fin[F_MAXT * R + p];
-  cur.bexit = fin[F_BEXIT * R + p];
-  cur.bounce = iin[I_BOUNCE * R + p];
-  cur.status = iin[I_STATUS * R + p];
-  cur.rs = (uint32_t)rng_in[p];
-  const uint32_t inc = (uint32_t)rng_in[R + p];
-  const float inv_sig = fin[F_INVSIG * R + p];
-  const float rho_max = fin[F_RHOMAX * R + p];
-  // this lane's first draw in a null run (3 * lane + 1) and in a scatter
-  // run (W * lane + 1)
-  const int W = c.rr_on ? 6 : 5;
-  const uint32_t null_a = (uint32_t)jump[3 * lane + 1];
-  const uint32_t null_g = (uint32_t)jump[JUMPS + 3 * lane + 1];
-  const uint32_t scat_a = (uint32_t)jump[W * lane + 1];
-  const uint32_t scat_g = (uint32_t)jump[JUMPS + W * lane + 1];
+// A lane's first draws in a null run (3 * lane + 1) and in a scatter run
+// (W * lane + 1): the jump table's (A_m, G_m).
+struct Jumps {
+  uint32_t null_a, null_g, scat_a, scat_g;
+};
 
+__device__ __forceinline__ Jumps lane_jumps(const int64_t* jump, int lane, bool rr_on) {
+  const int W = rr_on ? 6 : 5;
+  Jumps J;
+  J.null_a = (uint32_t)jump[3 * lane + 1];
+  J.null_g = (uint32_t)jump[JUMPS + 3 * lane + 1];
+  J.scat_a = (uint32_t)jump[W * lane + 1];
+  J.scat_g = (uint32_t)jump[JUMPS + W * lane + 1];
+  return J;
+}
+
+// Up to n_steps tracking steps of the path `cur` (status RUN) in its window,
+// by the whole warp; afterwards every lane holds the path's new state.
+__device__ __forceinline__ void run_path(const Consts& c, const Jumps& J, int lane, Path& cur,
+                                         uint32_t inc, float inv_sig, int n_steps) {
+  const uint32_t null_a = J.null_a, null_g = J.null_g;
+  const uint32_t scat_a = J.scat_a, scat_g = J.scat_g;
   int run = 0;  // links of the next scatter run; 0: the next round is a null run
   int done = 0;
   while (done < n_steps && cur.status == RUN) {
@@ -392,6 +418,41 @@ __global__ void __launch_bounds__(32 * WARPS) tail_kernel(
     // keep running scatters (twice as far) while every link scattered
     run = ends ? 0 : min(2 * run, LANES);
   }
+}
+
+__global__ void __launch_bounds__(32 * WARPS) tail_kernel(
+    const float* __restrict__ tab, const int64_t* __restrict__ brick,
+    const float* __restrict__ params, const int64_t* __restrict__ jump,
+    const float* __restrict__ fin, const int32_t* __restrict__ iin,
+    const int64_t* __restrict__ rng_in, float* __restrict__ fout,
+    int32_t* __restrict__ iout, int64_t* __restrict__ rng_out, int R,
+    int n_steps) {
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (p >= R) return;  // the whole warp leaves together
+
+  Consts c;
+  load_consts(c, params);
+  const int worg[3] = {iin[I_WX * R + p], iin[I_WY * R + p], iin[I_WZ * R + p]};
+  set_window(c, worg, tab + brick[p] * (int64_t)TROW);
+
+  Path cur;
+  for (int a = 0; a < 3; ++a) {
+    cur.o[a] = fin[(F_OX + a) * R + p];
+    cur.d[a] = fin[(F_DX + a) * R + p];
+    cur.tp[a] = fin[(F_TR + a) * R + p];
+    cur.nrm[a] = fin[(F_NX + a) * R + p];
+  }
+  cur.t = fin[F_T * R + p];
+  cur.max_t = fin[F_MAXT * R + p];
+  cur.bexit = fin[F_BEXIT * R + p];
+  cur.bounce = iin[I_BOUNCE * R + p];
+  cur.status = iin[I_STATUS * R + p];
+  cur.rs = (uint32_t)rng_in[p];
+  const uint32_t inc = (uint32_t)rng_in[R + p];
+  const float inv_sig = fin[F_INVSIG * R + p];
+  const float rho_max = fin[F_RHOMAX * R + p];
+  run_path(c, lane_jumps(jump, lane, c.rr_on), lane, cur, inc, inv_sig, n_steps);
 
   if (lane == 0) {
     for (int a = 0; a < 3; ++a) {
@@ -409,6 +470,281 @@ __global__ void __launch_bounds__(32 * WARPS) tail_kernel(
     iout[R + p] = cur.status;
     rng_out[p] = (int64_t)cur.rs;
   }
+}
+
+// ---- the tail stage as one drain (ops/taildrain.py) -------------------------
+
+// Float parameters (ops/taildrain.py DF_*): the tail kernel's vector (P_*),
+// then the service's: the tile and camera, the box's far corner, Le, GGX, and
+// the window's epsilon as the eager stage computes it on the card.
+enum {
+  DF_TILEX = N_PARAMS, DF_TILEY, DF_INV_TW, DF_INV_RESX, DF_INV_RESY,
+  DF_CAM,  // the camera's (3, 4) inv_view, row-major: 12 values
+  DF_R2VX = DF_CAM + 12, DF_R2VY, DF_BMAX, DF_LE = DF_BMAX + 3,
+  DF_ROUGH = DF_LE + 3, DF_ETA = DF_ROUGH + 2, DF_INV_ETA, DF_EPSW, N_DF,
+};
+
+// Integer parameters (ops/taildrain.py DI_*).
+enum {
+  DI_SPP = 0, DI_M, DI_NPIX, DI_TW, DI_BASE, DI_SEEDH, DI_BSDF, DI_MITSUBA,
+  DI_RR, DI_MAXPATH, DI_NBX, DI_NBY, DI_NBZ, DI_STEPS, DI_CAP, N_DI,
+};
+
+// Pointer slots (ops/taildrain.py S_*): the FastState fields a round updates,
+// read and written in place, then the stage's exit_box flags (kept across
+// launches), the pixel and slot, the counters, the tables, the control words
+// and the per-round counts.
+enum {
+  S_O = 0, S_D, S_TP, S_ACC, S_NRM, S_T, S_MAXT, S_SD, S_BOUNCE, S_ALIVE,
+  S_TRACKING, S_RS, S_RINC, N_LANE,
+  S_EXIT = N_LANE, S_PIX, S_SLOT, S_COUNTS, S_TAB, S_MAJOR, S_JUMP, S_CTRL,
+  S_EVALS, N_S,
+};
+
+struct DrainParams {
+  float f[N_DF];
+  long long i[N_DI];
+};
+struct DrainPtrs {
+  void* p[N_S];
+};
+
+// A lane of the tail pool between rounds; every thread of its warp holds it.
+struct Lane {
+  float o[3], d[3], tp[3], acc[3], nrm[3];
+  float t, max_t;
+  long long sd, bounce;
+  bool alive, tracking, exit_box;
+  uint32_t rs, inc;
+};
+
+__device__ __forceinline__ void load_lane(const DrainPtrs& Q, int i, Lane& L) {
+  for (int k = 0; k < 3; ++k) {
+    L.o[k] = ((const float*)Q.p[S_O])[3 * i + k];
+    L.d[k] = ((const float*)Q.p[S_D])[3 * i + k];
+    L.tp[k] = ((const float*)Q.p[S_TP])[3 * i + k];
+    L.acc[k] = ((const float*)Q.p[S_ACC])[3 * i + k];
+    L.nrm[k] = ((const float*)Q.p[S_NRM])[3 * i + k];
+  }
+  L.t = ((const float*)Q.p[S_T])[i];
+  L.max_t = ((const float*)Q.p[S_MAXT])[i];
+  L.sd = ((const long long*)Q.p[S_SD])[i];
+  L.bounce = ((const long long*)Q.p[S_BOUNCE])[i];
+  L.alive = ((const bool*)Q.p[S_ALIVE])[i];
+  L.tracking = ((const bool*)Q.p[S_TRACKING])[i];
+  L.exit_box = ((const bool*)Q.p[S_EXIT])[i];
+  L.rs = (uint32_t)((const long long*)Q.p[S_RS])[i];
+  L.inc = (uint32_t)((const long long*)Q.p[S_RINC])[i];
+}
+
+__device__ __forceinline__ void store_lane(const DrainPtrs& Q, int i, const Lane& L) {
+  for (int k = 0; k < 3; ++k) {
+    ((float*)Q.p[S_O])[3 * i + k] = L.o[k];
+    ((float*)Q.p[S_D])[3 * i + k] = L.d[k];
+    ((float*)Q.p[S_TP])[3 * i + k] = L.tp[k];
+    ((float*)Q.p[S_ACC])[3 * i + k] = L.acc[k];
+    ((float*)Q.p[S_NRM])[3 * i + k] = L.nrm[k];
+  }
+  ((float*)Q.p[S_T])[i] = L.t;
+  ((float*)Q.p[S_MAXT])[i] = L.max_t;
+  ((long long*)Q.p[S_SD])[i] = L.sd;
+  ((long long*)Q.p[S_BOUNCE])[i] = L.bounce;
+  ((bool*)Q.p[S_ALIVE])[i] = L.alive;
+  ((bool*)Q.p[S_TRACKING])[i] = L.tracking;
+  ((bool*)Q.p[S_EXIT])[i] = L.exit_box;
+  ((long long*)Q.p[S_RS])[i] = (long long)L.rs;
+  ((long long*)Q.p[S_RINC])[i] = (long long)L.inc;
+}
+
+// The stage loop's test: a path in flight or samples left.
+__device__ __forceinline__ bool pending(const DrainParams& P, const Lane& L) {
+  return L.alive || L.sd < P.i[DI_SPP];
+}
+
+// One round of the tail stage for one lane, as models/fast.py plain_round
+// computes it on the card: regenerate, the AABB entry or miss, the boundary
+// event (a kernel EXIT_BOX or a fresh outside hit) with bounce + 1, the cap
+// and Russian roulette, then for a tracking lane the brick window
+// (tpk.brick_window's arithmetic) and the run of DI_STEPS steps.  Every
+// thread of the warp computes the service on the same values; the run is the
+// warp's.  Returns whether the lane started a segment (n_rays); `track`
+// whether it tracked (n_busy).
+__device__ __forceinline__ bool tail_round(const DrainParams& P, const DrainPtrs& Q,
+                                           const Consts& c0, const Jumps& J, int lane,
+                                           long long pix, long long slot, Lane& L,
+                                           bool& track) {
+  // --- regenerate: next sample of the lane's pixel ------------------------
+  if (!L.alive && L.sd < P.i[DI_SPP]) {
+    const uint32_t s = (uint32_t)(slot + P.i[DI_M] * L.sd);
+    const uint32_t pid = s * (uint32_t)P.i[DI_NPIX] + (uint32_t)pix + (uint32_t)P.i[DI_BASE];
+    float px, py;
+    pixel_of(pix, P.i[DI_TW], P.f[DF_INV_TW], P.f[DF_TILEX], P.f[DF_TILEY], px, py);
+    path_stream(pid, (uint32_t)P.i[DI_SEEDH], L.rs, L.inc);
+    camera_ray(P.f + DF_CAM, P.f[DF_R2VX], P.f[DF_R2VY], P.f[DF_INV_RESX], P.f[DF_INV_RESY],
+               px, py, L.rs, L.inc, L.o, L.d);
+    for (int k = 0; k < 3; ++k) L.tp[k] = 1.0f;
+    L.alive = true;
+    L.tracking = false;
+    L.exit_box = false;
+    L.bounce = 0;
+  }
+
+  // --- AABB entry / miss ----------------------------------------------------
+  const bool need_isect = L.alive && !L.tracking && !L.exit_box;
+  bool boundary_now = false;
+  float dist = 0.0f;
+  if (need_isect) {
+    const BoxHit h = box_hit(P.f + P_BMINX, P.f + DF_BMAX, L.o, L.d);
+    dist = h.dist;
+    const bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+    const bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
+    if (!hit) {
+      for (int k = 0; k < 3; ++k) L.acc[k] = L.acc[k] + L.tp[k] * P.f[DF_LE + k];
+      L.sd = L.sd + 1;
+      L.alive = false;
+    }
+    if (hit && inside) {
+      L.tracking = true;
+      L.t = 0.0f;
+      L.max_t = h.dist;
+    }
+    boundary_now = hit && !inside;
+    for (int k = 0; k < 3; ++k) L.nrm[k] = h.nrm[k];
+  }
+
+  // --- boundary event, bounce + 1, the cap, Russian roulette ---------------
+  if (L.exit_box || boundary_now) {
+    const Ggx G = {P.f[DF_ROUGH], P.f[DF_ROUGH + 1], P.f[DF_ETA], P.f[DF_INV_ETA],
+                   P.i[DI_MITSUBA] != 0};
+    boundary_event(P.i[DI_BSDF] != 0, G, L.nrm, boundary_now ? dist : L.max_t, L.o, L.d, L.tp,
+                   L.rs, L.inc);
+    L.bounce = L.bounce + 1;
+    const bool capped = L.bounce >= P.i[DI_MAXPATH];
+    if (capped) {
+      L.alive = false;
+      L.sd = L.sd + 1;
+    }
+    if (P.i[DI_RR] && !capped && roulette_kills(L.tp, L.rs, L.inc)) {
+      L.alive = false;
+      L.sd = L.sd + 1;
+    }
+  }
+
+  // --- the brick window and the run of a tracking lane --------------------
+  track = L.tracking;
+  L.exit_box = false;
+  if (!track) return need_isect;
+  const float epsw = P.f[DF_EPSW];
+  const long long nb[3] = {P.i[DI_NBX], P.i[DI_NBY], P.i[DI_NBZ]};
+  const float tt = L.t + epsw;
+  long long bi[3];
+  int worg[3];
+  float bound[3];
+  for (int a = 0; a < 3; ++a) {
+    const float p = L.o[a] + tt * L.d[a];
+    const float coord = jclip((p - c0.bmin[a]) / c0.ext[a], 0.0f, 1.0f) * c0.rm1[a];
+    long long b = (long long)floorf(coord * (1.0f / (float)TBRICK));
+    b = b < 0 ? 0 : b;
+    bi[a] = b < nb[a] - 1 ? b : nb[a] - 1;
+    worg[a] = (int)(bi[a] * TBRICK);
+    const float up = L.d[a] > 0.0f ? 1.0f : 0.0f;
+    const float bound_vox = (float)(bi[a] * TBRICK) + up * (float)TBRICK;
+    bound[a] = c0.bmin[a] + c0.ext[a] * bound_vox / c0.rm1[a];
+  }
+  const long long bflat = (bi[2] * nb[1] + bi[1]) * nb[0] + bi[0];
+  const float rho_b = ((const float*)Q.p[S_MAJOR])[bflat];
+  const float inv_sig =
+      rho_b > 0.0f ? (1.0f / (c0.scale * jmax(rho_b, 1e-30f))) * 1.0f : INFINITY;
+  Consts c = c0;
+  set_window(c, worg, (const float*)Q.p[S_TAB] + bflat * (long long)TROW);
+  Path cur;
+  for (int k = 0; k < 3; ++k) {
+    cur.o[k] = L.o[k];
+    cur.d[k] = L.d[k];
+    cur.tp[k] = L.tp[k];
+    cur.nrm[k] = L.nrm[k];
+  }
+  cur.t = L.t;
+  cur.max_t = L.max_t;
+  cur.bexit = dda_exit(bound, L.o, L.d, L.t + epsw);
+  cur.bounce = (int)L.bounce;
+  cur.status = RUN;
+  cur.rs = L.rs;
+  run_path(c, J, lane, cur, L.inc, inv_sig, (int)P.i[DI_STEPS]);
+  for (int k = 0; k < 3; ++k) {
+    L.o[k] = cur.o[k];
+    L.d[k] = cur.d[k];
+    L.tp[k] = cur.tp[k];
+    L.nrm[k] = cur.nrm[k];
+  }
+  L.t = cur.t;
+  L.max_t = cur.max_t;
+  L.bounce = cur.bounce;
+  L.rs = cur.rs;
+  if (cur.status == DEAD) {
+    L.alive = false;
+    L.sd = L.sd + 1;
+  }
+  L.exit_box = cur.status == EXIT_BOX;
+  L.tracking = cur.status == RUN || cur.status == NEED_WINDOW;
+  return need_isect;
+}
+
+// The tail stage: one warp per lane of the pool runs the lane's rounds until
+// it is no longer pending (a fixed point of the round) or DI_CAP rounds.
+// Per round the warp's lane 0 adds the lane's segment start and tracking bit
+// to arrays indexed by the round; the last block folds them into n_rays,
+// n_rows (+ R a round) and n_busy in float32, one round after another, as the
+// eager loop adds its sums.
+__global__ void __launch_bounds__(32 * WARPS) drain_kernel(DrainParams P, DrainPtrs Q, int R) {
+  unsigned long long* ctrl = (unsigned long long*)Q.p[S_CTRL];
+  unsigned* per_round = (unsigned*)Q.p[S_EVALS];  // [isect: cap][busy: cap]
+  const long long cap = P.i[DI_CAP];
+  const long long e0 = (long long)ctrl[C_EVAL];
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x * WARPS + threadIdx.x / 32;
+  int j = 0;  // this lane's rounds in this launch
+  bool left = false, finished = false;
+  if (p < R) {
+    Lane L;
+    load_lane(Q, p, L);
+    if (pending(P, L)) {
+      Consts c;
+      load_consts(c, P.f);
+      const Jumps J = lane_jumps((const int64_t*)Q.p[S_JUMP], lane, c.rr_on);
+      const long long pix = ((const long long*)Q.p[S_PIX])[p];
+      const long long slot = ((const long long*)Q.p[S_SLOT])[p];
+      do {
+        bool track;
+        const bool isect = tail_round(P, Q, c, J, lane, pix, slot, L, track);
+        if (lane == 0 && isect) atomicAdd(per_round + j, 1u);
+        if (lane == 0 && track) atomicAdd(per_round + cap + j, 1u);
+        ++j;
+      } while (j < cap && pending(P, L));
+      if (lane == 0) store_lane(Q, p, L);
+      // a lane counts once, by its warp's lane 0
+      left = lane == 0 && pending(P, L);
+      finished = lane == 0 && !pending(P, L);
+    }
+  }
+  DrainEnd end;
+  if (!drain_end(ctrl, e0, 1, j, left, finished, end)) return;
+  // the last block: every lane's counts are in.  The rounds of this launch
+  // that the loop makes: all of them while a lane is left, else up to E
+  const long long n_fold = end.left == 0 ? end.total - e0 : cap;
+  float* counts = (float*)Q.p[S_COUNTS];
+  float rays = counts[0], rows = counts[1], busy = counts[2];
+  const float w = (float)R;
+  for (long long e = 0; e < n_fold; ++e) {
+    rays = rays + (float)__ldcg(per_round + e);
+    rows = rows + w;
+    busy = busy + (float)__ldcg(per_round + cap + e);
+  }
+  counts[0] = rays;
+  counts[1] = rows;
+  counts[2] = busy;
+  for (long long e = 0; e < end.jmax; ++e) per_round[e] = per_round[cap + e] = 0u;
+  drain_close(ctrl, e0, cap, end.left);
 }
 
 }  // namespace
@@ -431,4 +767,32 @@ extern "C" int tailpk_launch(const float* tab, const int64_t* brick,
         n_steps);
   }
   return (int)cudaGetLastError();
+}
+
+// drain_kernel, one warp per lane (taildrain_drain): fparams (N_DF,) float32,
+// iparams (N_DI,) int64 and ptrs (N_S,) device addresses in host memory, R
+// lanes; the control words zero at the stage's start, the per-round counts
+// (2 * DI_CAP uint32) zero before each launch (each launch leaves them zero).
+// Returns cudaGetLastError(), or -1 when a size does not match this build's.
+extern "C" int taildrain_drain(const float* fparams, int n_fp, const long long* iparams,
+                               int n_ip, void* const* ptrs, int n_s, int R, void* stream) {
+  if (n_fp != N_DF || n_ip != N_DI || n_s != N_S) return -1;
+  if (R <= 0) return 0;
+  DrainParams P;
+  for (int k = 0; k < N_DF; ++k) P.f[k] = fparams[k];
+  for (int k = 0; k < N_DI; ++k) P.i[k] = iparams[k];
+  DrainPtrs Q;
+  for (int k = 0; k < N_S; ++k) Q.p[k] = ptrs[k];
+  const int blocks = (R + WARPS - 1) / WARPS;
+  drain_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(P, Q, R);
+  return (int)cudaGetLastError();
+}
+
+// The layout sizes this build expects (N_DF, N_DI, N_S, N_CTRL), for the
+// wrapper's check.
+extern "C" void taildrain_layout(int* sizes) {
+  sizes[0] = N_DF;
+  sizes[1] = N_DI;
+  sizes[2] = N_S;
+  sizes[3] = N_CTRL;
 }

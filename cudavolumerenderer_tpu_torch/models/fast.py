@@ -16,8 +16,11 @@ Same physics as the JAX scheduler and the same per-path draw sequences:
 5. **Two-level sparse-leap tracking** (`two_level=True`) — per-brick
    dilated majorants and Chebyshev empty-space leaps in a small table.
 6. **The persistent tail kernel** (`tail_pallas=True`, ops/tailpk.py) —
-   once the pending count fits tail_pk_width lanes, a service loop hands
-   them to the CUDA kernel for K whole tracking steps per round.
+   once the pending count fits tail_pk_width lanes, a service round hands
+   them to the CUDA kernel for K whole tracking steps; on the card the
+   whole stage is one drain launch (ops/taildrain.py) in which each lane
+   runs its rounds to its end, the eager loop (plain_round) its plain
+   version.
 7. **Multi-tile lane mode** — a (T, 2) tile_offset renders T tiles in one
    cascade, each lane carrying its tile through its pixel id.
 8. **Deferred boundary events** (`defer_ggx=G`) — a lane at the box
@@ -50,16 +53,17 @@ pass eager_body=True.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, fastbody, phase, stages
+from ..ops import aabb, camera as cam, fastbody, phase, stages, taildrain
 from ..ops import tailpk as tpk
 from ..ops.rng import M32, RngState, make_rng, next_float, next_uint32
 from ..scene.types import RenderSettings, Scene
@@ -990,10 +994,9 @@ def render_tile(
 
     if use_tailpk:
         rows_before = state.n_rows
-        state = _run_tailpk_stage(
-            state, scene, camera, settings, full_resolution, spp_per_lane,
-            seed, path_id_of, pixel_xy_of, tail_pk_steps,
-        )
+        state = _run_tailpk_stage(state, tail_context(
+            scene, camera, settings, full_resolution, spp_per_lane, seed,
+            path_id_of, pixel_xy_of, tail_pk_steps, base_ctx, eager_body))
         stage_rows.append(state.n_rows - rows_before)
         img.index_add_(0, state.pix, state.accum)
 
@@ -1056,137 +1059,218 @@ def tail_params(scene: Scene, settings: RenderSettings) -> torch.Tensor:
     ]).contiguous()
 
 
-def _run_tailpk_stage(
-    state: FastState, scene, camera, settings, full_resolution,
-    spp_per_lane, seed, path_id_of, pixel_xy_of, pk_steps,
-) -> FastState:
-    """Service loop around the persistent tail kernel.
+@dataclasses.dataclass
+class TailContext:
+    """What a round of the tail stage reads besides the pool: the scene,
+    camera and settings, the path-id layout, the tail kernel's dilated
+    tables and parameter vector, the brick geometry, and fastbody's
+    parameter vectors where render_tile built them (ops/taildrain packs
+    the drain's from both)."""
 
-    Each round, mirroring body()'s event structure: regenerate finished
-    lanes (camera rays), classify AABB entries and misses, apply
-    boundary events (boundary_event + cap + Russian roulette), refresh
-    each tracking lane's brick window, then hand the pool to the kernel
-    for pk_steps tracking steps in which scatters, RR and the path cap
-    are handled without leaving it.  Mid-flight lanes restart under the
-    window majorant (memoryless — the piecewise-majorant argument)."""
+    scene: Scene
+    camera: cam.Camera
+    settings: RenderSettings
+    full_resolution: Tuple[int, int]
+    spp_per_lane: int
+    seed: object
+    path_id_of: Callable
+    pixel_xy_of: Callable
+    pk_steps: int
+    tables: tpk.TailTables
+    params: torch.Tensor  # tail_params
+    res_minus_1: torch.Tensor
+    extent: torch.Tensor
+    body: Optional[fastbody.BodyContext] = None
+    eager_body: bool = False
+    drain_params: Optional[tuple] = None  # ops/taildrain.params' cache
+
+
+def tail_context(scene, camera, settings, full_resolution, spp_per_lane,
+                 seed, path_id_of, pixel_xy_of, pk_steps, body=None,
+                 eager_body=False) -> TailContext:
+    """The tail stage's context: the dilated tables, the parameter vector
+    and the brick geometry as the stage computes them."""
     med = scene.medium
-    dev = scene.device
-    R = state.alive.shape[0]
     nz, ny, nx = med.density.data.shape
-    res_minus_1 = torch.tensor(
-        [nx - 1, ny - 1, nz - 1], dtype=torch.float32, device=dev
+    return TailContext(
+        scene=scene, camera=camera, settings=settings,
+        full_resolution=full_resolution, spp_per_lane=spp_per_lane,
+        seed=seed, path_id_of=path_id_of, pixel_xy_of=pixel_xy_of,
+        pk_steps=pk_steps, tables=tpk.dilated_tail_bricks(med.density.data),
+        params=tail_params(scene, settings),
+        res_minus_1=torch.tensor([nx - 1, ny - 1, nz - 1],
+                                 dtype=torch.float32, device=scene.device),
+        extent=med.box_max - med.box_min, body=body, eager_body=eager_body,
     )
-    extent = med.box_max - med.box_min
-    tables = tpk.dilated_tail_bricks(med.density.data)
-    params = tail_params(scene, settings)
 
-    s = state
+
+def plain_round(ctx: TailContext, s: FastState, exit_box: torch.Tensor,
+                taps=None):
+    """One round of the tail stage's eager loop on the pool `s`, mirroring
+    body()'s event structure: regenerate finished lanes (camera rays),
+    classify AABB entries and misses, apply boundary events (a kernel
+    EXIT_BOX or a fresh outside hit: boundary_event, bounce + 1, the cap,
+    Russian roulette), refresh each tracking lane's brick window, then hand
+    the pool to the tail kernel for pk_steps tracking steps in which
+    scatters, RR and the path cap are handled without leaving it.
+    Mid-flight lanes restart under the window majorant (memoryless — the
+    piecewise-majorant argument).  Returns (s', exit_box', the lanes that
+    started a segment, the lanes that tracked): s' counts them into n_rays
+    and n_busy, and n_rows + the pool's width.  A list given as `taps`
+    receives the round's per-lane traffic and table reads
+    (ops/taildrain.drain_bytes); the steps then run the tail kernel's plain
+    version."""
+    scene, settings = ctx.scene, ctx.settings
+    med = scene.medium
+    R = s.alive.shape[0]
     o, d, tput, accum, normal = s.o, s.d, s.throughput, s.accum, s.normal
     t, max_t, samples_done, bounce = s.t, s.max_t, s.samples_done, s.bounce
     alive, tracking, rng = s.alive, s.tracking, s.rng
-    n_rays, n_rows, n_busy = s.n_rays, s.n_rows, s.n_busy
-    exit_box = torch.zeros_like(alive)
 
-    while int(torch.count_nonzero(alive | (samples_done < spp_per_lane))):
-        # --- regenerate (body()'s regen block at (R,) width) -----------
-        needs = ~alive & (samples_done < spp_per_lane)
-        fresh = make_rng(seed, path_id_of(s.pix, s.slot, samples_done))
-        rng = RngState(
-            state=torch.where(needs, fresh.state, rng.state),
-            inc=torch.where(needs, fresh.inc, rng.inc),
+    # --- regenerate (body()'s regen block at (R,) width) -------------------
+    needs = ~alive & (samples_done < ctx.spp_per_lane)
+    fresh = make_rng(ctx.seed, ctx.path_id_of(s.pix, s.slot, samples_done))
+    rng = RngState(
+        state=torch.where(needs, fresh.state, rng.state),
+        inc=torch.where(needs, fresh.inc, rng.inc),
+    )
+    o_new, d_new, rng = cam.generate_rays(
+        ctx.camera, ctx.pixel_xy_of(s.pix), ctx.full_resolution, rng,
+        active=needs,
+    )
+    mm = needs[:, None]
+    o = torch.where(mm, o_new, o)
+    d = torch.where(mm, d_new, d)
+    tput = torch.where(mm, 1.0, tput)
+    alive = alive | needs
+    tracking = tracking & ~needs
+    exit_box = exit_box & ~needs
+    bounce = torch.where(needs, 0, bounce)
+
+    # --- AABB entry / miss service -----------------------------------------
+    need_isect = alive & ~tracking & ~exit_box
+    n_rays = s.n_rays + need_isect.to(torch.float32).sum()
+    isect = aabb.aabb_intersect(med.box_min, med.box_max, o, d)
+    miss = need_isect & ~isect.hit
+    accum = torch.where(miss[:, None], accum + tput * scene.le, accum)
+    samples_done = torch.where(miss, samples_done + 1, samples_done)
+    alive = alive & ~miss
+    enters = need_isect & isect.hit & isect.inside_volume
+    boundary_now = need_isect & isect.hit & ~isect.inside_volume
+    tracking = tracking | enters
+    t = torch.where(enters, 0.0, t)
+    max_t = torch.where(enters, isect.dist, max_t)
+    normal = torch.where(need_isect[:, None], isect.normal, normal)
+
+    # --- boundary events (kernel EXIT_BOX + fresh outside hits) ------------
+    bmask = exit_box | boundary_now
+    o_bound = torch.where(
+        boundary_now[:, None],
+        o + d * isect.dist[:, None],
+        o + d * max_t[:, None],
+    )
+    o_b, d_b, t_b, rng = integrator.boundary_event(
+        scene, settings, normal, o_bound, d, tput, rng, bmask
+    )
+    bm = bmask[:, None]
+    o = torch.where(bm, o_b, o)
+    d = torch.where(bm, d_b, d)
+    tput = torch.where(bm, t_b, tput)
+    bounce = torch.where(bmask, bounce + 1, bounce)
+    capped = bmask & (bounce >= settings.max_path_length)
+    alive = alive & ~capped
+    samples_done = torch.where(capped, samples_done + 1, samples_done)
+    if settings.russian_roulette:
+        tput, alive, killed, rng = integrator.russian_roulette(
+            tput, alive, rng, bmask & ~capped
         )
-        o_new, d_new, rng = cam.generate_rays(
-            camera, pixel_xy_of(s.pix), full_resolution, rng, active=needs
-        )
-        mm = needs[:, None]
-        o = torch.where(mm, o_new, o)
-        d = torch.where(mm, d_new, d)
-        tput = torch.where(mm, 1.0, tput)
-        alive = alive | needs
-        tracking = tracking & ~needs
-        exit_box = exit_box & ~needs
-        bounce = torch.where(needs, 0, bounce)
+        samples_done = torch.where(killed, samples_done + 1, samples_done)
 
-        # --- AABB entry / miss service ---------------------------------
-        need_isect = alive & ~tracking & ~exit_box
-        n_rays = n_rays + need_isect.to(torch.float32).sum()
-        isect = aabb.aabb_intersect(med.box_min, med.box_max, o, d)
-        miss = need_isect & ~isect.hit
-        accum = torch.where(miss[:, None], accum + tput * scene.le, accum)
-        samples_done = torch.where(miss, samples_done + 1, samples_done)
-        alive = alive & ~miss
-        enters = need_isect & isect.hit & isect.inside_volume
-        boundary_now = need_isect & isect.hit & ~isect.inside_volume
-        tracking = tracking | enters
-        t = torch.where(enters, 0.0, t)
-        max_t = torch.where(enters, isect.dist, max_t)
-        normal = torch.where(need_isect[:, None], isect.normal, normal)
+    # --- window refresh for tracking lanes ---------------------------------
+    track = tracking
+    tables = ctx.tables
+    bflat, worg, inv_sig, rho_b, bexit = tpk.brick_window(
+        o, d, t, med.box_min, ctx.extent, ctx.res_minus_1, tables.dims,
+        tables.major, med.scale,
+    )
 
-        # --- boundary events (kernel EXIT_BOX + fresh outside hits) ----
-        bmask = exit_box | boundary_now
-        o_bound = torch.where(
-            boundary_now[:, None],
-            o + d * isect.dist[:, None],
-            o + d * max_t[:, None],
-        )
-        o_b, d_b, t_b, rng = integrator.boundary_event(
-            scene, settings, normal, o_bound, d, tput, rng, bmask
-        )
-        bm = bmask[:, None]
-        o = torch.where(bm, o_b, o)
-        d = torch.where(bm, d_b, d)
-        tput = torch.where(bm, t_b, tput)
-        bounce = torch.where(bmask, bounce + 1, bounce)
-        capped = bmask & (bounce >= settings.max_path_length)
-        alive = alive & ~capped
-        samples_done = torch.where(capped, samples_done + 1, samples_done)
-        if settings.russian_roulette:
-            tput, alive, killed, rng = integrator.russian_roulette(
-                tput, alive, rng, bmask & ~capped
-            )
-            samples_done = torch.where(killed, samples_done + 1, samples_done)
+    # --- kernel: pk_steps tracking steps -----------------------------------
+    f_in = torch.stack([
+        *o.T, *d.T, *tput.T, t, max_t, bexit, inv_sig, rho_b, *normal.T,
+    ])
+    i_in = torch.cat([
+        worg.T, torch.stack([bounce, torch.where(track, tpk.RUN, tpk.DEAD)]),
+    ]).to(torch.int32)
+    args = (tables.tab, torch.where(track, bflat, 0), ctx.params, f_in, i_in,
+            torch.stack([rng.state, rng.inc]), ctx.pk_steps)
+    if taps is None:
+        f_out, i_out, rng_state = tpk.run_tail_steps(*args)
+    else:
+        steps = []
+        f_out, i_out, rng_state = tpk.tail_steps(*args, taps=steps)
+        taps += [("tab", x) for x in steps]
+        taps.append(("major", bflat[track]))
+    tr3 = track[:, None]
+    o = torch.where(tr3, f_out[tpk.F_OX:tpk.F_OZ + 1].T, o)
+    d = torch.where(tr3, f_out[tpk.F_DX:tpk.F_DZ + 1].T, d)
+    tput = torch.where(tr3, f_out[tpk.F_TR:tpk.F_TB + 1].T, tput)
+    normal = torch.where(tr3, f_out[tpk.F_NX:tpk.F_NZ + 1].T, normal)
+    t = torch.where(track, f_out[tpk.F_T], t)
+    max_t = torch.where(track, f_out[tpk.F_MAXT], max_t)
+    bounce = torch.where(track, i_out[0].to(torch.int64), bounce)
+    rng = RngState(state=torch.where(track, rng_state, rng.state),
+                   inc=rng.inc)
+    status = i_out[1]
+    died = track & (status == tpk.DEAD)
+    alive = alive & ~died
+    samples_done = torch.where(died, samples_done + 1, samples_done)
+    exit_box_out = track & (status == tpk.EXIT_BOX)
+    tracking = track & ((status == tpk.RUN) | (status == tpk.NEED_WINDOW))
 
-        # --- window refresh for tracking lanes -------------------------
-        track = tracking
-        bflat, worg, inv_sig, rho_b, bexit = tpk.brick_window(
-            o, d, t, med.box_min, extent, res_minus_1, tables.dims,
-            tables.major, med.scale,
-        )
-
-        # --- kernel: pk_steps tracking steps ---------------------------
-        f_in = torch.stack([
-            *o.T, *d.T, *tput.T, t, max_t, bexit, inv_sig, rho_b, *normal.T,
-        ])
-        i_in = torch.cat([
-            worg.T, torch.stack([bounce, torch.where(track, tpk.RUN, tpk.DEAD)]),
-        ]).to(torch.int32)
-        f_out, i_out, rng_state = tpk.run_tail_steps(
-            tables.tab, torch.where(track, bflat, 0), params, f_in, i_in,
-            torch.stack([rng.state, rng.inc]), pk_steps,
-        )
-        tr3 = track[:, None]
-        o = torch.where(tr3, f_out[tpk.F_OX:tpk.F_OZ + 1].T, o)
-        d = torch.where(tr3, f_out[tpk.F_DX:tpk.F_DZ + 1].T, d)
-        tput = torch.where(tr3, f_out[tpk.F_TR:tpk.F_TB + 1].T, tput)
-        normal = torch.where(tr3, f_out[tpk.F_NX:tpk.F_NZ + 1].T, normal)
-        t = torch.where(track, f_out[tpk.F_T], t)
-        max_t = torch.where(track, f_out[tpk.F_MAXT], max_t)
-        bounce = torch.where(track, i_out[0].to(torch.int64), bounce)
-        rng = RngState(state=torch.where(track, rng_state, rng.state),
-                       inc=rng.inc)
-        status = i_out[1]
-        died = track & (status == tpk.DEAD)
-        alive = alive & ~died
-        samples_done = torch.where(died, samples_done + 1, samples_done)
-        exit_box = track & (status == tpk.EXIT_BOX)
-        tracking = track & ((status == tpk.RUN) | (status == tpk.NEED_WINDOW))
-
-        n_rows = n_rows + float(R)
-        n_busy = n_busy + track.to(torch.float32).sum()
-
-    return state._replace(
+    new = s._replace(
         o=o, d=d, throughput=tput, accum=accum, normal=normal, t=t,
         max_t=max_t, samples_done=samples_done, bounce=bounce, alive=alive,
-        tracking=tracking, rng=rng, n_rays=n_rays, n_rows=n_rows,
-        n_busy=n_busy,
+        tracking=tracking, rng=rng, n_rays=n_rays, n_rows=s.n_rows + float(R),
+        n_busy=s.n_busy + track.to(torch.float32).sum(),
     )
+    if taps is not None:
+        # the lanes whose round reads each field before it writes it (a
+        # regenerated lane writes its path's fields unread)
+        live = s.alive
+        ran = s.alive | (s.samples_done < ctx.spp_per_lane)
+        reads = {
+            "alive": torch.ones_like(live), "samples_done": torch.ones_like(
+                live), "tracking": live, "pix": needs, "slot": needs,
+            "o": live, "d": live, "throughput": live, "normal": live,
+            "bounce": live, "accum": miss,
+            "t": live & (s.tracking | exit_box), "max_t": live & (
+                s.tracking | exit_box),
+        }
+        taps.append(("state", stages.lane_traffic(
+            s, new, reads, tuple(taildrain.FIELD_BYTES))))
+        taps.append(("round", ran))
+    return new, exit_box_out, need_isect, track
+
+
+def plain_stage(ctx: TailContext, state: FastState, taps=None) -> FastState:
+    """The tail stage's eager loop: plain_round while a lane is pending,
+    the pending count read to the host each round (counted in
+    taildrain.KERNEL.reads, the rounds in plain_rounds)."""
+    s = state
+    exit_box = torch.zeros_like(s.alive)
+    while True:
+        taildrain.KERNEL.reads += 1
+        if not int(torch.count_nonzero(
+                s.alive | (s.samples_done < ctx.spp_per_lane))):
+            return s
+        s, exit_box, _, _ = plain_round(ctx, s, exit_box, taps)
+        taildrain.KERNEL.plain_rounds += 1
+
+
+def _run_tailpk_stage(state: FastState, ctx: TailContext) -> FastState:
+    """The tail stage around the persistent tail kernel: on the card one
+    drain launch (ops/taildrain.py, csrc/tailpk.cu's drain_kernel), else
+    (the CPU, or eager_body=True) its plain version, plain_stage."""
+    if taildrain.route(state.alive.device.type, ctx.eager_body):
+        return taildrain.run_stage(ctx, state)
+    return plain_stage(ctx, state)

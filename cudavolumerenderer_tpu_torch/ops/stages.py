@@ -186,8 +186,9 @@ def loop_chains(kernel: "BodyKernel", s, count_of: Callable,
 
 class BodyKernel:
     """A body kernel library: built from `source` at first use, its C entry
-    points `<name>_launch`, `<name>_drain` (where `has_drain`) and
-    `<name>_layout` loaded with ctypes, and its launches counted.  `launches` counts one-evaluation
+    points `<name>_launch` (where `has_launch`), `<name>_drain` (where
+    `has_drain`) and `<name>_layout` loaded with ctypes, and its launches
+    counted.  `launches` counts one-evaluation
     launches made now (a gated one may return untouched); a launch recorded
     into a CUDA graph being captured counts in `captured` instead.
     `drain_launches` counts drain launches, `reads` the host's reads of a
@@ -196,12 +197,14 @@ class BodyKernel:
     the last drain's longest lane L, its evaluations E and its launches."""
 
     def __init__(self, name: str, source: Path, layout: tuple,
-                 drain_argtypes: tuple = (), has_drain: bool = True):
+                 drain_argtypes: tuple = (), has_drain: bool = True,
+                 has_launch: bool = True):
         self.name = name
         self.source = source
         self.layout = tuple(layout)  # (N_FP, N_IP, N_S, N_CTRL)
         self.drain_argtypes = list(drain_argtypes)
         self.has_drain = has_drain  # whether the library has <name>_drain
+        self.has_launch = has_launch  # whether it has <name>_launch
         self.launches = 0  # CUDA launches; the plain version is not counted
         self.captured = 0
         self.drain_launches = 0
@@ -215,12 +218,11 @@ class BodyKernel:
         """Build (or reuse) and load the kernel library; returns the
         utils.cuda_build.BuiltLibrary."""
         if self._built is None:
-            from ..utils import cuda_build  # noqa: PLC0415
-
-            built = cuda_build.build_library(self.source)
-            launch = self._entry(built, "launch")
-            launch.argtypes = _ARGTYPES + [ctypes.c_void_p]
-            launch.restype = ctypes.c_int
+            built = self._build()
+            if self.has_launch:
+                launch = self._entry(built, "launch")
+                launch.argtypes = _ARGTYPES + [ctypes.c_void_p]
+                launch.restype = ctypes.c_int
             if self.has_drain:
                 drain = self._entry(built, "drain")
                 drain.argtypes = _ARGTYPES + self.drain_argtypes + [
@@ -234,6 +236,12 @@ class BodyKernel:
                     f"is not the wrapper's {self.layout}")
             self._built = built
         return self._built
+
+    def _build(self):
+        """Build (or reuse) the library of `source`."""
+        from ..utils import cuda_build  # noqa: PLC0415
+
+        return cuda_build.build_library(self.source)
 
     def _entry(self, built, what: str):
         return getattr(built.lib, f"{self.name}_{what}")

@@ -28,7 +28,11 @@ the tracking round) equal their plain versions bit for bit in every lane
 field at 1,920 and 160,000 lanes, with two lanes per pixel and on a
 'full' albedo grid, on rounds kept from a render; a render through them
 equals the eager loop's (image, n_rays, rounds), and the white furnace is
-exact through them.
+exact through them.  fastSK's tail stage as one drain (csrc/tailpk.cu's
+drain_kernel) equals its eager loop bit for bit in every lane field and
+counter at pools of 128 and 40 lanes, with RR on and off, GGX and the null
+boundary, a constant and an affine albedo, and through its relaunch at a
+lowered cap; a render through it equals the render through the eager loop.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -152,14 +156,23 @@ def test_white_furnace_through_kernel(cuda):
     settings = types.RenderSettings.from_flags(
         True, russian_roulette=False, max_path_length=200, bsdf_kind="null"
     )
-    launches = tailpk.KERNEL.launches
-    img, _ = fast.render_tile(
-        scene, make_camera(6, 6, device=cuda), settings, (6, 6),
-        torch.zeros(2, device=cuda), (6, 6), 2, 3, 0, two_level=True,
-        tail_pallas=True, tail_pk_width=16, tail_pk_steps=8, min_width=32,
-    )
-    assert tailpk.KERNEL.launches > launches
-    np.testing.assert_allclose(img.cpu().numpy(), 2.0, rtol=2e-5)
+    from cudavolumerenderer_tpu_torch.ops import taildrain
+
+    # the tail stage runs as one drain launch; eager_body=True runs its
+    # eager loop, which launches the tail kernel once a round
+    for eager in (False, True):
+        launches = tailpk.KERNEL.launches, taildrain.KERNEL.drain_launches
+        img, _ = fast.render_tile(
+            scene, make_camera(6, 6, device=cuda), settings, (6, 6),
+            torch.zeros(2, device=cuda), (6, 6), 2, 3, 0, two_level=True,
+            tail_pallas=True, tail_pk_width=16, tail_pk_steps=8,
+            min_width=32, eager_body=eager,
+        )
+        if eager:
+            assert tailpk.KERNEL.launches > launches[0]
+        else:
+            assert taildrain.KERNEL.drain_launches == launches[1] + 1
+        np.testing.assert_allclose(img.cpu().numpy(), 2.0, rtol=2e-5)
 
 
 @pytest.mark.cuda
@@ -996,6 +1009,131 @@ def test_body_wrapper_runs_kernel_or_plain_by_device(cuda):
     bad = s._replace(o=s.o.T.contiguous().T)
     with pytest.raises(ValueError, match="contiguous"):
         fastbody.run_body(ctx, bad)
+
+
+# -- fastSK's tail stage as one drain (csrc/tailpk.cu's drain_kernel) --------
+
+def tail_stage_render(device, scene, settings, R, res=32, spp=4,
+                      eager=False):
+    """A fastSK render with the tail kernel on a pool of R lanes (K = 16),
+    keeping its tail stage's (context, a copy of the entry state, the
+    stage's result); with `eager` the stage runs its eager loop (the
+    eager_body=True path of the stage alone)."""
+    import dataclasses
+
+    kept, run = [], fast._run_tailpk_stage
+
+    def keep(state, ctx):
+        entry = clone_state(state)
+        if eager:
+            ctx = dataclasses.replace(ctx, eager_body=True)
+        out = run(state, ctx)
+        kept.append((ctx, entry, out))
+        return out
+
+    fast._run_tailpk_stage = keep
+    try:
+        out = body_render(device, scene, settings, res=res, spp=spp,
+                          two_level=True, tail_pallas=True, tail_pk_width=R,
+                          tail_pk_steps=16)
+    finally:
+        fast._run_tailpk_stage = run
+    assert len(kept) == 1
+    return kept[0], out
+
+
+#: (id, pool width R, scene keywords, settings keywords)
+TAIL_DRAIN_CASES = [
+    ("r128", 128, {}, {}),
+    # 40 is no power of two: power-of-two sizes can hide an indexing fault
+    ("r40", 40, {}, {}),
+    ("rr-off", 128, {}, dict(russian_roulette=False)),
+    ("null", 128, {}, dict(bsdf_kind="null")),
+    ("null-r40-rr-off", 40, {}, dict(bsdf_kind="null",
+                                     russian_roulette=False)),
+    ("const-albedo", 128, dict(albedo="const"), {}),
+    ("heitz-r40", 40, {}, dict(mitsuba_comparable=False)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TAIL_DRAIN_CASES,
+                         ids=[c[0] for c in TAIL_DRAIN_CASES])
+def test_tail_drain_equals_eager_loop(cuda, case):
+    """The tail stage through the drain (one launch, one host read, no
+    tail-kernel launch) equals its eager loop on the same entry state in
+    every FastState field, n_rays, n_rows and n_busy, bit for bit; the
+    render through it equals the render whose stage runs the eager loop
+    (image, rays, rows, busy lanes, per-stage rows)."""
+    from cudavolumerenderer_tpu_torch.ops import taildrain
+
+    _, R, scene_kw, settings_kw = case
+    scene = body_scene(cuda, **scene_kw)
+    settings_kw = dict(settings_kw)
+    settings = types.RenderSettings.from_flags(
+        settings_kw.pop("mitsuba_comparable", True), **settings_kw)
+    taildrain.KERNEL.reset()
+    launches = tailpk.KERNEL.launches
+    (ctx, entry, got), out = tail_stage_render(cuda, scene, settings, R)
+    assert entry.alive.shape[0] == R
+    assert taildrain.KERNEL.drain_launches == taildrain.KERNEL.reads == 1
+    assert tailpk.KERNEL.launches == launches
+    rounds = taildrain.KERNEL.last_drain["E"]
+    want = fast.plain_stage(ctx, clone_state(entry))
+    assert taildrain.KERNEL.plain_rounds == rounds > 0
+    assert tailpk.KERNEL.launches == launches + rounds
+    assert not state_mismatches(got, want)
+    assert float(got.n_rows - entry.n_rows) == R * rounds
+    (_, entry_e, _), want_out = tail_stage_render(cuda, scene, settings, R,
+                                                  eager=True)
+    assert not state_mismatches(entry_e, entry)
+    assert_same_render(out, want_out)
+    assert torch.isfinite(out[0]).all() and float(out[1]) > 0
+
+
+@pytest.mark.cuda
+def test_tail_drain_relaunches_at_the_cap(cuda):
+    """With DRAIN_CAP lowered to 7 (and 1) the drain stores the lanes at
+    the cap with their exit_box flags and launches again: the same state
+    as the eager loop bit for bit, ceil(E / cap) launches and as many host
+    reads, E the loop's rounds and the longest lane's."""
+    from cudavolumerenderer_tpu_torch.ops import taildrain
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    (ctx, entry, _), _ = tail_stage_render(cuda, scene, settings, 40)
+    rounds = taildrain.KERNEL.plain_rounds
+    want = fast.plain_stage(ctx, clone_state(entry))
+    rounds = taildrain.KERNEL.plain_rounds - rounds
+    assert rounds > 7
+    for cap in (7, 1):
+        reads = taildrain.KERNEL.reads
+        got = taildrain.KERNEL.drain(ctx, clone_state(entry), cap=cap)
+        assert not state_mismatches(got, want), cap
+        info = taildrain.KERNEL.last_drain
+        assert info["E"] == info["L"] == rounds
+        assert info["launches"] == -(-rounds // cap)
+        assert taildrain.KERNEL.reads - reads == info["launches"]
+
+
+@pytest.mark.cuda
+def test_tail_drain_checks_its_inputs(cuda):
+    """The drain raises on a field of the wrong type or layout, and its
+    wrapper on a device without a kernel; a stage with no lane pending
+    launches once and returns the state unchanged."""
+    from cudavolumerenderer_tpu_torch.ops import taildrain
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    (ctx, entry, got), _ = tail_stage_render(cuda, scene, settings, 40)
+    with pytest.raises(ValueError, match="t must be"):
+        taildrain.KERNEL.drain(ctx, entry._replace(t=entry.t.double()))
+    with pytest.raises(ValueError, match="contiguous"):
+        taildrain.KERNEL.drain(ctx, entry._replace(o=entry.o.T.contiguous().T))
+    done = clone_state(got)
+    again = taildrain.KERNEL.drain(ctx, clone_state(done))
+    assert not state_mismatches(again, done)
+    assert taildrain.KERNEL.last_drain["E"] == 0
 
 
 # -- render_diff's replay body kernel (csrc/replaybody.cu) ------------------
