@@ -12,12 +12,11 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the seven kernel libraries, csrc/tailpk.cu (the tail kernel and
-   the tail stage's drain), csrc/tracking.cu,
-   csrc/pgather.cu, csrc/fastbody.cu, csrc/replaybody.cu,
-   csrc/familybody.cu and csrc/brickbody.cu, with one nvcc each, started
-   together with g++ on
-   the native data-path library (the repository's csrc/cvr_native.cpp
+2. build the eight kernel libraries, csrc/tailpk.cu (the tail kernel and
+   the tail stage's drain), csrc/tracking.cu, csrc/pgather.cu,
+   csrc/fastbody.cu, csrc/replaybody.cu, csrc/familybody.cu,
+   csrc/brickbody.cu and csrc/fastqbody.cu, with one nvcc each, started
+   together with g++ on the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
 3. the tail kernel against its plain torch version on the card, on the
@@ -97,21 +96,28 @@ CPU or to a plain version on a CUDA tensor):
    gather kernel's launch count must rise;
 11. the scheduler family (naiveSK, naiveMK with and without compaction,
    regenerationSK at levels 0/1/2, streamingSK, sortingSK, streamingMK,
-   whose bodies run as csrc/familybody.cu's kernels, and fastQ),
-   each through create_renderer(...).render() on the brickSK slice's
+   whose bodies run as csrc/familybody.cu's kernels, and fastQ one- and
+   two-level, whose loop runs as csrc/fastqbody.cu's), each through create_renderer(...).render() on the brickSK slice's
    scene (thesis Table 6.2: smoke 128x128x50, scale 800, Mitsuba XML +
    .vol, 400^2) at 1 iteration and one seed, through the kernels (their
    counts set to 0 just before each render and read just after) and then
    with eager_body=True (the eager bodies): wall seconds with the image
    copied to the host, the wavefront passes (bounce or extend
-   evaluations of the loop), kernel launches, host reads and Mrays/s of
-   both; both give the same n_rays and passes; every integrator-family
-   row must give naiveSK's n_rays exactly and an image allclose to
-   naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays within 2% of
-   naiveSK's; torch.profiler over streamingSK's whole render through the
-   kernels (the card's busy share); the white furnace exact on the card
-   through every row; and each row's 16^2 render on the card against the
-   same render on the CPU;
+   evaluations of the loop; fastQ's iterations), kernel launches, host
+   reads, Mrays/s and Config.n_lanes of both; both give the same n_rays
+   and passes, the kernel render no eager evaluation, the eager render no
+   launch; every integrator-family row must give naiveSK's n_rays exactly
+   and an image allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean
+   and n_rays within 2% of naiveSK's; torch.profiler over streamingSK's
+   whole render through the kernels (the card's busy share); under
+   --boundary variable naiveSK, naiveMK and regenerationSK 0 at 400^2 x 1
+   through the kernels (the bounce's isosurface march; each naiveSK-
+   variable's n_rays exactly, images allclose at 1e-4), then each through
+   the kernels and with the eager bodies at VARIABLE_EAGER_RES^2 (the same
+   n_rays and passes, images within 1e-4), and the variable white furnace
+   exact through the kernels; the white furnace exact on the card through
+   every row; and each row's 16^2 render on the card against the same
+   render on the CPU;
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
    -i 4 -r 400 400, two trials (the first discarded), through the drain;
 13. the gradient on the card (the two-level replay through the replay
@@ -279,7 +285,20 @@ CPU or to a plain version on a CUDA tensor):
    taps); then naiveSK's drain at 400^2 x 1 (160,000 lanes) twice by CUDA
    events around one launch, equal to trace's eager loop bit for bit,
    the longest lane L and the drain's us per bounce of it, the eager
-   loop's wall and the drain's byte bound (every bounce's taps).
+   loop's wall and the drain's byte bound (every bounce's taps); fastQ
+   (csrc/fastqbody.cu), one- and two-level, at the same widths: a refill
+   iteration (12) and a step (13) on states kept from the middle rows'
+   queue, the kernel against the eager body (every lane field and counter
+   bit for bit), timed as the family's entry points, bound by
+   ops/fastqbody.fastq_bytes; its drain (one-level) on a 65,536-lane
+   state kept where every path is issued, twice, against the eager loop
+   (bit for bit, its wall), with the longest lane's iterations and the
+   bound over every iteration's taps; and the bounce under --boundary
+   variable (the march) at the same widths, and at 65,536 lanes with
+   threshold LONG_MARCH (long marches), against integrator.bounce_step,
+   timed and bound the same way (family_bytes counts the march's distinct
+   voxels), beside the AABB bounce on the same pool and the eager march's
+   iterations.
 26. (run right after phase 8, on its scene) brickSK's round kernels on
    rounds kept from the slice (400^2 x 4, 160,000 lanes: rounds 0, 100
    and 600) and from a 48x40 tile in its middle (1,920 lanes in 15 rows:
@@ -305,6 +324,12 @@ CPU or to a plain version on a CUDA tensor):
    of every round of the plain loop run with the tail kernel's plain
    version) and the drain's share of it; drain_kernel's ptxas registers
    and spills.
+28. (run right after phase 5, on its scene) fastQ two-level at BASELINE
+   config 2's full width (512^2 x 4, one tile) through the kernels: three
+   renders timed with the image copy, launches and host reads (no eager
+   iteration); the image mean within 2% of phase 5's fastSK render, and
+   n_rays beside fastSK's (the two schedulers count segment starts 2.1%
+   apart on this scene: ROADMAP C3).
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -370,14 +395,24 @@ FAMILY_ROWS = (
     ("sortingSK", "sortingSK", {}, {}),
     ("streamingMK", "streamingMK", {}, {}),
     ("fastQ", "fastQ", {}, {}),
+    ("fastQ two-level", "fastQ", {"two_level": True}, {}),
 )
+FASTQ_LABELS = ("fastQ", "fastQ two-level")
+# phase 11's rows under --boundary variable (the bounce's isosurface march)
+VARIABLE_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0")
+VARIABLE_EAGER_RES = 400  # their eager renders' width (a cut of the 400^2)
 FAMILY_WIDTHS = (65536, 16384, 4096)  # phase 25's pool widths
+FASTQ_ITS = {"refill": 12, "step": 13}  # phase 25's fastQ iterations
+LONG_MARCH = 0.05  # phase 25: a march threshold the smoke's edges stay under
+FASTQ_REPLACES = {"body": "cudavolumerenderer_tpu/models/fastq.py:148",
+                  "drain": "cudavolumerenderer_tpu/models/fastq.py:402"}
 # phase 25: the JAX function each family entry point replaces
 FAMILY_REPLACES = {
     "bounce": "cudavolumerenderer_tpu/models/integrator.py:237",
     "refill": "cudavolumerenderer_tpu/models/regeneration.py:30",
     "extend": "cudavolumerenderer_tpu/models/streaming.py:217",
     "flush": "cudavolumerenderer_tpu/models/streaming.py:363",
+    "march": "cudavolumerenderer_tpu/models/integrator.py:92",
 }
 # phase 13's gradient case (tests/test_torch_diff.py's): grid, image, spp, seed
 DIFF_N, DIFF_RES, DIFF_SPP, DIFF_SEED = 16, (16, 16), 4, 7
@@ -1822,6 +1857,16 @@ def family_counts(fam) -> dict:
             "launches": sum(k.by_op.values()) + k.drain_launches}
 
 
+def fastq_counts(fqb) -> dict:
+    """fastQ's kernels' counts since their last reset, in family_counts's
+    keys: body launches (gated ones included), drain launches, host reads,
+    the loop's iterations (passes) and the plain body's evaluations."""
+    k = fqb.KERNEL
+    return {"body": k.launches, "drain": k.drain_launches, "reads": k.reads,
+            "passes": k.evals, "plain": k.plain_evals,
+            "launches": k.launches + k.drain_launches}
+
+
 def family_rows(xml: str, card: str) -> dict:
     """Phase 11's rows on the slice's scene: each row's image, n_rays, walls
     and passes through the kernels and with the eager bodies, in turns;
@@ -1834,23 +1879,25 @@ def family_rows(xml: str, card: str) -> dict:
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 
     base = dict(scene_file=xml, iterations=1, resolution=(400, 400),
                 n_tiles=(1, 1))
     scene, camera = load_scene(Config(**base), device="cuda")
     # one untimed render through the kernels and one eager (first calls)
-    warm = create_renderer(scene, camera, Config(
-        kernel=Kernel.NAIVE_SK, **{**base, "resolution": (64, 64)}))
-    warm.render()
-    warm.kernel_fn = functools.partial(warm.kernel_fn, eager_body=True)
-    warm.render()
+    for kernel in (Kernel.NAIVE_SK, Kernel.FAST_Q):
+        warm = create_renderer(scene, camera, Config(
+            kernel=kernel, **{**base, "resolution": (64, 64)}))
+        warm.render()
+        warm.kernel_fn = functools.partial(warm.kernel_fn, eager_body=True)
+        warm.render()
     rows, totals = {}, {}
     for label, kernel, fields, keywords in FAMILY_ROWS:
         cfg = Config(kernel=Kernel.from_name(kernel), **base, **fields)
-        family = label != "fastQ"
+        fastq = label in FASTQ_LABELS
         runs = {}
-        for mode in ("kernels", "eager") if family else ("kernels",):
+        for mode in ("kernels", "eager"):
             renderer = create_renderer(scene, camera, cfg)
             fn = (row_kernel_fn(kernel, fields, keywords) if keywords
                   else renderer.kernel_fn)
@@ -1859,52 +1906,47 @@ def family_rows(xml: str, card: str) -> dict:
             renderer.kernel_fn = fn
             torch.cuda.synchronize()
             fam.KERNEL.reset()
+            fqb.KERNEL.reset()
             t0 = time.perf_counter()
             img = renderer.render()
             wall = time.perf_counter() - t0
             n_rays = renderer.n_rays
-            counts = family_counts(fam)
+            counts = fastq_counts(fqb) if fastq else family_counts(fam)
             check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
                   f"{label} ({mode}): image not finite or wrong shape")
             runs[mode] = dict(img=img, n_rays=n_rays, wall=wall, **counts)
-            if family:
-                log(f"[11] {label:22s} {mode:7s} 400^2 x 1: {wall:8.4f} s "
-                    f"wall (incl. image copy), {counts['passes']:5d} passes, "
-                    f"{counts['launches']:5d} kernel launches ("
-                    + ", ".join(f"{op} {counts[op]}" for op in (
-                        *fam.OPS, "drain") if counts[op])
-                    + f"), {counts['reads']:4d} host reads, {n_rays:.0f} "
-                    f"rays, {n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes"
-                    f" {cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
-            else:
-                log(f"[11] {label:22s} 400^2 x 1: {wall:8.4f} s wall (incl. "
-                    f"image copy), {n_rays:.0f} rays, "
-                    f"{n_rays / wall / 1e6:.4f} Mrays/s, image mean "
-                    f"{img.mean():.6f}; card {card}")
-        got = runs["kernels"]
-        row = dict(img=got["img"], n_rays=got["n_rays"], wall=got["wall"],
-                   passes=got["passes"])
-        if family:
-            eager = runs["eager"]
-            check(got["launches"] > 0 and got["plain"] == 0,
-                  f"{label}: the kernel render ran {got['plain']} eager "
-                  f"evaluations and {got['launches']} launches")
-            check(eager["launches"] == 0 and eager["plain"] > 0,
-                  f"{label}: the eager render launched a kernel")
-            check(got["n_rays"] == eager["n_rays"]
-                  and got["passes"] == eager["passes"],
-                  f"{label}: kernels {got['n_rays']:.0f} rays in "
-                  f"{got['passes']} passes, eager {eager['n_rays']:.0f} in "
-                  f"{eager['passes']}")
-            err = float(np.abs(got["img"] - eager["img"]).max())
-            log(f"[11] {label:22s} kernels / eager: wall {got['wall']:.4f} / "
-                f"{eager['wall']:.4f} s ({eager['wall'] / got['wall']:.1f}x),"
-                f" max |image - eager's| {err:.3g}")
-            row.update(eager_wall=eager["wall"], launches=got["launches"],
-                       reads=got["reads"], eager_reads=eager["reads"])
-            for key in (*fam.OPS, "drain"):
-                totals[key] = totals.get(key, 0) + got[key]
-        rows[label] = row
+            ops = ("body", "drain") if fastq else (*fam.OPS, "drain")
+            log(f"[11] {label:22s} {mode:7s} 400^2 x 1: {wall:8.4f} s "
+                f"wall (incl. image copy), {counts['passes']:5d} passes, "
+                f"{counts['launches']:5d} kernel launches ("
+                + ", ".join(f"{op} {counts[op]}" for op in ops
+                            if counts[op])
+                + f"), {counts['reads']:4d} host reads, {n_rays:.0f} "
+                f"rays, {n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes"
+                f" {cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
+        got, eager = runs["kernels"], runs["eager"]
+        check(got["launches"] > 0 and got["plain"] == 0,
+              f"{label}: the kernel render ran {got['plain']} eager "
+              f"evaluations and {got['launches']} launches")
+        check(eager["launches"] == 0 and eager["plain"] > 0,
+              f"{label}: the eager render launched a kernel")
+        check(got["n_rays"] == eager["n_rays"]
+              and got["passes"] == eager["passes"],
+              f"{label}: kernels {got['n_rays']:.0f} rays in "
+              f"{got['passes']} passes, eager {eager['n_rays']:.0f} in "
+              f"{eager['passes']}")
+        err = float(np.abs(got["img"] - eager["img"]).max())
+        log(f"[11] {label:22s} kernels / eager: wall {got['wall']:.4f} / "
+            f"{eager['wall']:.4f} s ({eager['wall'] / got['wall']:.1f}x),"
+            f" max |image - eager's| {err:.3g}")
+        rows[label] = dict(img=got["img"], n_rays=got["n_rays"],
+                           wall=got["wall"], passes=got["passes"],
+                           eager_wall=eager["wall"],
+                           launches=got["launches"], reads=got["reads"],
+                           eager_reads=eager["reads"])
+        for key in ("body", "drain") if fastq else (*fam.OPS, "drain"):
+            tkey = f"fastq_{key}" if fastq else key
+            totals[tkey] = totals.get(tkey, 0) + got[key]
 
     # streamingSK through the kernels again, under torch.profiler
     cfg = Config(kernel=Kernel.STREAMING_SK, **base)
@@ -1923,7 +1965,110 @@ def family_rows(xml: str, card: str) -> dict:
             f"{n_kernels / passes:.1f} device kernels per pass; the card "
             f"{busy_ms / wall_ms:.1%} busy over the unprofiled render's "
             f"{wall_ms:.2f} ms; card {card}")
-    return {"rows": rows, "launches": totals}
+    return {"rows": rows, "launches": totals,
+            "variable": variable_rows(scene, camera, base, card)}
+
+
+def variable_rows(scene, camera, base: dict, card: str) -> dict:
+    """Phase 11 under --boundary variable: naiveSK, naiveMK and
+    regenerationSK 0 at 400^2 x 1 through the kernels (the bounce's
+    isosurface march; counts set to 0 just before each render and read
+    just after), each giving naiveSK-variable's n_rays and an image
+    allclose to it; then each with the eager bodies at
+    VARIABLE_EAGER_RES^2 beside the kernels at that size (the same n_rays,
+    images within the family's tolerance); then the white furnace through
+    the kernels.  Returns the rows and the kernels' launches."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+
+    settings = dataclasses.replace(Config().settings, boundary="variable")
+    rows, launches = {}, {**dict.fromkeys(fam.OPS, 0), "drain": 0}
+
+    def render(label, res, eager, scene_=scene, camera_=camera, sett=settings):
+        _, kernel, fields, keywords = next(
+            r for r in FAMILY_ROWS if r[0] == label)
+        cfg = Config(kernel=Kernel.from_name(kernel), settings=sett,
+                     **{**base, "resolution": (res, res)}, **fields)
+        renderer = create_renderer(scene_, camera_, cfg)
+        if eager:
+            renderer.kernel_fn = functools.partial(renderer.kernel_fn,
+                                                   eager_body=True)
+        torch.cuda.synchronize()
+        fam.KERNEL.reset()
+        t0 = time.perf_counter()
+        img = renderer.render()
+        wall = time.perf_counter() - t0
+        return img, renderer.n_rays, wall, family_counts(fam)
+
+    for label in VARIABLE_ROWS:
+        img, n_rays, wall, counts = render(label, 400, False)
+        check(np.isfinite(img).all() and counts["launches"] > 0
+              and counts["plain"] == 0,
+              f"{label} variable: {counts['plain']} eager evaluations, "
+              f"{counts['launches']} launches")
+        for key in launches:
+            launches[key] += counts[key]
+        ref = rows.get("naiveSK", {"img": img, "n_rays": n_rays})
+        check(n_rays == ref["n_rays"], f"{label} variable traced "
+              f"{n_rays:.0f} rays, naiveSK variable {ref['n_rays']:.0f}")
+        np.testing.assert_allclose(img, ref["img"], rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{label} variable")
+        rows[label] = dict(img=img, n_rays=n_rays, wall=wall,
+                           passes=counts["passes"],
+                           launches=counts["launches"], reads=counts["reads"])
+        log(f"[11] {label:22s} variable 400^2 x 1 through the kernels: "
+            f"{wall:8.4f} s wall (incl. image copy), {counts['passes']} "
+            f"passes, {counts['launches']} launches, {counts['reads']} host "
+            f"reads, {n_rays:.0f} rays (naiveSK variable's), "
+            f"{n_rays / wall / 1e6:.4f} Mrays/s, image mean {img.mean():.6f};"
+            f" card {card}")
+    res = VARIABLE_EAGER_RES
+    for label in VARIABLE_ROWS:
+        k_img, k_rays, k_wall, k = render(label, res, False)
+        e_img, e_rays, e_wall, e = render(label, res, True)
+        check(e["launches"] == 0 and e["plain"] > 0,
+              f"{label} variable: the eager render launched a kernel")
+        check(k_rays == e_rays and k["passes"] == e["passes"],
+              f"{label} variable at {res}^2: kernels {k_rays:.0f} rays in "
+              f"{k['passes']} passes, eager {e_rays:.0f} in {e['passes']}")
+        np.testing.assert_allclose(k_img, e_img, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{label} variable, eager")
+        rows[label].update(eager_res=res, eager_wall=e_wall,
+                           kernel_wall_at_eager_res=k_wall,
+                           eager_reads=e["reads"])
+        log(f"[11] {label:22s} variable {res}^2 x 1 kernels / eager: wall "
+            f"{k_wall:.4f} / {e_wall:.4f} s ({e_wall / k_wall:.1f}x), host "
+            f"reads {k['reads']} / {e['reads']}, {k_rays:.0f} rays both, max "
+            f"|image - eager's| {float(np.abs(k_img - e_img).max()):.3g}; "
+            f"card {card}")
+
+    from cudavolumerenderer_tpu_torch.ops.camera import make_camera
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import (
+        RenderSettings, make_medium, make_scene,
+    )
+
+    d = procedural.blob_volume()
+    white = make_scene(make_medium(d, 1.0, scale=40.0, max_density=1.0,
+                                   device="cuda"))
+    furnace = RenderSettings.from_flags(True, bsdf_kind="null",
+                                        boundary="variable")
+    for label in VARIABLE_ROWS:
+        img, _, _, counts = render(label, 64, False, white,
+                                   make_camera(64, 64, device="cuda"),
+                                   furnace)
+        check(counts["launches"] > 0 and np.array_equal(
+            img, np.ones_like(img)), f"{label} variable: white furnace not "
+              f"exact through the kernels ({img.min()}..{img.max()})")
+        log(f"[11] {label}: variable white furnace exact through the kernels "
+            f"(64^2 x 1)")
+    return {"rows": rows, "launches": launches}
 
 
 def check_family(rows: dict) -> None:
@@ -1932,13 +2077,13 @@ def check_family(rows: dict) -> None:
     rows = rows["rows"]
     ref = rows["naiveSK"]
     for label, row in rows.items():
-        if label == "fastQ":
+        if label in FASTQ_LABELS:
             rel_mean = abs(row["img"].mean() - ref["img"].mean()) / ref["img"].mean()
             rel_rays = abs(row["n_rays"] - ref["n_rays"]) / ref["n_rays"]
-            log(f"[11] fastQ against naiveSK: mean {rel_mean:.3%}, n_rays "
+            log(f"[11] {label} against naiveSK: mean {rel_mean:.3%}, n_rays "
                 f"{rel_rays:.3%} apart")
             check(rel_mean < 0.02 and rel_rays < 0.02,
-                  "fastQ is not within 2% of naiveSK")
+                  f"{label} is not within 2% of naiveSK")
             continue
         err = float(np.abs(row["img"] - ref["img"]).max())
         check(row["n_rays"] == ref["n_rays"],
@@ -1997,6 +2142,61 @@ def family_furnace_and_small_renders() -> None:
         check(np.isfinite(a).all() and abs(a.mean() - b.mean()) < 0.02
               and abs(ra - rb) <= 0.01 * rb,
               f"{label}: the card's render disagrees with the CPU's")
+
+
+def fastq_config2(scene, camera, ref_img, ref_rays: float, card: str) -> dict:
+    """Phase 28 (run right after phase 5, on its scene): fastQ two-level at
+    BASELINE config 2's full width (512^2 x 4, one tile) through
+    create_renderer(...).render() and csrc/fastqbody.cu: an untimed first
+    render, then three timed with the image copy (the counts set to 0 just
+    before each and read just after: body and drain launches, host reads,
+    no eager iteration); the image mean within 2% of phase 5's fastSK
+    render (both estimate the same image), and n_rays beside fastSK's.
+    The eager body is not run here: at this size it takes ~2 min (5,505
+    iterations, 692 host reads; NVIDIA H100 80GB HBM3, 700 W)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+
+    cfg = Config(kernel=Kernel.FAST_Q, two_level=True, resolution=(512, 512),
+                 iterations=4, n_tiles=(1, 1))
+    renderer = create_renderer(scene, camera, cfg)
+    first = renderer.render()
+    walls, runs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        fqb.KERNEL.reset()
+        t0 = time.perf_counter()
+        img = renderer.render()
+        walls.append(time.perf_counter() - t0)
+        runs.append(fastq_counts(fqb))
+        check(runs[-1]["launches"] > 0 and runs[-1]["plain"] == 0,
+              f"phase 28: fastQ ran {runs[-1]['plain']} eager iterations and "
+              f"{runs[-1]['launches']} launches")
+    n_rays, counts = renderer.n_rays, runs[0]
+    check(img.shape == (512, 512, 3) and np.isfinite(img).all(),
+          "phase 28: fastQ's config-2 image not finite or wrong shape")
+    check(np.allclose(img, first, rtol=1e-5, atol=1e-5),
+          "phase 28: two renders through the kernels differ beyond the "
+          "flush's atomics")
+    rel_mean = abs(float(img.mean()) - float(ref_img.mean())) / float(
+        ref_img.mean())
+    rel_rays = (n_rays - ref_rays) / ref_rays
+    log(f"[28] fastQ two-level, config 2 (512^2 x 4, Config.n_lanes "
+        f"{cfg.n_lanes}) through csrc/fastqbody.cu: walls "
+        + ", ".join(f"{w:.4f}" for w in walls)
+        + f" s (incl. image copy), {n_rays:.0f} rays, "
+        f"{n_rays / min(walls) / 1e6:.4f} Mrays/s, {counts['passes']} "
+        f"iterations, {counts['body']} body launches (gated), "
+        f"{counts['drain']} drain launches, {counts['reads']} host reads; "
+        f"against phase 5's fastSK: mean {rel_mean:.3%} apart, n_rays "
+        f"{rel_rays:+.3%} ({ref_rays:.0f}); card {card}")
+    check(rel_mean < 0.02, "phase 28: fastQ's config-2 image mean is not "
+          "within 2% of fastSK's")
+    return {"walls": walls, "n_rays": n_rays, "n_lanes": cfg.n_lanes,
+            "rel_mean": rel_mean, "rel_rays": rel_rays, **counts}
 
 
 def naive_cli(xml: str, tmp: str, card: str) -> None:
@@ -4091,7 +4291,8 @@ def family_pool(fam, ctx, width: int, kind: str):
     return fam.own(s), None, issued, accum
 
 
-def family_entry(fam, ctx, op: str, pool, card: str, width: int) -> dict:
+def family_entry(fam, ctx, op: str, pool, card: str, width: int,
+                 label: str = None) -> dict:
     """Phase 25, one entry point on a kept pool: one kernel evaluation
     against one eager evaluation (every lane field bit for bit, the splat's
     image within 1e-5), the kernel's device time per evaluation over graph
@@ -4146,7 +4347,7 @@ def family_entry(fam, ctx, op: str, pool, card: str, width: int) -> dict:
                     reps=3, warmup=1)
     alive = int(torch.count_nonzero(s.pending if op == "flush" else
                                     s.alive))
-    log(f"[25] {op:6s} {width:6d} lanes ({alive} "
+    log(f"[25] {label or op:6s} {width:6d} lanes ({alive} "
         f"{'pending' if op == 'flush' else 'alive'}): kernel "
         f"{ms * 1e3:8.2f} us per evaluation, eager {plain:8.3f} ms; bound "
         f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; "
@@ -4156,10 +4357,159 @@ def family_entry(fam, ctx, op: str, pool, card: str, width: int) -> dict:
             "max_abs_err": err}
 
 
+def fastq_differs(a, b) -> list:
+    """The lane fields and counters of two fastQ states that differ bit for
+    bit."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    bad = []
+    for n in (*fqb.LANE_FIELDS, "paths_issued", "n_rays", "n_iters",
+              "n_busy"):
+        x = lane_field(a, n) if n in fqb.LANE_FIELDS else getattr(a, n)
+        y = lane_field(b, n) if n in fqb.LANE_FIELDS else getattr(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    return bad
+
+
+def fastq_pool(ctx, width: int, its=None):
+    """Phase 25's kept fastQ state of `width` lanes on phase 11's scene, its
+    queue starting at the image's middle rows (its top rows miss the
+    medium), after `its` eager iterations, or (None) once every path is
+    issued: (state, the next iteration, the image)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fastq
+
+    dev = torch.device("cuda")
+    s = fastq.initial_state(width, ctx.seed, dev)
+    s = s._replace(paths_issued=torch.tensor(
+        max(0, ctx.n_paths // 2 - width // 2), device=dev))
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=dev)
+    it = 0
+    while (it < its) if its is not None else (
+            int(s.paths_issued) < ctx.n_paths):
+        s = fastq.plain_body(ctx, s, accum, it)
+        it += 1
+    return s, it, accum
+
+
+def fastq_entry(ctx, s, it: int, accum, card: str, width: int,
+                tag: str) -> dict:
+    """Phase 25, one fastQ iteration on a kept state: body_kernel against
+    the eager body (every lane field and counter bit for bit, the image
+    within 1e-5), the kernel's device time per iteration over graph
+    replays of 16 out-of-place launches, the eager body's (its input's
+    copy included) and the byte bound (fastq_bytes over its taps)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+
+    own = fqb.own
+    a_acc, b_acc = accum.clone(), accum.clone()
+    got = fqb.run_body(ctx, own(s), a_acc, it)
+    taps = []
+    want = fastq.plain_body(ctx, own(s), b_acc, it, taps=taps)
+    bad = fastq_differs(got, want)
+    check(not bad and torch.allclose(a_acc, b_acc, rtol=1e-5, atol=1e-6),
+          f"phase 25, fastQ {tag} at {width} lanes: the kernel differs from "
+          f"the eager body in {bad}")
+    n_bytes = fqb.fastq_bytes(ctx, taps)
+    bound, bound_by = bound_ms(n_bytes)
+    # the launch's tensors, kept alive while the graph replays it
+    src, out, acc = own(s), own(s), accum.clone()
+    counts = torch.stack([s.n_rays, s.n_iters, s.n_busy])
+    issued_out = torch.empty((), dtype=torch.int64, device="cuda")
+    counts_out = torch.empty(3, device="cuda")
+    prep = fqb.KERNEL.prepare(ctx, src, acc, counts, out=out, it=it,
+                              issued_out=issued_out, counts_out=counts_out)
+    dev = torch.device("cuda")
+    ms = graph_ms([lambda: fqb.KERNEL.launch_one(prep.args, dev)]
+                  * GRAPH_CALLS)
+    plain = cuda_ms(lambda: fastq.plain_body(ctx, own(s), accum.clone(), it),
+                    reps=3, warmup=1)
+    alive = int(torch.count_nonzero(s.alive))
+    log(f"[25] fastQ {ctx.two_level and 'two-level' or 'one-level'} {tag:6s}"
+        f" (iteration {it}) {width:6d} lanes ({alive} alive): kernel "
+        f"{ms * 1e3:8.2f} us per iteration, eager {plain:8.3f} ms; bound "
+        f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; "
+        f"card {card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": n_bytes, "alive": alive,
+            "max_abs_err": float((a_acc - b_acc).abs().max())}
+
+
+def fastq_drain_row(ctx, card: str, width: int = FAMILY_WIDTHS[0]) -> dict:
+    """Phase 25, fastQ's drain: a `width`-lane state kept where every path
+    is issued, drained twice (CUDA events around one launch, each on a
+    fresh copy), against the eager loop from there to the end (every lane
+    field and counter bit for bit, the loop's wall); the longest lane's
+    iterations; the bound over every iteration's taps of the eager loop."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops.stages import C_LMAX, C_TOTAL
+
+    s, e0, accum = fastq_pool(ctx, width)
+    runs = []
+    for _ in range(2):
+        got, acc = fqb.own(s), accum.clone()
+        counts = torch.stack([got.n_rays, got.n_iters, got.n_busy])
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        words = fqb.KERNEL.drain_stage(ctx, got, acc, counts, e0)
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop))
+    got = got._replace(n_rays=counts[0], n_iters=counts[1], n_busy=counts[2])
+    want, it, b_acc = fqb.own(s), e0, accum.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while bool(fastq.more(ctx, want)):
+        want = fastq.plain_body(ctx, want, b_acc, it)
+        it += 1
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = fastq_differs(got, want)
+    check(not bad and words[C_TOTAL] == it and torch.allclose(
+        acc, b_acc, rtol=1e-5, atol=1e-6),
+          f"phase 25: fastQ's drain differs from the eager loop in {bad} "
+          f"(trip count {words[C_TOTAL]} / {it})")
+    traffic, t, e = fqb.Traffic(ctx), fqb.own(s), e0
+    while bool(fastq.more(ctx, t)):
+        taps = []
+        t = fastq.plain_body(ctx, t, accum.clone(), e, taps=taps)
+        traffic.add(taps)
+        e += 1
+    n_bytes = traffic.total()
+    bound, bound_by = bound_ms(n_bytes)
+    ms, length = min(runs), words[C_LMAX] - e0
+    log(f"[25] fastQ drain, {width} lanes from iteration {e0}: {runs[0]:.3f} "
+        f"and {runs[1]:.3f} ms (one launch each), the longest lane "
+        f"{length} iterations, {ms * 1e3 / max(length, 1):.2f} us per "
+        f"iteration of it; bit-equal to the eager loop ({plain_ms:.1f} ms "
+        f"wall, trip count {it}); bound {n_bytes} B = {bound * 1e3:.3f} us "
+        f"({bound / ms:.3%}); card {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": n_bytes, "L": length,
+            "ms_runs": runs, "us_per_step": ms * 1e3 / max(length, 1),
+            "max_abs_err": float((acc - b_acc).abs().max())}
+
+
 def family_kernels(xml: str, card: str) -> dict:
     """Phase 25: the family's entry points per evaluation on kept pools of
     phase 11's scene, then naiveSK's drain at 400^2 x 1 against trace's
-    eager loop."""
+    eager loop; fastQ's iteration (one- and two-level, a refill and a step)
+    and its drain; the bounce under --boundary variable."""
     import torch
 
     from cudavolumerenderer_tpu_torch.config import Config
@@ -4233,7 +4583,76 @@ def family_kernels(xml: str, card: str) -> dict:
              "bound_by": bound_by, "bytes": n_bytes, "L": length,
              "ms_runs": drains, "us_per_step": ms * 1e3 / length,
              "max_abs_err": 0.0}
-    return {"rows": rows, "drain": drain}
+
+    # fastQ: one iteration per width (a refill and a step), then the drain
+    from cudavolumerenderer_tpu_torch.models import fastq
+
+    fq = {}
+    for two in (False, True):
+        fctx = fastq.make_context(scene, camera, settings, (400, 400), zero,
+                                  (400, 400), 400 * 400, cfg.seed, 0, two)
+        for width in FAMILY_WIDTHS:
+            for tag, it in FASTQ_ITS.items():
+                s, _, acc = fastq_pool(fctx, width, it)
+                fq[two, tag, width] = fastq_entry(fctx, s, it, acc, card,
+                                                  width, tag)
+        if not two:  # fastQ's default; the card tests drain both
+            fq["drain"] = fastq_drain_row(fctx, card)
+
+    # the bounce under the variable boundary (its isosurface march)
+    import dataclasses
+
+    vctx = fam.make_context(scene, dataclasses.replace(
+        settings, boundary="variable"), camera, (400, 400), zero, (400, 400),
+        400 * 400, cfg.seed, 0)
+    march = {}
+    # the default threshold (1e-8), and a threshold the smoke's edges stay
+    # under (LONG_MARCH), whose marches run long while their warps wait
+    for width, long in [(w, False) for w in FAMILY_WIDTHS] + [
+            (FAMILY_WIDTHS[0], True)]:
+        if long:
+            vctx = fam.make_context(scene, dataclasses.replace(
+                settings, boundary="variable", boundary_threshold=LONG_MARCH),
+                camera, (400, 400), zero, (400, 400), 400 * 400, cfg.seed, 0)
+        key = f"{width} long" if long else width
+        pool = family_pool(fam, vctx, width, "bounce")
+        march[key] = row = family_entry(
+            fam, vctx, "bounce", pool, card, width,
+            label=f"march (threshold {LONG_MARCH})" if long else "march")
+        # the same pool through the AABB bounce, and the eager march's
+        # iterations (its longest lane's: the loop's count)
+        src, out = fam.own(pool[0]), fam.own(pool[0])
+        fixed = dict(image_id=pool[1].clone(), accum=pool[3].clone())
+        row["aabb_ms"] = graph_ms([lambda: fam.run_body(
+            ctx, "bounce", src, out=out, **fixed)] * GRAPH_CALLS)
+        row["longest"] = march_iterations(fam, vctx, pool[0])
+        log(f"[25] the march's cost at {key} lanes: the bounce "
+            f"{row['ms'] * 1e3:.2f} us with it, {row['aabb_ms'] * 1e3:.2f} us "
+            f"without on the same pool ({row['ms'] / row['aabb_ms']:.2f}x; the "
+            f"AABB pool's {rows['bounce'][width]['ms'] * 1e3:.2f} us), the "
+            f"longest march {row['longest']} iterations of six density "
+            f"lookups; card {card}")
+    return {"rows": rows, "drain": drain, "fastq": fq, "march": march}
+
+
+def march_iterations(fam, ctx, pool) -> int:
+    """The iterations of the eager isosurface march in one plain bounce of
+    `pool` (the loop's, which are its longest lane's): the calls of
+    gradient_cd less the march's first."""
+    from cudavolumerenderer_tpu_torch.ops import gradient
+
+    calls, plain = [0], gradient.gradient_cd
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    gradient.gradient_cd = counted
+    try:
+        fam.plain_body(ctx, "bounce", fam.own(pool))
+    finally:
+        gradient.gradient_cd = plain
+    return calls[0] - 1
 
 
 FAMILY_DESIGN = {
@@ -4255,9 +4674,64 @@ FAMILY_DESIGN = {
 }
 
 
+FASTQ_DESIGN = {
+    "body": "one thread per lane and iteration; the flush, the refill (a "
+            "block scan and a decoupled look-back in start-ticket order, "
+            "common.cuh queue_rank, every 4th iteration) and the rest of the "
+            "iteration in one launch; the QState tensors read and written in "
+            "place; counts by the last block; iterations enqueued in gated "
+            "batches while the queue holds paths, the index the stage's "
+            "C_EVAL",
+    "drain": "once every path is issued, one launch: each lane runs its "
+             "iterations to its end in registers, flushing its own pending "
+             "result; per-iteration counts by warp-aggregated atomics, "
+             "folded in order by the last block",
+}
+
+
+def fastq_lines(family: dict, k: dict, fq2: dict) -> list:
+    """The `kernels` JSON entries of csrc/fastqbody.cu: launches from phase
+    11's fastQ kernel renders (the main path), the rest from phase 25, and
+    phase 28's config-2 renders beside them."""
+    source = "cudavolumerenderer_tpu_torch/csrc/fastqbody.cu"
+    fq = k["fastq"]
+    states = {key: row for key, row in fq.items() if isinstance(key, tuple)}
+    head = fq[False, "step", FAMILY_WIDTHS[0]]
+    rows = family["rows"]
+    walls = {label: {x: rows[label].get(x) for x in (
+        "wall", "eager_wall", "passes", "launches", "reads", "eager_reads")}
+        for label in FASTQ_LABELS}
+    config2 = {x: fq2[x] for x in ("walls", "n_rays", "n_lanes", "body",
+                                   "drain", "reads", "passes", "rel_mean",
+                                   "rel_rays")}
+    d = fq["drain"]
+    return [{
+        "name": "fastqbody", "route": "cuda", "source": source,
+        "replaces": FASTQ_REPLACES["body"],
+        "launches": family["launches"]["fastq_body"],
+        "max_abs_err": max(r["max_abs_err"] for r in states.values()),
+        **{x: head[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "design": FASTQ_DESIGN["body"],
+        "per_state": {f"{'two' if two else 'one'}-level {tag} {w}": {
+            x: r[x] for x in ("ms", "plain_ms", "bound_ms", "bytes",
+                              "alive")} for (two, tag, w), r in
+            states.items()},
+        "walls_400": walls, "config2_512x4": config2,
+    }, {
+        "name": "fastqbody_drain", "route": "cuda", "source": source,
+        "replaces": FASTQ_REPLACES["drain"],
+        "launches": family["launches"]["fastq_drain"],
+        **{x: d[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "L", "us_per_step", "ms_runs")},
+        "library_ms": None, "design": FASTQ_DESIGN["drain"],
+    }]
+
+
 def family_lines(family: dict, k: dict, cli_drains: int) -> list:
     """The `kernels` JSON entries of csrc/familybody.cu: launches from
-    phase 11's kernel renders (the main path), the rest from phase 25."""
+    phase 11's kernel renders (the main path), the rest from phase 25; the
+    bounce under --boundary variable (the march) from phase 11's variable
+    rows and phase 25."""
     lines = []
     source = "cudavolumerenderer_tpu_torch/csrc/familybody.cu"
     for op, rows in k["rows"].items():
@@ -4287,7 +4761,31 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
                   "histogram, folded into n_rays in order by the last block",
         "walls_400": {label: {x: row.get(x) for x in (
             "wall", "eager_wall", "passes", "launches", "reads",
-            "eager_reads")} for label, row in family["rows"].items()},
+            "eager_reads")} for label, row in family["rows"].items()
+            if label not in FASTQ_LABELS},
+    })
+    march, var = k["march"], family["variable"]
+    head = march[FAMILY_WIDTHS[0]]
+    lines.append({
+        "name": "familybody_march", "route": "cuda", "source": source,
+        "replaces": FAMILY_REPLACES["march"],
+        "launches": sum(var["launches"].values()),
+        "max_abs_err": max(r["max_abs_err"] for r in march.values()),
+        **{x: head[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "variable_boundary_adjust inside the bounce (bounce_kernel, "
+                  "regenerationSK's gated chains, naiveSK's drain): one "
+                  "thread marches its lane in registers, up to 4,096 steps of "
+                  "a draw and six density lookups; ms is the bounce with it",
+        "per_width": {w: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
+                                            "bytes", "alive")}
+                      for w, r in march.items()},
+        "bounce_without_ms": {w: r["aabb_ms"] for w, r in march.items()},
+        "longest_march": {w: r["longest"] for w, r in march.items()},
+        "walls_400": {label: {x: row.get(x) for x in (
+            "wall", "passes", "launches", "reads", "eager_res", "eager_wall",
+            "kernel_wall_at_eager_res", "eager_reads")}
+            for label, row in var["rows"].items()},
     })
     return lines
 
@@ -4349,6 +4847,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.ops import brickbody as bk
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+    from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import replaybody as rb
     from cudavolumerenderer_tpu_torch.ops import taildrain as td
@@ -4357,12 +4856,12 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the seven libraries, one nvcc each, started together,
+    # -- phase 2: build the eight libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
     libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL,
-                 fam.KERNEL, bk.KERNEL)
+                 fam.KERNEL, bk.KERNEL, fqb.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -4430,6 +4929,11 @@ def main() -> int:
     check(n_rays == eager5["n_rays"] == SLICE_RAYS,
           f"the slice traced {n_rays:.0f} rays through the drain and "
           f"{eager5['n_rays']:.0f} through the eager loop, not {SLICE_RAYS}")
+
+    # -- phase 28 (run here, on phase 5's scene): fastQ at config 2 ----------
+    t0 = time.perf_counter()
+    fq2 = fastq_config2(scene, camera, img, n_rays, card)
+    log(f"[28] phase 28 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: tracking kernel against plain version ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4705,8 +5209,8 @@ def main() -> int:
                   "in registers; the longest lane's evaluations give the "
                   "loop's E = k_chain * ceil(L / k_chain)",
         "launches_bench_1024": star["counts"]["drain_launches"],
-    }, *family_lines(family, family_k, cli_drains)
-    , *gather_lines]}))
+    }, *family_lines(family, family_k, cli_drains),
+        *fastq_lines(family, family_k, fq2), *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,15 @@
 // common.cuh — device helpers shared by the kernels (tailpk.cu, tracking.cu,
-// fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu): the PCG generator
-// and masked draws, the path-id hash, a path's stream and camera ray,
-// NaN-propagating min/max, float3 sums in the card's order, the flight draw,
-// Henyey-Greenstein sampling, the turn of a direction after a scatter, the
-// box's slab test and a brick's DDA exit, the GGX boundary event, Russian
-// roulette, the stochastic tap and the fused table's density and albedo, the
-// brick-binned tracking steps, and a cascade stage's control words with the
-// gate, the last-block ticket and the drain's end of a launch (fastbody.cu,
-// replaybody.cu, familybody.cu, brickbody.cu; the host side is
-// ops/stages.py).
+// fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu): the
+// PCG generator and masked draws, the path-id hash, a path's stream and
+// camera ray, NaN-propagating min/max, float3 sums in the card's order, the
+// flight draw, Henyey-Greenstein sampling, the turn of a direction after a
+// scatter, the box's slab test and a brick's DDA exit, the GGX boundary
+// event, Russian roulette, the stochastic tap and the fused table's density
+// and albedo, the brick-binned tracking steps, a cascade stage's control
+// words with the gate, the last-block ticket and the drain's end of a launch
+// (fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu;
+// the host side is ops/stages.py), and the work queue's ranks (familybody.cu,
+// fastqbody.cu).
 //
 // Each follows the port's plain torch version operation by operation, so a
 // kernel built with -fmad=false and without --use_fast_math (utils/
@@ -659,6 +660,71 @@ __device__ __forceinline__ void drain_close(unsigned long long* ctrl, long long 
   ctrl[C_EVAL] = (unsigned long long)(e0 + cap);
   ctrl[C_LEFT] = (unsigned long long)left;
   ctrl[C_LEFT_ACC] = ctrl[C_JMAX] = ctrl[C_TICKET] = 0ull;
+}
+
+// ---- the work queue's ranks (familybody.cu's refill, fastqbody.cu) ----------
+
+// The block's place in the grid's order of start (an atomic ticket): the
+// order of the look-back below, so a block only waits on blocks that run.
+__device__ __forceinline__ int start_ticket(unsigned long long* counter) {
+  __shared__ int s_block;
+  if (threadIdx.x == 0) s_block = (int)atomicAdd(counter, 1ull);
+  __syncthreads();
+  return s_block;
+}
+
+// Decoupled look-back over the blocks' totals (status words: 0, or a total
+// with bit 62 (the block's own) or bit 63 (its inclusive prefix)): the
+// exclusive prefix of block b, whose own total is agg.
+__device__ __forceinline__ long long look_back(unsigned long long* status, int b,
+                                               long long agg) {
+  constexpr unsigned long long OWN = 1ull << 62, INCL = 1ull << 63, VAL = OWN - 1ull;
+  if (b == 0) {
+    atomicExch(status, INCL | (unsigned long long)agg);
+    return 0;
+  }
+  atomicExch(status + b, OWN | (unsigned long long)agg);
+  long long excl = 0;
+  int k = b - 1;
+  while (true) {
+    const unsigned long long v = *(volatile unsigned long long*)(status + k);
+    if (v == 0ull) continue;  // block k has not published yet
+    excl += (long long)(v & VAL);
+    if (v & INCL) break;
+    --k;
+  }
+  atomicExch(status + b, INCL | (unsigned long long)(excl + agg));
+  return excl;
+}
+
+// The deterministic queue's rank of this thread's `want` (the k-th wanting
+// lane of the grid in lane order takes queue entry k): a warp ballot, a scan
+// of the block's T / 32 warps, and the look-back over the blocks before
+// block b (its start ticket; lane i = b * T + threadIdx.x).  Every thread of
+// the block calls it; the last block clears the status words after the
+// launch (one per block).
+template <int T>
+__device__ __forceinline__ long long queue_rank(bool want, int b, unsigned long long* status) {
+  static_assert(T % 32 == 0 && T <= 1024, "a block of whole warps");
+  __shared__ int s_warp[T / 32];
+  __shared__ long long s_prefix;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned wb = __ballot_sync(0xffffffffu, want);
+  const int in_warp = __popc(wb & ((1u << lane) - 1u));
+  if (lane == 0) s_warp[warp] = __popc(wb);
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < T / 32 ? s_warp[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane < T / 32) s_warp[lane] = v;  // inclusive
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_prefix = look_back(status, b, s_warp[T / 32 - 1]);
+  __syncthreads();
+  return s_prefix + (warp == 0 ? 0 : s_warp[warp - 1]) + in_warp;
 }
 
 }  // namespace cvr

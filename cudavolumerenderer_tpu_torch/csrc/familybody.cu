@@ -13,14 +13,17 @@
 //     body of streamingSK, sortingSK and streamingMK.
 // Each computes what the port's eager torch function (the plain version)
 // computes on the card, bit for bit, in the same order:
-//   bounce  (integrator.bounce_step) per live lane: the AABB slab test (a miss
-//           adds throughput * Le and ends the path); inside the box the whole
-//           Woodcock chain in registers (flight, the density at o + t d, the
-//           acceptance test, until an event or the exit); a boundary event
-//           (GGX or the null BSDF) or an HG scatter with the albedo at
-//           o + d t - d eps; Russian roulette.  With the splat on
-//           (regenerationSK) a lane that died adds its radiance into
-//           accum[image_id] and zeroes it.
+//   bounce  (integrator.bounce_step) per live lane: the AABB slab test, and
+//           under the variable boundary the isosurface march from its hit
+//           (integrator.py:92 `variable_boundary_adjust`: up to 4,096 steps
+//           in registers, each a draw and a central-difference gradient of
+//           six density lookups); a miss adds throughput * Le and ends the
+//           path; inside the box the whole Woodcock chain in registers
+//           (flight, the density at o + t d, the acceptance test, until an
+//           event or the exit); a boundary event (GGX or the null BSDF) or
+//           an HG scatter with the albedo at o + d t - d eps; Russian
+//           roulette.  With the splat on (regenerationSK) a lane that died
+//           adds its radiance into accum[image_id] and zeroes it.
 //   refill  (queue_refill with _regenerate's group rule and _refill's field
 //           resets): the k-th dead lane (a whole group of G lanes once all
 //           are dead; lanes past the last whole group one by one) takes path
@@ -75,6 +78,8 @@ constexpr int REFILL_THREADS = 1024;
 constexpr int DRAIN_THREADS = 64;
 // ops/grid.py _COORD_LIMIT: coordinates clamp here before the int64 cast
 constexpr float COORD_LIMIT = 4611686018427387904.0f;  // 2^62
+// models/integrator.py _VB_MAX_ITERS: a variable-boundary march's cap
+constexpr int VB_MAX_ITERS = 4096;
 
 // Float parameters (ops/familybody.py FP_*).
 enum {
@@ -85,7 +90,10 @@ enum {
   FP_ROUGH = FP_LE + 3, FP_ETA = FP_ROUGH + 2, FP_INV_ETA,
   FP_TILEX, FP_TILEY, FP_INV_TW, FP_INV_RESX, FP_INV_RESY,
   FP_CAM,  // the camera's (3, 4) inv_view, row-major
-  FP_R2VX = FP_CAM + 12, FP_R2VY, N_FP,
+  FP_R2VX = FP_CAM + 12, FP_R2VY,
+  // the variable boundary: min_step, min_step + EPSILON (summed in double),
+  // the gradient threshold
+  FP_MINSTEP, FP_MSE, FP_THRESH, N_FP,
 };
 
 // Integer parameters (ops/familybody.py IP_*).
@@ -94,6 +102,7 @@ enum {
   IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_SPLAT, IP_DEFER, IP_GROUP,
   IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH,
   IP_THRESH, IP_CHAIN, IP_CAP,  // a stage's exit threshold, chain, drain cap
+  IP_VARIABLE,                   // the variable boundary's isosurface march
   N_IP,
 };
 
@@ -269,6 +278,94 @@ __device__ __forceinline__ void albedo_at(const Params& P, const Ptrs& Q, const 
   if (nch < 3) alb[1] = alb[2] = alb[0];
 }
 
+// ---- the variable boundary (integrator.variable_boundary_adjust) -------------
+
+// gradient.volume_intensity: the density at box coordinates q, 0 outside the
+// unit cube (whose voxels are then not read).
+__device__ __forceinline__ float intensity(const Params& P, const Ptrs& Q, const float q[3]) {
+  for (int a = 0; a < 3; ++a)
+    if (!(q[a] >= 0.0f && q[a] <= 1.0f)) return 0.0f;
+  float rho;
+  sample_grid((const float*)Q.p[S_DENSITY], P.i[IP_NX], P.i[IP_NY], P.i[IP_NZ], 1, 1,
+              P.f + FP_RMD, q, P.i[IP_NEAREST] != 0, &rho);
+  return rho;
+}
+
+// gradient.gradient_cd at the world point p: per axis I(p01 - delta) -
+// I(p01 + delta), delta min_step on the axis and 0.0 on the other two.
+__device__ __forceinline__ void gradient_cd(const Params& P, const Ptrs& Q, const float p[3],
+                                            float g[3]) {
+  float p01[3];
+  box01(P, p, p01);
+  for (int ax = 0; ax < 3; ++ax) {
+    float hi[3], lo[3];
+    for (int a = 0; a < 3; ++a) {
+      const float delta = a == ax ? P.f[FP_MINSTEP] : 0.0f;
+      hi[a] = p01[a] + delta;
+      lo[a] = p01[a] - delta;
+    }
+    g[ax] = intensity(P, Q, lo) - intensity(P, Q, hi);
+  }
+}
+
+// The stochastic isosurface march of a live lane from its AABB result (hit,
+// inside, dist, nrm), in registers: from the hit point (backward from the
+// exit face when the lane is inside) in steps of u * min_step until the
+// gradient's norm reaches the threshold.  A march that found the surface
+// moves the hit there with the normalized gradient as the normal; one that
+// crossed the box reports no hit with inside flipped; one that left by the
+// near side or ran VB_MAX_ITERS iterations keeps the AABB result.  The
+// eager loop's iteration count is each running lane's own, so a lane's
+// march is the loop's.
+__device__ __forceinline__ void march(const Params& P, const Ptrs& Q, Lane& L, bool& hit,
+                                      bool& inside, float& dist, float nrm[3]) {
+  if (!hit) return;
+  const float sign = inside ? -1.0f : 1.0f;
+  float td[3], to[3];
+  const float t0 = dist + EPS;
+  for (int k = 0; k < 3; ++k) {
+    td[k] = sign * L.d[k];
+    to[k] = L.o[k] + L.d[k] * t0;
+  }
+  const BoxHit h2 = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, to, td);
+  if (!(h2.smallest_tmax > h2.largest_tmin && h2.dist > 0.0f)) return;
+  for (int k = 0; k < 3; ++k) to[k] = to[k] - td[k] * P.f[FP_MSE];
+  float g[3];
+  gradient_cd(P, Q, to, g);
+  const float step = P.f[FP_MINSTEP], thresh = P.f[FP_THRESH];
+  bool running = sqrtf(dot3(g, g)) < thresh;
+  float total = 0.0f, nd = dist;
+  bool keep = false, lost = false;
+  for (int k = 0; running;) {
+    const float s = draw_float(L.rs, L.inc) * step;
+    total = total + s;
+    nd = nd + sign * s;
+    if (nd < 0.0f) {  // marched out the near side
+      keep = true;
+      break;
+    }
+    if (total > h2.dist) {  // across the box: no surface on this segment
+      lost = true;
+      break;
+    }
+    for (int a = 0; a < 3; ++a) to[a] = to[a] + td[a] * s;
+    gradient_cd(P, Q, to, g);
+    if (++k >= VB_MAX_ITERS) {
+      keep = true;
+      break;
+    }
+    running = sqrtf(dot3(g, g)) < thresh;
+  }
+  if (!keep && !lost && nd > 0.0f && total > 0.0f) {
+    dist = nd;
+    normalize3(g, nrm);
+  }
+  if (lost) {
+    hit = false;
+    inside = !inside;
+  }
+}
+
 // ---- the bodies -------------------------------------------------------------
 
 __device__ __forceinline__ Ggx ggx_of(const Params& P) {
@@ -297,16 +394,20 @@ __device__ __forceinline__ void scatter(const Params& P, Lane& L, float t, float
   }
 }
 
-// integrator.bounce_step for a live lane.
+// integrator.bounce_step for a live lane (with the variable boundary's march
+// after the AABB test where IP_VARIABLE is set).
 __device__ __forceinline__ void bounce(const Params& P, const Ptrs& Q, Lane& L) {
   const BoxHit h = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, L.o, L.d);
-  const bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+  bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+  bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
+  float dist = h.dist;
+  float nrm[3] = {h.nrm[0], h.nrm[1], h.nrm[2]};
+  if (P.i[IP_VARIABLE]) march(P, Q, L, hit, inside, dist, nrm);
   if (!hit) {
     for (int k = 0; k < 3; ++k) L.rad[k] = L.rad[k] + L.tp[k] * P.f[FP_LE + k];
     L.alive = false;
     return;
   }
-  const bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
   // woodcock_track: the whole chain of this lane
   float t = 0.0f;
   bool scattered = false;
@@ -317,13 +418,13 @@ __device__ __forceinline__ void bounce(const Params& P, const Ptrs& Q, Lane& L) 
       const float t_new = t + flight(L.rs = pcg_next(L.rs, L.inc), isig);
       const float rho = density_at(P, Q, L.o, L.d, t_new);
       const float u2 = draw_float(L.rs, L.inc);
-      running = t_new <= h.dist && scale * rho * isig < u2;
+      running = t_new <= dist && scale * rho * isig < u2;
       t = t_new;
     }
-    scattered = t < h.dist;
+    scattered = t < dist;
   }
   if (!scattered) {
-    boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), h.nrm, h.dist, L.o, L.d, L.tp, L.rs, L.inc);
+    boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), nrm, dist, L.o, L.d, L.tp, L.rs, L.inc);
   } else {
     float os[3], alb[3];
     scatter(P, L, t, os);
@@ -512,30 +613,6 @@ __global__ void __launch_bounds__(THREADS) extend_kernel(Params P, Ptrs Q, int w
 
 // ---- the refill ----------------------------------------------------------------
 
-// Decoupled look-back over the blocks' totals (status words: 0, or a total
-// with bit 62 (the block's own) or bit 63 (its inclusive prefix)): the
-// exclusive prefix of block b, whose own total is agg.
-__device__ __forceinline__ long long look_back(unsigned long long* status, int b,
-                                               long long agg) {
-  constexpr unsigned long long OWN = 1ull << 62, INCL = 1ull << 63, VAL = OWN - 1ull;
-  if (b == 0) {
-    atomicExch(status, INCL | (unsigned long long)agg);
-    return 0;
-  }
-  atomicExch(status + b, OWN | (unsigned long long)agg);
-  long long excl = 0;
-  int k = b - 1;
-  while (true) {
-    const unsigned long long v = *(volatile unsigned long long*)(status + k);
-    if (v == 0ull) continue;  // block k has not published yet
-    excl += (long long)(v & VAL);
-    if (v & INCL) break;
-    --k;
-  }
-  atomicExch(status + b, INCL | (unsigned long long)(excl + agg));
-  return excl;
-}
-
 // The queue refill of every lane: ranks of the dead lanes (groups of
 // IP_GROUP) in lane order, path ids from paths_issued while they last.
 __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q, int width) {
@@ -543,13 +620,8 @@ __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q
   if (ctrl != nullptr && stage_stopped(ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])) return;
   unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
   unsigned long long* status = (unsigned long long*)Q.p[S_STATUS];
-  __shared__ int s_block;
   __shared__ unsigned s_ball[REFILL_THREADS / 32];
-  __shared__ int s_warp[REFILL_THREADS / 32];
-  __shared__ long long s_prefix;
-  if (threadIdx.x == 0) s_block = (int)atomicAdd(scratch + SC_START, 1ull);
-  __syncthreads();
-  const int b = s_block;  // the blocks' order of start: the look-back's order
+  const int b = start_ticket(scratch + SC_START);  // the look-back's order
   const int i = b * REFILL_THREADS + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool dead = i < width && !((const bool*)Q.p[S_ALIVE])[i];
@@ -569,24 +641,9 @@ __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q
       for (int w = w0; w < w0 + wg; ++w) want = want && s_ball[w] == 0xffffffffu;
     }
   }
-  // the ranks: a block scan, then the blocks before
-  const unsigned wb = __ballot_sync(0xffffffffu, want);
-  const int in_warp = __popc(wb & ((1u << lane) - 1u));
-  if (lane == 0) s_warp[warp] = __popc(wb);
-  __syncthreads();
-  if (warp == 0) {
-    int v = s_warp[lane];
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += u;
-    }
-    s_warp[lane] = v;  // inclusive
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) s_prefix = look_back(status, b, s_warp[REFILL_THREADS / 32 - 1]);
-  __syncthreads();
+  // the ranks: a block scan, then the blocks before (common.cuh)
+  const long long rank = queue_rank<REFILL_THREADS>(want, b, status);
   const long long issued = *(const long long*)Q.p[S_ISSUED];
-  const long long rank = s_prefix + (warp == 0 ? 0 : s_warp[warp - 1]) + in_warp;
   const long long pid = issued + rank;
   const bool takes = want && pid < P.i[IP_NPATHS];
   const bool stream = P.i[IP_STREAM] != 0;

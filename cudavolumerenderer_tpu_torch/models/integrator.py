@@ -92,7 +92,7 @@ def boundary_event(scene, settings, normal, o_bound, d, tput, rng, mask):
 
 def variable_boundary_adjust(
     scene: Scene, settings: RenderSettings, o, d, isect: aabb.Isect,
-    rng: RngState, active,
+    rng: RngState, active, taps=None,
 ):
     """Stochastic density-isosurface boundary search (reference:
     HeterogeneousMediumWithVariableBoundary::intersect, Medium.h:56-107).
@@ -106,6 +106,11 @@ def variable_boundary_adjust(
     lane reports no hit with inside_volume flipped (the reference's
     return-false branch).  Draws come from the lane's own stream, as in
     the JAX package.  Returns (isect', rng), updated only on active lanes.
+    The loop's iteration count is each running lane's own, so a lane
+    marches alone as it does in the pool: on the card one thread runs a
+    lane's march in the bounce kernel (csrc/familybody.cu `march`).  A list
+    given as `taps` receives the density voxels the probes inside the unit
+    cube read (("density", flat voxels); familybody.family_bytes).
     """
     med = scene.medium
     min_step = settings.boundary_min_step
@@ -121,16 +126,21 @@ def variable_boundary_adjust(
     def w2v(p):
         return (p - med.box_min) / extent
 
-    def grad_at(p):
+    def grad_at(p, lanes):
+        p01 = w2v(p)
+        if taps is not None:
+            vox, inside = gradient.cd_voxels(med.density, p01, min_step,
+                                             settings.interpolation)
+            taps.append(("density", vox[lanes][inside[lanes]]))
         return gradient.gradient_cd(
-            med.density, w2v(p), min_step, settings.interpolation
+            med.density, p01, min_step, settings.interpolation
         )
 
     def below(grad):
         return math3.norm(grad) < thresh
 
     temp_o = temp_o0 - (min_step + EPSILON) * temp_d
-    grad = grad_at(temp_o)
+    grad = grad_at(temp_o, consider)
     n = isect.dist.shape
     total = torch.zeros(n, dtype=torch.float32, device=o.device)
     new_dist = isect.dist
@@ -159,7 +169,8 @@ def variable_boundary_adjust(
             temp_o = torch.where(
                 running[..., None], temp_o + temp_d * s[..., None], temp_o
             )
-            grad = torch.where(running[..., None], grad_at(temp_o), grad)
+            grad = torch.where(running[..., None],
+                               grad_at(temp_o, running), grad)
             iters += 1
             if iters >= _VB_MAX_ITERS:
                 keep_orig = torch.logical_or(keep_orig, running)
@@ -232,7 +243,7 @@ def bounce_step(
         # density-isosurface boundary + gradient shading normal
         # (reference: Medium.h:56-107)
         isect, rng = variable_boundary_adjust(
-            scene, settings, o, d, isect, rng, alive
+            scene, settings, o, d, isect, rng, alive, taps=taps
         )
 
     # --- miss: escape to the constant environment -------------------------

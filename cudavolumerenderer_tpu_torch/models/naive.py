@@ -89,5 +89,5 @@ def render_tile(
                                   full_resolution, spp, seed, path_id_base)
     final = familybody.trace(
         familybody.make_context(scene, settings), state,
-        familybody.route(scene.device.type, settings, eager_body))
+        familybody.route(scene.device.type, eager_body))
     return splat(image_id, final.radiance, tile_dim), final.n_rays

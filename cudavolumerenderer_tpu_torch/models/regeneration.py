@@ -163,5 +163,5 @@ def render_tile(
         n_paths, seed, path_id_base, group=refill_group)
     state, _ = familybody.regenerate_loop(
         ctx, state, image_id, paths_issued, accum,
-        familybody.route(dev.type, settings, eager_body))
+        familybody.route(dev.type, eager_body))
     return accum.reshape(th, tw, 3), state.n_rays

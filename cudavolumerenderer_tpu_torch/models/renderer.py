@@ -246,7 +246,8 @@ def make_kernel_fn(config: Config):
     """Scheduler dispatch (reference: RendererFactory::createRenderer's
     kernel matrix, RendererFactory.h:43-113), row for row the JAX
     package's.  The integrator family's functions take render_tile's
-    keywords beside (eager_body=True runs the eager bodies on the card)."""
+    keywords beside, as does fastQ's (eager_body=True runs the eager bodies
+    on the card)."""
     k = config.kernel
     if (
         config.settings.boundary == "variable"
@@ -265,9 +266,10 @@ def make_kernel_fn(config: Config):
     if k == Kernel.BRICK_SK:
         return brick.render_tile
     if k == Kernel.FAST_Q:
-        def fq(*args):
+        def fq(*args, **kw):
             return fastq.render_tile(
                 *args, n_lanes=config.n_lanes, two_level=config.two_level,
+                **kw
             )
         return fq
     if k == Kernel.NAIVE_SK:

@@ -159,7 +159,7 @@ def render_tile(
     s, _ = familybody.stream_loop(
         ctx, s, paths_issued, accum, sort_every=sort_every,
         defer=defer_access, check_every=check_every,
-        kernel=familybody.route(dev.type, settings, eager_body))
+        kernel=familybody.route(dev.type, eager_body))
     return accum.reshape(th, tw, 3), s.n_rays
 
 

@@ -62,7 +62,7 @@ def render_tile(
                                         full_resolution, spp, seed,
                                         path_id_base)
     ctx = familybody.make_context(scene, settings)
-    kernel = familybody.route(scene.device.type, settings, eager_body)
+    kernel = familybody.route(scene.device.type, eager_body)
     if kernel:
         state = familybody.own(state)
         count = torch.empty((), dtype=torch.int64, device=scene.device)
@@ -143,7 +143,7 @@ def render_tile_streaming_mk(
     ctx = familybody.make_context(
         scene, settings, camera, tile_dim, tile_offset, full_resolution,
         n_paths, seed, path_id_base)
-    if familybody.route(dev.type, settings, eager_body):
+    if familybody.route(dev.type, eager_body):
         return _streaming_mk_kernels(ctx, s, paths_issued, accum, k_steps)
     while True:
         s, paths_issued, n_active = _super_iteration(

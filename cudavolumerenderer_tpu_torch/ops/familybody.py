@@ -11,7 +11,8 @@ functions run each evaluation as hundreds of masked torch launches with
 host reads of the loop condition; the kernels run one evaluation of every
 lane of a pool per launch, bit for bit the eager function's on the card:
 
-  bounce  integrator.bounce_step (with regenerationSK's fused splat),
+  bounce  integrator.bounce_step (with regenerationSK's fused splat; the
+          variable boundary's isosurface march, integrator.py:92, in it),
           one launch per evaluation (naiveMK), in gated chains with the
           refill (regenerationSK), or drained (naiveSK's trace: each lane
           bounces until it dies, in one launch);
@@ -39,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..constants import EPSILON
 from . import stages
 from .rng import as_u32, mul32
 from .stages import C_COUNT, DRAIN_CAP, N_CTRL, lane_field, own
@@ -64,13 +66,16 @@ FP_INV_ETA = FP_ETA + 1
 FP_CAM = FP_INV_RESY + 1  # the camera's (3, 4) inv_view, row-major
 FP_R2VX = FP_CAM + 12
 FP_R2VY = FP_R2VX + 1
-N_FP = FP_R2VY + 1
+# the variable boundary: min_step, min_step + EPSILON (a Python double sum,
+# then float32), the gradient threshold
+FP_MINSTEP, FP_MSE, FP_THRESH = range(FP_R2VY + 1, FP_R2VY + 4)
+N_FP = FP_THRESH + 1
 
 # Integer parameters (csrc/familybody.cu IP_*).
 (IP_OP, IP_NX, IP_NY, IP_NZ, IP_AX, IP_AY, IP_AZ, IP_NCH, IP_NEAREST,
  IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_SPLAT, IP_DEFER, IP_GROUP,
  IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH, IP_THRESH,
- IP_CHAIN, IP_CAP, N_IP) = range(26)
+ IP_CHAIN, IP_CAP, IP_VARIABLE, N_IP) = range(27)
 
 #: the entry points (IP_OP)
 OPS = ("bounce", "refill", "extend", "flush")
@@ -106,13 +111,12 @@ WRITES = {
 }
 
 
-def route(device_type: str, settings, eager_body: bool = False) -> bool:
-    """Whether a scheduler's bodies go to the kernels: on the card, for the
-    AABB boundary, unless the caller asks for the eager bodies (tests and
-    chip_smoke.py hold the kernels against them).  The variable boundary's
-    isosurface march stays eager; so does the CPU, which has no kernel."""
-    return (device_type == "cuda" and settings.boundary != "variable"
-            and not eager_body)
+def route(device_type: str, eager_body: bool = False) -> bool:
+    """Whether a scheduler's bodies go to the kernels: on the card (for
+    either boundary model: the bounce runs the variable boundary's march),
+    unless the caller asks for the eager bodies (tests and chip_smoke.py
+    hold the kernels against them).  The CPU has no kernel."""
+    return device_type == "cuda" and not eager_body
 
 
 @dataclasses.dataclass
@@ -159,9 +163,6 @@ def _kernel_params(ctx: FamilyContext):
     from . import woodcock  # noqa: PLC0415
 
     scene, settings = ctx.scene, ctx.settings
-    if settings.boundary == "variable":
-        raise ValueError("familybody: the variable boundary's march has no "
-                         "kernel (route keeps it eager)")
     if settings.interpolation not in ("trilinear", "nearest"):
         raise ValueError(f"unknown interpolation {settings.interpolation!r}")
     med = scene.medium
@@ -194,6 +195,9 @@ def _kernel_params(ctx: FamilyContext):
     f[FP_ETA] = _f32(scene.bsdf.eta)[0]
     f[FP_INV_ETA] = one / f[FP_ETA]
     tw, th = ctx.tile_dim
+    f[FP_MINSTEP] = settings.boundary_min_step
+    f[FP_MSE] = settings.boundary_min_step + EPSILON
+    f[FP_THRESH] = settings.boundary_threshold
     f[FP_TILEX:FP_TILEY + 1] = _f32(ctx.tile_offset)
     f[FP_INV_TW] = one / np.float32(tw)
     f[FP_INV_RESX] = one / np.float32(float(ctx.full_resolution[0]))
@@ -208,6 +212,7 @@ def _kernel_params(ctx: FamilyContext):
     i[IP_MITSUBA] = int(settings.mitsuba_comparable)
     i[IP_RR] = int(settings.russian_roulette)
     i[IP_MAXPATH] = settings.max_path_length
+    i[IP_VARIABLE] = int(settings.boundary == "variable")
     i[IP_GROUP] = g
     i[IP_NPATHS] = ctx.n_paths
     i[IP_TW], i[IP_NPIX] = tw, tw * th
@@ -642,31 +647,14 @@ FIELD_BYTES = dict(o=12, d=12, throughput=12, radiance=12, alive=1,
                    max_t=4, normal=12, pending=1, p_scat=12)
 
 
-class Traffic:
+class Traffic(stages.Traffic):
     """family_bytes over evaluations given in order, added one at a time (a
-    drain's taps need not be kept): the fields each lane reads before an
-    earlier evaluation wrote them and the fields it writes, and the
-    distinct voxels and pixels."""
+    drain's taps need not be kept)."""
 
     def __init__(self, ctx: FamilyContext):
-        self.nch = int(ctx.scene.medium.albedo.data.shape[-1])
-        self.read, self.written, self.seen = {}, {}, {}
-
-    def add(self, taps) -> "Traffic":
-        for kind, x in taps:
-            if kind != "state":
-                prev = self.seen.get(kind)
-                x = x.reshape(-1)
-                self.seen[kind] = torch.unique(
-                    x if prev is None else torch.cat([prev, x]))
-                continue
-            stages.merge_traffic(self.read, self.written, x)
-        return self
-
-    def total(self) -> int:
-        n = stages.traffic_bytes(self.read, self.written, FIELD_BYTES)
-        per = {"density": 4, "albedo": 4 * self.nch, "accum": 24}
-        return n + sum(per[k] * int(x.numel()) for k, x in self.seen.items())
+        nch = int(ctx.scene.medium.albedo.data.shape[-1])
+        super().__init__(FIELD_BYTES, {"density": 4, "albedo": 4 * nch,
+                                       "accum": 24})
 
 
 def family_bytes(ctx: FamilyContext, taps) -> int:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .grid import Grid, sample
+from .grid import Grid, sample, tap_voxels
 
 #: probe step in volume coordinates (reference: MIN_STEP, Gradient.h:4)
 MIN_STEP = 0.1
@@ -44,6 +44,23 @@ def gradient_cd(
         lo = volume_intensity(grid, p01 - delta, interpolation)
         comps.append(lo - hi)
     return torch.stack(comps, dim=-1)
+
+
+def cd_voxels(
+    grid: Grid, p01, min_step: float = MIN_STEP,
+    interpolation: str = "trilinear",
+):
+    """The flat voxels gradient_cd reads at p01: (taps (..., 6, K), inside
+    (..., 6)), per probe (+x, -x, +y, -y, +z, -z) its K voxels (8, or 1 for
+    'nearest') and whether it lies in the unit cube (a probe outside reads
+    none: its intensity is 0), for a bound's count of distinct voxels."""
+    probes = []
+    for ax in range(3):
+        delta = _delta(ax, min_step, p01.device)
+        probes += [p01 + delta, p01 - delta]
+    q = torch.stack(probes, dim=-2)
+    inside = torch.all(torch.logical_and(q >= 0.0, q <= 1.0), dim=-1)
+    return tap_voxels(grid, torch.clamp(q, 0.0, 1.0), interpolation), inside
 
 
 def gradient_fd(

@@ -1,6 +1,6 @@
 """The host side that the per-lane body kernels share (csrc/fastbody.cu,
-csrc/replaybody.cu, csrc/familybody.cu and csrc/brickbody.cu; their device
-side of it in csrc/common.cuh).
+csrc/replaybody.cu, csrc/familybody.cu, csrc/brickbody.cu and
+csrc/fastqbody.cu; their device side of it in csrc/common.cuh).
 
 A body kernel runs one evaluation of every lane of a pool per launch.  A
 cascade stage of the body is a loop of such evaluations in chains of
@@ -22,7 +22,7 @@ threshold.  On the card a stage runs in one of two ways:
 `loop_chains` is the plain version of a stage, and both ways equal it.
 This module also holds the library loading and layout check, the checks of
 the per-lane tensors a launch is given, and the per-lane state traffic
-that the bounds count (`lane_traffic`, `state_bytes`).
+that the bounds count (`lane_traffic`, `state_bytes`, `Traffic`).
 """
 
 from __future__ import annotations
@@ -164,6 +164,34 @@ def state_bytes(taps, field_bytes: dict) -> int:
         if kind == "state":
             merge_traffic(read, written, x)
     return traffic_bytes(read, written, field_bytes)
+
+
+class Traffic:
+    """The bytes of evaluations given in order, added one at a time (a
+    drain's taps need not be kept): the per-lane fields each lane reads
+    before an earlier evaluation wrote them and the fields it writes (the
+    ("state", lane_traffic) taps, at `field_bytes`), and each other kind of
+    tap's distinct items at `item_bytes[kind]` bytes."""
+
+    def __init__(self, field_bytes: dict, item_bytes: dict):
+        self.field_bytes, self.item_bytes = field_bytes, item_bytes
+        self.read, self.written, self.seen = {}, {}, {}
+
+    def add(self, taps) -> "Traffic":
+        for kind, x in taps:
+            if kind != "state":
+                prev = self.seen.get(kind)
+                x = x.reshape(-1)
+                self.seen[kind] = torch.unique(
+                    x if prev is None else torch.cat([prev, x]))
+                continue
+            merge_traffic(self.read, self.written, x)
+        return self
+
+    def total(self) -> int:
+        n = traffic_bytes(self.read, self.written, self.field_bytes)
+        return n + sum(self.item_bytes[k] * int(x.numel())
+                       for k, x in self.seen.items())
 
 
 def loop_chains(kernel: "BodyKernel", s, count_of: Callable,

@@ -4,9 +4,9 @@ microbenchmark): each against its plain torch version, the white
 furnace through the render kernels, launch counts and input checks; for
 the gathers also out-of-range indices, inputs not 16-byte aligned and
 taa0 at 65,536 rows and taa1 at row counts no multiple of its rows per
-block.  The scheduler family (naiveSK ... fastQ, which has
-no kernel of its own) renders on the card, against the same render on
-the CPU, and its white furnace is exact there.  The differentiable path
+block.  The scheduler family (naiveSK ... fastQ) renders on the card,
+against the same render on the CPU, and its white furnace is exact
+there.  The differentiable path
 (no kernel of its own) gives the CPU's image and cotangents on the card,
 and one run_inverse step the CPU's loss and grid.  The scene and camera
 constructors build on the card by default, and fastSK's defer_ggx,
@@ -28,7 +28,17 @@ the tracking round) equal their plain versions bit for bit in every lane
 field at 1,920 and 160,000 lanes, with two lanes per pixel and on a
 'full' albedo grid, on rounds kept from a render; a render through them
 equals the eager loop's (image, n_rays, rounds), and the white furnace is
-exact through them.  fastSK's tail stage as one drain (csrc/tailpk.cu's
+exact through them.  Under the variable boundary the family's bounce (the
+isosurface march in csrc/familybody.cu) equals bounce_step bit for bit per
+launch and through the drain at 24^2 and 40^2 lanes, each marching row
+through the kernels gives the eager row's n_rays and evaluations, and the
+furnace stays exact.  fastQ's kernels (csrc/fastqbody.cu) equal its eager
+body bit for bit per iteration (a refill, a periodic flush, a step, an
+iteration past the queue) and through the drain (also relaunched at a
+lowered cap), at 24^2 and 40^2 lanes, one- and two-level; a render through
+them gives the eager loop's n_rays, n_iters and n_busy bit for bit on a
+constant, an affine and a 'full' albedo, and the furnace is exact.
+fastSK's tail stage as one drain (csrc/tailpk.cu's
 drain_kernel) equals its eager loop bit for bit in every lane field and
 counter at pools of 128 and 40 lanes, with RR on and off, GGX and the null
 boundary, a constant and an affine albedo, and through its relaunch at a
@@ -1714,6 +1724,295 @@ def test_family_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             family_render(cuda, label, 24, False)
         assert sum(familybody.KERNEL.plain_evals.values()) == 0, label
+
+
+# -- the variable boundary's march in the family kernels (csrc/familybody.cu) --------
+
+def variable_settings(**kw):
+    """--boundary variable at a threshold the blob's edge stays under (so
+    marches take steps), GGX and RR unless given."""
+    return types.RenderSettings.from_flags(
+        True, boundary="variable", boundary_threshold=0.05, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [24 * 24, 40 * 40])
+@pytest.mark.parametrize("mode", ["bounce", "bounce-splat", "drain"])
+def test_family_variable_bounce_equals_eager(cuda, mode, width):
+    """Under the variable boundary the bounce (the isosurface march in
+    registers, then the bounce) equals bounce_step in every lane field and
+    n_rays bit for bit, per launch and through naiveSK's drain."""
+    from cudavolumerenderer_tpu_torch.models import naive
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    settings = variable_settings()
+    ctx = family_ctx(cuda, width, settings)
+    if mode == "drain":
+        tw, th, spp = FAMILY_TILES[width]
+        _, s = naive.start_batch(ctx.camera, (tw, th), ctx.tile_offset,
+                                 ctx.full_resolution, spp, 9, 5)
+        got = familybody.trace(ctx, s, True)
+        want = familybody.trace(ctx, s, False)
+        assert not family_mismatches(got, want, familybody.PATH_FIELDS)
+        return
+    s, img, _, accum = family_pool(ctx, width, False)
+    kw = dict(image_id=img) if mode == "bounce-splat" else {}
+    a_acc, b_acc = accum.clone(), accum.clone()
+    if kw:
+        kw_a, kw_b = dict(kw, accum=a_acc), dict(kw, accum=b_acc)
+    else:
+        kw_a = kw_b = {}
+    got = familybody.run_body(ctx, "bounce", familybody.own(s), **kw_a)
+    want = familybody.plain_body(ctx, "bounce", familybody.own(s), **kw_b)
+    assert not family_mismatches(got[0], want[0], familybody.PATH_FIELDS)
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+VARIABLE_LABELS = ["naiveSK", "naiveMK", "regenerationSK 0", "streamingSK"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [24, 40])
+@pytest.mark.parametrize("label", VARIABLE_LABELS)
+def test_family_variable_rows_kernels_equal_eager(cuda, label, res):
+    """Each row under --boundary variable through the kernels gives the
+    eager row's n_rays and evaluations exactly and its image to
+    float-summation order, with no eager evaluation."""
+    settings = variable_settings()
+    img, n_rays, evals, launches, plain = family_render(
+        cuda, label, res, False, settings=settings)
+    want, want_rays, want_evals, no_launch, _ = family_render(
+        cuda, label, res, True, settings=settings)
+    assert launches > 0 and plain == 0 and no_launch == 0
+    assert n_rays == want_rays and evals == want_evals
+    torch.testing.assert_close(img, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["naiveSK", "regenerationSK 0"])
+def test_family_variable_white_furnace_through_kernels(cuda, label):
+    """Null BSDF, albedo 1, the variable boundary: every pixel exactly 1.0
+    through the kernels (the march moves events, it makes no energy)."""
+    settings = variable_settings(bsdf_kind="null")
+    img, _, _, launches, plain = family_render(cuda, label, 24, False,
+                                               settings=settings, albedo=1.0)
+    assert launches > 0 and plain == 0
+    assert torch.equal(img / 2, torch.ones_like(img))
+
+
+# -- fastQ's body kernels (csrc/fastqbody.cu) -----------------------------------------
+
+FASTQ_TILES = {576: (24, 24), 1600: (40, 40)}
+
+
+def fastq_setup(cuda, width, two_level, settings=None, albedo=None):
+    """The blob scene, a context of a 3-paths-per-lane queue on a
+    `width`-lane pool, its initial state and image."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+
+    tw, th = FASTQ_TILES[width]
+    d = procedural.blob_volume()
+    if albedo is None:
+        albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(d, albedo, scale=40.0,
+                                               max_density=1.0, device=cuda))
+    settings = settings or types.RenderSettings.from_flags(True)
+    ctx = fastq.make_context(scene, make_camera(tw, th, device=cuda), settings,
+                             (tw, th), torch.tensor([2.0, 1.0], device=cuda),
+                             (tw + 4, th + 2), 3 * tw * th, 9, 5, two_level)
+    accum = torch.zeros((tw * th, 3), device=cuda)
+    return ctx, fastq.initial_state(width, 9, cuda), accum
+
+
+def fastq_mismatches(a, b):
+    """The fields and counters of two fastQ states that differ bit for bit."""
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    bad = []
+    for n in fastqbody.LANE_FIELDS:
+        x, y = lane_field(a, n), lane_field(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    for n in ("paths_issued", "n_rays", "n_iters", "n_busy"):
+        x, y = getattr(a, n), getattr(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.item() != y.item():
+            bad.append(n)
+    return bad
+
+
+FASTQ_ITS = {"refill": 8, "flush": 7, "step": 9, "drain-period": None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True], ids=["one", "two"])
+@pytest.mark.parametrize("width", [576, 1600])
+@pytest.mark.parametrize("when", list(FASTQ_ITS))
+def test_fastq_evaluation_equals_eager(cuda, when, width, two_level):
+    """One body_kernel launch equals one eager iteration in every lane
+    field, paths_issued, n_rays, n_iters and n_busy bit for bit, the image
+    to float-summation order: at a refill iteration (the look-back's
+    ranks), a periodic flush, an ordinary step and, once every path is
+    issued, an iteration that flushes every lane."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+
+    ctx, s, accum = fastq_setup(cuda, width, two_level)
+    it = FASTQ_ITS[when]
+    n = it if it is not None else 0
+    for e in range(n):
+        s = fastq.plain_body(ctx, s, accum, e)
+    if it is None:
+        while int(s.paths_issued) < ctx.n_paths:
+            s = fastq.plain_body(ctx, s, accum, n)
+            n += 1
+        it = n
+    a_acc, b_acc = accum.clone(), accum.clone()
+    before = fastqbody.KERNEL.launches
+    got = fastqbody.run_body(ctx, fastqbody.own(s), a_acc, it)
+    want = fastq.plain_body(ctx, fastqbody.own(s), b_acc, it)
+    torch.cuda.synchronize()
+    assert fastqbody.KERNEL.launches == before + 1
+    assert not fastq_mismatches(got, want)
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+FASTQ_SETTINGS = {
+    "default": dict(),
+    "null-no-rr": dict(bsdf_kind="null", russian_roulette=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", list(FASTQ_SETTINGS))
+@pytest.mark.parametrize("two_level", [False, True], ids=["one", "two"])
+@pytest.mark.parametrize("cap", [8192, 5])
+def test_fastq_drain_equals_eager_loop(cuda, cap, two_level, settings):
+    """From the iteration at which every path is issued, the drain (each
+    lane to its end in registers; relaunched at a lowered cap) equals the
+    eager loop in every lane field and counter bit for bit, and its trip
+    count is the loop's; GGX with RR, and the null BSDF without."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+    from cudavolumerenderer_tpu_torch.ops.stages import C_TOTAL
+
+    ctx, s, accum = fastq_setup(cuda, 1600, two_level,
+                                settings=types.RenderSettings.from_flags(
+                                    True, **FASTQ_SETTINGS[settings]))
+    e0 = 0
+    while int(s.paths_issued) < ctx.n_paths:
+        s = fastq.plain_body(ctx, s, accum, e0)
+        e0 += 1
+    want, it, b_acc = fastqbody.own(s), e0, accum.clone()
+    while bool(fastq.more(ctx, want)):
+        want = fastq.plain_body(ctx, want, b_acc, it)
+        it += 1
+    got, a_acc = fastqbody.own(s), accum.clone()
+    counts = torch.stack([got.n_rays, got.n_iters, got.n_busy])
+    launches = fastqbody.KERNEL.drain_launches
+    words = fastqbody.KERNEL.drain_stage(ctx, got, a_acc, counts, e0, cap)
+    got = got._replace(n_rays=counts[0], n_iters=counts[1], n_busy=counts[2])
+    assert words[C_TOTAL] == it == int(want.n_iters)
+    assert fastqbody.KERNEL.drain_launches - launches >= (1 if cap > 8 else 2)
+    assert not fastq_mismatches(got, want)
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("albedo", ["affine", "const", "full"])
+@pytest.mark.parametrize("two_level", [False, True], ids=["one", "two"])
+@pytest.mark.parametrize("width", [576, 1600])
+def test_fastq_render_kernels_equal_eager(cuda, width, two_level, albedo):
+    """render_tile through the kernels (gated chains, then the drain) gives
+    the eager loop's n_rays, n_iters and n_busy bit for bit and its image
+    to float-summation order, with no eager iteration; the eager render
+    launches nothing.  A constant, an affine and a 'full' albedo table."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+
+    d = procedural.blob_volume()
+    alb = {"affine": None, "const": (0.8, 0.6, 0.9),
+           "full": np.random.RandomState(3).rand(*d.shape, 3).astype(
+               np.float32)}[albedo]
+    ctx, _, _ = fastq_setup(cuda, width, two_level, albedo=alb)
+    tw, th = ctx.tile_dim
+    args = (ctx.scene, ctx.camera, ctx.settings, (tw, th), ctx.tile_offset,
+            ctx.full_resolution, 3, 9, 5)
+    kw = dict(n_lanes=width // 2 + 7, two_level=two_level, with_stats=True)
+    out = {}
+    for eager in (False, True):
+        fastqbody.KERNEL.reset()
+        out[eager] = fastq.render_tile(*args, eager_body=eager, **kw)
+        k = fastqbody.KERNEL
+        out[eager, "counts"] = (k.launches + k.drain_launches, k.plain_evals,
+                                k.evals)
+    (a, *ca), (b, *cb) = out[False], out[True]
+    launches, plain, evals = out[False, "counts"]
+    assert launches > 0 and plain == 0
+    assert out[True, "counts"][0] == 0
+    assert evals == out[True, "counts"][2] == int(cb[1])
+    for x, y in zip(ca, cb):
+        assert x.item() == y.item()
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True], ids=["one", "two"])
+def test_fastq_white_furnace_through_kernels(cuda, two_level):
+    """Null BSDF, albedo 1: every pixel exactly spp through the kernels."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+
+    settings = types.RenderSettings.from_flags(True, bsdf_kind="null")
+    ctx, _, _ = fastq_setup(cuda, 576, two_level, settings=settings,
+                            albedo=1.0)
+    fastqbody.KERNEL.reset()
+    img, _ = fastq.render_tile(ctx.scene, ctx.camera, settings, (24, 24),
+                               torch.zeros(2, device=cuda), (24, 24), 2, 9, 0,
+                               n_lanes=300, two_level=two_level)
+    assert fastqbody.KERNEL.plain_evals == 0
+    assert fastqbody.KERNEL.launches + fastqbody.KERNEL.drain_launches > 0
+    assert torch.equal(img / 2, torch.ones_like(img))
+
+
+@pytest.mark.cuda
+def test_fastq_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
+    """run_body launches body_kernel (counted) and writes the `out` state
+    it is given, leaving the input; a wrong dtype raises; a failed build
+    raises out of the render, with no fallback to the eager body."""
+    from cudavolumerenderer_tpu_torch.models import fastq
+    from cudavolumerenderer_tpu_torch.ops import fastqbody
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    ctx, s, accum = fastq_setup(cuda, 576, True)
+    for e in range(6):
+        s = fastq.plain_body(ctx, s, accum, e)
+    src, out = fastqbody.own(s), fastqbody.own(s)
+    before = fastqbody.KERNEL.launches
+    got = fastqbody.run_body(ctx, src, accum.clone(), 6, out=out)
+    assert fastqbody.KERNEL.launches == before + 1
+    assert got.o.data_ptr() == out.o.data_ptr()
+    assert not fastq_mismatches(src, s)
+    want = fastq.plain_body(ctx, fastqbody.own(s), accum.clone(), 6)
+    assert not fastq_mismatches(got, want)
+    with pytest.raises(ValueError, match="throughput must be"):
+        fastqbody.run_body(ctx, s._replace(throughput=s.throughput.double()),
+                           accum, 6)
+
+    def broken(source):
+        raise RuntimeError("nvcc failed on fastqbody.cu")
+
+    monkeypatch.setattr(fastqbody, "KERNEL", fastqbody.FastQKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fastq.render_tile(ctx.scene, ctx.camera, ctx.settings, (24, 24),
+                          torch.zeros(2, device=cuda), (24, 24), 1, 9, 0,
+                          n_lanes=64)
+    assert fastqbody.KERNEL.plain_evals == 0
 
 
 # -- brickSK's round kernels (csrc/brickbody.cu) ---------------------------------------

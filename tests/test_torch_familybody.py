@@ -198,6 +198,137 @@ def test_runner_equals_parent_loop(row, rr):
     assert fam.KERNEL.launches == fam.KERNEL.drain_launches == 0
 
 
+def variable_args(res=RES, spp=SPP, rr=True):
+    """args_pair's port and JAX arguments with the variable boundary
+    (the isosurface march at the default threshold)."""
+    from cudavolumerenderer_tpu.scene import types as jtypes
+
+    t_args, j_args = args_pair(res=res, spp=spp, rr=rr)
+    kw = dict(russian_roulette=rr, boundary="variable")
+    return ((*t_args[:2], ttypes.RenderSettings.from_flags(True, **kw),
+             *t_args[3:]),
+            (*j_args[:2], jtypes.RenderSettings.from_flags(True, **kw),
+             *j_args[3:]))
+
+
+VARIABLE_ROWS = [r for r in RUNNERS if r[0] in (
+    "naiveSK", "naiveMK", "regenerationSK 0", "regenerationSK 1",
+    "streamingSK", "sortingSK", "streamingMK")]
+
+
+@pytest.mark.parametrize("row", VARIABLE_ROWS, ids=[r[0] for r in
+                                                    VARIABLE_ROWS])
+def test_runner_equals_parent_loop_variable_boundary(row):
+    """Under --boundary variable (the march inside bounce_step) each new
+    runner on the CPU gives the parent loop's image and n_rays bit for bit
+    in its evaluations: the routing no longer sends these rows elsewhere."""
+    label, runner, parent, kw = row
+    t_args, _ = variable_args()
+    want_img, want_rays, want_n = parent(*t_args, **kw)
+    fam.KERNEL.reset()
+    img, n_rays = runner(*t_args, **kw)
+    assert torch.equal(img, want_img), label
+    assert float(n_rays) == float(want_rays), label
+    assert fam.KERNEL.evals == want_n, label
+
+
+VARIABLE_JAX_ROWS = [
+    ("naiveSK", naive.render_tile, jnaive.render_tile, {}),
+    ("naiveMK", wavefront_mk.render_tile, jwmk.render_tile, {}),
+    ("regenerationSK 0", regeneration.render_tile, jregen.render_tile,
+     {"n_lanes": 200, "refill_group": 1}),
+    ("streamingSK", streaming.render_tile, jstream.render_tile,
+     {"n_lanes": 200}),
+    ("sortingSK", streaming.render_tile, jstream.render_tile,
+     {"n_lanes": 200, "sort_every": 8, "defer_access": True}),
+    ("streamingMK", wavefront_mk.render_tile_streaming_mk,
+     jwmk.render_tile_streaming_mk, {"n_lanes": 120}),
+]
+#: the rows whose bounce runs the march; the others never read the boundary
+MARCHING = ("naiveSK", "naiveMK", "regenerationSK 0")
+
+
+@pytest.mark.parametrize("row", VARIABLE_JAX_ROWS,
+                         ids=[r[0] for r in VARIABLE_JAX_ROWS])
+def test_variable_row_matches_jax_render_tile(row):
+    """16^2 x 2 under --boundary variable against JAX's render_tile:
+    n_rays exact, images to 1e-4.  The marching rows run JAX op by op
+    (jax.disable_jit()) with the null BSDF: XLA's CPU jit contracts the
+    gradient's lerps into fmas, and near the default threshold (1e-8) that
+    moves ~10% of the march's stops (JAX jit and op by op part there,
+    ROADMAP C), and a gradient normal carries XLA's transcendentals' last
+    bits into GGX (a ray in ~900).  streamingSK, sortingSK and streamingMK
+    never read the boundary model (streaming.extend_step, in both
+    packages): JAX jit, GGX, and their images equal the AABB's."""
+    import jax
+
+    label, port, jax_fn, kw = row
+    marching = label in MARCHING
+    t_args, j_args = variable_args(res=16, spp=2)
+    if marching:
+        from cudavolumerenderer_tpu.scene import types as jtypes
+
+        flags = dict(boundary="variable", bsdf_kind="null")
+        t_args = (*t_args[:2], ttypes.RenderSettings.from_flags(True, **flags),
+                  *t_args[3:])
+        j_args = (*j_args[:2], jtypes.RenderSettings.from_flags(True, **flags),
+                  *j_args[3:])
+    a, ra = port(*t_args, **kw)
+    if marching:
+        with jax.disable_jit():
+            b, rb = jax_fn(*j_args, **kw)
+    else:
+        b, rb = jax_fn(*j_args, **kw)
+    assert float(ra) == float(rb) > 16 * 16 * 2, label
+    np.testing.assert_allclose(a.numpy(), np.asarray(b), **JAX_TOL,
+                               err_msg=label)
+    if not marching:
+        c, rc = port(*args_pair(res=16, spp=2)[0], **kw)
+        assert torch.equal(a, c) and float(ra) == float(rc), label
+
+
+def test_one_lane_marches_as_in_the_pool():
+    """variable_boundary_adjust on one lane alone equals that lane's march
+    in the pool (hit, inside, distance, normal and the RNG state bit for
+    bit): the loop's iteration count is each running lane's own, which is
+    what lets the kernel march one lane per thread."""
+    from cudavolumerenderer_tpu_torch.ops import aabb
+    from cudavolumerenderer_tpu_torch.ops.rng import RngState, make_rng
+
+    scene = args_pair()[0][0]
+    # a threshold the blob's edge stays under, so marches take steps
+    settings = ttypes.RenderSettings.from_flags(True, boundary="variable",
+                                                boundary_threshold=0.05)
+    med = scene.medium
+    rs = np.random.RandomState(8)
+    n = 96
+    o = torch.tensor(np.concatenate([np.full((n, 1), -1.5), rs.uniform(
+        -0.4, 0.4, (n, 2))], -1), dtype=torch.float32)
+    d = torch.tensor(np.concatenate([np.ones((n, 1)), rs.uniform(
+        -0.4, 0.4, (n, 2))], -1), dtype=torch.float32)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    inside = rs.rand(n) < 0.3  # a third start inside the box
+    o[inside] = torch.tensor(rs.uniform(-0.3, 0.3, (int(inside.sum()), 3)),
+                             dtype=torch.float32)
+    active = torch.tensor(rs.rand(n) < 0.9)
+    isect = aabb.aabb_intersect(med.box_min, med.box_max, o, d)
+    rng = make_rng(4, torch.arange(n))
+    pool, prng = integrator.variable_boundary_adjust(
+        scene, settings, o, d, isect, rng, active)
+    moved = 0
+    for i in range(n):
+        k = slice(i, i + 1)
+        one, orng = integrator.variable_boundary_adjust(
+            scene, settings, o[k], d[k], aabb.Isect(*(x[k] for x in isect)),
+            RngState(rng.state[k], rng.inc[k]), active[k])
+        for name in aabb.Isect._fields:
+            assert torch.equal(getattr(one, name)[0],
+                               getattr(pool, name)[i]), (i, name)
+        assert int(orng.state[0]) == int(prng.state[i]), i
+        moved += int(one.dist[0] != isect.dist[i])
+    assert moved > n // 4
+
+
 # -- each row against JAX --------------------------------------------------------
 
 JAX_ROWS = [
@@ -362,6 +493,8 @@ def test_kernel_layout_equals_the_wrapper():
     assert [c[f"OP_{op.upper()}"] for op in fam.OPS] == [0, 1, 2, 3]
     assert c["N_SCRATCH"] == fam.N_SCRATCH
     assert f"REFILL_THREADS = {fam.REFILL_BLOCK};" in SOURCE.read_text()
+    assert (f"VB_MAX_ITERS = {integrator._VB_MAX_ITERS};"
+            in SOURCE.read_text())
 
 
 def test_parameters_are_the_eager_values():
@@ -506,15 +639,18 @@ def test_refill_bytes_read_only_alive_flags():
 # -- the routing ------------------------------------------------------------------------
 
 def test_routing_keeps_the_cpu_and_the_options_eager():
-    """route: the kernels on the card only, never with eager_body=True or
-    the variable boundary; on the CPU the runners launch nothing, and
-    run_body raises on a device without a kernel."""
+    """route: the kernels on the card only, never with eager_body=True, and
+    for either boundary model (the bounce kernel runs the variable
+    boundary's march); on the CPU the runners launch nothing, and run_body
+    raises on a device without a kernel.  The variable boundary's
+    parameters reach the kernel's vectors."""
     aabb = ttypes.RenderSettings.from_flags(True)
-    var = ttypes.RenderSettings.from_flags(True, boundary="variable")
-    assert fam.route("cuda", aabb)
-    assert not fam.route("cpu", aabb)
-    assert not fam.route("cuda", aabb, eager_body=True)
-    assert not fam.route("cuda", var)
+    var = ttypes.RenderSettings.from_flags(True, boundary="variable",
+                                           boundary_threshold=1e-4,
+                                           boundary_min_step=0.05)
+    assert fam.route("cuda")
+    assert not fam.route("cpu")
+    assert not fam.route("cuda", eager_body=True)
     t_args, _ = args_pair(res=8, spp=1)
     fam.KERNEL.reset()
     for runner in (naive.render_tile, wavefront_mk.render_tile,
@@ -531,5 +667,9 @@ def test_routing_keeps_the_cpu_and_the_options_eager():
     meta = p._replace(alive=torch.empty(8, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fam.run_body(fam.make_context(scene, settings), "bounce", meta)
-    with pytest.raises(ValueError, match="variable"):
-        fam.make_context(scene, var).params()
+    f, i, _, _ = fam.make_context(scene, var).params()
+    assert i[fam.IP_VARIABLE] == 1
+    assert f[fam.FP_MINSTEP] == np.float32(0.05)
+    assert f[fam.FP_MSE] == np.float32(0.05 + 1e-5)
+    assert f[fam.FP_THRESH] == np.float32(1e-4)
+    assert fam.make_context(scene, aabb).params()[1][fam.IP_VARIABLE] == 0
