@@ -12,10 +12,11 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the eight kernel libraries, csrc/tailpk.cu (the tail kernel and
+2. build the nine kernel libraries, csrc/tailpk.cu (the tail kernel and
    the tail stage's drain), csrc/tracking.cu, csrc/pgather.cu,
    csrc/fastbody.cu, csrc/replaybody.cu, csrc/familybody.cu,
-   csrc/brickbody.cu and csrc/fastqbody.cu, with one nvcc each, started
+   csrc/brickbody.cu, csrc/fastqbody.cu and csrc/nestedreplay.cu, with one
+   nvcc each, started
    together with g++ on the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -330,6 +331,33 @@ CPU or to a plain version on a CUDA tensor):
    iteration); the image mean within 2% of phase 5's fastSK render, and
    n_rays beside fastSK's (the two schedulers count segment starts 2.1%
    apart on this scene: ROADMAP C3).
+29. (run after phase 27) render_diff's bounce-lockstep replays
+   (csrc/nestedreplay.cu) on benchmarks/results_inverse64.json's problem
+   (medical_volume 64^3, 40 blobs, scale 12, albedo 0.6, RR off,
+   max_path_length 64, GGX; the first of 6 orbit views at radius 100, fov
+   0.8; InverseConfig's 32^2 x 64 spp, 65,536 lanes): (a) the one-level
+   pass A and pass B through the drain against the eager loop (every lane
+   field bit for bit; cotangents within GRAD_*; their walls, launches and
+   host reads, and each path's device kernels under torch.profiler), the
+   drain timed alone (CUDA events, torch.profiler), the longest lane's
+   steps and bounces, nested_bytes' bound; deterministic pass B (the
+   lockstep, at the full 32^2 x 64) bit for bit;
+   render_diff(two_level=False) forward and backward end to end through
+   the kernels and through the eager loop (walls with the gradients' copy,
+   counts set to 0 just before; cotangents within GRAD_*; the images come
+   from the one forward kernel and are not compared);
+   (b) run_inverse at InverseConfig's defaults,
+   n_steps cut from 200 to 10: seconds per step, losses, launches;
+   (c) the nested two-level replay (fused=False) against its eager loop,
+   pass A, pass B and deterministic pass B (32^2 x 8), its drain timed and
+   bounded,
+   then on phase 23's 256^3 problem against the fused replay's kernels
+   (radiance bit-equal, cotangents within GRAD_*); (d) run_multihost.py on
+   one NCCL rank: its render mode at its defaults (512^2 x 32) on config
+   1's bucky 32^3 RAW, then --inverse on that image at the same size with
+   --steps cut from 100 to 10 (seconds per step, launches, host reads, no
+   eager pass); (f) benchmarks/inverse_scale100 with --steps cut from 30
+   20 15 to 2 1 1.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -4825,6 +4853,683 @@ def brick_lines(bslice: dict, bkern: dict) -> list:
     return lines
 
 
+# -- phase 29: render_diff's bounce-lockstep replays (csrc/nestedreplay.cu) ---
+
+# the one-level problem of benchmarks/results_inverse64.json (inverse_256's
+# recipe at n 64: medical_volume, 40 blobs, scale 12, albedo 0.6, RR off,
+# max_path_length 64, the GGX boundary), the first of its 6 orbit views
+# (radius 100, fov 0.8) at InverseConfig's size, 32^2 x 64 spp (65,536 lanes)
+NESTED_N, NESTED_VIEWS, NESTED_RES, NESTED_SPP = 64, 6, 32, 64
+NESTED_SEED = 12345
+#: the nested two-level deterministic pass B (the lockstep against the eager
+#: loop) at 32^2 x 8 (8,192 lanes), cut from 64 spp: each index_add_ call
+#: under deterministic algorithms sorts its arrays; the one-level lockstep
+#: runs at the full 65,536 lanes
+NESTED_DET_SPP = 8
+NESTED_STEPS = 10  # (b): run_inverse's n_steps, cut from InverseConfig's 200
+MULTIHOST_STEPS = 10  # (d): run_multihost --inverse --steps, cut from 100
+SCALE100_STEPS = ("2", "1", "1")  # (f): inverse_scale100 --steps, cut from 30 20 15
+#: float operations of one tracking step, a lower count for the bound: the
+#: flight (log, scale, add), the point and its box coordinates (12), the
+#: trilinear lerp's weights and seven lerps (~24; two-level the stochastic
+#: tap's ~12), the acceptance test (3)
+NESTED_STEP_OPS = {False: 40, True: 28}
+NESTED_REPLACES = {
+    "one-level": "cudavolumerenderer_tpu/models/differentiable.py:204",
+    "two-level": "cudavolumerenderer_tpu/models/differentiable.py:344",
+}
+NESTED_FIELDS = ("o", "d", "throughput", "radiance", "alive", "rng")
+#: the float lane fields, whose largest absolute difference max_abs_err takes
+NESTED_FLOATS = ("o", "d", "throughput", "radiance")
+
+
+def nested_differs(a, b) -> list:
+    """The _ReplayState lane fields in which two replays differ."""
+    import torch
+
+    return [name for name in NESTED_FIELDS if not torch.equal(
+        *(x.rng.state if name == "rng" else getattr(x, name)
+          for x in (a, b)))]
+
+
+def nested_abs_err(lanes=(), cotangents=()) -> float:
+    """The largest absolute difference over two replays' float lane fields
+    (`lanes`: (got, want) _ReplayState pairs) and over (got, want)
+    cotangent pairs."""
+    pairs = [(getattr(a, name), getattr(b, name)) for a, b in lanes
+             for name in NESTED_FLOATS] + list(cotangents)
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def nested_apart(got, want, sums: bool = True) -> float:
+    """The largest per-entry excess over GRAD_RTOL |want| + GRAD_ATOL
+    max|want| (<= 0 within tolerance); with `sums`, the sums are held to
+    GRAD_SUM of the absolute sum too (not for a constant albedo's one row,
+    which the drain sums in double and index_add_ in float32)."""
+    got, want = got.double(), want.double()
+    if sums:
+        check(abs(float(got.sum() - want.sum()))
+              <= GRAD_SUM * float(want.abs().sum()),
+              "phase 29: the cotangents' sums disagree")
+    return float(((got - want).abs() - GRAD_RTOL * want.abs()
+                  - GRAD_ATOL * want.abs().max()).max())
+
+
+def nested_problem():
+    """(ground-truth grid, albedo, SceneSpec, settings, view, image
+    cotangent made with numpy from a seed)."""
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.models import inverse
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    gt = procedural.medical_volume((NESTED_N,) * 3, n_blobs=40)
+    albedo = np.full((1, 1, 1, 4), 0.6, np.float32)
+    spec = td.SceneSpec(scale=12.0, max_density=1.0)
+    settings = RenderSettings.from_flags(True, russian_roulette=False,
+                                         max_path_length=64)
+    view = inverse.orbit_camera_specs(
+        NESTED_VIEWS, radius=100.0, res=(NESTED_RES, NESTED_RES),
+        fov_x_deg=0.8)[0]
+    g_img = np.random.RandomState(29).rand(NESTED_RES, NESTED_RES, 3).astype(
+        np.float32)
+    return gt, albedo, spec, settings, view, g_img
+
+
+def nested_counts() -> dict:
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    k = nr.KERNEL
+    return {"drain_launches": k.drain_launches, "lockstep_launches": k.launches,
+            "reads": k.reads, "plain_passes": k.plain_passes,
+            "plain_reads": k.plain_reads}
+
+
+def nested_replay_run(scene, settings, lanes, record, eager, tables=None,
+                      weights=None):
+    """One _replay (fused=False) on the card: (state, d_density, d_albedo,
+    wall ms with the card synchronised, count deltas)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+
+    o0, d0, rng = lanes
+    n = o0.shape[0]
+    s, g = weights if weights is not None else (
+        torch.zeros(n, device="cuda"), torch.zeros((n, 3), device="cuda"))
+    dd, da = cotangent_buffers(scene)
+    torch.cuda.synchronize()
+    before = nested_counts()
+    t0 = time.perf_counter()
+    out = td._replay(scene, settings, o0, d0, rng, s, g, record, dd, da,
+                     tables, fused=False, eager_body=eager)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    after = nested_counts()
+    return out, dd, da, wall, {k: after[k] - before[k] for k in after}
+
+
+def nested_drain_timed(scene, settings, lanes, weights, tables, plain: dict,
+                       card: str, tag: str) -> dict:
+    """The drain alone on a context built once: CUDA events around one
+    launch of pass A and of pass B, in turns (A, B, B, A), its stats (the
+    longest lane), torch.profiler's device time of pass B, and the bound
+    (nested_bytes over the eager loop's distinct taps, and the operations of
+    every lane's steps); `plain` holds the eager loop's walls of both
+    passes."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    o0, d0, rng = lanes
+    n = o0.shape[0]
+    zero_w = (torch.zeros(n, device="cuda"), torch.zeros((n, 3), device="cuda"))
+    ctxs = {}
+    for record in (False, True):
+        dd, da = cotangent_buffers(scene)
+        ctxs[record] = td.nested_context(scene, settings, tables, record, dd, da)
+    times = {"pass A": [], "pass B": []}
+    stats = None
+    for record in (False, True, True, False):
+        w = weights if record else zero_w
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        end = nr.run(ctxs[record], o0, d0, rng, *w)
+        stop.record()
+        torch.cuda.synchronize()
+        times["pass B" if record else "pass A"].append(start.elapsed_time(stop))
+        if not record:
+            stats = nr.drain_stats(nr.KERNEL.last_drain)
+    _, kernels, busy = device_time(lambda: nr.run(ctxs[True], o0, d0, rng,
+                                                  *weights))
+    # the plain version's taps for the bound
+    taps = nr.DistinctTaps()
+    ctxs[True].plain(o0, d0, rng, *weights, taps=taps)
+    bound = {}
+    two = tables is not None
+    n_ops = NESTED_STEP_OPS[two] * stats["steps"]
+    for record in (False, True):
+        n_bytes = nr.nested_bytes(ctxs[record], taps, o0, d0, rng, end)
+        b, by = bound_ms(n_bytes, n_ops)
+        bound["pass B" if record else "pass A"] = {
+            "bound_ms": b, "bound_by": by, "bytes": n_bytes, "ops": n_ops}
+    ms = min(times["pass A"])
+    log(f"[29] {tag} drain, {n} lanes: CUDA events around one launch, pass A "
+        + " and ".join(f"{t:.3f}" for t in times["pass A"]) + " ms, pass B "
+        + " and ".join(f"{t:.3f}" for t in times["pass B"])
+        + f" ms (in turns A, B, B, A); pass B under torch.profiler "
+        + (f"{busy:.3f} ms of device time in {kernels} kernels" if busy else
+           "no device time in the trace")
+        + f"; the longest lane {stats['longest_steps']} tracking steps in "
+        f"{stats['longest_bounces']} bounces (most bounces "
+        f"{stats['max_bounces']}; {stats['steps']} steps, {stats['bounces']} "
+        f"bounces over all lanes), {ms * 1e3 / max(stats['longest_steps'], 1):.3f}"
+        f" us per step of it; the eager loop {plain['pass A']:.1f} / "
+        f"{plain['pass B']:.1f} ms (A / B); bound A "
+        f"{bound['pass A']['bytes']} B, {n_ops} ops = "
+        f"{bound['pass A']['bound_ms'] * 1e3:.3f} us ({bound['pass A']['bound_by']}"
+        f", {bound['pass A']['bound_ms'] / ms:.2%} of the drain), B "
+        f"{bound['pass B']['bytes']} B = {bound['pass B']['bound_ms'] * 1e3:.3f}"
+        f" us; card {card}")
+    return {"ms": ms, "ms_by_pass": times, "device_ms_pass_b": busy,
+            "device_kernels_pass_b": kernels, "plain_ms": plain["pass A"],
+            "plain_ms_by_pass": plain, "bound_ms": bound["pass A"]["bound_ms"],
+            "bound_by": bound["pass A"]["bound_by"], "bound": bound,
+            "L": stats["longest_steps"], "L_bounces": stats["longest_bounces"],
+            "stats": stats}
+
+
+def nested_render_diff(problem, eager: bool):
+    """render_diff(two_level=False) forward and backward on the card: (image,
+    d density, d albedo, all on the host; wall seconds with that copy;
+    count deltas)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models.differentiable import render_diff
+
+    gt, albedo, spec, settings, view, g_img = problem
+    d = torch.tensor(gt, device="cuda", requires_grad=True)
+    a = torch.tensor(albedo, device="cuda", requires_grad=True)
+    g = torch.tensor(g_img, device="cuda")
+    torch.cuda.synchronize()
+    before = nested_counts()
+    t0 = time.perf_counter()
+    img = render_diff(d, a, NESTED_SEED, spec, view, settings,
+                      (NESTED_RES, NESTED_RES), NESTED_SPP, False,
+                      eager_body=eager)
+    img.backward(g)
+    out = [x.detach().cpu() for x in (img, d.grad, a.grad)]
+    wall = time.perf_counter() - t0
+    after = nested_counts()
+    return out, wall, {k: after[k] - before[k] for k in after}
+
+
+def nested_one_level(problem, card: str) -> dict:
+    """Phase 29 (a): the one-level replays kernel against eager loop, the
+    drain timed and bounded, and render_diff end to end."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    gt, albedo, spec, settings, view, g_img = problem
+    scene = spec.build(gt, albedo, "cuda")
+    cam = view.build("cuda")
+    res = (NESTED_RES, NESTED_RES)
+    n, image_id, o0, d0, rng = td._lane_setup(cam, res, NESTED_SPP,
+                                              NESTED_SEED)
+    lanes = (o0, d0, rng)
+    rows = {}
+    t_start = time.perf_counter()
+
+    def took(what):
+        log(f"[29] (a) {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    ka, *_ = nested_replay_run(scene, settings, lanes, False, False)  # warm
+    ka, _, _, wall_ka, cka = nested_replay_run(scene, settings, lanes, False,
+                                               False)
+    ea, _, _, wall_ea, cea = nested_replay_run(scene, settings, lanes, False,
+                                               True)
+    diff = nested_differs(ka, ea)
+    check(not diff, f"phase 29: pass A through the drain differs from the "
+          f"eager loop in {diff}")
+    check(bool(ka.radiance.abs().max() > 0), "phase 29: pass A is black")
+    g_lane = torch.tensor(g_img, device="cuda").reshape(-1, 3)[image_id] \
+        * ka.radiance
+    weights = (torch.sum(g_lane, dim=-1), g_lane)
+    eb, de, ae, wall_eb, ceb = nested_replay_run(scene, settings, lanes, True,
+                                                 True, weights=weights)
+    kb, dk, ak, wall_kb, ckb = nested_replay_run(scene, settings, lanes, True,
+                                                 False, weights=weights)
+    diff = nested_differs(kb, eb)
+    check(not diff, f"phase 29: pass B's lanes differ in {diff}")
+    err = max(nested_apart(dk, de), nested_apart(ak, ae, sums=False))
+    check(err <= 0.0, f"phase 29: pass B's cotangents exceed GRAD_* by {err}")
+    abs_err = nested_abs_err([(ka, ea), (kb, eb)], [(dk, de), (ak, ae)])
+    # the eager loop's device launches per pass (torch.profiler)
+    _, eager_kernels, eager_busy = device_time(
+        lambda: nested_replay_run(scene, settings, lanes, False, True))
+    _, kernel_kernels, _ = device_time(
+        lambda: nested_replay_run(scene, settings, lanes, False, False))
+    took("the passes against the eager loop and their profiles")
+    rows["passes"] = {
+        "pass A": {"kernel_wall_ms": wall_ka, "eager_wall_ms": wall_ea,
+                   "kernel": cka, "eager": cea,
+                   "kernel_device_kernels": kernel_kernels,
+                   "eager_device_kernels": eager_kernels,
+                   "eager_device_ms": eager_busy},
+        "pass B": {"kernel_wall_ms": wall_kb, "eager_wall_ms": wall_eb,
+                   "kernel": ckb, "eager": ceb}}
+    for name, row in rows["passes"].items():
+        log(f"[29] (a) one-level {name}, {n} lanes: drain {row['kernel_wall_ms']:.2f}"
+            f" ms wall ({row['kernel']['drain_launches']} drain launch, "
+            f"{row['kernel']['reads']} host reads, {row['kernel']['plain_passes']}"
+            f" eager passes), eager loop {row['eager_wall_ms']:.1f} ms "
+            f"({row['eager']['plain_reads']} host reads"
+            + (f", {row['eager_device_kernels']} device kernels against the "
+               f"drain path's {row['kernel_device_kernels']}"
+               if "eager_device_kernels" in row else "")
+            + f"); lane fields bit for bit" + (
+                f", cotangents within GRAD_* (excess {err:.3g})"
+                if name == "pass B" else "") + f"; card {card}")
+    rows["drain"] = nested_drain_timed(
+        scene, settings, lanes, weights, None,
+        {"pass A": wall_ea, "pass B": wall_eb}, card, "(a) one-level")
+    took("the drain's timing and bound")
+    rows["lockstep"] = nested_deterministic(scene, settings, cam, g_img, None,
+                                            card, "(a) one-level", NESTED_SPP)
+    took("deterministic pass B")
+    # render_diff end to end: the main path, counts from 0
+    nr.KERNEL.reset()
+    got, wall_k, ck = nested_render_diff(problem, False)
+    want, wall_e, ce = nested_render_diff(problem, True)
+    check(ck["drain_launches"] == 2 and ck["plain_passes"] == 0
+          and ce["plain_passes"] == 2 and ce["drain_launches"] == 0,
+          f"phase 29: render_diff's replays: kernel path {ck}, eager {ce}")
+    # both forwards run the one naive.render_tile kernel, so the images are
+    # not compared; the cotangents come through the replays
+    err = max(nested_apart(got[1], want[1]),
+              nested_apart(got[2], want[2], sums=False))
+    check(err <= 0.0, f"phase 29: render_diff's cotangents exceed GRAD_* by "
+          f"{err}")
+    abs_err = max(abs_err, nested_abs_err(cotangents=[(got[1], want[1]),
+                                                      (got[2], want[2])]))
+    check(all(bool(torch.isfinite(x).all()) for x in got)
+          and got[0].shape == (NESTED_RES, NESTED_RES, 3),
+          "phase 29: render_diff's outputs not finite or wrong shape")
+    rows["render_diff"] = {"wall_s": wall_k, "eager_wall_s": wall_e,
+                           "counts": ck, "eager": ce}
+    rows["max_abs_err"] = abs_err
+    log(f"[29] (a) render_diff(two_level=False) {NESTED_N}^3, "
+        f"{NESTED_RES}^2 x {NESTED_SPP}, forward + backward, the gradients "
+        f"copied to the host: {wall_k:.3f} s through the drains "
+        f"({ck['drain_launches']} launches, {ck['reads']} host reads, no eager "
+        f"pass) against {wall_e:.3f} s through the eager loop "
+        f"({ce['plain_reads']} host reads); cotangents within GRAD_* (excess "
+        f"{err:.3g}); the largest absolute difference from the eager loop in "
+        f"(a)'s lane fields and cotangents {abs_err:.6g}; card {card}")
+    return rows
+
+
+def nested_deterministic(scene, settings, cam, g_img, tables, card: str,
+                         tag: str, spp: int) -> dict:
+    """Deterministic pass B at 32^2 x spp (the counts set to 0 just before
+    the kernel's run): the lockstep against the eager loop, every lane
+    field and both cotangents bit for bit; L the longest lane's steps in
+    the primal drain on the same lanes."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    res = (NESTED_RES, NESTED_RES)
+    n, image_id, o0, d0, rng = td._lane_setup(cam, res, spp, NESTED_SEED)
+    lanes = (o0, d0, rng)
+    prim, *_ = nested_replay_run(scene, settings, lanes, False, False, tables)
+    stats = nr.drain_stats(nr.KERNEL.last_drain)
+    g_lane = torch.tensor(g_img, device="cuda").reshape(-1, 3)[image_id] \
+        * prim.radiance
+    weights = (torch.sum(g_lane, dim=-1), g_lane)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eb, de, ae, wall_e, ce = nested_replay_run(
+            scene, settings, lanes, True, True, tables, weights)
+        nr.KERNEL.reset()
+        kb, dk, ak, wall_k, ck = nested_replay_run(
+            scene, settings, lanes, True, False, tables, weights)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    diff = nested_differs(kb, eb)
+    check(not diff and torch.equal(dk, de) and torch.equal(ak, ae)
+          and ck["lockstep_launches"] > 0 and ck["plain_passes"] == 0,
+          f"phase 29, {tag}: deterministic pass B differs from the eager loop "
+          f"in {diff} or its cotangents, or ran no lockstep: {ck}")
+    abs_err = nested_abs_err([(kb, eb)], [(dk, de), (ak, ae)])
+    # the bound of the same pass B: the eager loop's taps, every lane's steps
+    dd, da = cotangent_buffers(scene)
+    ctx = td.nested_context(scene, settings, tables, True, dd, da)
+    taps = nr.DistinctTaps()
+    ctx.plain(o0, d0, rng, *weights, taps=taps)
+    end = (kb.o, kb.d, kb.throughput, kb.radiance, kb.alive, kb.rng.state)
+    n_bytes = nr.nested_bytes(ctx, taps, o0, d0, rng, end)
+    bound, bound_by = bound_ms(n_bytes,
+                               NESTED_STEP_OPS[tables is not None]
+                               * stats["steps"])
+    cut = f"; cut from {NESTED_SPP} spp" if spp < NESTED_SPP else ""
+    log(f"[29] {tag} deterministic pass B at {res[0]}^2 x {spp} "
+        f"({n} lanes{cut}): lockstep {wall_k:.1f} ms "
+        f"wall ({ck['lockstep_launches']} launches, {ck['reads']} host reads)"
+        f", eager loop {wall_e:.1f} ms ({ce['plain_reads']} host reads); every "
+        f"lane field and both cotangents bit for bit (largest absolute "
+        f"difference {abs_err:.6g}); the longest lane {stats['longest_steps']}"
+        f" tracking steps in {stats['longest_bounces']} bounces; bound "
+        f"{n_bytes} B = {bound * 1e3:.3f} us ({bound_by}); card {card}")
+    return {"lanes": n, "wall_ms": wall_k, "eager_wall_ms": wall_e,
+            "counts": ck, "eager": ce, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": n_bytes, "max_abs_err": abs_err,
+            "L": stats["longest_steps"],
+            "L_bounces": stats["longest_bounces"]}
+
+
+def nested_run_inverse(problem, card: str) -> dict:
+    """Phase 29 (b): run_inverse at InverseConfig's defaults (one-level, 32^2
+    x 64, lr 0.5) on (a)'s problem, n_steps cut to NESTED_STEPS, from a
+    0.25 grid toward a 64-spp fastSK target of the ground truth."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import inverse
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    gt, albedo, spec, settings, view, _ = problem
+    res = (NESTED_RES, NESTED_RES)
+    target = inverse.render_view_targets(gt, albedo, spec, [view], settings,
+                                         res, 64, True, device="cuda")[0]
+    config = inverse.InverseConfig(n_steps=NESTED_STEPS)
+    check(not config.two_level and config.resolution == res
+          and config.spp == NESTED_SPP, f"InverseConfig's defaults: {config}")
+    stamps = []
+
+    def progress(step, loss):
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    nr.KERNEL.reset()
+    t0 = time.perf_counter()
+    density, _, losses = inverse.run_inverse(
+        target, np.full(gt.shape, 0.25, np.float32), albedo, spec, view,
+        settings, config, progress=progress, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = nested_counts()
+    steps = np.diff([t0] + stamps)
+    check(counts["drain_launches"] == 2 * NESTED_STEPS
+          and counts["plain_passes"] == 0,
+          f"phase 29: run_inverse's replays: {counts}")
+    check(len(losses) == NESTED_STEPS and np.isfinite(losses).all()
+          and bool(torch.isfinite(density).all()),
+          f"phase 29: run_inverse's losses {losses}")
+    log(f"[29] (b) run_inverse at InverseConfig's defaults, n_steps cut from "
+        f"200 to {NESTED_STEPS}: {wall:.3f} s, seconds per step "
+        + ", ".join(f"{s:.4f}" for s in steps) + "; losses "
+        + ", ".join(f"{l:.6f}" for l in losses)
+        + f"; {counts['drain_launches']} drain launches (pass A and B per "
+        f"step), {counts['reads']} kernel host reads, no eager pass; card "
+        f"{card}")
+    return {"wall_s": wall, "step_s": steps.tolist(), "losses": losses,
+            "counts": counts}
+
+
+def nested_two_level(problem, card: str) -> dict:
+    """Phase 29 (c): the nested two-level replay (fused=False) through the
+    kernels against the eager loop on (a)'s problem (pass A, pass B with
+    atomics, deterministic pass B), its drain timed; then on phase 23's
+    256^3 problem the nested kernels against the fused replay kernels."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import differentiable as td
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+
+    gt, albedo, spec, settings, view, g_img = problem
+    scene = spec.build(gt, albedo, "cuda")
+    cam = view.build("cuda")
+    res = (NESTED_RES, NESTED_RES)
+    n, image_id, o0, d0, rng = td._lane_setup(cam, res, NESTED_SPP,
+                                              NESTED_SEED)
+    lanes = (o0, d0, rng)
+    tables = td._build_brick_tab(scene.medium.density.data)
+    nr.KERNEL.reset()
+    ka, _, _, wall_ka, cka = nested_replay_run(scene, settings, lanes, False,
+                                               False, tables)
+    ea, _, _, wall_ea, cea = nested_replay_run(scene, settings, lanes, False,
+                                               True, tables)
+    diff = nested_differs(ka, ea)
+    check(not diff, f"phase 29: the nested two-level pass A differs in {diff}")
+    g_lane = torch.tensor(g_img, device="cuda").reshape(-1, 3)[image_id] \
+        * ka.radiance
+    weights = (torch.sum(g_lane, dim=-1), g_lane)
+    eb, de, ae, wall_eb, ceb = nested_replay_run(scene, settings, lanes, True,
+                                                 True, tables, weights)
+    kb, dk, ak, wall_kb, ckb = nested_replay_run(scene, settings, lanes, True,
+                                                 False, tables, weights)
+    launches = nr.KERNEL.drain_launches
+    diff = nested_differs(kb, eb)
+    err = max(nested_apart(dk, de), nested_apart(ak, ae, sums=False))
+    check(not diff and err <= 0.0, f"phase 29: the nested two-level pass B "
+          f"differs in {diff} or its cotangents by {err}")
+    abs_err = nested_abs_err([(ka, ea), (kb, eb)], [(dk, de), (ak, ae)])
+    log(f"[29] (c) nested two-level replay, {n} lanes: pass A drain "
+        f"{wall_ka:.2f} ms / eager {wall_ea:.1f} ms ({cea['plain_reads']} "
+        f"host reads), pass B drain {wall_kb:.2f} ms / eager {wall_eb:.1f} ms"
+        f" ({ceb['plain_reads']} reads); every lane field bit for bit, "
+        f"cotangents within GRAD_* (excess {err:.3g}; the largest absolute "
+        f"difference {abs_err:.6g}); card {card}")
+    det = nested_deterministic(scene, settings, cam, g_img, tables, card,
+                               "(c) nested two-level", NESTED_DET_SPP)
+    drain = nested_drain_timed(
+        scene, settings, lanes, weights, tables,
+        {"pass A": wall_ea, "pass B": wall_eb}, card, "(c) nested two-level")
+    # phase 23's 256^3 problem: nested kernels against the fused kernels
+    big = replay_problem(card)
+    bscene, bsettings, btables, bo0, bd0, brng, bs, bg = big
+    outs = {}
+    for fused in (False, True):
+        dd, da = cotangent_buffers(bscene)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = td._replay(bscene, bsettings, bo0, bd0, brng, bs, bg, True, dd,
+                         da, btables, fused=fused)
+        torch.cuda.synchronize()
+        outs[fused] = (out, dd, da, (time.perf_counter() - t0) * 1e3)
+    (nest, ndd, nda, nwall), (fus, fdd, fda, fwall) = outs[False], outs[True]
+    check(torch.equal(nest.radiance, fus.radiance)
+          and torch.equal(nest.throughput, fus.throughput),
+          "phase 29: the nested replay's radiance differs from the fused's")
+    err256 = max(nested_apart(ndd, fdd), nested_apart(nda, fda, sums=False))
+    check(err256 <= 0.0, f"phase 29: nested and fused cotangents at 256^3 "
+          f"exceed GRAD_* by {err256}")
+    log(f"[29] (c) 256^3 (phase 23's problem, {bo0.shape[0]} lanes), pass B: "
+        f"the nested two-level drain {nwall:.2f} ms wall against the fused "
+        f"replay's kernels {fwall:.2f} ms; radiance and throughput bit-equal, "
+        f"cotangents within GRAD_* (excess {err256:.3g}); card {card}")
+    return {"launches": launches, "drain": drain, "max_abs_err": abs_err,
+            "walls_ms": {"pass A": [wall_ka, wall_ea],
+                         "pass B": [wall_kb, wall_eb]},
+            "deterministic": det,
+            "at_256": {"nested_ms": nwall, "fused_ms": fwall,
+                       "excess": err256}}
+
+
+def nested_multihost(tmp: str, card: str) -> dict:
+    """Phase 29 (d): scripts/run_multihost.py on one NCCL rank: render mode
+    at its defaults (512^2 x 32) on BASELINE config 1's bucky 32^3 RAW, then
+    --inverse on that image at the same resolution and spp with --steps
+    cut to MULTIHOST_STEPS, each step timed."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
+    from cudavolumerenderer_tpu_torch.scene import procedural
+    from cudavolumerenderer_tpu_torch.scripts import run_multihost as rm
+
+    raw = os.path.join(tmp, "bucky_synth.raw")
+    procedural.write_raw_uchar(raw, procedural.blob_volume((32, 32, 32)))
+    prefix = os.path.join(tmp, "multihost")
+    t0 = time.perf_counter()
+    check(rm.main([raw, "-o", prefix]) == 0, "run_multihost render failed")
+    render_s = time.perf_counter() - t0
+    step_s = []
+    orig = rm.make_inverse_step
+
+    def timed_factory(*args, **kw):
+        step = orig(*args, **kw)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            return out
+
+        return timed
+
+    rm.make_inverse_step = timed_factory
+    nr.KERNEL.reset()
+    try:
+        t0 = time.perf_counter()
+        check(rm.main([raw, "--inverse", prefix + ".hdr", "--steps",
+                       str(MULTIHOST_STEPS), "-o", prefix]) == 0,
+              "run_multihost --inverse failed")
+        wall = time.perf_counter() - t0
+    finally:
+        rm.make_inverse_step = orig
+    counts = nested_counts()
+    rec = np.load(prefix + "_recovered.npz")["density"]
+    check(counts["drain_launches"] == 2 * MULTIHOST_STEPS
+          and counts["plain_passes"] == 0 and len(step_s) == MULTIHOST_STEPS,
+          f"phase 29: run_multihost --inverse's replays: {counts}")
+    check(rec.shape == (32, 32, 32) and np.isfinite(rec).all(),
+          "phase 29: run_multihost's recovered density")
+    log(f"[29] (d) run_multihost on one NCCL rank: render 512^2 x 32 "
+        f"{render_s:.2f} s; --inverse at 512^2 x 32 (8,388,608 lanes a pass), "
+        f"--steps cut from 100 to {MULTIHOST_STEPS}: {wall:.2f} s, seconds "
+        "per step " + ", ".join(f"{s:.3f}" for s in step_s)
+        + f"; {counts['drain_launches']} drain launches, {counts['reads']} "
+        f"kernel host reads, no eager pass; card {card}")
+    return {"render_s": render_s, "step_s": step_s, "wall_s": wall,
+            "counts": counts}
+
+
+def nested_scale100(card: str) -> dict:
+    """Phase 29 (f): benchmarks/inverse_scale100 at its defaults but for
+    --steps, cut to SCALE100_STEPS."""
+    from cudavolumerenderer_tpu_torch.benchmarks import inverse_scale100
+
+    t0 = time.perf_counter()
+    res = inverse_scale100.main(["--steps", *SCALE100_STEPS])
+    wall = time.perf_counter() - t0
+    split = res["observability_split"]
+    check(res["platform"] == "cuda" and np.isfinite(res["loss_last"])
+          and "shell" in split and "interior" in split,
+          f"phase 29: inverse_scale100 {res}")
+    log(f"[29] (f) inverse_scale100 at its defaults, --steps cut from 30 20 "
+        f"15 to {' '.join(SCALE100_STEPS)}: {wall:.1f} s, loss "
+        f"{res['loss_first']} -> {res['loss_last']}, grid_mse_ratio_overall "
+        f"{res['grid_mse_ratio_overall']}, shell "
+        f"{split['shell'].get('mse_ratio')}, interior "
+        f"{split['interior'].get('mse_ratio')}; card {card}")
+    return res
+
+
+def nested_replays(card: str) -> dict:
+    """Phase 29: (a)-(d) and (f) above; (e), the kernels line's entries, is
+    nested_lines."""
+    problem = nested_problem()
+    out = {}
+    for key, fn in (("one_level", lambda: nested_one_level(problem, card)),
+                    ("run_inverse", lambda: nested_run_inverse(problem, card)),
+                    ("two_level", lambda: nested_two_level(problem, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        log(f"[29] {key} took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["multihost"] = nested_multihost(tmp, card)
+        log(f"[29] multihost took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["scale100"] = nested_scale100(card)
+    log(f"[29] scale100 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def nested_lines(nested: dict) -> list:
+    """The kernels line's entries of csrc/nestedreplay.cu: launches from the
+    main path's runs (render_diff one-level fwd + bwd, run_inverse,
+    run_multihost --inverse; the nested two-level from (c); the lockstep
+    from (a)'s deterministic render_diff), the rest from phase 29."""
+    one, two = nested["one_level"], nested["two_level"]
+    rd = one["render_diff"]
+    common = {"route": "cuda",
+              "source": "cudavolumerenderer_tpu_torch/csrc/nestedreplay.cu",
+              "library_ms": None}
+
+    def drain_keys(d):
+        return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "L", "L_bounces", "ms_by_pass",
+                                  "plain_ms_by_pass", "device_ms_pass_b",
+                                  "bound")}
+
+    return [{
+        "name": "nestedreplay_drain", **common,
+        "replaces": NESTED_REPLACES["one-level"],
+        "launches": (rd["counts"]["drain_launches"]
+                     + nested["run_inverse"]["counts"]["drain_launches"]
+                     + nested["multihost"]["counts"]["drain_launches"]),
+        "max_abs_err": one["max_abs_err"], **drain_keys(one["drain"]),
+        "design": "the one-level replay in one launch: each lane runs its "
+                  "bounces to its end in registers (slab test, Woodcock "
+                  "chain under the global majorant, GGX or HG event, RR); "
+                  "pass B's adjoints by atomics, a constant albedo summed "
+                  "in double per block and added once",
+        "passes": one["passes"], "render_diff": rd,
+        "run_inverse": nested["run_inverse"],
+        "run_multihost": nested["multihost"],
+    }, {
+        "name": "nestedreplay_drain_2l", **common,
+        "replaces": NESTED_REPLACES["two-level"],
+        "launches": two["launches"], "max_abs_err": two["max_abs_err"],
+        **drain_keys(two["drain"]),
+        "design": "the nested two-level replay in one launch: common.cuh's "
+                  "track_step_2l (shared with replaybody.cu) per step, one "
+                  "tap per score",
+        "walls_ms": two["walls_ms"], "at_256": two["at_256"],
+    }, {
+        "name": "nestedreplay_lockstep", **common,
+        "replaces": NESTED_REPLACES["one-level"],
+        "launches": one["lockstep"]["counts"]["lockstep_launches"],
+        "max_abs_err": max(one["lockstep"]["max_abs_err"],
+                           two["deterministic"]["max_abs_err"]),
+        "ms": one["lockstep"]["wall_ms"],
+        "plain_ms": one["lockstep"]["eager_wall_ms"],
+        "bound_ms": one["lockstep"]["bound_ms"],
+        "bound_by": one["lockstep"]["bound_by"],
+        "L": one["lockstep"]["L"], "L_bounces": one["lockstep"]["L_bounces"],
+        "lanes": one["lockstep"]["lanes"],
+        "timing": "wall of the one-level deterministic pass B at 32^2 x 64 "
+                  "with the card synchronised (its index_add_ calls "
+                  "included), not device time; plain_ms the eager loop's, "
+                  "bound_ms that pass's; max_abs_err over it and (c)'s "
+                  "two-level one",
+        "design": "pass B under deterministic algorithms: per bounce a start "
+                  "launch, a launch per chain of 4 steps writing the eager "
+                  "loop's (index, value) arrays, an end launch; index_add_ "
+                  "in the eager order",
+        "counts": one["lockstep"]["counts"],
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -4848,6 +5553,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import replaybody as rb
     from cudavolumerenderer_tpu_torch.ops import taildrain as td
@@ -4856,12 +5562,12 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the eight libraries, one nvcc each, started together,
+    # -- phase 2: build the nine libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
     libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL,
-                 fam.KERNEL, bk.KERNEL, fqb.KERNEL)
+                 fam.KERNEL, bk.KERNEL, fqb.KERNEL, nr.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -5081,6 +5787,12 @@ def main() -> int:
     tail = tail_drain_alone(drain5["stage"], eager5["stage"], drain_ptxas,
                             card)
     log(f"[27] phase 27 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 29: render_diff's bounce-lockstep replays --------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nested = nested_replays(card)
+    log(f"[29] phase 29 took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -5210,7 +5922,8 @@ def main() -> int:
                   "loop's E = k_chain * ceil(L / k_chain)",
         "launches_bench_1024": star["counts"]["drain_launches"],
     }, *family_lines(family, family_k, cli_drains),
-        *fastq_lines(family, family_k, fq2), *gather_lines]}))
+        *fastq_lines(family, family_k, fq2), *nested_lines(nested),
+        *gather_lines]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

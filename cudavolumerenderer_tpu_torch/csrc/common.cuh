@@ -1,15 +1,17 @@
 // common.cuh — device helpers shared by the kernels (tailpk.cu, tracking.cu,
-// fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu): the
-// PCG generator and masked draws, the path-id hash, a path's stream and
-// camera ray, NaN-propagating min/max, float3 sums in the card's order, the
-// flight draw, Henyey-Greenstein sampling, the turn of a direction after a
-// scatter, the box's slab test and a brick's DDA exit, the GGX boundary
-// event, Russian roulette, the stochastic tap and the fused table's density
-// and albedo, the brick-binned tracking steps, a cascade stage's control
-// words with the gate, the last-block ticket and the drain's end of a launch
-// (fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu;
-// the host side is ops/stages.py), and the work queue's ranks (familybody.cu,
-// fastqbody.cu).
+// fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu,
+// nestedreplay.cu): the PCG generator and masked draws, the path-id hash, a
+// path's stream and camera ray, NaN-propagating min/max, float3 sums in the
+// card's order, the flight draw, Henyey-Greenstein sampling, the turn of a
+// direction after a scatter, the box's slab test and a brick's DDA exit, the
+// GGX boundary event, Russian roulette, the stochastic tap and the fused
+// table's density and albedo, the dense grids' trilinear and nearest samplers
+// (familybody.cu, nestedreplay.cu), the two-level tracking step of the
+// differentiable replays (replaybody.cu, nestedreplay.cu), the brick-binned
+// tracking steps, a cascade stage's control words with the gate, the
+// last-block ticket and the drain's end of a launch (fastbody.cu,
+// replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu; the host side is
+// ops/stages.py), and the work queue's ranks (familybody.cu, fastqbody.cu).
 //
 // Each follows the port's plain torch version operation by operation, so a
 // kernel built with -fmad=false and without --use_fast_math (utils/
@@ -472,6 +474,188 @@ __device__ __forceinline__ void fused_albedo(int mode, const float a[3], const f
       for (int k = 0; k < 3; ++k) alb[k] = row[k];
     }
   }
+}
+
+// ---- the dense grids (ops/grid.py) -------------------------------------------
+
+// ops/grid.py _COORD_LIMIT: coordinates clamp here before the int64 cast
+constexpr float COORD_LIMIT = 4611686018427387904.0f;  // 2^62
+
+// _to_index: truncation toward zero of a coordinate clamped to +-2^62.
+__device__ __forceinline__ long long to_index(float c) {
+  return (long long)jclip(c, -COORD_LIMIT, COORD_LIMIT);
+}
+__device__ __forceinline__ long long clampll(long long x, long long hi) {
+  return x < 0 ? 0 : (x > hi ? hi : x);
+}
+
+// sample(grid, p01): the first `nout` channels of a (nz, ny, nx, nch) grid at
+// the box coordinates p01, scaled by rm1 = n - 1 (volume_to_grid); 8 clamped
+// taps lerped as sample_trilinear does, or sample_nearest's point.
+__device__ __forceinline__ void sample_grid(const float* g, long long nx, long long ny,
+                                            long long nz, int nch, int nout,
+                                            const float rm1[3], const float p01[3],
+                                            bool nearest, float* out) {
+  float coord[3];
+  for (int a = 0; a < 3; ++a) coord[a] = p01[a] * rm1[a];
+  if (nearest) {
+    const long long ix = clampll(to_index(coord[0]), nx - 1);
+    const long long iy = clampll(to_index(coord[1]), ny - 1);
+    const long long iz = clampll(to_index(coord[2]), nz - 1);
+    const float* v = g + ((iz * ny + iy) * nx + ix) * nch;
+    for (int c = 0; c < nout; ++c) out[c] = v[c];
+    return;
+  }
+  float c0[3];
+  long long i0[3];
+  for (int a = 0; a < 3; ++a) {
+    c0[a] = floorf(coord[a]);
+    i0[a] = to_index(c0[a]);
+  }
+  const float fx = coord[0] - c0[0], fy = coord[1] - c0[1], fz = coord[2] - c0[2];
+  const long long xa = clampll(i0[0], nx - 1), xb = clampll(i0[0] + 1, nx - 1);
+  const long long ya = clampll(i0[1], ny - 1), yb = clampll(i0[1] + 1, ny - 1);
+  const long long za = clampll(i0[2], nz - 1), zb = clampll(i0[2] + 1, nz - 1);
+  const float* r00 = g + (za * ny + ya) * nx * nch;  // (z, y) rows
+  const float* r01 = g + (za * ny + yb) * nx * nch;
+  const float* r10 = g + (zb * ny + ya) * nx * nch;
+  const float* r11 = g + (zb * ny + yb) * nx * nch;
+  const float ofx = 1.0f - fx, ofy = 1.0f - fy, ofz = 1.0f - fz;
+  for (int c = 0; c < nout; ++c) {
+    const float d000 = r00[xa * nch + c], d001 = r00[xb * nch + c];
+    const float d010 = r01[xa * nch + c], d011 = r01[xb * nch + c];
+    const float d100 = r10[xa * nch + c], d101 = r10[xb * nch + c];
+    const float d110 = r11[xa * nch + c], d111 = r11[xb * nch + c];
+    out[c] = ((d000 * ofx + d001 * fx) * ofy + (d010 * ofx + d011 * fx) * fy) * ofz +
+             ((d100 * ofx + d101 * fx) * ofy + (d110 * ofx + d111 * fx) * fy) * fz;
+  }
+}
+
+// The box coordinates of a world point: (p - box_min) / extent.
+__device__ __forceinline__ void grid_box01(const float bmin[3], const float ext[3],
+                                           const float p[3], float p01[3]) {
+  for (int a = 0; a < 3; ++a) p01[a] = (p[a] - bmin[a]) / ext[a];
+}
+
+// The density of a (nz, ny, nx) grid (n = (nx, ny, nz), rm1 = n - 1) over the
+// box at bmin with extent ext, at o + t d.
+__device__ __forceinline__ float grid_density_at(const float* grid, const long long n[3],
+                                                 const float rm1[3], const float bmin[3],
+                                                 const float ext[3], bool nearest,
+                                                 const float o[3], const float d[3],
+                                                 float t) {
+  float p[3], p01[3], rho;
+  for (int a = 0; a < 3; ++a) p[a] = o[a] + t * d[a];
+  grid_box01(bmin, ext, p, p01);
+  sample_grid(grid, n[0], n[1], n[2], 1, 1, rm1, p01, nearest, &rho);
+  return rho;
+}
+
+// integrator.sample_albedo at p of a (nz, ny, nx, nch) grid: rgb (a
+// 1-channel grid broadcast).
+__device__ __forceinline__ void grid_albedo_at(const float* grid, const long long n[3],
+                                               int nch, const float rm1[3],
+                                               const float bmin[3], const float ext[3],
+                                               bool nearest, const float p[3],
+                                               float alb[3]) {
+  float p01[3];
+  grid_box01(bmin, ext, p, p01);
+  sample_grid(grid, n[0], n[1], n[2], nch, nch < 3 ? 1 : 3, rm1, p01, nearest, alb);
+  if (nch < 3) alb[1] = alb[2] = alb[0];
+}
+
+// ---- the two-level tracking step (models/differentiable.py _track_step) ------
+
+// The replays' two-level geometry: the box (bmin, ext), the density's rm1 =
+// n - 1, the brick size in voxels, scale, the probe's epsw, the tables (the
+// dilated brick majorants, their leaps, the flat density) and, as integers,
+// (nx, ny, nz, nbx, nby, the last brick index along x, y, z).
+struct TwoLevel {
+  const float *bmin, *ext, *rm1, *bsize;
+  float scale, epsw;
+  const long long* geo;  // nx, ny, nz, nbx, nby, hix, hiy, hiz
+  const float *major, *leap, *density;
+};
+
+// One step's outcome besides the lane's t, brick exit, inverse majorant and
+// local majorant (updated in place).
+struct TrackStep {
+  bool inside, accepted, overran_step, overran_empty;
+  long long tap;  // the stochastic tap's flat index (inside lanes)
+  float rho;      // the density there
+};
+
+// One two-level tracking step of a running lane (o, d, its segment's max_t):
+// the brick probe at t >= brick_exit under the dilated majorant with the
+// Chebyshev leap over empty bricks, a flight under the brick's majorant, the
+// crossing test against min(brick_exit, max_t), the 30-bit stochastic tap and
+// the acceptance test, with the overran-step and overran-empty exits.  The
+// nested and the fused replays both run it; its draws are the eager step's.
+__device__ __forceinline__ void track_step_2l(const TwoLevel& G, const float o[3],
+                                              const float d[3], float maxt, float& t,
+                                              float& bexit, float& isl, float& rloc,
+                                              uint32_t& rs, uint32_t inc, TrackStep& S) {
+  S.inside = S.accepted = S.overran_step = S.overran_empty = false;
+  S.tap = 0;
+  S.rho = 0.0f;
+  bool probe_empty = false;
+  float t_leap = 0.0f;
+  if (t >= bexit) {
+    // the brick probe: the dilated majorant and the leap of the brick at
+    // t + epsw, and the brick's exit along d
+    const float tt = t + G.epsw;
+    long long bi[3];
+    float bound[3];
+    for (int a = 0; a < 3; ++a) {
+      const float p = o[a] + tt * d[a];
+      const float coordn = jclip((p - G.bmin[a]) / G.ext[a], 0.0f, 1.0f) * G.rm1[a];
+      long long b = (long long)floorf(coordn / G.bsize[a]);
+      b = b < 0 ? 0 : b;
+      bi[a] = b < G.geo[5 + a] ? b : G.geo[5 + a];
+    }
+    const long long bflat = (bi[2] * G.geo[4] + bi[1]) * G.geo[3] + bi[0];
+    const float rho_b = G.major[bflat];
+    const float leap_b = G.leap[bflat];
+    for (int a = 0; a < 3; ++a) {
+      const float up = d[a] > 0.0f ? 1.0f : 0.0f;
+      const float bound_coord = ((float)bi[a] + up) * G.bsize[a];
+      bound[a] = G.bmin[a] + G.ext[a] * bound_coord / G.rm1[a];
+    }
+    const float exit_new = dda_exit(bound, o, d, t + G.epsw);
+    bexit = exit_new;
+    isl = rho_b > 0.0f ? (1.0f / (G.scale * jmax(rho_b, 1e-30f))) * 1.0f : INFINITY;
+    rloc = rho_b;
+    probe_empty = rho_b <= 0.0f;
+    t_leap = jmax(exit_new, t + leap_b);
+    S.overran_empty = probe_empty && t_leap >= maxt;
+  }
+  bool crossed = false;
+  float t_cand = t;
+  if (!probe_empty) {
+    const float u1 = draw_float(rs, inc);
+    t_cand = t + -logf(jmax(u1, EPS)) * isl;
+    crossed = t_cand >= jmin(bexit, maxt);
+    S.inside = !crossed;
+    if (S.inside) {
+      const uint32_t bits = draw_bits(rs, inc);
+      S.tap = tap_flat(G.bmin, G.ext, G.rm1, G.geo, false, o, d, t_cand, bits);
+      S.rho = G.density[S.tap];
+      const float u2 = draw_float(rs, inc);
+      S.accepted = !(G.scale * S.rho * isl < u2);
+    }
+  }
+  S.overran_step = crossed && maxt <= bexit;
+  const bool transit = crossed && !S.overran_step;
+  if (probe_empty) {
+    t = jmin(t_leap, maxt);
+  } else if (transit) {
+    t = bexit;
+  } else if (S.overran_step) {
+    t = jmax(t, maxt);
+  } else if (S.inside) {
+    t = t_cand;
+  }
+  if (probe_empty) bexit = -1.0f;
 }
 
 // ---- a path's start (cam.generate_rays after rng.make_rng) -----------------

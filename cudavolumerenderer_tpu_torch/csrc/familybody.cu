@@ -35,9 +35,10 @@
 //           the splat; with defer (sortingSK) a scatter records its fetch
 //           point and stalls; flush (flush_pending) fetches the deferred
 //           albedos and runs their Russian roulette.
-// Grids are sampled as ops/grid.py does: 8 clamped taps lerped in its order
-// ('trilinear') or the truncated point ('nearest'), over a dense float32
-// density and an albedo of 1 or >= 3 channels (the first 3 read).  Every draw
+// Grids are sampled as ops/grid.py does (common.cuh sample_grid, which
+// nestedreplay.cu shares): 8 clamped taps lerped in its order ('trilinear')
+// or the truncated point ('nearest'), over a dense float32 density and an
+// albedo of 1 or >= 3 channels (the first 3 read).  Every draw
 // is taken only under the eager function's mask, so each path's stream is
 // the plain version's; a dead lane is a fixed point of bounce and extend.
 //
@@ -76,8 +77,6 @@ using namespace cvr;
 constexpr int THREADS = 256;
 constexpr int REFILL_THREADS = 1024;
 constexpr int DRAIN_THREADS = 64;
-// ops/grid.py _COORD_LIMIT: coordinates clamp here before the int64 cast
-constexpr float COORD_LIMIT = 4611686018427387904.0f;  // 2^62
 // models/integrator.py _VB_MAX_ITERS: a variable-boundary march's cap
 constexpr int VB_MAX_ITERS = 4096;
 
@@ -199,83 +198,25 @@ __device__ __forceinline__ void store_lane(const Ptrs& Q, int i, bool stream, bo
   }
 }
 
-// ---- the grids (ops/grid.py) ------------------------------------------------
-
-// _to_index: truncation toward zero of a coordinate clamped to +-2^62.
-__device__ __forceinline__ long long to_index(float c) {
-  return (long long)jclip(c, -COORD_LIMIT, COORD_LIMIT);
-}
-__device__ __forceinline__ long long clampll(long long x, long long hi) {
-  return x < 0 ? 0 : (x > hi ? hi : x);
-}
-
-// sample(grid, p01): the first `nout` channels of a (nz, ny, nx, nch) grid at
-// the box coordinates p01, scaled by rm1 = n - 1 (volume_to_grid); 8 clamped
-// taps lerped as sample_trilinear does, or sample_nearest's point.
-__device__ __forceinline__ void sample_grid(const float* g, long long nx, long long ny,
-                                            long long nz, int nch, int nout,
-                                            const float rm1[3], const float p01[3],
-                                            bool nearest, float* out) {
-  float coord[3];
-  for (int a = 0; a < 3; ++a) coord[a] = p01[a] * rm1[a];
-  if (nearest) {
-    const long long ix = clampll(to_index(coord[0]), nx - 1);
-    const long long iy = clampll(to_index(coord[1]), ny - 1);
-    const long long iz = clampll(to_index(coord[2]), nz - 1);
-    const float* v = g + ((iz * ny + iy) * nx + ix) * nch;
-    for (int c = 0; c < nout; ++c) out[c] = v[c];
-    return;
-  }
-  float c0[3];
-  long long i0[3];
-  for (int a = 0; a < 3; ++a) {
-    c0[a] = floorf(coord[a]);
-    i0[a] = to_index(c0[a]);
-  }
-  const float fx = coord[0] - c0[0], fy = coord[1] - c0[1], fz = coord[2] - c0[2];
-  const long long xa = clampll(i0[0], nx - 1), xb = clampll(i0[0] + 1, nx - 1);
-  const long long ya = clampll(i0[1], ny - 1), yb = clampll(i0[1] + 1, ny - 1);
-  const long long za = clampll(i0[2], nz - 1), zb = clampll(i0[2] + 1, nz - 1);
-  const float* r00 = g + (za * ny + ya) * nx * nch;  // (z, y) rows
-  const float* r01 = g + (za * ny + yb) * nx * nch;
-  const float* r10 = g + (zb * ny + ya) * nx * nch;
-  const float* r11 = g + (zb * ny + yb) * nx * nch;
-  const float ofx = 1.0f - fx, ofy = 1.0f - fy, ofz = 1.0f - fz;
-  for (int c = 0; c < nout; ++c) {
-    const float d000 = r00[xa * nch + c], d001 = r00[xb * nch + c];
-    const float d010 = r01[xa * nch + c], d011 = r01[xb * nch + c];
-    const float d100 = r10[xa * nch + c], d101 = r10[xb * nch + c];
-    const float d110 = r11[xa * nch + c], d111 = r11[xb * nch + c];
-    out[c] = ((d000 * ofx + d001 * fx) * ofy + (d010 * ofx + d011 * fx) * fy) * ofz +
-             ((d100 * ofx + d101 * fx) * ofy + (d110 * ofx + d111 * fx) * fy) * fz;
-  }
-}
+// ---- the grids (common.cuh's samplers over this launch's parameters) ---------
 
 // The box coordinates of a world point: (p - box_min) / extent.
 __device__ __forceinline__ void box01(const Params& P, const float p[3], float p01[3]) {
-  for (int a = 0; a < 3; ++a) p01[a] = (p[a] - P.f[FP_BMIN + a]) / P.f[FP_EXT + a];
+  grid_box01(P.f + FP_BMIN, P.f + FP_EXT, p, p01);
 }
 
 // The density at o + t d.
 __device__ __forceinline__ float density_at(const Params& P, const Ptrs& Q, const float o[3],
                                             const float d[3], float t) {
-  float p[3], p01[3], rho;
-  for (int a = 0; a < 3; ++a) p[a] = o[a] + t * d[a];
-  box01(P, p, p01);
-  sample_grid((const float*)Q.p[S_DENSITY], P.i[IP_NX], P.i[IP_NY], P.i[IP_NZ], 1, 1,
-              P.f + FP_RMD, p01, P.i[IP_NEAREST] != 0, &rho);
-  return rho;
+  return grid_density_at((const float*)Q.p[S_DENSITY], P.i + IP_NX, P.f + FP_RMD,
+                         P.f + FP_BMIN, P.f + FP_EXT, P.i[IP_NEAREST] != 0, o, d, t);
 }
 
 // integrator.sample_albedo at p: rgb (a 1-channel grid broadcast).
 __device__ __forceinline__ void albedo_at(const Params& P, const Ptrs& Q, const float p[3],
                                           float alb[3]) {
-  float p01[3];
-  box01(P, p, p01);
-  const int nch = (int)P.i[IP_NCH];
-  sample_grid((const float*)Q.p[S_ALBEDO], P.i[IP_AX], P.i[IP_AY], P.i[IP_AZ], nch,
-              nch < 3 ? 1 : 3, P.f + FP_RMA, p01, P.i[IP_NEAREST] != 0, alb);
-  if (nch < 3) alb[1] = alb[2] = alb[0];
+  grid_albedo_at((const float*)Q.p[S_ALBEDO], P.i + IP_AX, (int)P.i[IP_NCH], P.f + FP_RMA,
+                 P.f + FP_BMIN, P.f + FP_EXT, P.i[IP_NEAREST] != 0, p, alb);
 }
 
 // ---- the variable boundary (integrator.variable_boundary_adjust) -------------

@@ -12,7 +12,8 @@
 //      segment (t = 0, max_t = the hit distance, the face normal kept), and an
 //      outside hit is a boundary event now;
 //   B. one two-level tracking step of a lane inside the medium
-//      (differentiable._track_step): the brick probe at t >= brick_exit under
+//      (differentiable._track_step; common.cuh track_step_2l, which
+//      nestedreplay.cu's nested replay runs too): the brick probe at t >= brick_exit under
 //      the dilated majorant with the Chebyshev leap over empty bricks, a
 //      flight under the brick's majorant, the crossing test against
 //      min(brick_exit, max_t), the 30-bit stochastic tap and the acceptance
@@ -216,78 +217,25 @@ __device__ __forceinline__ void evaluate(const Params& P, const Ptrs& Q, Lane& L
     }
   }
 
-  // -- B: one two-level tracking step ------------------------------------------
-  bool accepted = false, overran_step = false, overran_empty = false;
-  long long tap = 0;
+  // -- B: one two-level tracking step (common.cuh track_step_2l) ----------------
+  TrackStep S{};
   if (L.seg && L.alive && L.inmed) {
-    const float epsw = P.f[FP_EPSW];
-    bool probe_empty = false;
-    float t_leap = 0.0f;
-    if (L.t >= L.bexit) {
-      // the brick probe: the dilated majorant and the leap of the brick at
-      // t + epsw, and the brick's exit along d
-      const float tt = L.t + epsw;
-      const long long hi[3] = {P.i[IP_HIX], P.i[IP_HIY], P.i[IP_HIZ]};
-      long long bi[3];
-      float bound[3];
-      for (int a = 0; a < 3; ++a) {
-        const float p = L.o[a] + tt * L.d[a];
-        const float coordn = jclip((p - bmin[a]) / ext[a], 0.0f, 1.0f) * rm1[a];
-        long long b = (long long)floorf(coordn / P.f[FP_BSIZE + a]);
-        b = b < 0 ? 0 : b;
-        bi[a] = b < hi[a] ? b : hi[a];
-      }
-      const long long bflat = (bi[2] * P.i[IP_NBY] + bi[1]) * P.i[IP_NBX] + bi[0];
-      const float rho_b = ((const float*)Q.p[S_MAJOR])[bflat];
-      const float leap_b = ((const float*)Q.p[S_LEAP])[bflat];
-      for (int a = 0; a < 3; ++a) {
-        const float up = L.d[a] > 0.0f ? 1.0f : 0.0f;
-        const float bound_coord = ((float)bi[a] + up) * P.f[FP_BSIZE + a];
-        bound[a] = bmin[a] + ext[a] * bound_coord / rm1[a];
-      }
-      const float exit_new = dda_exit(bound, L.o, L.d, L.t + epsw);
-      L.bexit = exit_new;
-      L.isl = rho_b > 0.0f ? (1.0f / (scale * jmax(rho_b, 1e-30f))) * 1.0f : INFINITY;
-      L.rloc = rho_b;
-      probe_empty = rho_b <= 0.0f;
-      t_leap = jmax(exit_new, L.t + leap_b);
-      overran_empty = probe_empty && t_leap >= L.maxt;
+    const TwoLevel G = {bmin, ext, rm1, P.f + FP_BSIZE, scale, P.f[FP_EPSW], P.i + IP_NX,
+                        (const float*)Q.p[S_MAJOR], (const float*)Q.p[S_LEAP],
+                        (const float*)Q.p[S_DENSITY]};
+    track_step_2l(G, L.o, L.d, L.maxt, L.t, L.bexit, L.isl, L.rloc, L.rs, L.inc, S);
+    if (S.inside) {
+      R.inside = true;
+      R.didx = S.tap;
+      R.dval = s * (S.accepted ? (1.0f / jmax(S.rho, 1e-8f)) * 1.0f
+                               : (1.0f / jmax(L.rloc - S.rho, 1e-8f)) * -1.0f);
     }
-    bool crossed = false, inside = false;
-    float t_cand = L.t;
-    if (!probe_empty) {
-      const float u1 = draw_float(L.rs, L.inc);
-      t_cand = L.t + -logf(jmax(u1, EPS)) * L.isl;
-      crossed = t_cand >= jmin(L.bexit, L.maxt);
-      inside = !crossed;
-      if (inside) {
-        const uint32_t bits = draw_bits(L.rs, L.inc);
-        tap = tap_flat(bmin, ext, rm1, P.i + IP_NX, false, L.o, L.d, t_cand, bits);
-        const float rho = ((const float*)Q.p[S_DENSITY])[tap];
-        const float u2 = draw_float(L.rs, L.inc);
-        accepted = !(scale * rho * L.isl < u2);
-        R.inside = true;
-        R.didx = tap;
-        R.dval = s * (accepted ? (1.0f / jmax(rho, 1e-8f)) * 1.0f
-                               : (1.0f / jmax(L.rloc - rho, 1e-8f)) * -1.0f);
-      }
-    }
-    overran_step = crossed && L.maxt <= L.bexit;
-    const bool transit = crossed && !overran_step;
-    if (probe_empty) {
-      L.t = jmin(t_leap, L.maxt);
-    } else if (transit) {
-      L.t = L.bexit;
-    } else if (overran_step) {
-      L.t = jmax(L.t, L.maxt);
-    } else if (inside) {
-      L.t = t_cand;
-    }
-    if (probe_empty) L.bexit = -1.0f;
   }
+  const bool accepted = S.accepted;
+  const long long tap = S.tap;
 
   // -- C: the events of lanes whose segment ended ---------------------------------
-  const bool trk_done = accepted || overran_step || overran_empty;
+  const bool trk_done = accepted || S.overran_step || S.overran_empty;
   const bool bnd_now = (trk_done && !accepted) || imm_bnd;
   const bool done_now = trk_done || imm_bnd;
   L.seg = L.seg && !done_now;

@@ -28,7 +28,10 @@ WOODCOCK_CHECK_EVERY and CHECK_EVERY steps (a step on which no lane runs
 changes nothing, and a fused-replay lane advances one step per
 evaluation whatever pool it is in), the bounce loops once per bounce.
 On the card the fused replay's stages run through csrc/replaybody.cu
-(ops/replaybody.run_stage), which stops where that loop stops.
+(ops/replaybody.run_stage), which stops where that loop stops, and the
+bounce-lockstep replays (one-level, and the nested two-level one) through
+csrc/nestedreplay.cu (ops/nestedreplay.run: each lane to its end in one
+launch, or under deterministic algorithms the eager loop's lockstep).
 `.at[].add` is `index_add_`; a lane that adds nothing adds 0.0 to row 0
 instead of being dropped, which leaves every sum as it is.  On the card
 index_add_ and the kernel add with atomics, so cotangents agree with the
@@ -48,8 +51,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..constants import EPSILON
-from ..ops import aabb, camera as cam, phase, replaybody
-from ..ops.grid import Grid, _to_index, sample, volume_to_grid
+from ..ops import aabb, camera as cam, nestedreplay, phase, replaybody
+from ..ops.nestedreplay import WOODCOCK_CHECK_EVERY
+from ..ops.grid import Grid, _to_index, sample, tap_voxels, volume_to_grid
 from ..ops.rng import RngState, make_rng, next_float, next_uint32
 from ..scene.types import (
     Bsdf, Medium, RenderSettings, Scene, _f32, loader_device,
@@ -58,10 +62,6 @@ from . import fast, integrator, naive
 
 #: fused-replay body evaluations per host read of the pending count
 CHECK_EVERY = 8
-
-#: Woodcock steps per host read of the running mask (one-level and
-#: nested replays)
-WOODCOCK_CHECK_EVERY = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,10 +205,20 @@ def _albedo_adjoint(g_lane, albedo, mask, n_chan):
     return torch.cat([adj, pad], dim=-1)[:, :n_chan]
 
 
-def _replay_bounce(scene, settings, st, s_lane, g_lane, record):
+def _any(mask) -> bool:
+    """A host read of a nested replay's loop condition (counted in
+    ops/nestedreplay.KERNEL.plain_reads)."""
+    nestedreplay.KERNEL.plain_reads += 1
+    return bool(torch.any(mask))
+
+
+def _replay_bounce(scene, settings, st, s_lane, g_lane, record, taps=None):
     """One bounce identical to integrator.bounce_step (aabb boundary),
     optionally scatter-adding adjoints (record=True for pass B).  The
-    cotangent buffers are accumulated in place."""
+    cotangent buffers are accumulated in place.  A list given as `taps`
+    receives the voxels read and, in pass B, added to (("density",
+    ...), ("albedo", ...), ("d_density", ...), ("d_albedo", ...);
+    ops/nestedreplay.nested_bytes)."""
     med = scene.medium
     o, d, tput, rad, alive, rng = (
         st.o, st.d, st.throughput, st.radiance, st.alive, st.rng
@@ -228,7 +238,7 @@ def _replay_bounce(scene, settings, st, s_lane, g_lane, record):
     extent = med.box_max - med.box_min
     t = torch.zeros(isect.dist.shape, dtype=torch.float32, device=o.device)
     running = in_medium
-    while bool(torch.any(running)):
+    while _any(running):
         for _ in range(WOODCOCK_CHECK_EVERY):
             u1, rng = next_float(rng, running)
             step = -torch.log(torch.clamp(u1, min=EPSILON)) * inv_sigmat
@@ -239,6 +249,9 @@ def _replay_bounce(scene, settings, st, s_lane, g_lane, record):
             u2, rng = next_float(rng, running)
             overran = t_new > isect.dist
             accepted = ~(scale * rho * inv_sigmat < u2)
+            if taps is not None:
+                taps.append(("density", tap_voxels(
+                    med.density, p01, settings.interpolation)[running]))
             # Score terms: every evaluated collision inside [0, max_t];
             # overruns past the boundary were never realised collisions.
             if record:
@@ -253,10 +266,14 @@ def _replay_bounce(scene, settings, st, s_lane, g_lane, record):
                     ),
                 )
                 val = s_lane * score
-                for idx, w in _trilerp_taps(
+                tl = _trilerp_taps(
                     med.density.data.shape, med.box_min, med.box_max, p
-                ):
+                )
+                for idx, w in tl:
                     d_density.index_add_(0, idx, val * w)
+                if taps is not None:
+                    taps.append(("d_density", torch.stack(
+                        [idx for idx, _ in tl], -1)[is_real | is_null]))
             terminated = overran | accepted
             t = torch.where(running, t_new, t)
             running = running & ~terminated
@@ -272,11 +289,19 @@ def _replay_bounce(scene, settings, st, s_lane, g_lane, record):
     # --- scatter event + albedo adjoint ----------------------------------
     o_s = o + d * t[:, None] - d * EPSILON
     albedo = integrator.sample_albedo(scene, o_s, settings)
+    alb = med.albedo.data
+    if taps is not None:
+        taps.append(("albedo", tap_voxels(
+            med.albedo, aabb.aabb_transform(med.box_min, med.box_max, o_s),
+            settings.interpolation)[scattered]))
     if record:
-        alb = med.albedo.data
         adj = _albedo_adjoint(g_lane, albedo, scattered, alb.shape[-1])
-        for idx, w in _trilerp_taps(alb.shape, med.box_min, med.box_max, o_s):
+        tl = _trilerp_taps(alb.shape, med.box_min, med.box_max, o_s)
+        for idx, w in tl:
             d_albedo.index_add_(0, idx, adj * w[:, None])
+        if taps is not None:
+            taps.append(("d_albedo", torch.stack(
+                [idx for idx, _ in tl], -1)[scattered]))
     d_s, rng = phase.sample_phase(d, med.g, rng, active=scattered)
 
     sc, bd = scattered[:, None], boundary[:, None]
@@ -471,13 +496,14 @@ def _record_albedo(da, geo: _Geometry, g_lane, albedo, scat, alb_idx):
         da.index_add_(0, torch.where(scat, alb_idx, 0), adj)
 
 
-def _replay_bounce_2l(scene, settings, st, s_lane, g_lane, record, tables):
+def _replay_bounce_2l(scene, settings, st, s_lane, g_lane, record, tables,
+                      taps=None):
     """Two-level, stochastic-tap variant of _replay_bounce: per-brick
     dilated majorants (with score headroom), Chebyshev empty-space leaps
     and single-tap stochastic trilinear filtering — the fastSK estimator
     family, made differentiable.  Adjoints scatter to ONE tap per density
     evaluation, and the null score uses the brick majorant the sampler
-    used."""
+    used.  `taps` as in _replay_bounce, with ("brick", brick rows read)."""
     med = scene.medium
     geo = _geometry(scene, tables)
     o, d, tput, rad, alive, rng = (
@@ -497,11 +523,16 @@ def _replay_bounce_2l(scene, settings, st, s_lane, g_lane, record, tables):
     t, brick_exit, inv_sig, rho_loc = zero1, zero1 - 1.0, zero1, zero1
     scattered = torch.zeros((n_lanes,), dtype=torch.bool, device=o.device)
     tap_saved = torch.zeros((n_lanes,), dtype=torch.int64, device=o.device)
-    while bool(torch.any(running)):
+    while _any(running):
         for _ in range(WOODCOCK_CHECK_EVERY):
             s = _track_step(scene, geo, o, d, running, t, brick_exit, inv_sig,
                             rho_loc, max_t, rng)
             t, brick_exit, inv_sig, rho_loc, rng = s[:5]
+            if taps is not None:
+                taps += [("brick", s.bflat[s.need_brick]),
+                         ("density", s.tap_flat[s.inside])]
+                if record:
+                    taps.append(("d_density", s.tap_flat[s.inside]))
             if record:
                 _record_density(d_density, s, s_lane)
             done = s.accepted | s.overran_step | s.overran_empty
@@ -519,6 +550,10 @@ def _replay_bounce_2l(scene, settings, st, s_lane, g_lane, record, tables):
     # --- scatter event: albedo at the accepted tap ------------------------
     alb_idx = torch.zeros_like(tap_saved) if geo.const_alb else tap_saved
     albedo = geo.albedo_flat[alb_idx][:, :3]
+    if taps is not None:
+        taps.append(("albedo", alb_idx[scattered]))
+        if record:
+            taps.append(("d_albedo", alb_idx[scattered]))
     if record:
         _record_albedo(d_albedo, geo, g_lane, albedo, scattered, alb_idx)
     d_s, rng = phase.sample_phase(d, med.g, rng, active=scattered)
@@ -778,22 +813,13 @@ def _replay_2l_fused(scene, settings, o0, d0, rng0, s_lane, g_lane,
     )
 
 
-def _replay(scene, settings, o0, d0, rng0, s_lane, g_lane, record,
-            d_density0, d_albedo0, tables=None, fused=True, cascade=True,
-            cascade_factor=2, min_width=None, check_every=CHECK_EVERY,
-            stats=None, eager_body=False):
-    """Replay every lane's path: the fused two-level replay (tables given,
-    fused=True; on the card through csrc/replaybody.cu unless eager_body),
-    or the bounce-lockstep nested replay, one- or two-level (eager).  With
-    record=True the adjoints are added into d_density0 and d_albedo0 in
-    place; with record=False they are not touched."""
-    if tables is not None and fused:
-        return _replay_2l_fused(
-            scene, settings, o0, d0, rng0, s_lane, g_lane, record,
-            d_density0, d_albedo0, tables, cascade=cascade,
-            cascade_factor=cascade_factor, min_width=min_width,
-            check_every=check_every, stats=stats, eager_body=eager_body,
-        )
+def _nested_loop(scene, settings, tables, record, d_density0, d_albedo0, o0,
+                 d0, rng0, s_lane, g_lane, taps=None) -> _ReplayState:
+    """The bounce-lockstep nested replay, one-level (tables None) or
+    two-level, as eager torch: the plain version of csrc/nestedreplay.cu
+    (counted in ops/nestedreplay.KERNEL.plain_passes).  `taps`, a list,
+    gains each bounce's taps (_replay_bounce)."""
+    nestedreplay.KERNEL.plain_passes += 1
     n = o0.shape[:-1]
     dev = o0.device
     st = _ReplayState(
@@ -805,14 +831,62 @@ def _replay(scene, settings, o0, d0, rng0, s_lane, g_lane, record,
         d_density=d_density0, d_albedo=d_albedo0,
     )
     bounce = 0
-    while bounce < settings.max_path_length and bool(torch.any(st.alive)):
+    while bounce < settings.max_path_length and _any(st.alive):
         if tables is not None:
             st = _replay_bounce_2l(scene, settings, st, s_lane, g_lane,
-                                   record, tables)
+                                   record, tables, taps)
         else:
-            st = _replay_bounce(scene, settings, st, s_lane, g_lane, record)
+            st = _replay_bounce(scene, settings, st, s_lane, g_lane, record,
+                                taps)
         bounce += 1
     return st
+
+
+def nested_context(scene, settings, tables, record, d_density=None,
+                   d_albedo=None) -> nestedreplay.NestedContext:
+    """The nested replay's kernel context (one-level for tables None); its
+    plain version is the eager loop, adding into d_density and d_albedo
+    with record."""
+    geo = None if tables is None else _geometry(scene, tables)
+
+    def plain(o0, d0, rng0, s_lane, g_lane, taps=None):
+        st = _nested_loop(scene, settings, tables, record, d_density,
+                          d_albedo, o0, d0, rng0, s_lane, g_lane, taps)
+        return (st.o, st.d, st.throughput, st.radiance, st.alive,
+                st.rng.state)
+
+    return nestedreplay.make_context(scene, settings, geo, record, d_density,
+                                     d_albedo, plain)
+
+
+def _replay(scene, settings, o0, d0, rng0, s_lane, g_lane, record,
+            d_density0, d_albedo0, tables=None, fused=True, cascade=True,
+            cascade_factor=2, min_width=None, check_every=CHECK_EVERY,
+            stats=None, eager_body=False):
+    """Replay every lane's path: the fused two-level replay (tables given,
+    fused=True; on the card through csrc/replaybody.cu unless eager_body),
+    or the bounce-lockstep nested replay, one- or two-level (on the card
+    through csrc/nestedreplay.cu unless eager_body; the eager loop
+    `_nested_loop` on the CPU).  With record=True the adjoints are added
+    into d_density0 and d_albedo0 in place; with record=False they are not
+    touched."""
+    if tables is not None and fused:
+        return _replay_2l_fused(
+            scene, settings, o0, d0, rng0, s_lane, g_lane, record,
+            d_density0, d_albedo0, tables, cascade=cascade,
+            cascade_factor=cascade_factor, min_width=min_width,
+            check_every=check_every, stats=stats, eager_body=eager_body,
+        )
+    if not nestedreplay.route(o0.device.type, eager_body):
+        return _nested_loop(scene, settings, tables, record, d_density0,
+                            d_albedo0, o0, d0, rng0, s_lane, g_lane)
+    ctx = nested_context(scene, settings, tables, record, d_density0,
+                         d_albedo0)
+    o, d, tput, rad, alive, state = nestedreplay.run(ctx, o0, d0, rng0,
+                                                     s_lane, g_lane)
+    return _ReplayState(o=o, d=d, throughput=tput, radiance=rad, alive=alive,
+                        rng=RngState(state, rng0.inc), d_density=d_density0,
+                        d_albedo=d_albedo0)
 
 
 def _lane_setup(camera_obj: cam.Camera, resolution, spp, seed):
@@ -958,8 +1032,9 @@ def render_diff(
     fused replay's pools.  `stats`, when a dict, gains the fused replay's
     body evaluations per call: "primal_iters" (forward) and
     "pass_b_iters" (backward).  On the card the fused replay runs through
-    csrc/replaybody.cu; eager_body=True runs its eager body instead (the
-    plain version the kernel is held against)."""
+    csrc/replaybody.cu and the one-level backward's replays through
+    csrc/nestedreplay.cu; eager_body=True runs their eager bodies instead
+    (the plain versions the kernels are held against)."""
     return _RenderDiff.apply(
         density_data, albedo_data, seed, scene_spec, camera_spec, settings,
         tuple(resolution), spp, two_level, camera,

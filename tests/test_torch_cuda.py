@@ -43,6 +43,11 @@ drain_kernel) equals its eager loop bit for bit in every lane field and
 counter at pools of 128 and 40 lanes, with RR on and off, GGX and the null
 boundary, a constant and an affine albedo, and through its relaunch at a
 lowered cap; a render through it equals the render through the eager loop.
+render_diff's bounce-lockstep replays (csrc/nestedreplay.cu: one-level and
+the nested two-level) equal the eager loop in every lane field at 24^2 and
+40^2 lanes, pass A and pass B, their cotangents within GRAD_* with atomics
+and bit for bit under deterministic algorithms; the white furnace is exact
+through pass A, and the one-level backward never reaches the eager loop.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -2191,3 +2196,171 @@ def test_brick_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
                           4, 5, 7)
     assert tracking.KERNEL.launches == track
     assert sum(bb.KERNEL.plain_evals.values()) == 0
+
+
+# -- the bounce-lockstep replays (csrc/nestedreplay.cu) -------------------------
+
+#: (id, two-level, bsdf, Russian roulette, mitsuba_comparable (trilinear and
+#: Mitsuba's GGX sampler; else nearest and Heitz's), a constant albedo)
+NESTED_CASES = [
+    ("1l-ggx-voxel-rr", False, "ggx", True, True, False),
+    ("1l-null-const-nearest", False, "null", False, False, True),
+    ("1l-ggx-const", False, "ggx", False, True, True),
+    ("2l-ggx-const-rr", True, "ggx", True, True, True),
+    ("2l-null-voxel-heitz", True, "null", False, False, False),
+]
+#: pools that powers of two cannot stand in for (the card's float rules)
+NESTED_RES = [24, 40]
+NESTED_FIELDS = ("o", "d", "throughput", "radiance", "alive")
+
+
+def nested_problem(device, two, bsdf, rr, mitsuba, const_albedo, res, spp=1,
+                   albedo_value=0.7, max_path=64):
+    """The 32^3 blob volume of replay_problem (scale 12), the camera's lanes
+    at res^2 x spp and pass B's weights made with numpy from a seed:
+    (scene, settings, tables, (o0, d0, rng, s_lane, g_lane))."""
+    d = procedural.medical_volume((32,) * 3, n_blobs=6).astype(np.float32)
+    rs = np.random.RandomState(3)
+    alb = (np.full((1, 1, 1, 4), albedo_value, np.float32) if const_albedo
+           else (0.3 + 0.6 * rs.rand(32, 32, 32, 4)).astype(np.float32))
+    scene = differentiable.SceneSpec(scale=12.0).build(d, alb, device)
+    cam = differentiable.CameraSpec(res_x=res, res_y=res,
+                                    fov_x_deg=0.8).build(device)
+    settings = types.RenderSettings.from_flags(
+        mitsuba, russian_roulette=rr, max_path_length=max_path,
+        bsdf_kind=bsdf)
+    n, _, o0, d0, rng = differentiable._lane_setup(cam, (res, res), spp, 5)
+    g = torch.tensor(rs.rand(n, 3).astype(np.float32), device=device)
+    tables = (differentiable._build_brick_tab(scene.medium.density.data)
+              if two else None)
+    return scene, settings, tables, (o0, d0, rng, torch.sum(g, dim=-1), g)
+
+
+def nested_pass(problem, record, eager, device):
+    """One replay through the kernels (eager=False) or the eager loop:
+    (the _ReplayState, d_density, d_albedo)."""
+    scene, settings, tables, (o0, d0, rng, s, g) = problem
+    dd, da = cotangents(scene, device)
+    out = differentiable._replay(scene, settings, o0, d0, rng, s, g, record,
+                                 dd, da, tables, fused=False,
+                                 eager_body=eager)
+    return out, dd, da
+
+
+def nested_mismatches(a, b):
+    bad = [k for k in NESTED_FIELDS
+           if not torch.equal(getattr(a, k), getattr(b, k))]
+    return bad + (["rng"] if not torch.equal(a.rng.state, b.rng.state)
+                  else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", NESTED_RES, ids=[f"{r}^2" for r in NESTED_RES])
+@pytest.mark.parametrize("case", NESTED_CASES, ids=[c[0] for c in NESTED_CASES])
+def test_nested_replay_kernel_equals_eager_loop(cuda, case, res):
+    """The whole replay through csrc/nestedreplay.cu against the eager loop
+    on the card, at 24^2 and 40^2 lanes: pass A (the drain) and pass B in
+    every lane field bit for bit; pass B's cotangents within GRAD_* with
+    atomics (the drain and index_add_ both add with atomics, in other
+    orders) and bit for bit under deterministic algorithms (the lockstep
+    launches, their records added by index_add_ in the eager order)."""
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay
+
+    problem = nested_problem(cuda, *case[1:], res)
+    k = nestedreplay.KERNEL
+    for record in (False, True):
+        want, de, ae = nested_pass(problem, record, True, cuda)
+        before = (k.drain_launches, k.plain_passes)
+        got, dk, ak = nested_pass(problem, record, False, cuda)
+        assert (k.drain_launches, k.plain_passes) == (before[0] + 1,
+                                                      before[1])
+        assert not nested_mismatches(got, want), record
+        if record:
+            assert float(de.abs().max()) > 0 and float(ae.abs().max()) > 0
+            assert_grads_close(dk, de)
+            assert_grads_close(ak, ae)
+        else:
+            assert not dk.any() and not ak.any()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, de, ae = nested_pass(problem, True, True, cuda)
+        launches = k.launches
+        got, dk, ak = nested_pass(problem, True, False, cuda)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert k.launches > launches
+    assert not nested_mismatches(got, want)
+    assert torch.equal(dk, de) and torch.equal(ak, ae)
+
+
+@pytest.mark.cuda
+def test_white_furnace_through_nested_replay(cuda):
+    """Albedo 1, the null BSDF, no roulette: every path leaves the box with
+    throughput 1, so pass A's radiance (the drain) sums to spp in every
+    pixel exactly."""
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay
+
+    res, spp = 24, 4
+    problem = nested_problem(cuda, False, "null", False, True, True, res,
+                             spp, albedo_value=1.0, max_path=1 << 20)
+    drains = nestedreplay.KERNEL.drain_launches
+    out, _, _ = nested_pass(problem, False, False, cuda)
+    assert nestedreplay.KERNEL.drain_launches == drains + 1
+    assert not bool(out.alive.any())
+    image_id = torch.arange(res * res * spp, device=cuda) % (res * res)
+    img = torch.zeros((res * res, 3), device=cuda).index_add_(
+        0, image_id, out.radiance)
+    assert torch.equal(img, torch.full_like(img, float(spp)))
+
+
+@pytest.mark.cuda
+def test_one_level_backward_never_reaches_the_eager_loop(cuda, monkeypatch):
+    """render_diff's one-level backward on the card runs pass A and pass B
+    as two drain launches (under deterministic algorithms pass B as
+    lockstep launches) and no eager replay; a failed build raises out of it,
+    with no fallback to the eager loop."""
+    from cudavolumerenderer_tpu_torch.ops import nestedreplay
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    def backward():
+        density, albedo = (procedural.medical_volume((16,) * 3, n_blobs=4)
+                           .astype(np.float32),
+                           np.full((1, 1, 1, 4), 0.6, np.float32))
+        d = torch.tensor(density, device=cuda, requires_grad=True)
+        img = differentiable.render_diff(
+            d, torch.tensor(albedo, device=cuda), 3,
+            differentiable.SceneSpec(scale=12.0),
+            differentiable.CameraSpec(res_x=16, res_y=16, fov_x_deg=0.8),
+            types.RenderSettings.from_flags(True, russian_roulette=False,
+                                            max_path_length=64),
+            (16, 16), 2)
+        img.sum().backward()
+        return d.grad
+
+    k = nestedreplay.KERNEL
+    before = (k.drain_launches, k.launches, k.plain_passes, k.plain_reads)
+    grad = backward()
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+    assert (k.drain_launches, k.launches, k.plain_passes, k.plain_reads) == (
+        before[0] + 2, before[1], before[2], before[3])
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        grad_det = backward()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert k.drain_launches == before[0] + 3 and k.launches > before[1]
+    assert k.plain_passes == before[2]
+    torch.testing.assert_close(grad_det, grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL * float(grad.abs().max()))
+
+    def broken(source):
+        raise RuntimeError("nvcc failed on nestedreplay.cu")
+
+    monkeypatch.setattr(nestedreplay, "KERNEL",
+                        nestedreplay.NestedReplayKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        backward()
+    assert nestedreplay.KERNEL.plain_passes == 0
