@@ -189,20 +189,25 @@ CPU or to a plain version on a CUDA tensor):
 20. fastSK's options on config 2's scene at its published width, 512^2
    x CONFIG2_ITERS (as phase 19), one tile, two-level, no tail kernel,
    through create_renderer(...).render()
-   in one call so the rows compare: defer_ggx 4 (the eager body) against
-   phase 19's f32 render, which is defer_ggx 0 (the body kernel):
-   render_tile's images bit-equal, n_rays equal; wall with the image
-   copy, body evaluations, and device kernels per evaluation from
-   torch.profiler over evaluations 100-159 of each;
+   in one call so the rows compare: defer_ggx 4 (the body kernels with
+   the deferred flush) against phase 19's f32 render, which is defer_ggx
+   0: render_tile's images bit-equal, n_rays equal; wall with the image
+   copy, body evaluations, launches, host reads, and device kernels per
+   evaluation from torch.profiler over each whole render (at most
+   DEFER_KERNELS_MAX for defer_ggx 4);
    brick_major (the 256^3 grid divides (8, 8, 128): bit-equal to
    the defer_ggx=0 image); the white furnace exact on the card for
    tests/test_fast.py's two tail configurations (16^2 x 4); then
    micro_medical2's bricks16 (cascade 2, 4,096 bricks), bricks16+tb4
-   (tail_bricks 4) and b16+spec16@512 (min_width 512, single-level
-   spec-16 tail at <= 512 lanes): wall, evaluations per stage, n_rays,
-   each tail row's image mean within 2% and n_rays within 5% of
-   bricks16's; a 64^3 per-voxel albedo under a budget cut to send it to
-   'split', bit-equal to its 'full' render; then a per-voxel albedo grid
+   (tail_bricks 4), b16+spec8@512, b16+spec16@512, b16+spec32@512
+   (min_width 512, a single-level spec-K tail at <= 512 lanes) and
+   b16+spec16@2048, all through the body kernels: wall, evaluations per
+   stage, n_rays, launches (the speculative ones counted apart), each
+   tail row's image mean within 2% and n_rays within 5% of bricks16's;
+   b16+spec16@512 again through the eager body (eager_body=True): image,
+   n_rays and n_rows bit-equal to the kernels' render; a 64^3 per-voxel
+   albedo under a budget cut to send it to 'split', bit-equal to its
+   'full' render; then a per-voxel albedo grid
    made on the card at the side n where plan_albedo_table picks 'split'
    on this card (16 n^3 > 30% and 20 n^3 < 80% of its memory), rendered
    at 128^2 x 1: wall, peak allocated memory, image mean;
@@ -244,7 +249,15 @@ CPU or to a plain version on a CUDA tensor):
    equal to NaN) and the same pending count; the kernel's device time per
    evaluation from replays of a CUDA graph of 16 out-of-place evaluations
    of the kept state, the eager body's by CUDA events, and the byte
-   bound;
+   bound; (e) the two modes' kept pools: config 2 as b16+spec16@512
+   (the 512-lane stage's entry, spec_k 16) and at defer_ggx 4 (the
+   16,384-lane stage, advanced to an evaluation that flushes with lanes
+   waiting), each one kernel evaluation against one eager evaluation
+   (every FastState field, the pending count), the kernel's time per
+   evaluation (CUDA graph), the eager evaluation's and the byte bound,
+   then one drain launch capped at MODE_DRAIN_CAP evaluations against as
+   many eager evaluations, both timed, and its bound; the spec pool also
+   drained to its end at spec_k 1, 8, 16 and 32 (CUDA events);
 23. render_diff's replay kernels (csrc/replaybody.cu) on phase 14's
    256^3 problem (inverse_256's phantom, albedo 0.6, scale 12, its first
    view at 128^2 x 4: 65,536 lanes in pools down to 4,096): (a) pass B
@@ -368,6 +381,7 @@ and power limit, and the result line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -450,17 +464,27 @@ TRAIN_ARGV = ("--n", "256", "--res", "128", "--spp", "8", "--spp-chunks", "2",
 TRAIN_CUTS = ("--views 2 (the recipe's 8)", "--target-spp 8 (64)",
               "--steps 1 0 1 (80 60 40; 128^3 is upsampled through)")
 CONFIG4_ITERS = 4  # phase 17: BASELINE config 4's 50 iterations, cut
-EVAL_WINDOW = (100, 60)  # phase 20's profiled body evaluations: first, count
 # phase 20's tail rows (benchmarks/micro_medical2.py:88-113), the first the
 # reference the others are held to
 BRICKS16 = {"cascade_factor": 2, "max_bricks": 4096}
+def spec_row(k: int, width: int) -> tuple:
+    """micro_medical2's b16+spec{k}@{width}: a single-level spec-k tail at
+    pools of at most `width` lanes, the cascade cut there."""
+    return (f"b16+spec{k}@{width}", {**BRICKS16, "min_width": width,
+                                     "tail_single_level": True,
+                                     "tail_spec": k, "spec_width": width})
+
+
 TAIL_ROWS = (
     ("bricks16", BRICKS16),
     ("bricks16+tb4", {**BRICKS16, "tail_bricks": 4}),
-    ("b16+spec16@512", {**BRICKS16, "min_width": 512,
-                        "tail_single_level": True, "tail_spec": 16,
-                        "spec_width": 512}),
+    spec_row(8, 512), spec_row(16, 512), spec_row(32, 512),
+    spec_row(16, 2048),
 )
+#: the spec row held bit for bit against its eager-body render
+SPEC_EAGER = "b16+spec16@512"
+#: the most device kernels per evaluation of the defer_ggx 4 render
+DEFER_KERNELS_MAX = 2
 CONFIG2_ITERS = 4  # phases 19-20's config-2 iterations (the published 4)
 # phase 21 (b): two gloo ranks sharing the card, and (c): the inverse step
 GLOO_RES, GLOO_SPP = (64, 64), 5
@@ -2884,7 +2908,7 @@ def config2_row(bc, name: str, label: str, extra, tmp: str, card: str):
     """One phase 19 row: config 2 through baseline_configs.main with the
     flags `extra`, one trial.  Returns (its JSON row, the image mean, and
     for the f32 row option_render's dict of the render, with the device
-    kernels per evaluation of evaluations 100-159)."""
+    kernels per evaluation over the whole render)."""
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
     out = os.path.join(tmp, "config2.json")
@@ -2931,8 +2955,8 @@ def champion_config2(tmp: str, card: str) -> dict:
     published width, CONFIG2_ITERS iterations, through the port's
     baseline_configs driver, then the f32 row in the same call.  The f32
     row is config 2 at defer_ggx 0, so it also counts the device kernels
-    of body evaluations 100-159 and is returned as phase 20's first row
-    (option_render's dict)."""
+    per evaluation over its whole render and is returned as phase 20's
+    first row (option_render's dict)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.benchmarks import baseline_configs as bc
@@ -2967,59 +2991,6 @@ def champion_config2(tmp: str, card: str) -> dict:
     del scene, words
     torch.cuda.empty_cache()
     return inline
-
-
-class EvaluationWindow:
-    """torch.profiler over eager body evaluations [first, first + n) of the
-    renders run while it is entered: fastSK's eager body calls
-    ops.camera.generate_rays once per evaluation, so those calls count
-    the evaluations (RenderWindow profiles renders through the body
-    kernels).  kernels is the device kernels per evaluation there (None
-    when the trace holds no device time)."""
-
-    def __init__(self, first: int, n: int):
-        self.first, self.n = first, n
-
-    def __enter__(self):
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        from cudavolumerenderer_tpu_torch.ops import camera
-
-        self.camera, self.orig = camera, camera.generate_rays
-        # device activity only, as in every window here: the counts read
-        # are of kernels, and host events would slow the trace's processing
-        self.prof = profile(activities=[ProfilerActivity.CUDA])
-        self.evals, self.clock = 0, []
-
-        def counting(orig):
-            def counted(*args, **kw):
-                if self.evals in (self.first, self.first + self.n):
-                    torch.cuda.synchronize()
-                    self.clock.append(time.perf_counter())
-                    (self.prof.start if self.evals == self.first
-                     else self.prof.stop)()
-                self.evals += 1
-                return orig(*args, **kw)
-            return counted
-
-        camera.generate_rays = counting(self.orig)
-        return self
-
-    def __exit__(self, *exc):
-        from torch.autograd import DeviceType
-
-        self.camera.generate_rays = self.orig
-        if exc[0] is not None:
-            return
-        check(len(self.clock) == 2, f"{self.evals} body evaluations, fewer "
-              f"than the window's {self.first + self.n}")
-        on_card = [e for e in self.prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        self.busy_us = sum(e.self_device_time_total for e in on_card)
-        self.window_us = (self.clock[1] - self.clock[0]) * 1e6
-        self.kernels = (sum(e.count for e in on_card) / self.n
-                        if self.busy_us else None)
 
 
 class RenderWindow:
@@ -3076,45 +3047,53 @@ def log_window(tag: str, prof, card: str) -> None:
         log(f"[20] {tag}: no device time in the profiler's trace; kernels "
             "per evaluation not measured")
         return
-    if isinstance(prof, RenderWindow):
-        log(f"[20] {tag}: the whole render under torch.profiler: "
-            f"{prof.kernels:.3f} device kernels per evaluation, "
-            f"{prof.window_us / 1e3:.2f} ms of wall, device busy "
-            f"{prof.busy_us / 1e3:.3f} ms "
-            f"({prof.busy_us / prof.window_us:.1%}); card {card}")
-        return
-    log(f"[20] {tag}: evaluations {EVAL_WINDOW[0]}-{sum(EVAL_WINDOW) - 1} "
-        f"under torch.profiler: {prof.kernels:.0f} device kernels per "
-        f"evaluation, {prof.window_us / 1e3:.2f} ms of wall, device busy "
-        f"{prof.busy_us / 1e3:.3f} ms ({prof.busy_us / prof.window_us:.1%}); "
-        f"card {card}")
+    log(f"[20] {tag}: the whole render under torch.profiler: "
+        f"{prof.kernels:.3f} device kernels per evaluation, "
+        f"{prof.window_us / 1e3:.2f} ms of wall, device busy "
+        f"{prof.busy_us / 1e3:.3f} ms "
+        f"({prof.busy_us / prof.window_us:.1%}); card {card}")
 
 
 def option_render(scene, camera, fields: dict, tag: str, card: str,
-                  window: bool = False) -> dict:
+                  window: bool = False, eager: bool = False) -> dict:
     """One 512^2 x CONFIG2_ITERS fastSK two-level render of config 2's
-    scene through create_renderer(...).render() with Config `fields`;
-    prints its wall (image copy included), rays, body evaluations per
-    stage and, with window, the device kernels per evaluation.  Returns
-    render_tile's image (the sum over samples, on the card), the
-    renderer's image, n_rays, evaluations and kernels per evaluation."""
+    scene through create_renderer(...).render() with Config `fields`
+    (with eager, render_tile's eager body: eager_body=True); prints its
+    wall (image copy included), rays, body evaluations per stage, the body
+    kernels' launches and host reads (their counts set to 0 just before
+    the render and read just after) and, with window, the device kernels
+    per evaluation.  Returns render_tile's image (the sum over samples,
+    on the card), the renderer's image, n_rays, n_rows, evaluations,
+    kernels per evaluation, the wall and the counts."""
+    import functools
+
     import torch
 
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import fast
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
 
     cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
                  iterations=CONFIG2_ITERS, n_tiles=(1, 1), **fields)
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
-    prof = contextlib.nullcontext()
-    if window:  # the eager body's evaluations can be counted one by one
-        prof = (EvaluationWindow(*EVAL_WINDOW) if fields.get("defer_ggx")
-                else RenderWindow())
-    with CascadeCounter() as cascades, prof:
-        t0 = time.perf_counter()
-        host = renderer.render()
-        wall = time.perf_counter() - t0
+    prof = RenderWindow() if window else contextlib.nullcontext()
+    k = fb.KERNEL
+    k.launches = k.drain_launches = k.reads = 0
+    k.by_mode = dict.fromkeys(fb.MODES, 0)
+    real = fast.render_tile
+    if eager:
+        fast.render_tile = functools.partial(real, eager_body=True)
+    try:
+        with CascadeCounter() as cascades, prof:
+            t0 = time.perf_counter()
+            host = renderer.render()
+            wall = time.perf_counter() - t0
+    finally:
+        fast.render_tile = real
+    counts = {"launches": k.launches, "drains": k.drain_launches,
+              "reads": k.reads, "by_mode": dict(k.by_mode)}
     n_rays = renderer.n_rays
     check(len(cascades.calls) == 1, f"{tag}: {len(cascades.calls)} cascades")
     check(host.shape == (512, 512, 3) and np.isfinite(host).all(),
@@ -3124,14 +3103,18 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
     if isinstance(prof, RenderWindow):
         prof.per_evaluation(evals)
     stages = " / ".join(f"{e:.0f}" for e in cascades.stages[0])
-    log(f"[20] {tag} x {CONFIG2_ITERS}: {wall:.3f} s wall (incl. image "
-        f"copy), {n_rays:.0f} "
-        f"rays, {evals:.0f} body evaluations ({stages} per stage), image "
-        f"mean {float(host.mean()):.5f}; card {card}")
+    log(f"[20] {tag} x {CONFIG2_ITERS}{' (eager body)' if eager else ''}: "
+        f"{wall:.3f} s wall (incl. image copy), {n_rays:.0f} "
+        f"rays, {evals:.0f} body evaluations ({stages} per stage), body "
+        f"kernels {counts['launches']} launches + {counts['drains']} drain "
+        f"launches ({counts['by_mode']} by mode), {counts['reads']} host "
+        f"reads, image mean {float(host.mean()):.5f}; card {card}")
     if window:
         log_window(tag, prof, card)
     return {"img": cascades.images[0], "host": host, "n_rays": n_rays,
-            "evals": evals, "kernels": prof.kernels if window else None}
+            "n_rows": float(cascades.stats[0][2]), "evals": evals,
+            "kernels": prof.kernels if window else None, "wall": wall,
+            **counts}
 
 
 def tail_furnace_on_card() -> None:
@@ -3247,12 +3230,13 @@ def split_on_card(card: str) -> None:
 
 
 def options_config2(tmp: str, card: str, scene=None, camera=None,
-                    inline: dict = None) -> None:
+                    inline: dict = None) -> dict:
     """Phase 20: fastSK's options on config 2's scene (see the module
     docstring): phase 5's scene and camera when given, else written to
     `tmp` and loaded.  `inline` is the defer_ggx 0 row (phase 19's f32
     render, the same render_tile call); without it this renders the
-    row."""
+    row.  Returns the defer_ggx 4 row and the spec rows (walls, counts)
+    for the kernels line."""
     import torch
 
     from cudavolumerenderer_tpu_torch.scene.mhd import load_mhd_scene
@@ -3267,20 +3251,47 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
     check(torch.equal(defer["img"], inline["img"])
           and defer["n_rays"] == inline["n_rays"],
           "defer_ggx 4 differs from defer_ggx 0")
-    log(f"[20] defer_ggx 4 equals 0 bit for bit ({defer['n_rays']:.0f} "
-        f"rays); evaluations {defer['evals']:.0f} against "
-        f"{inline['evals']:.0f}; kernels per evaluation {defer['kernels']} "
-        f"against {inline['kernels']}")
+    check(defer["by_mode"]["defer"] > 0 and defer["by_mode"]["defer"] ==
+          defer["launches"] + defer["drains"],
+          f"defer_ggx 4 launched {defer['by_mode']} deferred-mode kernels of "
+          f"{defer['launches']} + {defer['drains']}")
+    check(defer["kernels"] is not None
+          and defer["kernels"] <= DEFER_KERNELS_MAX,
+          f"defer_ggx 4 ran {defer['kernels']} device kernels per evaluation "
+          f"(None: the profiler's trace held no device time)")
+    log(f"[20] defer_ggx 4 through the kernels equals 0 bit for bit "
+        f"({defer['n_rays']:.0f} rays); {defer['wall']:.3f} s wall, "
+        f"evaluations {defer['evals']:.0f} against {inline['evals']:.0f}; "
+        f"{defer['launches']} body + {defer['drains']} drain launches, "
+        f"{defer['reads']} host reads; kernels per evaluation "
+        f"{defer['kernels']} against {inline['kernels']}; card {card}")
     bm = option_render(scene, camera, {"brick_major": True}, "brick_major",
                        card)
     check(torch.equal(bm["img"], inline["img"])
           and bm["n_rays"] == inline["n_rays"],
           "brick_major differs from the row-major render")
     log("[20] brick_major equals the row-major render bit for bit")
-    del defer, bm, inline
+    del bm, inline
     tail_furnace_on_card()
     rows = {label: option_render(scene, camera, fields, label, card)
             for label, fields in TAIL_ROWS}
+    for label, fields in TAIL_ROWS:
+        spec = rows[label]["by_mode"]["spec"]
+        check((spec > 0) == (fields.get("tail_spec", 1) > 1),
+              f"{label}: {spec} speculative-mode launches")
+    eager = option_render(scene, camera, dict(TAIL_ROWS)[SPEC_EAGER],
+                          SPEC_EAGER, card, eager=True)
+    got = rows[SPEC_EAGER]
+    check(torch.equal(got["img"], eager["img"])
+          and got["n_rays"] == eager["n_rays"]
+          and got["n_rows"] == eager["n_rows"],
+          f"{SPEC_EAGER} through the kernels differs from its eager body")
+    check(eager["launches"] + eager["drains"] == 0,
+          f"{SPEC_EAGER}'s eager render launched the body kernels")
+    log(f"[20] {SPEC_EAGER} through the kernels equals its eager-body render "
+        f"bit for bit (image, {got['n_rays']:.0f} rays, n_rows "
+        f"{got['n_rows']:.0f}): {got['wall']:.3f} s against "
+        f"{eager['wall']:.3f} s wall; card {card}")
     ref = rows[TAIL_ROWS[0][0]]
     ref_mean = float(ref["host"].mean())
     for label, _ in TAIL_ROWS[1:]:
@@ -3291,8 +3302,16 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
         check(mean_off < 0.02 and rays_off < 0.05,
               f"{label}: image mean off by {mean_off:.3%}, rays by "
               f"{rays_off:.3%}")
-    del rows
+    keep = ("wall", "evals", "n_rays", "n_rows", "launches", "drains",
+            "reads", "by_mode", "kernels")
+    out = {"defer": {k: defer[k] for k in keep},
+           "spec": {label: {k: rows[label][k] for k in keep}
+                    for label, fields in TAIL_ROWS
+                    if fields.get("tail_spec", 1) > 1},
+           "spec_eager_wall": eager["wall"]}
+    del rows, defer, eager
     split_on_card(card)
+    return out
 
 
 # phase 22: the body evaluations whose states are kept (0: every lane
@@ -3354,7 +3373,7 @@ def device_time(fn):
 
 
 def stage_run(fn, fb):
-    """One stage run, fn(): (its state, wall ms with the card synchronised,
+    """One stage run, fn(): (its result, wall ms with the card synchronised,
     body launches, drain launches, host reads)."""
     import torch
 
@@ -3504,7 +3523,7 @@ def body_states(scene, camera, card: str) -> dict:
     stage_rows = []
     for ctx, s, thresh, k_chain, last in stages:
         width = s.alive.shape[0]
-        mode = fb.stage_mode("cuda", 1, 0, thresh)
+        mode = fb.stage_mode("cuda", 1, thresh)
         runs = {}
         for which in ("loop", "stage", "stage", "loop"):
             fn = ((lambda: fb.loop_stage(ctx, clone_state(s), thresh, k_chain))
@@ -3519,11 +3538,11 @@ def body_states(scene, camera, card: str) -> dict:
                 (lambda: fb.run_stage(ctx, clone_state(s), thresh, k_chain,
                                       last)))
             runs[which].append((kernels, busy))
-        want, got = runs["loop"][0][0], runs["stage"][0][0]
+        (want, n_want), (got, n) = runs["loop"][0][0], runs["stage"][0][0]
         diff, _ = state_diff(got, want)
-        check(not diff, f"phase 22, {width}-lane stage: the stage path "
-              f"differs from the per-evaluation loop in {diff}")
-        n = round((float(want.n_rows) - float(s.n_rows)) / width)
+        check(not diff and n == n_want, f"phase 22, {width}-lane stage: the "
+              f"stage path differs from the per-evaluation loop in {diff}, "
+              f"or runs {n} evaluations against {n_want}")
         row = {"width": width, "mode": mode, "evaluations": n}
         for which in ("loop", "stage"):
             (_, w1, l1, d1, r1), (_, w2, *_), (kernels, busy) = (
@@ -3546,7 +3565,7 @@ def body_states(scene, camera, card: str) -> dict:
     ctx, s, thresh, k_chain, _ = stages[-1]
     check(thresh == 0, "config 2's last stage does not drain")
     width = s.alive.shape[0]
-    want = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
+    want, _ = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
     drain_ms, drain_err = {}, 0.0
     for threads in DRAIN_BLOCKS + DRAIN_BLOCKS[::-1]:
         t = clone_state(s)
@@ -3554,7 +3573,7 @@ def body_states(scene, camera, card: str) -> dict:
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        got = fb.KERNEL.drain(ctx, t, k_chain, threads=threads)
+        got, _ = fb.KERNEL.drain(ctx, t, k_chain, threads=threads)
         stop.record()
         torch.cuda.synchronize()
         diff, err = state_diff(got, want)
@@ -3629,6 +3648,168 @@ def body_states(scene, camera, card: str) -> dict:
             "launches": launches, "reads": reads, "walls": walls,
             "enqueue_us": enqueue_us,
             "stages": stage_rows, "drain": drain}
+
+
+# phase 22 (e): the kept pools of the two modes: (mode, Config fields, the
+# kept stage's pool width); the defer pool is advanced to an evaluation that
+# flushes with lanes waiting
+MODE_POOLS = (("spec", dict(TAIL_ROWS)[SPEC_EAGER], 512),
+              ("defer", {"defer_ggx": 4}, 16384))
+MODE_DRAIN_CAP = 32  # (e): the capped drain's evaluations per lane
+SPEC_SWEEP = (1, 8, 16, 32)  # (e): the spec pool's drain timed at each K
+#: the JAX code each mode's kernel path replaces (render_tile's body under
+#: the cascade's lax.while_loop): the speculative steps, the flush
+MODE_REPLACES = {"spec": "cudavolumerenderer_tpu/models/fast.py:907",
+                 "defer": "cudavolumerenderer_tpu/models/fast.py:712"}
+MODE_DESIGN = {
+    "spec": "speculate in the body and drain kernels: K flight draws find "
+            "the valid prefix n_v, a second pass re-derives each candidate "
+            "from the saved stream with its tap and acceptance draws from "
+            "two streams n_v apart (no per-candidate array, any K to "
+            "MAX_SPEC_K); the table loads of 4 candidates issued before "
+            "their tests",
+    "defer": "the deferred GGX flush in the body and drain kernels: the "
+             "flag round(n_rows / width) % G == 0 from the evaluation's "
+             "float32 n_rows (IEEE division, rintf), which a drain thread "
+             "carries in registers, so lanes stay independent and the last "
+             "stage stays one launch; pend_b read and written only under "
+             "defer_ggx",
+}
+
+
+def mode_pool(scene, camera, mode: str, fields: dict, width: int, card: str):
+    """Phase 22 (e), one mode: config 2 with Config `fields` through the
+    stage path, keeping the entry of its `width`-lane stage; the defer pool
+    advanced (kernel evaluations) to one that flushes with lanes waiting.
+    On that pool one kernel evaluation against one eager evaluation (every
+    FastState field and the pending count), the kernel's device time per
+    evaluation (a CUDA graph of GRAPH_CALLS out-of-place evaluations), the
+    eager evaluation's (CUDA events) and the byte bound; then one drain
+    launch capped at MODE_DRAIN_CAP evaluations against as many eager
+    evaluations (bit for bit), both timed, and its bound; the spec pool
+    also drained to its end at each K of SPEC_SWEEP."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
+                 iterations=CONFIG2_ITERS, n_tiles=(1, 1), **fields)
+    kept, run = [], fb.run_stage
+
+    def keep(ctx, s, thresh, k_chain, last):
+        if s.alive.shape[0] == width and not kept:
+            kept.append((ctx, clone_state(s), k_chain))
+        return run(ctx, s, thresh, k_chain, last)
+
+    fb.run_stage = keep
+    try:
+        create_renderer(scene, camera, cfg).render()
+    finally:
+        fb.run_stage = run
+    check(len(kept) == 1, f"phase 22 (e), {mode}: no {width}-lane stage")
+    ctx, s, k_chain = kept[0]
+    check(mode in fb.modes_of(ctx), f"phase 22 (e): the {width}-lane stage "
+          f"runs {fb.modes_of(ctx)}, not {mode}")
+    defer = int(ctx.iparams[fb.IP_DEFER])
+    for _ in range(2 * max(defer, 1)):
+        if mode == "spec" or (bool(s.pend_b.any()) and fb.flush_due(
+                float(s.n_rows), width, defer)):
+            break
+        s = fb.run_body(ctx, s)[0]
+    check(mode == "spec" or fb.flush_due(float(s.n_rows), width, defer),
+          f"phase 22 (e): no flushing {width}-lane evaluation found")
+    spp = int(ctx.iparams[fb.IP_SPP])
+    got, pending = fb.run_body(ctx, clone_state(s))
+    taps = []
+    want = ctx.plain(clone_state(s), taps=taps)
+    diff, err = state_diff(got, want)
+    pend = int((want.alive | (want.samples_done < spp)).sum())
+    check(not diff and int(pending) == pend,
+          f"phase 22 (e), {mode}: the kernel's evaluation differs from the "
+          f"eager body's in {diff}; pending {int(pending)} against {pend}")
+    out = clone_state(s)
+    ms = graph_ms([lambda: fb.KERNEL.launch(ctx, s, out)] * GRAPH_CALLS)
+    plain_ms = cuda_ms(lambda: ctx.plain(clone_state(s)), BODY_PLAIN_REPS, 1)
+    n_bytes = fb.body_bytes(ctx, taps)
+    bound, bound_by = bound_ms(n_bytes)
+    row = {"width": width, "spec_k": int(ctx.iparams[fb.IP_SPEC]),
+           "defer_ggx": defer, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+           "alive": int(s.alive.sum()), "tracking": int(s.tracking.sum()),
+           "waiting": int(s.pend_b.sum())}
+    log(f"[22] (e) {mode} pool ({width} lanes, spec_k {row['spec_k']}, "
+        f"defer_ggx {defer}; {row['alive']} alive, {row['tracking']} "
+        f"tracking, {row['waiting']} waiting for the flush): kernel equals "
+        f"the eager body in every FastState field (pending {pend}); kernel "
+        f"{ms * 1e3:.2f} us per evaluation (graph of {GRAPH_CALLS}), eager "
+        f"body {plain_ms:.3f} ms; bound {n_bytes} B = {bound * 1e3:.2f} us "
+        f"({bound / ms:.1%} of the kernel's time); card {card}")
+
+    # one drain launch capped at MODE_DRAIN_CAP against as many evaluations
+    t = clone_state(s)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    got, _ = fb.KERNEL.drain(ctx, t, k_chain, cap=MODE_DRAIN_CAP, once=True)
+    stop.record()
+    torch.cuda.synchronize()
+    drain_ms = start.elapsed_time(stop)
+    info = fb.KERNEL.last_drain
+    n = MODE_DRAIN_CAP if info["left"] else info["E"]
+    taps, want = [], clone_state(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        want = ctx.plain(want, taps=taps)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    diff, derr = state_diff(got, want)
+    check(not diff, f"phase 22 (e), {mode}: the drain capped at "
+          f"{MODE_DRAIN_CAP} differs from {n} eager evaluations in {diff}")
+    n_bytes = fb.body_bytes(ctx, taps)
+    dbound, dbound_by = bound_ms(n_bytes)
+    row["drain"] = {"cap": MODE_DRAIN_CAP, "evaluations": n,
+                    "left": info["left"], "ms": drain_ms, "plain_ms": eager_ms,
+                    "bound_ms": dbound, "bound_by": dbound_by,
+                    "bytes": n_bytes}
+    row["max_abs_err"] = max(err, derr)
+    if mode == "spec":
+        # the drain of the kept stage to its end at each K of phase 20's
+        # rows (speculation is memoryless, so any K may take over a pool)
+        row["drain_by_k"] = {}
+        for k in SPEC_SWEEP:
+            ctx_k = dataclasses.replace(ctx, iparams=ctx.iparams.copy())
+            ctx_k.iparams[fb.IP_SPEC] = k
+            t = clone_state(s)
+            torch.cuda.synchronize()
+            start.record()
+            fb.KERNEL.drain(ctx_k, t, k_chain)
+            stop.record()
+            torch.cuda.synchronize()
+            info = fb.KERNEL.last_drain
+            row["drain_by_k"][k] = {"ms": start.elapsed_time(stop),
+                                    "L": info["L"], "E": info["E"]}
+        log(f"[22] (e) the {width}-lane stage drained to its end at spec_k "
+            + ", ".join(f"{k}: {v['ms']:.3f} ms (L = {v['L']}, "
+                        f"{v['ms'] * 1e3 / v['L']:.2f} us a step)"
+                        for k, v in row["drain_by_k"].items())
+            + f" (CUDA events, one launch each); card {card}")
+    log(f"[22] (e) {mode} pool: one drain launch capped at "
+        f"{MODE_DRAIN_CAP} ({row['drain']['left']} lanes left) equals {n} "
+        f"eager evaluations in every FastState field; drain {drain_ms:.3f} ms "
+        f"(CUDA events), eager {eager_ms:.1f} ms; bound {n_bytes} B = "
+        f"{dbound * 1e3:.2f} us ({dbound / drain_ms:.1%} of the drain); "
+        f"card {card}")
+    return row
+
+
+def mode_pools(scene, camera, card: str) -> dict:
+    """Phase 22 (e): mode_pool for each of MODE_POOLS."""
+    return {mode: mode_pool(scene, camera, mode, fields, width, card)
+            for mode, fields, width in MODE_POOLS}
 
 
 # phase 23: the replay evaluations whose states are kept (0: every lane
@@ -4905,14 +5086,18 @@ def nested_apart(got, want, sums: bool = True) -> float:
     """The largest per-entry excess over GRAD_RTOL |want| + GRAD_ATOL
     max|want| (<= 0 within tolerance); with `sums`, the sums are held to
     GRAD_SUM of the absolute sum too (not for a constant albedo's one row,
-    which the drain sums in double and index_add_ in float32)."""
+    which the drain adds once and the eager loop once per bounce)."""
     got, want = got.double(), want.double()
     if sums:
         check(abs(float(got.sum() - want.sum()))
               <= GRAD_SUM * float(want.abs().sum()),
               "phase 29: the cotangents' sums disagree")
+    largest = float(want.abs().max())
+    log(f"[29] cotangents of {want.numel()} entries: the largest |want| "
+        f"{largest:.6g} (GRAD_ATOL x it = {GRAD_ATOL * largest:.3g}), the "
+        f"largest |got - want| {float((got - want).abs().max()):.3g}")
     return float(((got - want).abs() - GRAD_RTOL * want.abs()
-                  - GRAD_ATOL * want.abs().max()).max())
+                  - GRAD_ATOL * largest).max())
 
 
 def nested_problem():
@@ -5754,7 +5939,7 @@ def main() -> int:
     # -- phase 20: fastSK's options on config 2's scene (phase 5's) ---------
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        options_config2(tmp, card, scene, camera, inline)
+        options = options_config2(tmp, card, scene, camera, inline)
         log(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 21: parallel/ on the card (phase 5's scene and image) -------
@@ -5767,6 +5952,7 @@ def main() -> int:
     # -- phase 22: the body kernel against the eager body on kept states ----
     t0 = time.perf_counter()
     body = body_states(scene, camera, card)
+    modes = mode_pools(scene, camera, card)
     log(f"[22] phase 22 took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 23: the replay kernels against the eager body on kept pools --
@@ -5884,7 +6070,23 @@ def main() -> int:
                   "lane runs to its end in registers; per-evaluation counts "
                   "by warp-aggregated atomics, folded in order by the last "
                   "block",
-    }, {
+    }, *({
+        "name": f"fastbody_{mode}", "route": "cuda",
+        "source": "cudavolumerenderer_tpu_torch/csrc/fastbody.cu",
+        "replaces": MODE_REPLACES[mode],
+        "launches": (options["defer"]["by_mode"]["defer"] if mode == "defer"
+                     else options["spec"][SPEC_EAGER]["by_mode"]["spec"]),
+        "max_abs_err": modes[mode]["max_abs_err"],
+        **{k: modes[mode][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None, "design": MODE_DESIGN[mode],
+        "launches_path": ("phase 20's defer_ggx 4 render" if mode == "defer"
+                          else f"phase 20's {SPEC_EAGER} render"),
+        "pool": modes[mode],
+        "rows": (options["defer"] if mode == "defer" else options["spec"]),
+        **({"eager_wall_s": options["spec_eager_wall"]} if mode == "spec"
+           else {}),
+    } for mode in ("spec", "defer")), {
         "name": "replaybody", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/replaybody.cu",
         "replaces": "cudavolumerenderer_tpu/models/differentiable.py:623",

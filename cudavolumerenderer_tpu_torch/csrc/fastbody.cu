@@ -5,21 +5,31 @@
 // `body`, which XLA compiled into one device program under the cascade's
 // lax.while_loop; it is no Pallas kernel).  It computes what the port's eager
 // body (models/fast.py, render_tile's `body`, the plain version) computes on
-// the card, bit for bit, for spec_k == 1 and defer_ggx == 0: per lane,
+// the card, bit for bit, in each of its modes: per lane,
+//   0. under defer_ggx = G > 0, at an evaluation whose round(n_rows / width)
+//      % G == 0 (n_rows before it, the float32 division and the round half
+//      to even of render_tile's step), the deferred boundary event of a
+//      pending lane (flush_boundary): the event at o + d * max_t, bounce + 1,
+//      the path cap, Russian roulette, and pend_b cleared;
 //   1. regenerate a finished lane: a fresh PCG stream from (seed, path id of
 //      pixel, slot, samples done), a jittered camera ray (2 draws);
-//   2. the AABB slab test of a lane that starts a segment: a miss adds
-//      throughput * Le to the lane's accumulator and ends the sample; an
-//      inside hit starts tracking; an outside hit is a boundary event now;
+//   2. the AABB slab test of a lane that starts a segment (under defer_ggx
+//      not while its event waits): a miss adds throughput * Le to the lane's
+//      accumulator and ends the sample; an inside hit starts tracking; an
+//      outside hit is a boundary event now;
 //   3. one tracking step: two-level (brick probe with the Chebyshev leap, a
 //      flight under the brick's majorant, the crossing test, a 30-bit
 //      stochastic-trilinear tap and the acceptance test) or single-level
-//      (under the global majorant);
+//      (under the global majorant); or, at spec_k = K > 1, K speculative
+//      steps from the same point (speculate): K flight draws, then the tap
+//      draws and then the acceptance draws of the valid candidates, the
+//      prefix kept up to the first acceptance or invalid candidate;
 //   4. the tap's density from the flat f32 table, the 'full' rows, or the
 //      packed 8/4-bit words, row-major or brick-major, and on a scatter its
 //      albedo (constant, affine in density, the row's, or under 'split' the
 //      scene's albedo grid at the tap);
-//   5. a boundary event: GGX (both visible-normal samplers) or the null BSDF;
+//   5. a boundary event: GGX (both visible-normal samplers) or the null BSDF,
+//      or under defer_ggx its distance kept in max_t and pend_b set;
 //   6. an HG scatter with the tap's albedo;
 //   7. the path-length cap, then Russian roulette;
 //   8. the pool's counts: segment starts and tracking lanes, added in float32
@@ -58,7 +68,14 @@
 //     evaluations, not by bytes; small blocks spread a narrow pool over the
 //     SMs.
 // Every mode is a uniform runtime branch; a state layout of its own is
-// later work.
+// later work.  The speculative steps keep no per-candidate array (any K up
+// to IP_SPEC's limit): a first pass over the flight draws finds the valid
+// prefix, a second re-derives each candidate from the saved stream while the
+// tap and acceptance draws come from two streams n_v draws apart, and issues
+// the table loads of SPEC_BATCH candidates before their acceptance tests
+// (they do not depend on each other; that is the point of the mode).  The
+// deferred flush keeps lanes independent: the flag is a function of the
+// evaluation's n_rows alone, which a drain thread carries in registers.
 //
 #include "common.cuh"
 
@@ -87,16 +104,19 @@ enum {
   IP_ALBEDO, IP_ALB_STRIDE, IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH,
   IP_NBX, IP_NBY, IP_HIX, IP_HIY, IP_HIZ,
   IP_THRESH, IP_CHAIN, IP_CAP,  // a stage's exit threshold, chain, drain cap
+  IP_SPEC,    // Woodcock steps per evaluation (spec_k)
+  IP_DEFER,   // defer_ggx: the flush's period, 0 for inline boundary events
   N_IP,
 };
 
-// Pointer slots (ops/fastbody.py S_*): the 15 per-lane fields the body
-// updates, then the read-only ones, the outputs (the 15 fields again, the
-// counts, the pending count, the scratch), the tables, and a stage's
-// control words and per-evaluation counts (null for one evaluation).
+// Pointer slots (ops/fastbody.py S_*): the 16 per-lane fields the body
+// updates (pend_b read and written only under defer_ggx), then the read-only
+// ones, the outputs (the 16 fields again, the counts, the pending count, the
+// scratch), the tables, and a stage's control words and per-evaluation
+// counts (null for one evaluation).
 enum {
   S_O = 0, S_D, S_TP, S_ACC, S_NRM, S_T, S_MAXT, S_BEXIT, S_ISL, S_SD,
-  S_BOUNCE, S_ALIVE, S_TRACKING, S_RS, S_RINC,
+  S_BOUNCE, S_ALIVE, S_TRACKING, S_RS, S_RINC, S_PEND,
   N_LANE,
   S_PIX = N_LANE, S_SLOT, S_NRAYS, S_NROWS, S_NBUSY,
   S_OUT, S_COUNTS = S_OUT + N_LANE, S_PENDING, S_SCRATCH,
@@ -148,11 +168,11 @@ struct Lane {
   float o[3], d[3], tp[3], acc[3], nrm[3];
   float t, max_t, bexit, isl;
   long long sd, bounce, pix, slot;
-  bool alive, tracking;
+  bool alive, tracking, pend;
   uint32_t rs, inc;
 };
 
-__device__ __forceinline__ void load_lane(const Ptrs& Q, int i, Lane& L) {
+__device__ __forceinline__ void load_lane(const Params& P, const Ptrs& Q, int i, Lane& L) {
   const float* fo = (const float*)Q.p[S_O];
   const float* fd = (const float*)Q.p[S_D];
   const float* ftp = (const float*)Q.p[S_TP];
@@ -177,9 +197,11 @@ __device__ __forceinline__ void load_lane(const Ptrs& Q, int i, Lane& L) {
   L.inc = (uint32_t)((const long long*)Q.p[S_RINC])[i];
   L.pix = ((const long long*)Q.p[S_PIX])[i];
   L.slot = ((const long long*)Q.p[S_SLOT])[i];
+  L.pend = P.i[IP_DEFER] > 0 && ((const bool*)Q.p[S_PEND])[i];
 }
 
-__device__ __forceinline__ void store_lane(const Ptrs& Q, int i, const Lane& L) {
+__device__ __forceinline__ void store_lane(const Params& P, const Ptrs& Q, int i,
+                                           const Lane& L) {
   float* go = (float*)Q.p[S_OUT + S_O];
   float* gd = (float*)Q.p[S_OUT + S_D];
   float* gtp = (float*)Q.p[S_OUT + S_TP];
@@ -202,11 +224,125 @@ __device__ __forceinline__ void store_lane(const Ptrs& Q, int i, const Lane& L) 
   ((bool*)Q.p[S_OUT + S_TRACKING])[i] = L.tracking;
   ((long long*)Q.p[S_OUT + S_RS])[i] = (long long)L.rs;
   ((long long*)Q.p[S_OUT + S_RINC])[i] = (long long)L.inc;
+  if (P.i[IP_DEFER] > 0) ((bool*)Q.p[S_OUT + S_PEND])[i] = L.pend;
 }
 
 // fast.py's pending_of: a path in flight or samples left.
 __device__ __forceinline__ bool pending_of(const Params& P, const Lane& L) {
   return L.alive || L.sd < P.i[IP_SPP];
+}
+
+// The GGX boundary's parameters.
+__device__ __forceinline__ Ggx ggx_of(const Params& P) {
+  return {P.f[FP_ROUGH], P.f[FP_ROUGH + 1], P.f[FP_ETA], P.f[FP_INV_ETA],
+          P.i[IP_MITSUBA] != 0};
+}
+
+// ops/fastbody.flush_due: whether an evaluation of a width-lane pool that
+// starts at the float32 row count n_rows flushes the deferred events.
+__device__ __forceinline__ bool flush_due(float n_rows, int width, long long g) {
+  return (long long)rintf(n_rows / (float)width) % g == 0;
+}
+
+// render_tile's flush_boundary for one lane whose event waits (pend_b): the
+// boundary event at o + d * max_t with the cached face normal, bounce + 1,
+// the path cap, then Russian roulette if it was not capped.
+__device__ __forceinline__ void flush_lane(const Params& P, Lane& L) {
+  boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), L.nrm, L.max_t, L.o, L.d, L.tp, L.rs, L.inc);
+  L.bounce = L.bounce + 1;
+  const bool capped = L.bounce >= P.i[IP_MAXPATH];
+  if (capped) {
+    L.alive = false;
+    L.sd = L.sd + 1;
+  }
+  if (P.i[IP_RR] && !capped && roulette_kills(L.tp, L.rs, L.inc)) {
+    L.alive = false;
+    L.sd = L.sd + 1;
+  }
+  L.pend = false;
+}
+
+// What speculate finds among its K candidates.
+struct SpecStop {
+  bool any_stop;   // a candidate stopped the prefix (accepted, or invalid)
+  bool accepted;   // ... by its acceptance
+  float t_stop;    // t of the stopping candidate, else of the last one
+  long long flat;  // the accepted tap's flat index and density
+  float rho;
+};
+
+// candidates whose table loads are issued together, before their tests
+constexpr int SPEC_BATCH = 4;
+
+// render_tile's speculate for one stepping lane: K = IP_SPEC flight draws
+// from t under inv_sig; a candidate is valid while it stays before t_end
+// (strictly for a brick exit, two-level; up to the box's max_t
+// single-level).  The candidates' t only grows, so the valid ones are a
+// prefix of n_v; their tap draws follow the K flight draws and
+// their acceptance draws follow those, so the stream moves by K + 2 n_v.
+// Returns the first acceptance among the valid candidates, or the first
+// invalid one, or neither (t of the last candidate).
+__device__ __forceinline__ SpecStop speculate(const Params& P, const Ptrs& Q,
+                                              const float o[3], const float d[3], float t,
+                                              float inv_sig, float t_end, bool strict,
+                                              uint32_t& rs, uint32_t inc) {
+  const long long K = P.i[IP_SPEC];
+  const float scale = P.f[FP_SCALE];
+  // pass 1: the flight draws; the valid prefix and the stop's t
+  const uint32_t s0 = rs;
+  float t_run = t, t_invalid = 0.0f;
+  long long n_v = K;
+  for (long long j = 0; j < K; ++j) {
+    t_run = t_run + -logf(jmax(draw_float(rs, inc), EPS)) * inv_sig;
+    const bool before = strict ? t_run < t_end : t_run <= t_end;
+    if (!before && n_v == K) {
+      n_v = j;
+      t_invalid = t_run;
+    }
+  }
+  SpecStop r;
+  r.any_stop = n_v < K;
+  r.accepted = false;
+  r.t_stop = n_v < K ? t_invalid : t_run;
+  r.flat = 0;
+  r.rho = 0.0f;
+  // pass 2: the tap draws from rs on, the acceptance draws n_v further on,
+  // each candidate's t again from s0; the lane's stream ends 2 n_v past rs
+  uint32_t s_u1 = s0, s_tap = rs, s_u2 = rs;
+  for (long long j = 0; j < n_v; ++j) s_u2 = pcg_next(s_u2, inc);
+  uint32_t s_end = s_u2;
+  for (long long j = 0; j < n_v; ++j) s_end = pcg_next(s_end, inc);
+  float tj = t;
+  for (long long j0 = 0; j0 < n_v && !r.accepted; j0 += SPEC_BATCH) {
+    float tc[SPEC_BATCH], rho[SPEC_BATCH];
+    long long flat[SPEC_BATCH];
+#pragma unroll
+    for (int k = 0; k < SPEC_BATCH; ++k) {
+      tc[k] = 0.0f;
+      flat[k] = 0;
+      if (j0 + k < n_v) {
+        tj = tj + -logf(jmax(draw_float(s_u1, inc), EPS)) * inv_sig;
+        tc[k] = tj;
+        flat[k] = tap_index(P, o, d, tj, draw_bits(s_tap, inc));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SPEC_BATCH; ++k) rho[k] = j0 + k < n_v ? tap_rho(P, Q, flat[k]) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < SPEC_BATCH; ++k) {
+      if (j0 + k < n_v && !r.accepted) {
+        const float u2 = draw_float(s_u2, inc);
+        if (!(scale * rho[k] * inv_sig < u2)) {
+          r.any_stop = r.accepted = true;
+          r.t_stop = tc[k];
+          r.flat = flat[k];
+          r.rho = rho[k];
+        }
+      }
+    }
+  }
+  rs = s_end;
+  return r;
 }
 
 // One evaluation of the body for one lane; returns whether the lane started a
@@ -256,8 +392,10 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
     bounce = 0;
   }
 
-  // --- segment start: AABB + classification --------------------------
-  const bool need_isect = alive && !tracking;
+  // --- segment start: AABB + classification (a lane whose deferred event
+  // waits starts none) ----------------------------------------------------
+  const bool defer = P.i[IP_DEFER] > 0;
+  const bool need_isect = alive && !tracking && !L.pend;
   bool boundary_now = false;
   float dist = 0.0f;
   if (need_isect) {
@@ -319,17 +457,26 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
     }
     const bool stepping = tracking && !probe_empty;
     const float eff_exit = jmin(bexit, max_t);
-    bool crossed_step = false, inside = false, accepted = false;
-    float t_cand = t;
-    if (stepping) {
+    bool crossed_step = false, advance = false, accepted = false;
+    float t_adv = t;  // where an advancing lane moves
+    if (stepping && P.i[IP_SPEC] > 1) {
+      // speculative steps: the prefix up to the first acceptance or brick
+      // crossing; no stop within K valid steps advances and keeps tracking
+      const SpecStop r = speculate(P, Q, o, d, t, isl, eff_exit, true, rs, inc);
+      accepted = r.accepted;
+      crossed_step = r.any_stop && !r.accepted;
+      advance = accepted || !r.any_stop;
+      t_adv = r.t_stop;
+      if (accepted) tap_albedo(P, Q, r.flat, r.rho, alb_hat);
+    } else if (stepping) {
       const float u1 = draw_float(rs, inc);
       const float step = -logf(jmax(u1, EPS)) * isl;
-      t_cand = t + step;
-      crossed_step = t_cand >= eff_exit;
-      inside = !crossed_step;
-      if (inside) {
+      t_adv = t + step;
+      crossed_step = t_adv >= eff_exit;
+      advance = !crossed_step;
+      if (advance) {
         const uint32_t bits = draw_bits(rs, inc);
-        const long long flat = tap_index(P, o, d, t_cand, bits);
+        const long long flat = tap_index(P, o, d, t_adv, bits);
         const float rho = tap_rho(P, Q, flat);
         const float u2 = draw_float(rs, inc);
         accepted = !(scale * rho * isl < u2);
@@ -344,8 +491,8 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
       t = bexit;
     } else if (overran_step) {
       t = jmax(t, max_t);
-    } else if (inside) {
-      t = t_cand;
+    } else if (advance) {
+      t = t_adv;
     }
     if (probe_empty) bexit = -1.0f;
     overran = overran_step || overran_empty;
@@ -354,7 +501,17 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
     tracking = tracking && !terminated;
   } else {
     // single-level Woodcock tracking under the global majorant
-    if (tracking) {
+    if (tracking && P.i[IP_SPEC] > 1) {
+      // speculative steps: no brick crossings, so every candidate up to the
+      // box's exit is a valid Woodcock step
+      const SpecStop r = speculate(P, Q, o, d, t, P.f[FP_INV_SIGMAT], max_t, false, rs, inc);
+      overran = r.any_stop && !r.accepted;
+      terminated = r.any_stop;
+      scattered = r.accepted;
+      if (scattered) tap_albedo(P, Q, r.flat, r.rho, alb_hat);
+      t = r.t_stop;
+      tracking = !terminated;
+    } else if (tracking) {
       const float inv_sigmat = P.f[FP_INV_SIGMAT];
       const float u1 = draw_float(rs, inc);
       const float t_new = t + -logf(jmax(u1, EPS)) * inv_sigmat;
@@ -372,12 +529,15 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
     }
   }
 
-  // --- boundary event ------------------------------------------------------
+  // --- boundary event (under defer_ggx: its distance kept, the lane
+  // stalled for the flush) ------------------------------------------------
   const bool boundary = boundary_now || (terminated && overran);
-  if (boundary) {
-    const Ggx G = {P.f[FP_ROUGH], P.f[FP_ROUGH + 1], P.f[FP_ETA], P.f[FP_INV_ETA],
-                   P.i[IP_MITSUBA] != 0};
-    boundary_event(P.i[IP_BSDF] != 0, G, nrm, boundary_now ? dist : max_t, o, d, tp, rs, inc);
+  if (defer) {
+    if (boundary_now) max_t = dist;
+    if (boundary) L.pend = true;
+  } else if (boundary) {
+    boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), nrm, boundary_now ? dist : max_t, o, d, tp,
+                   rs, inc);
   }
 
   // --- scatter event: the accepted tap's albedo ---------------------------
@@ -398,7 +558,7 @@ __device__ __forceinline__ bool evaluate(const Params& P, const Ptrs& Q, Lane& L
   }
 
   // --- path-length cap + Russian roulette after events ---------------------
-  const bool had_event = alive && (scattered || boundary);
+  const bool had_event = alive && (scattered || (boundary && !defer));
   if (had_event) bounce = bounce + 1;
   const bool capped = alive && bounce >= P.i[IP_MAXPATH];
   alive = alive && !capped;
@@ -448,14 +608,18 @@ __global__ void __launch_bounds__(THREADS) body_kernel(Params P, Ptrs Q, int wid
     e = ctrl[C_EVAL];
   }
   const int i = blockIdx.x * THREADS + threadIdx.x;
+  // the evaluation's n_rows as it stood before the last block adds width
+  const bool flush = P.i[IP_DEFER] > 0 &&
+                     flush_due(*(const float*)Q.p[S_NROWS], width, P.i[IP_DEFER]);
   bool isect = false, busy = false, pend = false;
   if (i < width) {
     Lane L;
-    load_lane(Q, i, L);
+    load_lane(P, Q, i, L);
+    if (flush && L.pend) flush_lane(P, L);
     isect = evaluate(P, Q, L);
     busy = L.tracking;
     pend = pending_of(P, L);
-    store_lane(Q, i, L);
+    store_lane(P, Q, i, L);
   }
   // S_PENDING is &ctrl[C_COUNT] when gated
   if (reduce_counts(Q, width, isect, busy, pend) && ctrl != nullptr) ctrl[C_EVAL] = e + 1;
@@ -483,15 +647,20 @@ __global__ void __launch_bounds__(T) drain_kernel(Params P, Ptrs Q, int width) {
   bool left = false, finished = false;
   if (i < width) {
     Lane L;
-    load_lane(Q, i, L);
+    load_lane(P, Q, i, L);
     if (pending_of(P, L)) {
+      // n_rows before each evaluation, folded as the last block folds it
+      float rows = *(const float*)Q.p[S_NROWS];
+      const float w = (float)width;
       do {
+        if (L.pend && flush_due(rows, width, P.i[IP_DEFER])) flush_lane(P, L);
+        rows = rows + w;
         const bool isect = evaluate(P, Q, L);
         warp_count(per_eval, j, isect);
         warp_count(per_eval + cap, j, L.tracking);
         ++j;
       } while (j < cap && pending_of(P, L));
-      store_lane(Q, i, L);
+      store_lane(P, Q, i, L);
       left = pending_of(P, L);
       finished = !left;
     }

@@ -40,9 +40,9 @@
 // are summed per thread and per block in double and added to the row once, by
 // the last block.  Buffer mode (the wrapper's choice under
 // torch.use_deterministic_algorithms) runs the lockstep launches below and
-// writes the eager loop's (index, value) arrays, which the wrapper adds with
-// index_add_ in the eager loop's (step, tap) order, so the cotangents are the
-// eager loop's bit for bit.
+// writes the eager loop's (index, value) arrays, which the wrapper adds as the
+// eager loop does (index_add_ in its (step, tap) order; a constant albedo's
+// sums per bounce), so the cotangents are the eager loop's bit for bit.
 //
 // Launches (ops/nestedreplay.py):
 //   * drain_kernel (the primal's pass A, and pass B with atomics): each thread

@@ -52,7 +52,7 @@ import torch
 
 from ..constants import EPSILON
 from ..ops import aabb, camera as cam, nestedreplay, phase, replaybody
-from ..ops.nestedreplay import WOODCOCK_CHECK_EVERY
+from ..ops.nestedreplay import WOODCOCK_CHECK_EVERY, one_row_sum
 from ..ops.grid import Grid, _to_index, sample, tap_voxels, volume_to_grid
 from ..ops.rng import RngState, make_rng, next_float, next_uint32
 from ..scene.types import (
@@ -297,8 +297,14 @@ def _replay_bounce(scene, settings, st, s_lane, g_lane, record, taps=None):
     if record:
         adj = _albedo_adjoint(g_lane, albedo, scattered, alb.shape[-1])
         tl = _trilerp_taps(alb.shape, med.box_min, med.box_max, o_s)
-        for idx, w in tl:
-            d_albedo.index_add_(0, idx, adj * w[:, None])
+        if alb.numel() == alb.shape[-1]:
+            # a constant (1-row) albedo: every tap is the row, so reduce
+            # the taps' adjoints in double, as csrc/nestedreplay.cu does,
+            # instead of adding each lane's in float32
+            d_albedo += one_row_sum([adj * w[:, None] for _, w in tl])
+        else:
+            for idx, w in tl:
+                d_albedo.index_add_(0, idx, adj * w[:, None])
         if taps is not None:
             taps.append(("d_albedo", torch.stack(
                 [idx for idx, _ in tl], -1)[scattered]))

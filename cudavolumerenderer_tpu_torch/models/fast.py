@@ -258,6 +258,16 @@ def first_stop(stopj: torch.Tensor):
     return torch.argmax(stopj.to(torch.int32), dim=-1), stopj.any(dim=-1)
 
 
+def read_prefix(acceptj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The speculative candidates whose table rows a lane's step needs, of
+    (N, K) bool tensors: the valid ones up to and including the first
+    acceptance, all valid ones where none accepts (an invalid candidate
+    reads no row, and its t ends the step)."""
+    j0, any_stop = first_stop(acceptj | ~valid)
+    cols = torch.arange(valid.shape[-1], device=valid.device)
+    return valid & ((cols <= j0[:, None]) | ~any_stop[:, None])
+
+
 def _cascade_widths(
     n_lanes: int, factor: float = _CASCADE_FACTOR,
     min_width: int = _MIN_WIDTH,
@@ -672,6 +682,8 @@ def render_tile(
                 u2s.append(u2)
             u2k = torch.stack(u2s, dim=-1)
             acceptj = valid & ~(scale * row_rho(rows) * inv_sig[:, None] < u2k)
+            if taps is not None:
+                taps.append(("tap", idxk[read_prefix(acceptj, valid)]))
             j0, any_stop = first_stop(acceptj | ~valid)
             j0 = j0[:, None]
             if flat_tab:
@@ -898,9 +910,33 @@ def render_tile(
                 "inv_sig_local": trk & ~need_brick if two else none,
                 "bounce": had_event, "rng_state": drew, "rng_inc": drew,
             }
+            if defer_ggx > 0:
+                reads["pend_b"] = live & ~s.tracking
             taps.append(("state", stages.lane_traffic(
-                s, new, reads, tuple(fastbody.FIELD_BYTES))))
+                s, new, reads, fastbody.state_fields(defer_ggx))))
         return new
+
+    def evaluate(s: FastState, taps=None, **kw) -> FastState:
+        """One evaluation as the kernel runs it (the stage's plain
+        version): the deferred GGX flush where the schedule, read from
+        s.n_rows, says so (fastbody.flush_due), then the body."""
+        width = s.alive.shape[0]
+        if fastbody.flush_due(float(s.n_rows), width, defer_ggx):
+            flushed = flush_boundary(s)
+            if taps is not None:
+                # the waiting lanes read their event's fields; every live
+                # lane its flag
+                pend, none = s.pend_b, torch.zeros_like(s.pend_b)
+                reads = {k: none for k in fastbody.state_fields(defer_ggx)
+                         if not k.startswith("rng")}
+                reads.update(
+                    alive=pend, pend_b=s.alive, o=pend, d=pend, normal=pend,
+                    max_t=pend, throughput=pend, bounce=pend,
+                    samples_done=flushed.samples_done != s.samples_done)
+                taps.append(("state", stages.lane_traffic(
+                    s, flushed, reads, fastbody.state_fields(defer_ggx))))
+            s = flushed
+        return body(s, taps=taps, **kw)
 
     def pending_of(s):
         return s.alive | (s.samples_done < spp_per_lane)
@@ -913,15 +949,23 @@ def render_tile(
         """One evaluation of the eager body (after the deferred GGX flush
         when its schedule says so)."""
         nonlocal rows_host
-        width = np.float32(s.alive.shape[0])
-        if defer_ggx > 0 and int(np.round(rows_host / width)) % defer_ggx == 0:
+        width = s.alive.shape[0]
+        if fastbody.flush_due(rows_host, width, defer_ggx):
             s = flush_boundary(s)
-        rows_host = np.float32(rows_host + width)
+        rows_host = np.float32(rows_host + np.float32(width))
         return body(s, **kw)
 
-    # the kernel's parameters, read back to the host once per render
+    # the cascade: shrink the pool as the tail empties
+    if min_width is None:
+        min_width = _MIN_WIDTH
+    widths = _cascade_widths(n_lanes, cascade_factor, min_width)
+    plan = stage_plan(widths, tail_width, spec_width, tail_spec,
+                      tail_single_level, two_level, tail_chain)
+
+    # the kernel's parameters, read back to the host once per render; a
+    # stage's spec_k beyond the kernel's raises here, before any work
     base_ctx = None
-    if fastbody.route(dev.type, 1, defer_ggx, eager_body):
+    if fastbody.route(dev.type, max(p["spec_k"] for p in plan), eager_body):
         base_ctx = fastbody.make_context(
             scene, camera, settings, full_resolution, tile_dim, tile_offset,
             path_id_base, seed, spp_per_lane=spp_per_lane, m=m,
@@ -931,12 +975,9 @@ def render_tile(
             table_bits=table_bits, brick_major=use_bm,
             albedo_mode=albedo_mode,
             albedo_rows=albedo_rows if albedo_mode == "split" else None,
+            defer_ggx=defer_ggx,
         )
 
-    # --- cascade: shrink the pool as the tail empties ---------------------
-    if min_width is None:
-        min_width = _MIN_WIDTH
-    widths = _cascade_widths(n_lanes, cascade_factor, min_width)
     # the tail kernel takes over once the pending count fits its width;
     # it rebuilds albedo as A*rho+B, so it needs a const/affine albedo
     # (a full-albedo scene keeps the wavefront tail), runs boundary events
@@ -961,8 +1002,6 @@ def render_tile(
         order = torch.argsort((~pending).to(torch.int32), stable=True)
         return _take_lanes(s, order[:next_width]), img
 
-    plan = stage_plan(widths, tail_width, spec_width, tail_spec,
-                      tail_single_level, two_level, tail_chain)
     for stage, (width, p) in enumerate(zip(widths, plan)):
         last = stage == len(widths) - 1
         thresh = (pk_width if use_tailpk else 0) if last else widths[stage + 1]
@@ -972,15 +1011,19 @@ def render_tile(
             bt=fine_bt if (p["tail"] and fine_bt is not None) else coarse_bt,
         )
         ctx = None
-        if base_ctx is not None and fastbody.stage_mode(
-                dev.type, kw["spec_k"], defer_ggx, thresh,
-                eager_body) != "eager":
+        if base_ctx is not None:  # every stage goes to the kernels
             ctx = fastbody.stage_context(
-                base_ctx, kw["bt"],
-                kw["single_level"], functools.partial(body, **kw))
+                base_ctx, kw["bt"], kw["single_level"],
+                functools.partial(evaluate, **kw), spec_k=kw["spec_k"])
         rows_before = state.n_rows
         if ctx is not None:
-            state = fastbody.run_stage(ctx, state, thresh, k_chain, last)
+            state, evals = fastbody.run_stage(ctx, state, thresh, k_chain,
+                                              last)
+            # the host's copy of n_rows, advanced by the stage's
+            # evaluations in the kernels' float32 order
+            rows_host = np.add.accumulate(np.concatenate([
+                [rows_host], np.full(evals, width, np.float32)]),
+                dtype=np.float32)[-1]
         else:
             while fastbody.pending_count(state, spp_per_lane) > thresh:
                 for _ in range(k_chain):

@@ -5,14 +5,17 @@ JAX's `render_tile` (cudavolumerenderer_tpu/models/fast.py:744) runs its
 one device program.  The port's eager body (models/fast.py, render_tile's
 `body`) runs it as ~1,000 torch launches per evaluation; the kernel runs
 one evaluation of every lane of a pool in one launch, bit for bit the
-eager body's on the card, for `spec_k == 1` and `defer_ggx == 0` (the
-speculative tail steps and the deferred GGX flush stay eager: `route`).
+eager body's on the card, in every mode the eager body has: one Woodcock
+step per evaluation or `spec_k` speculative steps (tail_spec), and the
+boundary event inline or deferred to a flush every `defer_ggx`
+evaluations (`flush_due`).
 
-This module holds the gate (`route`), the kernel's parameter vectors
-(`make_context`, `stage_context`), the wrapper `run_body` (the plain
-version, the eager body, for CPU tensors; the kernel for CUDA tensors, or
-it raises), the stage runners (`loop_stage`, `run_stage`; gated chains and
-the drain in ops/stages.py) and the bound (`body_bytes`).  The kernel
+This module holds the gate (`route`), the flush schedule (`flush_due`),
+the kernel's parameter vectors (`make_context`, `stage_context`), the
+wrapper `run_body` (the plain version, the eager body, for CPU tensors;
+the kernel for CUDA tensors, or it raises), the stage runners
+(`loop_stage`, `run_stage`; gated chains and the drain in ops/stages.py)
+and the bound (`body_bytes`).  The kernel
 updates the state's per-lane tensors in place unless it is given `out`,
 and returns fresh 0-d counters (n_rays, n_rows, n_busy) and the pool's
 pending count.
@@ -62,16 +65,19 @@ N_FP = FP_INV_ETA + 1
 (IP_SPP, IP_M, IP_NPIX, IP_TW, IP_MULTI, IP_BASE, IP_SEEDH, IP_NX, IP_NY,
  IP_NZ, IP_TWO_LEVEL, IP_TABLE, IP_BITS, IP_BRICK_MAJOR, IP_ALBEDO,
  IP_ALB_STRIDE, IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_NBX, IP_NBY,
- IP_HIX, IP_HIY, IP_HIZ, IP_THRESH, IP_CHAIN, IP_CAP, N_IP) = range(29)
+ IP_HIX, IP_HIY, IP_HIZ, IP_THRESH, IP_CHAIN, IP_CAP, IP_SPEC, IP_DEFER,
+ N_IP) = range(31)
 
 # Pointer slots (csrc/fastbody.cu S_*): the per-lane fields the body
-# updates, in FastState's names, then the rest.
+# updates, in FastState's names, then the rest.  pend_b (S_PEND) is read
+# and written only under defer_ggx.
 LANE_FIELDS = ("o", "d", "throughput", "accum", "normal", "t", "max_t",
                "brick_exit", "inv_sig_local", "samples_done", "bounce",
-               "alive", "tracking", "rng_state", "rng_inc")
+               "alive", "tracking", "rng_state", "rng_inc", "pend_b")
 N_LANE = len(LANE_FIELDS)
+S_PEND = LANE_FIELDS.index("pend_b")
 _DTYPES = dict(zip(LANE_FIELDS, (torch.float32,) * 9 + (torch.int64,) * 2
-                   + (torch.bool,) * 2 + (torch.int64,) * 2),
+                   + (torch.bool,) * 2 + (torch.int64,) * 2 + (torch.bool,)),
                pix=torch.int64, slot=torch.int64)
 S_PIX = N_LANE
 S_SLOT, S_NRAYS, S_NROWS, S_NBUSY = S_PIX + 1, S_PIX + 2, S_PIX + 3, S_PIX + 4
@@ -81,6 +87,10 @@ S_PENDING, S_SCRATCH = S_COUNTS + 1, S_COUNTS + 2
 (S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES, S_CTRL,
  S_EVALS) = range(S_SCRATCH + 1, S_SCRATCH + 8)
 N_S = S_EVALS + 1
+
+#: the most speculative steps per evaluation the kernel takes (it keeps no
+#: per-candidate array, so the limit only bounds an evaluation's work)
+MAX_SPEC_K = 1024
 
 #: the drain's threads per block: a narrow pool in small blocks spreads
 #: over the SMs (32, 64, 128 and 256 time alike on config 2's last pool,
@@ -92,30 +102,57 @@ TAB_F32, TAB_ROWS, TAB_PACKED = range(3)
 ALBEDO_MODES = {"const": 0, "affine": 1, "full": 2, "split": 3}
 
 #: bytes of each per-lane field of the state (the RNG's two words split),
-#: for body_bytes
+#: for body_bytes; pend_b counts only under defer_ggx (`state_fields`)
 FIELD_BYTES = dict(o=12, d=12, throughput=12, accum=12, normal=12, t=4,
                    max_t=4, brick_exit=4, inv_sig_local=4, samples_done=8,
                    bounce=8, alive=1, tracking=1, rng_state=8, rng_inc=8,
-                   pix=8, slot=8)
+                   pix=8, slot=8, pend_b=1)
 
 
-def route(device_type: str, spec_k: int, defer_ggx: int,
-          eager_body: bool = False) -> bool:
+def state_fields(defer_ggx: int) -> tuple:
+    """The per-lane fields an evaluation may read or write: pend_b only
+    under defer_ggx."""
+    return tuple(k for k in FIELD_BYTES if defer_ggx > 0 or k != "pend_b")
+
+
+def check_spec_k(spec_k: int) -> None:
+    """Raise unless the kernel takes spec_k steps per evaluation."""
+    if not 1 <= spec_k <= MAX_SPEC_K:
+        raise ValueError(f"fastbody: spec_k {spec_k} is outside the kernel's "
+                         f"1..{MAX_SPEC_K}")
+
+
+def route(device_type: str, spec_k: int, eager_body: bool = False) -> bool:
     """Whether a stage's body evaluations go to the kernel: on the card,
-    for spec_k == 1 and defer_ggx == 0, unless the caller asks for the
-    eager body (tests and chip_smoke.py hold the kernel against it).  The
-    speculative steps (tail_spec > 1) and the deferred GGX flush stay
-    eager; so does the CPU, which has no kernel."""
-    return (device_type == "cuda" and spec_k == 1 and defer_ggx == 0
-            and not eager_body)
+    in every mode (spec_k speculative steps, the deferred GGX flush),
+    unless the caller asks for the eager body (tests and chip_smoke.py
+    hold the kernel against it); the CPU, which has no kernel, runs the
+    eager body.  A spec_k above MAX_SPEC_K raises on the card: it is
+    never sent to the eager body instead."""
+    if device_type != "cuda" or eager_body:
+        return False
+    check_spec_k(spec_k)
+    return True
 
 
-def stage_mode(device_type: str, spec_k: int, defer_ggx: int, thresh: int,
+def flush_due(n_rows, width: int, defer_ggx: int) -> bool:
+    """Whether an evaluation of a `width`-lane pool that starts at the
+    float32 row count `n_rows` first flushes the deferred boundary events:
+    round(n_rows / width) % defer_ggx == 0, the division in float32 and
+    the round half to even (np.round, jnp.round).  The kernel computes it
+    from its float32 n_rows with IEEE division and rintf."""
+    if defer_ggx <= 0:
+        return False
+    q = np.round(np.float32(n_rows) / np.float32(width))
+    return int(q) % defer_ggx == 0
+
+
+def stage_mode(device_type: str, spec_k: int, thresh: int,
                eager_body: bool = False) -> str:
     """How a cascade stage runs: "eager" where `route` keeps the eager
     body, else by the stage's exit threshold alone: "drain" at 0 (the last
     stage without the tail kernel), "gated" above it."""
-    if not route(device_type, spec_k, defer_ggx, eager_body):
+    if not route(device_type, spec_k, eager_body):
         return "eager"
     return "drain" if thresh == 0 else "gated"
 
@@ -142,12 +179,14 @@ def make_context(scene, camera, settings, full_resolution, tile_dim,
                  m: int, n_pix_tile: int, res_minus_1, extent, inv_sigmat,
                  epsw, two_level: bool, table: torch.Tensor, table_bits: int,
                  brick_major: bool, albedo_mode: str,
-                 albedo_rows: Optional[torch.Tensor]) -> BodyContext:
+                 albedo_rows: Optional[torch.Tensor],
+                 defer_ggx: int = 0) -> BodyContext:
     """The kernel's parameters from the values render_tile computes (the
     same tensors, read back to the host once per render): the brick
-    fields stay 0 until `stage_context` fills them.  A division by a
-    Python scalar runs on the card as a multiplication by the scalar's
-    float32 reciprocal, so those reciprocals are what the vector holds."""
+    fields stay 0, and spec_k 1, until `stage_context` fills them.  A
+    division by a Python scalar runs on the card as a multiplication by
+    the scalar's float32 reciprocal, so those reciprocals are what the
+    vector holds."""
     med = scene.medium
     nz, ny, nx = med.density.data.shape
     tw = int(tile_dim[0])
@@ -203,6 +242,7 @@ def make_context(scene, camera, settings, full_resolution, tile_dim,
     i[IP_MITSUBA] = int(settings.mitsuba_comparable)
     i[IP_RR] = int(settings.russian_roulette)
     i[IP_MAXPATH] = settings.max_path_length
+    i[IP_SPEC], i[IP_DEFER] = 1, defer_ggx
     dev = table.device
     return BodyContext(
         fparams=f, iparams=i, table=table, albedo_rows=albedo_rows,
@@ -216,13 +256,17 @@ def make_context(scene, camera, settings, full_resolution, tile_dim,
 
 
 def stage_context(ctx: BodyContext, bt: Optional[dict], single_level: bool,
-                  plain: Callable) -> BodyContext:
+                  plain: Callable, spec_k: int = 1) -> BodyContext:
     """`ctx` for one stage: two-level with the brick table `bt` (the
-    coarse or the tail's fine one) unless single_level, and the eager body
-    with the stage's keywords."""
+    coarse or the tail's fine one) unless single_level, spec_k Woodcock
+    steps per evaluation (a candidate valid strictly before a brick exit
+    two-level, up to the box's max_t single-level: speculate's `strict`),
+    and the plain evaluation with the stage's keywords."""
+    check_spec_k(spec_k)
     f, i = ctx.fparams.copy(), ctx.iparams.copy()
     two = bool(i[IP_TWO_LEVEL]) and not single_level and bt is not None
     i[IP_TWO_LEVEL] = int(two)
+    i[IP_SPEC] = spec_k
     brick_tab = None
     if two:
         f[FP_BSIZE:FP_BSIZE + 3] = _f32(bt["size"])
@@ -233,14 +277,34 @@ def stage_context(ctx: BodyContext, bt: Optional[dict], single_level: bool,
                                plain=plain)
 
 
+#: the stage modes counted apart (FastBodyKernel.by_mode): speculative
+#: steps (spec_k > 1) and the deferred GGX flush (defer_ggx > 0)
+MODES = ("spec", "defer")
+
+
+def modes_of(ctx: BodyContext) -> tuple:
+    """The MODES a stage of `ctx` runs in."""
+    return tuple(m for m, on in zip(MODES, (ctx.iparams[IP_SPEC] > 1,
+                                            ctx.iparams[IP_DEFER] > 0)) if on)
+
+
 class FastBodyKernel(stages.BodyKernel):
     """The CUDA body kernels, built from csrc/fastbody.cu at first use and
-    counted (stages.BodyKernel); `last_drain` also holds the drain's block
-    size."""
+    counted (stages.BodyKernel, and by_mode); `last_drain` also holds the
+    drain's block size."""
 
     def __init__(self):
         super().__init__("fastbody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL),
                          drain_argtypes=(ctypes.c_int,))
+        #: launches (one-evaluation and drain) of stages in each mode
+        self.by_mode = dict.fromkeys(MODES, 0)
+
+    def _count_modes(self, ctx: BodyContext, before: int) -> None:
+        """Add the launches made since `before` (launches + drain
+        launches) to the modes of ctx's stage."""
+        n = self.launches + self.drain_launches - before
+        for mode in modes_of(ctx):
+            self.by_mode[mode] += n
 
     def _pointers(self, ctx: BodyContext, s, out, counts, pending, ctrl=None,
                   evals=None):
@@ -300,9 +364,13 @@ class FastBodyKernel(stages.BodyKernel):
         counts = torch.empty(3, dtype=torch.float32, device=dev)
         pending = torch.empty((), dtype=torch.int64, device=dev)
         addresses = self._pointers(ctx, s, out, counts, pending)
+        before = self.launches + self.drain_launches
         self.launch_one(self.args(ctx.fparams, ctx.iparams, addresses,
                                   s.alive.shape[0]), dev)
-        new = out._replace(pix=s.pix, slot=s.slot, pend_b=s.pend_b,
+        self._count_modes(ctx, before)
+        # without defer_ggx the kernel leaves pend_b alone
+        pend_b = out.pend_b if ctx.iparams[IP_DEFER] else s.pend_b
+        new = out._replace(pix=s.pix, slot=s.slot, pend_b=pend_b,
                            n_rays=counts[0], n_rows=counts[1],
                            n_busy=counts[2])
         return new, pending
@@ -311,8 +379,8 @@ class FastBodyKernel(stages.BodyKernel):
               batch: int = GATED_BATCH):
         """A stage whose loop exits at a chain boundary once the pending
         count is at most `thresh` (> 0), in gated chains
-        (stages.BodyKernel.gated): the state's per-lane tensors updated in
-        place, its counters fresh."""
+        (stages.BodyKernel.gated): the state (its per-lane tensors updated
+        in place, its counters fresh) and its evaluations."""
         dev = s.alive.device
         spp = int(ctx.iparams[IP_SPP])
         counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
@@ -322,17 +390,22 @@ class FastBodyKernel(stages.BodyKernel):
         iparams = ctx.iparams.copy()
         iparams[IP_THRESH], iparams[IP_CHAIN] = thresh, k_chain
         addresses = self._pointers(ctx, s, s, counts, ctrl[C_COUNT], ctrl)
-        super().gated(self.args(ctx.fparams, iparams, addresses,
-                                s.alive.shape[0]), ctrl, thresh, k_chain,
-                      dev, batch)
-        return s
+        before = self.launches + self.drain_launches
+        n = super().gated(
+            self.args(ctx.fparams, iparams, addresses, s.alive.shape[0]),
+            ctrl, thresh, k_chain, dev, batch)
+        self._count_modes(ctx, before)
+        return s, n
 
     def drain(self, ctx: BodyContext, s, k_chain: int,
-              cap: int = DRAIN_CAP, threads: int = DRAIN_THREADS):
+              cap: int = DRAIN_CAP, threads: int = DRAIN_THREADS,
+              once: bool = False):
         """The last stage without the tail kernel (its loop exits at a
         pending count of 0), drained (stages.BodyKernel.drain) in blocks of
-        `threads` (32, 64, 128 or 256).  The state's per-lane tensors are
-        updated in place, its counters fresh."""
+        `threads` (32, 64, 128 or 256); with `once` one launch, each lane
+        running at most `cap` evaluations.  Returns the state (its per-lane
+        tensors updated in place, its counters fresh) and the loop's
+        evaluations E (last_drain)."""
         dev = s.alive.device
         counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
         s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
@@ -341,10 +414,13 @@ class FastBodyKernel(stages.BodyKernel):
         iparams[IP_CHAIN], iparams[IP_CAP] = k_chain, cap
         addresses = self._pointers(ctx, s, s, counts, None, ctrl, self.zeros(
             "evals", 2 * cap, torch.int32, dev))
+        before = self.launches + self.drain_launches
         super().drain(self.args(ctx.fparams, iparams, addresses,
-                                s.alive.shape[0]), (threads,), ctrl, dev)
+                                s.alive.shape[0]), (threads,), ctrl, dev,
+                      once)
+        self._count_modes(ctx, before)
         self.last_drain["threads"] = threads
-        return s
+        return s, self.last_drain["E"]
 
 
 def _check(name, x, width, dev):
@@ -378,22 +454,25 @@ def loop_stage(ctx: BodyContext, s, thresh: int, k_chain: int):
     """The plain version of a stage (stages.loop_chains): chains of
     k_chain `run_body` evaluations while the pending count exceeds
     `thresh`, the count read at each chain's end (the kernel's, or counted
-    here on the CPU; each read counts in KERNEL.reads)."""
+    here on the CPU; each read counts in KERNEL.reads).  Returns the state
+    and its evaluations."""
     spp = int(ctx.iparams[IP_SPP])
-    return stages.loop_chains(KERNEL, s, lambda x: pending_count(x, spp),
-                              lambda x: run_body(ctx, x), thresh, k_chain)[0]
+    return stages.loop_chains(
+        KERNEL, s, lambda x: pending_count(x, spp),
+        lambda x: run_body(ctx, x), thresh, k_chain)
 
 
 def run_stage(ctx: BodyContext, s, thresh: int, k_chain: int, last: bool):
     """One cascade stage of render_tile: the state once the loop of body
     evaluations would exit (the pending count at most `thresh` at a chain
-    boundary), n_rows telling the evaluations.  On the CPU `loop_stage`;
-    on the card the drain for a threshold of 0 (only the last stage has
-    it) and gated chains above it, both equal to `loop_stage` bit for bit.
-    The kernels update the state's per-lane tensors in place."""
+    boundary), and its evaluations (known to the host from the reads the
+    stage makes anyway).  On the CPU `loop_stage`; on the card as
+    `stage_mode` says: the drain for a threshold of 0 (only the last stage
+    has it) and gated chains above it, both equal to `loop_stage` bit for
+    bit.  The kernels update the state's per-lane tensors in place."""
     if s.alive.device.type != "cuda":  # another device raises in run_body
         return loop_stage(ctx, s, thresh, k_chain)
-    if thresh == 0:
+    if stage_mode("cuda", int(ctx.iparams[IP_SPEC]), thresh) == "drain":
         if not last:
             raise ValueError("fastbody: only the last stage drains")
         return KERNEL.drain(ctx, s, k_chain)

@@ -293,6 +293,8 @@ class NestedReplayKernel(stages.BodyKernel):
             self.launch_one(params[OP_END], dev)
             if two and const_alb:
                 ctx.d_albedo += torch.sum(aval[0], dim=0, keepdim=True)
+            elif const_alb:
+                ctx.d_albedo += one_row_sum(aval.unbind(0))
             else:
                 for j in range(arows):
                     ctx.d_albedo.index_add_(0, aidx[j], aval[j])
@@ -300,6 +302,14 @@ class NestedReplayKernel(stages.BodyKernel):
 
 
 KERNEL = NestedReplayKernel()
+
+
+def one_row_sum(adjoints) -> torch.Tensor:
+    """The (1, C) float32 sum of (N, C) float32 adjoints headed for a
+    constant albedo's one row, taken in double (the one-level replay's)."""
+    total = sum(torch.sum(a, dim=0, keepdim=True, dtype=torch.float64)
+                for a in adjoints)
+    return total.to(torch.float32)
 
 
 def drain_stats(stats: torch.Tensor) -> dict:

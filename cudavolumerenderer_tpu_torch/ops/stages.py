@@ -344,11 +344,12 @@ class BodyKernel:
                 self.enqueue_s += time.perf_counter() - t0
 
     def drain(self, args: tuple, extra: tuple, ctrl: torch.Tensor,
-              dev) -> list:
+              dev, once: bool = False) -> list:
         """The drain of a last stage: `args` (and the entry's `extra`
         arguments) launch it on control words `ctrl` that were zero at the
         stage's start (but for what the kernel reads there); the host reads
-        them once per launch and launches again while lanes are left.
+        them once per launch and launches again while lanes are left (with
+        `once`, not: each lane then ran at most the cap's evaluations).
         Returns the last launch's control words."""
         fn = self._entry(self.library(), "drain")
         launches = 0
@@ -359,8 +360,8 @@ class BodyKernel:
             self.drain_launches += 1
             launches += 1
             words = self.read(ctrl)
-            if words[C_LEFT] == 0:
+            if words[C_LEFT] == 0 or once:
                 break
         self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
-                           "launches": launches}
+                           "launches": launches, "left": words[C_LEFT]}
         return words

@@ -48,6 +48,12 @@ the nested two-level) equal the eager loop in every lane field at 24^2 and
 40^2 lanes, pass A and pass B, their cotangents within GRAD_* with atomics
 and bit for bit under deterministic algorithms; the white furnace is exact
 through pass A, and the one-level backward never reaches the eager loop.
+fastSK's body kernels in their speculative mode (spec_k 2, 8 and 32, one-
+and two-level, f32, packed-4 and 'split' tables) and their deferred GGX
+flush (defer_ggx 1 and 4, GGX and null, one tile and multi-tile) equal the
+eager body bit for bit per evaluation, per stage (gated and drained) and
+per render at 24^2 and 40^2, and the white furnace is exact through each
+mode.
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -608,8 +614,17 @@ def fast_option_render(device, option, shape=(16, 16, 128), albedo=None):
 def test_fast_option_bit_equal_on_card(cuda, option):
     """defer_ggx re-times boundary events and brick_major re-lays the
     table ((16, 16, 128) divides its bricks): on the card both give the
-    default render bit for bit, through the GGX boundary."""
+    default render bit for bit, through the GGX boundary.  Both run
+    through the body kernels: defer_ggx's flush runs in them."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    deferred = fastbody.KERNEL.by_mode["defer"]
+    launches = fastbody.KERNEL.launches + fastbody.KERNEL.drain_launches
     a, ra = fast_option_render(cuda, option)
+    assert (fastbody.KERNEL.launches + fastbody.KERNEL.drain_launches
+            > launches)
+    assert (fastbody.KERNEL.by_mode["defer"] > deferred) == (
+        "defer_ggx" in option)
     b, rb = fast_option_render(cuda, {})
     assert np.isfinite(a).all() and ra > 0
     np.testing.assert_array_equal(a, b)
@@ -792,7 +807,8 @@ def checked_stages(bad: list, modes: list):
     held against one eager evaluation of the same state and its pending
     count) on a copy of the state, then the stage path on the state, and
     records in `bad` where either differs (every FastState field, the
-    counters included) and in `modes` the stage's mode."""
+    counters and the stage's evaluations included) and in `modes` the
+    stage's mode."""
     from cudavolumerenderer_tpu_torch.ops import fastbody
 
     run_stage, run_body = fastbody.run_stage, fastbody.run_body
@@ -811,15 +827,16 @@ def checked_stages(bad: list, modes: list):
     def stage(ctx, s, thresh, k_chain, last):
         fastbody.run_body = checked_body
         try:
-            want = fastbody.loop_stage(ctx, clone_state(s), thresh, k_chain)
+            want, n_want = fastbody.loop_stage(ctx, clone_state(s), thresh,
+                                               k_chain)
         finally:
             fastbody.run_body = run_body
-        got = run_stage(ctx, s, thresh, k_chain, last)
+        got, n = run_stage(ctx, s, thresh, k_chain, last)
         diff = state_mismatches(got, want)
-        if diff:
-            bad.append(("stage", thresh, diff))
-        modes.append(fastbody.stage_mode("cuda", 1, 0, thresh))
-        return got
+        if diff or n != n_want:
+            bad.append(("stage", thresh, diff, n, n_want))
+        modes.append(fastbody.stage_mode("cuda", 1, thresh))
+        return got, n
 
     return stage
 
@@ -891,16 +908,17 @@ def test_drain_cap_and_block_sizes(cuda):
     ctx, s, thresh, k_chain = kept[-1]
     assert thresh == 0
     width = s.alive.shape[0]
-    want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
+    want, n_want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
     evals = float(want.n_rows - s.n_rows) / width
+    assert n_want == evals
     for cap in (1, 5, fastbody.DRAIN_CAP):
         for threads in (32, 64, 128, 256):
             reads = fastbody.KERNEL.reads
-            got = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=cap,
-                                        threads=threads)
+            got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain,
+                                           cap=cap, threads=threads)
             assert not state_mismatches(got, want), (cap, threads)
             info = fastbody.KERNEL.last_drain
-            assert info["E"] == evals == k_chain * -(-info["L"] // k_chain)
+            assert n == info["E"] == evals == k_chain * -(-info["L"] // k_chain)
             assert info["launches"] == max(1, -(-info["L"] // cap))
             assert fastbody.KERNEL.reads - reads == info["launches"]
 
@@ -920,13 +938,16 @@ def test_gated_batches(cuda):
     gated = [k for k in kept if k[2] > 0]
     assert len(gated) >= 2
     for ctx, s, thresh, k_chain in gated:
-        want = fastbody.loop_stage(ctx, clone_state(s), thresh, k_chain)
+        want, n_want = fastbody.loop_stage(ctx, clone_state(s), thresh,
+                                           k_chain)
         evals = round(float(want.n_rows - s.n_rows) / s.alive.shape[0])
+        assert n_want == evals
         for batch in (1, 3, 32):
             reads = fastbody.KERNEL.reads
-            got = fastbody.KERNEL.gated(ctx, clone_state(s), thresh, k_chain,
-                                        batch=batch)
+            got, n = fastbody.KERNEL.gated(ctx, clone_state(s), thresh,
+                                           k_chain, batch=batch)
             assert not state_mismatches(got, want), (thresh, batch)
+            assert n == n_want, (thresh, batch)
             n = k_chain * -(-batch // k_chain)
             assert fastbody.KERNEL.reads - reads == 1 + -(-evals // n)
 
@@ -1024,6 +1045,135 @@ def test_body_wrapper_runs_kernel_or_plain_by_device(cuda):
     bad = s._replace(o=s.o.T.contiguous().T)
     with pytest.raises(ValueError, match="contiguous"):
         fastbody.run_body(ctx, bad)
+
+
+def mode_render_checked(cuda, scene, settings, mode: str, **kw):
+    """A render through the stage path with every stage and evaluation held
+    against the eager body (checked_stages), then the eager render: the
+    stages' modes, and the mode's launches (fastbody.KERNEL.by_mode)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    run, bad, modes = fastbody.run_stage, [], []
+    before = fastbody.KERNEL.by_mode[mode]
+    fastbody.run_stage = checked_stages(bad, modes)
+    try:
+        got = body_render(cuda, scene, settings, **kw)
+    finally:
+        fastbody.run_stage = run
+    assert fastbody.KERNEL.by_mode[mode] > before
+    assert modes[-1] == "drain" and len(modes) > 1
+    assert not bad, f"{len(bad)} evaluations or stages differ; first {bad[:3]}"
+    want = body_render(cuda, scene, settings, eager_body=True, **kw)
+    assert_same_render(got, want)
+    assert float(got[1]) > 0 and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["f32", "packed4", "split"])
+@pytest.mark.parametrize("two_level", [False, True], ids=["1l", "2l"])
+@pytest.mark.parametrize("spec_k", [2, 8, 32])
+def test_body_kernel_speculative_steps_equal_eager_body(cuda, monkeypatch,
+                                                        spec_k, two_level,
+                                                        table):
+    """tail_spec K in every pool (all are tail pools here): every stage
+    through run_stage (gated, the last drained) equals the per-evaluation
+    loop, each kernel evaluation the eager body's (speculate), and the
+    render the eager render, bit for bit, at 24^2 (K 2, 32) and 40^2
+    (K 8)."""
+    from cudavolumerenderer_tpu_torch.utils import occupancy
+
+    res = 40 if spec_k == 8 else 24
+    kw = dict(two_level=two_level, tail_spec=spec_k, res=res)
+    if table == "split":
+        shape = (16, 16, 32)
+        scene = body_scene(cuda, "full", shape=shape)
+        monkeypatch.setattr(occupancy, "device_memory_budget",
+                            lambda device=None: 40 * int(np.prod(shape)))
+        assert fast._albedo_mode(scene, allow_split=True) == "split"
+    else:
+        scene = body_scene(cuda)
+        if table == "packed4":
+            kw["table_bits"] = 4
+    settings = types.RenderSettings.from_flags(True)
+    mode_render_checked(cuda, scene, settings, "spec", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multi", [False, True], ids=["tile", "multi"])
+@pytest.mark.parametrize("bsdf", ["ggx", "null"])
+@pytest.mark.parametrize("defer", [1, 4])
+def test_body_kernel_deferred_flush_equals_eager_body(cuda, defer, bsdf,
+                                                      multi):
+    """defer_ggx G: every stage through run_stage (gated, the last
+    drained; the flush from the evaluation's n_rows in the kernels)
+    equals the per-evaluation loop, each evaluation the eager one, and the
+    render the eager render (image, rays, rows, busy lanes, per-stage
+    rows) bit for bit, in one tile at 24^2 and 40^2 and in 2x2 tiles."""
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True, bsdf_kind=bsdf)
+    res = 40 if defer == 4 else 24
+    mode_render_checked(cuda, scene, settings, "defer", res=res, multi=multi,
+                        two_level=True, defer_ggx=defer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(defer_ggx=4), dict(tail_spec=8),
+    dict(defer_ggx=1, tail_spec=4, tail_single_level=True),
+], ids=["defer4", "spec8", "defer1-single4"])
+def test_mode_drain_relaunches_and_single_launch(cuda, kw):
+    """On the last stage's entry state in each mode: the drain relaunched
+    at caps of 1 and 3 (the deferred flush's n_rows carried across the
+    relaunches from the control words) equals the per-evaluation loop bit
+    for bit, and one launch capped at 5 equals 5 eager evaluations."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    scene = body_scene(cuda)
+    settings = types.RenderSettings.from_flags(True)
+    kept, _ = kept_stages(cuda, scene, settings, two_level=True, **kw)
+    ctx, s, thresh, k_chain = kept[-1]
+    assert thresh == 0
+    want, n_want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
+    for cap in (1, 3):
+        got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=cap)
+        assert not state_mismatches(got, want) and n == n_want, cap
+        assert fastbody.KERNEL.last_drain["launches"] > 1
+    got, _ = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=5,
+                                   once=True)
+    assert fastbody.KERNEL.last_drain["left"] > 0
+    want = clone_state(s)
+    for _ in range(5):
+        want = ctx.plain(want)
+    assert not state_mismatches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(two_level=True, tail_spec=8),
+    dict(two_level=True, tail_single_level=True, tail_spec=16),
+    dict(two_level=False, tail_spec=32),
+    dict(two_level=True, defer_ggx=4),
+    dict(two_level=True, defer_ggx=1, tail_spec=4),
+], ids=["spec8-2l", "single16", "spec32-1l", "defer4", "defer1-spec4"])
+def test_white_furnace_through_body_kernel_modes(cuda, kw):
+    """Unit albedo and the null boundary: every pixel exactly spp through
+    the speculative and the deferred modes of the body kernels (24^2 in
+    pools of 576, 512 and 256 lanes: tail_spec acts only in a cascade of
+    several pools)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    d = procedural.blob_volume((24, 24, 24), n_blobs=3)
+    scene = types.make_scene(types.make_medium(d, 1.0, scale=8.0,
+                                               max_density=1.0, device=cuda))
+    settings = types.RenderSettings.from_flags(
+        True, russian_roulette=False, max_path_length=200, bsdf_kind="null")
+    counts = dict(fastbody.KERNEL.by_mode)
+    img = body_render(cuda, scene, settings, res=24, **kw)[0]
+    on = {"spec": kw.get("tail_spec", 1) > 1,
+          "defer": kw.get("defer_ggx", 0) > 0}
+    for mode in fastbody.MODES:
+        assert (fastbody.KERNEL.by_mode[mode] > counts[mode]) == on[mode]
+    np.testing.assert_array_equal(img.cpu().numpy(), 4.0)
 
 
 # -- fastSK's tail stage as one drain (csrc/tailpk.cu's drain_kernel) --------

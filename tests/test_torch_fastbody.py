@@ -1,12 +1,15 @@
 """fastSK's body kernel (csrc/fastbody.cu, ops/fastbody.py) on the CPU,
 which has no card: the gate that sends a stage to the kernel or to the
-eager body, the kernel's parameter vectors against the values
-render_tile computes, the C layout against the Python one, and the eager
-body (the kernel's plain version) against JAX's render_tile for the
-modes the kernel covers that no other test holds: the 'full' and 'split'
-albedo tables, two lanes per pixel, one-level GGX and Russian roulette
-off.  The kernel against the eager body, bit for bit, is in
-tests/test_torch_cuda.py (card tests)."""
+eager body (the speculative steps and the deferred GGX flush included, a
+spec_k beyond the kernel's limit raising), the flush schedule the kernel
+mirrors, the kernel's parameter vectors against the values render_tile
+computes, the C layout against the Python one, the stage path under
+tail_spec and defer_ggx against the eager loop, and the eager body (the
+kernel's plain version) against JAX's render_tile for the modes the
+kernel covers that no other test holds: the 'full' and 'split' albedo
+tables, two lanes per pixel, one-level GGX and Russian roulette off.  The
+kernel against the eager body, bit for bit, is in tests/test_torch_cuda.py
+(card tests)."""
 
 import re
 from pathlib import Path
@@ -64,8 +67,7 @@ def stage_routes(config: Config, n_lanes: int, device_type: str = "cuda"):
                             tail_spec=kw["tail_spec"],
                             tail_single_level=kw["tail_single_level"],
                             two_level=kw["two_level"])
-    return [(w, p["spec_k"], fb.route(device_type, p["spec_k"],
-                                      kw["defer_ggx"]))
+    return [(w, p["spec_k"], fb.route(device_type, p["spec_k"]))
             for w, p in zip(widths, plan)]
 
 
@@ -93,28 +95,62 @@ def test_gate_sends_every_stage_of_the_configs_to_the_kernel(
 
 
 def test_gate_keeps_deferred_ggx_eager():
+    """defer_ggx 4: the card sends every stage to the kernels (the flush
+    runs in them); the CPU and eager_body=True keep the eager body."""
     config = Config(scene_file="unused", kernel=Kernel.FAST_SK,
                     two_level=True, defer_ggx=4)
-    assert not any(k for _, _, k in stage_routes(config, 512 * 512))
+    routes = stage_routes(config, 512 * 512)
+    assert len(routes) > 1 and all(k for _, _, k in routes)
+    assert not any(k for _, _, k in stage_routes(config, 512 * 512, "cpu"))
+    assert fb.stage_mode("cuda", 1, 0) == "drain"
+    assert fb.stage_mode("cuda", 1, 0, eager_body=True) == "eager"
 
 
 def test_gate_keeps_speculative_narrow_pools_eager():
-    """tail_spec 4: the pools up to the tail width speculate (eager), the
-    wide ones take one step (the kernel)."""
+    """tail_spec 4: the pools up to the tail width speculate, the wide
+    ones take one step, and the card sends all of them to the kernels;
+    the CPU and eager_body=True keep the eager body."""
     config = Config(scene_file="unused", kernel=Kernel.FAST_SK,
                     two_level=True, tail_spec=4)
     routes = stage_routes(config, 512 * 512)
-    assert [k for _, _, k in routes] == [spec == 1 for _, spec, _ in routes]
-    eager = [w for w, _, k in routes if not k]
-    assert eager and eager == [w for w, _, _ in routes
-                               if w <= tfast._TAIL_CHAIN_WIDTH]
+    assert all(k for _, _, k in routes)
+    spec = [w for w, k, _ in routes if k > 1]
+    assert spec and spec == [w for w, _, _ in routes
+                             if w <= tfast._TAIL_CHAIN_WIDTH]
+    assert not any(k for _, _, k in stage_routes(config, 512 * 512, "cpu"))
+    assert fb.route("cuda", 4) and not fb.route("cuda", 4, eager_body=True)
+    assert fb.stage_mode("cuda", 4, 128) == "gated"
+    assert fb.stage_mode("cuda", 4, 128, eager_body=True) == "eager"
+
+
+def test_spec_k_beyond_the_kernels_limit_raises_on_the_card():
+    """A spec_k above MAX_SPEC_K (at least 64) raises on a cuda device type
+    (in route, stage_context and render_tile's check before any work): it
+    never goes to the eager body quietly.  The CPU and eager_body=True run
+    the eager body at any spec_k."""
+    assert fb.MAX_SPEC_K >= 64
+    assert fb.route("cuda", fb.MAX_SPEC_K)
+    for k in (fb.MAX_SPEC_K + 1, 0):
+        with pytest.raises(ValueError, match="spec_k"):
+            fb.route("cuda", k)
+        with pytest.raises(ValueError, match="spec_k"):
+            fb.stage_mode("cuda", k, 0)
+    assert not fb.route("cpu", fb.MAX_SPEC_K + 1)
+    assert not fb.route("cuda", fb.MAX_SPEC_K + 1, eager_body=True)
+    ctx = fb.BodyContext(
+        fparams=np.zeros(fb.N_FP, np.float32),
+        iparams=np.zeros(fb.N_IP, np.int64), table=torch.zeros(1),
+        albedo_rows=None, brick_tab=None, tile_offset=None, bases=None)
+    with pytest.raises(ValueError, match="spec_k"):
+        fb.stage_context(ctx, None, True, None, spec_k=fb.MAX_SPEC_K + 1)
+    assert fb.stage_context(ctx, None, True, None, spec_k=64).iparams[
+        fb.IP_SPEC] == 64
 
 
 def test_gate_keeps_the_cpu_and_eager_callers_eager():
     assert not any(k for _, _, k in stage_routes(CONFIGS[1][1], 512 * 512,
                                                  "cpu"))
-    assert fb.route("cuda", 1, 0) and not fb.route("cuda", 1, 0,
-                                                   eager_body=True)
+    assert fb.route("cuda", 1) and not fb.route("cuda", 1, eager_body=True)
 
 
 # -- (b) the parameter vectors ------------------------------------------------
@@ -272,9 +308,13 @@ def test_kernel_layout_equals_the_wrappers():
           and isinstance(v, int)}
     lane = {f"S_{n}": k for k, n in enumerate(
         ("O", "D", "TP", "ACC", "NRM", "T", "MAXT", "BEXIT", "ISL", "SD",
-         "BOUNCE", "ALIVE", "TRACKING", "RS", "RINC"))}
+         "BOUNCE", "ALIVE", "TRACKING", "RS", "RINC", "PEND"))}
     assert {k: c[k] for k in lane} == lane
     assert c["N_LANE"] == fb.N_LANE == len(fb.LANE_FIELDS)
+    assert fb.LANE_FIELDS[fb.S_PEND] == "pend_b"
+    # the speculative steps' and the deferred flush's slots
+    for name in ("IP_SPEC", "IP_DEFER", "S_PEND"):
+        assert c[name] == getattr(fb, name), name
     shared = sorted(set(c) & set(py))
     assert len(shared) >= 60
     assert {k: c[k] for k in shared} == {k: py[k] for k in shared}
@@ -569,14 +609,14 @@ def test_run_stage_equals_the_loop_and_jax(monkeypatch, case):
 
 
 def test_stage_mode_by_threshold_and_gate():
-    assert fb.stage_mode("cuda", 1, 0, 0) == "drain"
-    assert fb.stage_mode("cuda", 1, 0, 128) == "gated"
-    assert fb.stage_mode("cuda", 1, 0, 4096) == "gated"
-    assert fb.stage_mode("cuda", 4, 0, 0) == "eager"
-    assert fb.stage_mode("cuda", 1, 4, 0) == "eager"
-    assert fb.stage_mode("cuda", 1, 0, 0, eager_body=True) == "eager"
-    assert fb.stage_mode("cpu", 1, 0, 0) == "eager"
-    assert fb.stage_mode("cpu", 1, 0, 128) == "eager"
+    assert fb.stage_mode("cuda", 1, 0) == "drain"
+    assert fb.stage_mode("cuda", 1, 128) == "gated"
+    assert fb.stage_mode("cuda", 1, 4096) == "gated"
+    assert fb.stage_mode("cuda", 4, 0) == "drain"
+    assert fb.stage_mode("cuda", 16, 512) == "gated"
+    assert fb.stage_mode("cuda", 1, 0, eager_body=True) == "eager"
+    assert fb.stage_mode("cpu", 1, 0) == "eager"
+    assert fb.stage_mode("cpu", 1, 128) == "eager"
 
 
 @pytest.mark.parametrize("tail_pallas", [False, True], ids=["drain", "tail"])
@@ -590,7 +630,7 @@ def test_stage_mode_of_render_tiles_stages(monkeypatch, tail_pallas):
     out, stages = stage_render(monkeypatch, scene, settings, 24, 2,
                                two_level=True, tail_pallas=tail_pallas,
                                tail_pk_width=128, **CASCADE)
-    modes = [fb.stage_mode("cuda", 1, 0, thresh)
+    modes = [fb.stage_mode("cuda", 1, thresh)
              for _, _, thresh, _, _ in stages]
     assert [last for *_, last in stages] == [False] * (len(stages) - 1) + [
         True]
@@ -642,3 +682,137 @@ def test_body_reports_per_lane_traffic(monkeypatch):
     n = fb.body_bytes(ctx, taps)
     assert 0 < n - fb.body_bytes(ctx, [x for x in taps if x[0] != "state"])
     assert fb.body_bytes(ctx, [("state", traffic)]) < width * 236
+
+
+# -- (e) the speculative steps and the deferred flush on the stage path -------
+
+def host_schedule(widths, counts, defer):
+    """render_tile's step(): per evaluation of the pools `widths` (counts[k]
+    evaluations of widths[k]), whether its flush runs, from the host's
+    float32 copy of n_rows; and the device's n_rows before each, summed by
+    torch in float32 as the body adds it."""
+    rows_host = np.float32(0.0)
+    n_rows = torch.zeros((), dtype=torch.float32)
+    flags, dev = [], []
+    for width, n in zip(widths, counts):
+        w = np.float32(width)
+        for _ in range(n):
+            flags.append(int(np.round(rows_host / w)) % defer == 0)
+            dev.append((float(n_rows), width))
+            rows_host = np.float32(rows_host + w)
+            n_rows = n_rows + float(width)
+    return flags, dev, rows_host
+
+
+@pytest.mark.parametrize("defer", [1, 3, 4])
+def test_flush_schedule_equals_the_hosts_loop(defer):
+    """fastbody.flush_due, the plain function csrc/fastbody.cu mirrors
+    (IEEE float32 division of the evaluation's n_rows by the width, rintf,
+    modulo defer_ggx), on the device's float32 n_rows gives the flags of
+    render_tile's host loop on its numpy copy, through a cascade of 1.25
+    (widths no powers of two) run past 2^24 rows, where float32 sums
+    round; the round is half to even."""
+    widths = tfast._cascade_widths(1 << 18, 1.25, 256)
+    assert any(w & (w - 1) for w in widths)
+    counts = [40 + 7 * k for k in range(len(widths))]
+    flags, dev, rows_host = host_schedule(widths, counts, defer)
+    got = [fb.flush_due(n, w, defer) for n, w in dev]
+    assert got == flags and any(flags) and (defer == 1 or not all(flags))
+    assert dev[-1][0] > 2 ** 24
+    assert float(dev[-1][0] + widths[-1]) == float(rows_host)
+    # ties: 640 / 256 = 2.5 rounds to 2, 896 / 256 = 3.5 to 4
+    assert fb.flush_due(640.0, 256, 2) and fb.flush_due(896.0, 256, 4)
+    assert not fb.flush_due(640.0, 256, 3)
+    assert not fb.flush_due(0.0, 256, 0)
+
+
+#: (id, render_tile keywords, against JAX's render too): the stage path
+#: under tail_spec (two- and single-level) and defer_ggx; JAX stands beside
+#: it where tests/test_torch_fast_options.py holds the mode under jit
+MODE_STAGE_CASES = [
+    ("spec4-2l", dict(two_level=True, tail_spec=4), False),
+    ("spec4-2l-q4", dict(two_level=True, tail_spec=4, table_bits=4), True),
+    ("single8", dict(two_level=True, tail_single_level=True, tail_spec=8),
+     False),
+    ("defer1-2l", dict(two_level=True, defer_ggx=1), False),
+    ("defer4-2l", dict(two_level=True, defer_ggx=4), True),
+    ("defer4-1l-spec4", dict(two_level=False, defer_ggx=4, tail_spec=4),
+     False),
+]
+
+
+@pytest.mark.parametrize("case", MODE_STAGE_CASES,
+                         ids=[c[0] for c in MODE_STAGE_CASES])
+def test_run_stage_in_the_speculative_and_deferred_modes(monkeypatch, case):
+    """render_tile through run_stage with the gate forced open on the CPU
+    (each stage's loop of plain evaluations: the flush read from the
+    state's n_rows, then the body) gives the eager loop's image, n_rays,
+    n_rows, n_busy and per-stage rows bit for bit, every stage in the
+    mode it names; with_stats' check of the host's n_rows against the
+    device's holds; and it agrees with JAX's render_tile where a JAX
+    render stands beside it."""
+    _, kw, with_jax = case
+    pair = medical()
+    kw = {**CASCADE, **kw}
+    jc = jcam.make_camera(24, 24)
+    cam = convert.camera_from_arrays(jc.inv_view, jc.raster_to_view)
+    settings = ttypes.RenderSettings.from_flags(True, bsdf_kind="null")
+    forced, kept = stage_render(monkeypatch, pair[0], settings, 24, 4,
+                                cam=cam, base=0, **kw)
+    assert len(kept) == len(forced[4]) > 1
+    modes = [fb.modes_of(ctx) for ctx, *_ in kept]
+    if kw.get("defer_ggx"):
+        assert all("defer" in m for m in modes)
+    if kw.get("tail_spec"):
+        assert any("spec" in m for m in modes)
+    t = tfast.render_tile(pair[0], cam, settings, (24, 24), torch.zeros(2),
+                          (24, 24), 4, 7, 0, with_stats=True, **kw)
+    for x, y in zip(forced, t):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    if with_jax:
+        _, j = render_pair(pair, {"bsdf_kind": "null"}, res=24, **kw)
+        assert_matches_jax([np.asarray(x) for x in forced], j)
+
+
+@pytest.mark.parametrize("valid, accept, want", [
+    ("1111", "0101", "1100"),  # the first acceptance ends the rows read
+    ("1110", "0000", "1110"),  # an invalid candidate reads no row
+    ("1111", "0000", "1111"),  # no stop: every candidate's row
+    ("0000", "0000", "0000"),  # a lane that does not step
+    ("1100", "1000", "1000"),
+], ids=["accept", "invalid", "none", "idle", "first"])
+def test_speculative_taps_stop_at_the_first_acceptance(valid, accept, want):
+    """read_prefix, the candidates whose rows a speculative step needs (and
+    body_bytes counts): the valid ones up to and including the first
+    acceptance, or all valid ones where none accepts."""
+    rows = lambda x: torch.tensor([[c == "1" for c in x]])  # noqa: E731
+    got = tfast.read_prefix(rows(accept), rows(valid))
+    assert torch.equal(got, rows(want))
+
+
+def test_speculative_and_deferred_bounds_count_their_taps(monkeypatch):
+    """The eager body's taps under tail_spec name the table entries of the
+    valid candidates up to the first acceptance (so a speculative stage's
+    bound counts table bytes, and no more than the step needs), and
+    under defer_ggx pend_b (1 B) and the flush's fields join the state
+    traffic; without defer_ggx pend_b is not counted."""
+    scene = medical()[0]
+    settings = ttypes.RenderSettings.from_flags(True)
+    for kw, defer in ((dict(tail_spec=4, tail_single_level=True), 0),
+                      (dict(defer_ggx=1), 1)):
+        _, kept = stage_render(monkeypatch, scene, settings, 24, 4,
+                               two_level=True, **CASCADE, **kw)
+        ctx, s = kept[-1][:2]
+        taps = []
+        for _ in range(3):
+            s = ctx.plain(s, taps=taps)
+        traffic = [x for k, x in taps if k == "state"]
+        assert all(("pend_b" in x) == bool(defer) for x in traffic)
+        if defer:
+            assert len(traffic) > 3  # a flush each evaluation
+        else:
+            assert ctx.iparams[fb.IP_SPEC] == 4
+            tap_idx = [x for k, x in taps if k == "tap"]
+            assert tap_idx and sum(x.numel() for x in tap_idx) > 0
+        assert fb.body_bytes(ctx, taps) > fb.body_bytes(
+            ctx, [x for x in taps if x[0] == "state"])

@@ -50,13 +50,14 @@ ROOT = Path(__file__).resolve().parents[1]
 #: that carries XLA's sin/cos last bits moves a trilinear weight
 COT_RTOL, COT_ATOL = 1e-4, 1e-5
 #: the share of lanes whose radiance, throughput and RNG state must be
-#: bit-equal to JAX's: XLA's sin and cos differ from torch's by 1-2 ulps on
-#: some inputs (ROADMAP C), which moves an HG or GGX direction's last bits
-#: and with it a later weight or draw.  With XLA's sin and cos in the port
-#: (`xla_sin_cos`) the direction is bit for bit on every lane, and with the
-#: null BSDF so is every lane's radiance, throughput and RNG state; under
-#: GGX a few lanes still part where a position's last bits move a weight
-SAME_SHARE = 0.95
+#: bit-equal to JAX's: XLA's CPU sin, cos and log differ from torch's by an
+#: ulp on some inputs (log on ~14% of the flight draws, where torch's is
+#: correctly rounded; ROADMAP C1), which moves an HG or GGX direction's or
+#: a flight's last bits and with them a later position, weight or draw (3
+#: of 128 lanes of the one-level GGX case).  With XLA's sin, cos and log in
+#: the port (`xla_transcendentals`) every field of every lane of every
+#: case is bit for bit
+SAME_SHARE = 0.97
 
 #: (id, two-level, bsdf, Russian roulette, mitsuba_comparable (trilinear
 #: sampling and Mitsuba's GGX sampler; else nearest and Heitz's), a
@@ -156,10 +157,10 @@ def port_replay(t, record, n_vox, albedo, taps=None):
 FIELDS = ("o", "d", "throughput", "radiance", "alive", "rng state")
 
 
-def xla_sin_cos(monkeypatch):
-    """torch.sin and torch.cos computed by jax.numpy's (XLA's CPU kernels)
-    on the same float32 values."""
-    for name in ("sin", "cos"):
+def xla_transcendentals(monkeypatch):
+    """torch.sin, torch.cos and torch.log computed by jax.numpy's (XLA's
+    CPU kernels) on the same float32 values."""
+    for name in ("sin", "cos", "log"):
         monkeypatch.setattr(torch, name, lambda x, f=getattr(jnp, name):
                             torch.from_numpy(np.array(f(x.numpy()))))
 
@@ -176,12 +177,11 @@ def test_run_on_cpu_matches_jax_replay(case, monkeypatch):
     """Pass A and pass B of nestedreplay.run on CPU tensors against JAX's
     _replay op by op: alive bit for bit; radiance, throughput and the RNG
     state bit for bit on SAME_SHARE of the lanes (the lanes that part are
-    counted and printed); with XLA's sin and cos in the port, d bit for bit
-    on every lane, and with the null BSDF every lane's radiance, throughput
-    and RNG state too; o and d within 1e-6; pass B's cotangents within
-    COT_*; pass A adds nothing."""
+    counted and printed); with XLA's sin, cos and log in the port, every
+    field (o, d, throughput, radiance, alive, the RNG state) bit for bit
+    on every lane; o and d within 1e-6; pass B's cotangents within COT_*;
+    pass A adds nothing."""
     j, t, n_vox, albedo = problem(case)
-    ggx = case[2] == "ggx"
     for record in (False, True):
         want, jdd, jda = jax_replay(j, record, n_vox, albedo)
         got, tdd, tda, _ = port_replay(t, record, n_vox, albedo)
@@ -189,16 +189,16 @@ def test_run_on_cpu_matches_jax_replay(case, monkeypatch):
         want = {k: y.astype(got[k].dtype) for k, y in zip(FIELDS, want)}
         assert np.array_equal(got["alive"], want["alive"])
         with monkeypatch.context() as m:
-            xla_sin_cos(m)
+            xla_transcendentals(m)
             same = dict(zip(FIELDS, port_replay(t, record, n_vox, albedo)[0]))
         lanes = len(got["alive"])
-        parted, still = parted_lanes(got, want), parted_lanes(same, want)
+        parted = parted_lanes(got, want)
+        still = parted_lanes(same, want, FIELDS)
         print(f"{case[0]}, pass {'B' if record else 'A'}: {parted.size} of "
-              f"{lanes} lanes part from JAX {parted.tolist()}, with XLA's sin "
-              f"and cos {still.size} {still.tolist()}")
+              f"{lanes} lanes part from JAX {parted.tolist()}, with XLA's sin, "
+              f"cos and log {still.size} {still.tolist()}")
         assert parted.size <= (1 - SAME_SHARE) * lanes
-        assert parted_lanes(same, want, ("d",)).size == 0
-        assert still.size <= ((1 - SAME_SHARE) * lanes if ggx else 0)
+        assert still.size == 0
         for name in ("o", "d", "throughput", "radiance"):
             np.testing.assert_allclose(got[name], want[name], rtol=0,
                                        atol=1e-6, err_msg=name)
