@@ -204,8 +204,11 @@ CPU or to a plain version on a CUDA tensor):
    b16+spec16@2048, all through the body kernels: wall, evaluations per
    stage, n_rays, launches (the speculative ones counted apart), each
    tail row's image mean within 2% and n_rays within 5% of bricks16's;
-   b16+spec16@512 again through the eager body (eager_body=True): image,
-   n_rays and n_rows bit-equal to the kernels' render; a 64^3 per-voxel
+   b16+spec16@512 at SPEC_EAGER_RES^2 x 1 (a cut of depth: on an H100 the
+   eager body took 67 s at 512^2 x 4, 2,139 evaluations, against 38-42 s
+   at 128^2 x 1, 968) through the kernels (a speculative stage
+   launched) and through the eager body (eager_body=True): image, n_rays
+   and n_rows bit-equal; a 64^3 per-voxel
    albedo under a budget cut to send it to 'split', bit-equal to its
    'full' render; then a per-voxel albedo grid
    made on the card at the side n where plan_albedo_table picks 'split'
@@ -223,7 +226,7 @@ CPU or to a plain version on a CUDA tensor):
    on the 1-rank mesh against an unsharded render_diff + SGD step: loss
    and grids bit for bit, both under torch.use_deterministic_algorithms;
    (d) benchmarks/scaling_efficiency --compare-plain at its default
-   width (128^2 x 4 per rank), one timed rep (cut from 3), in a group of
+   width (128^2 x 4 per rank) and its default 3 timed reps, in a group of
    one: the N = 1 row and the plain render beside it;
 22. the body kernels on config 2 (phase 5's scene, 512^2 x 4, two-level,
    no tail kernel): (a) rendered through the per-evaluation loop
@@ -371,6 +374,30 @@ CPU or to a plain version on a CUDA tensor):
    --steps cut from 100 to 10 (seconds per step, launches, host reads, no
    eager pass); (f) benchmarks/inverse_scale100 with --steps cut from 30
    20 15 to 2 1 1.
+30-41. the measurement drivers of cudavolumerenderer_tpu_torch/benchmarks,
+   each main at its published size and reps (the JAX scripts' defaults):
+   30 run_suite (kernels naiveSK, regenerationSK, streamingSK and fastSK
+   through create_renderer at n_lanes 2^17, and fastSK-2L through
+   render_tile, on bucky 32^3 at 256^2 x 20, smoke 128x128x50 at 400^2 x
+   4 and medical 256^3 at 512^2 x 4), 31 run_suite --tiling (bucky at
+   1920^2 x 5 on 1, 2, 4, 8, 32 and 64 tiles a side), 32 micro_classes,
+   33 micro_stats, 34 micro_ablate (its blob-field stand-in, 256^3 at
+   512^2 x 4) and micro_ablate --regen-levels, 35 micro_driver_overhead
+   (then its direct render once under torch.profiler), 36 micro_medical,
+   37 micro_medical2 (its whole sweep, the tail kernel's rows included),
+   38 micro_smoke2, 39 micro_bucky_r5, 40 micro_config3 (config 3's .vdb
+   at 400^2 and 1024^2) and 41 micro_smoke_brick; for each: the JSON
+   written equals main's dict and holds the driver's KEYS (the JAX
+   script's keys, held to the script's text by tests/test_torch_
+   drivers.py); every row (its counts set to 0 just before it and read
+   just after: scene_classes.RowCounts) launched each kernel that it names
+   in `kernels` (its body kernel: fastbody, familybody or brickbody, and
+   the tail stage's drain where the row opens the tail kernel's gate), and
+   made no eager evaluation and no launch of the eager loops' tail or
+   tracking kernels; run_suite's naiveSK, regenerationSK and streamingSK rows of
+   each scene trace the same n_rays exactly; albedo_affine set for the
+   smoke and medical classes and not for bucky; each row's wall, n_rays,
+   launches and host reads printed.
 
 The whole script's wall time is printed last before the JSON lines.
 
@@ -481,8 +508,11 @@ TAIL_ROWS = (
     spec_row(8, 512), spec_row(16, 512), spec_row(32, 512),
     spec_row(16, 2048),
 )
-#: the spec row held bit for bit against its eager-body render
+#: the spec row held bit for bit against its eager-body render, both at
+#: SPEC_EAGER_RES^2 x 1 (a cut of depth from 512^2 x 4; its 512-lane
+#: speculative stage still runs)
 SPEC_EAGER = "b16+spec16@512"
+SPEC_EAGER_RES = 128
 #: the most device kernels per evaluation of the defer_ggx 4 render
 DEFER_KERNELS_MAX = 2
 CONFIG2_ITERS = 4  # phases 19-20's config-2 iterations (the published 4)
@@ -492,7 +522,7 @@ GLOO_KNOBS = {"two_level": True, "table_bits": 4, "cascade_factor": 1.25}
 INV_N, INV_RES, INV_SPP, INV_LR, INV_SEED = 32, (32, 32), 8, 5.0, 11
 RANK_TIMEOUT = 600  # seconds for each phase 21 (b) rank
 ALL_REDUCE_REPS = 20  # phase 21 (a): all_reduces of the image timed
-SCALING_REPS = 1  # phase 21 (d): timed reps (the benchmark's default 3, cut)
+SCALING_REPS = 3  # phase 21 (d): timed reps (the benchmark's default)
 HERE = os.path.dirname(os.path.abspath(__file__))
 # tests/test_fast.py:51-70's tail configurations (white furnace)
 FURNACE_TAILS = (
@@ -3055,9 +3085,11 @@ def log_window(tag: str, prof, card: str) -> None:
 
 
 def option_render(scene, camera, fields: dict, tag: str, card: str,
-                  window: bool = False, eager: bool = False) -> dict:
-    """One 512^2 x CONFIG2_ITERS fastSK two-level render of config 2's
-    scene through create_renderer(...).render() with Config `fields`
+                  window: bool = False, eager: bool = False, res: int = 512,
+                  iters: int = CONFIG2_ITERS) -> dict:
+    """One res^2 x iters fastSK two-level render of config 2's scene (512^2
+    x CONFIG2_ITERS unless told) through create_renderer(...).render() with
+    Config `fields`
     (with eager, render_tile's eager body: eager_body=True); prints its
     wall (image copy included), rays, body evaluations per stage, the body
     kernels' launches and host reads (their counts set to 0 just before
@@ -3074,8 +3106,8 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
 
-    cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
-                 iterations=CONFIG2_ITERS, n_tiles=(1, 1), **fields)
+    cfg = Config(kernel=Kernel.FAST_SK, two_level=True, resolution=(res, res),
+                 iterations=iters, n_tiles=(1, 1), **fields)
     renderer = create_renderer(scene, camera, cfg)
     torch.cuda.synchronize()
     prof = RenderWindow() if window else contextlib.nullcontext()
@@ -3096,14 +3128,15 @@ def option_render(scene, camera, fields: dict, tag: str, card: str,
               "reads": k.reads, "by_mode": dict(k.by_mode)}
     n_rays = renderer.n_rays
     check(len(cascades.calls) == 1, f"{tag}: {len(cascades.calls)} cascades")
-    check(host.shape == (512, 512, 3) and np.isfinite(host).all(),
+    check(host.shape == (res, res, 3) and np.isfinite(host).all(),
           f"{tag}: image not finite or of the wrong shape")
     check(n_rays > 0, f"{tag}: no rays traced")
     evals = cascades.calls[0][1]
     if isinstance(prof, RenderWindow):
         prof.per_evaluation(evals)
     stages = " / ".join(f"{e:.0f}" for e in cascades.stages[0])
-    log(f"[20] {tag} x {CONFIG2_ITERS}{' (eager body)' if eager else ''}: "
+    log(f"[20] {tag} at {res}^2 x {iters}"
+        f"{' (eager body)' if eager else ''}: "
         f"{wall:.3f} s wall (incl. image copy), {n_rays:.0f} "
         f"rays, {evals:.0f} body evaluations ({stages} per stage), body "
         f"kernels {counts['launches']} launches + {counts['drains']} drain "
@@ -3279,9 +3312,15 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
         spec = rows[label]["by_mode"]["spec"]
         check((spec > 0) == (fields.get("tail_spec", 1) > 1),
               f"{label}: {spec} speculative-mode launches")
+    # the eager comparison at SPEC_EAGER_RES^2 x 1 (its body takes ~40 ms
+    # an evaluation, ~1,500 evaluations at 512^2 x 4)
+    small = dict(res=SPEC_EAGER_RES, iters=1)
+    got = option_render(scene, camera, dict(TAIL_ROWS)[SPEC_EAGER],
+                        SPEC_EAGER, card, **small)
     eager = option_render(scene, camera, dict(TAIL_ROWS)[SPEC_EAGER],
-                          SPEC_EAGER, card, eager=True)
-    got = rows[SPEC_EAGER]
+                          SPEC_EAGER, card, eager=True, **small)
+    check(got["by_mode"]["spec"] > 0,
+          f"{SPEC_EAGER} at {SPEC_EAGER_RES}^2 launched no speculative stage")
     check(torch.equal(got["img"], eager["img"])
           and got["n_rays"] == eager["n_rays"]
           and got["n_rows"] == eager["n_rows"],
@@ -3289,8 +3328,8 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
     check(eager["launches"] + eager["drains"] == 0,
           f"{SPEC_EAGER}'s eager render launched the body kernels")
     log(f"[20] {SPEC_EAGER} through the kernels equals its eager-body render "
-        f"bit for bit (image, {got['n_rays']:.0f} rays, n_rows "
-        f"{got['n_rows']:.0f}): {got['wall']:.3f} s against "
+        f"bit for bit at {SPEC_EAGER_RES}^2 x 1 (image, {got['n_rays']:.0f} "
+        f"rays, n_rows {got['n_rows']:.0f}): {got['wall']:.3f} s against "
         f"{eager['wall']:.3f} s wall; card {card}")
     ref = rows[TAIL_ROWS[0][0]]
     ref_mean = float(ref["host"].mean())
@@ -3308,7 +3347,9 @@ def options_config2(tmp: str, card: str, scene=None, camera=None,
            "spec": {label: {k: rows[label][k] for k in keep}
                     for label, fields in TAIL_ROWS
                     if fields.get("tail_spec", 1) > 1},
-           "spec_eager_wall": eager["wall"]}
+           "spec_eager_wall": eager["wall"],
+           "spec_eager_kernel_wall": got["wall"],
+           "spec_eager_res": SPEC_EAGER_RES}
     del rows, defer, eager
     split_on_card(card)
     return out
@@ -5715,6 +5756,196 @@ def nested_lines(nested: dict) -> list:
     }]
 
 
+# phases 30-41: the measurement drivers (cudavolumerenderer_tpu_torch/
+# benchmarks), each main at its published size: (phase, module, argv)
+DRIVERS = (
+    (30, "run_suite", []),
+    (31, "run_suite", ["--tiling"]),
+    (32, "micro_classes", []),
+    (33, "micro_stats", []),
+    (34, "micro_ablate", []),
+    (34, "micro_ablate", ["--regen-levels"]),
+    (35, "micro_driver_overhead", []),
+    (36, "micro_medical", []),
+    (37, "micro_medical2", []),
+    (38, "micro_smoke2", []),
+    (39, "micro_bucky_r5", []),
+    (40, "micro_config3", []),
+    (41, "micro_smoke_brick", []),
+)
+#: the drivers whose JAX scripts only print (no --out)
+PRINT_ONLY = ("micro_classes", "micro_stats", "micro_ablate",
+              "micro_driver_overhead", "micro_medical")
+#: run_suite's integrator-family rows, which trace the same paths
+SUITE_FAMILY = ("naiveSK", "regenerationSK", "streamingSK")
+
+
+def driver_rows(out: dict, path: str = ""):
+    """(name, row) for every row of a driver's result: the dicts that carry
+    the kernels' counts (scene_classes.RowCounts)."""
+    for key, value in out.items():
+        if isinstance(value, dict):
+            name = f"{path}/{key}" if path else str(key)
+            if "eager" in value:
+                yield name, value
+            else:
+                yield from driver_rows(value, name)
+
+
+def family_rays(phase: int, scene: str, out: dict) -> None:
+    """run_suite's family rows of one scene trace the same paths:
+    regenerationSK and streamingSK the same n_rays exactly, and naiveSK
+    too unless its trace hit max_path_length (the JAX package's
+    integrator.trace bounds the wavefront at max_path_length bounces,
+    integrator.py:344; the queue-fed schedulers bound no path), when it
+    traces fewer."""
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    rows = {k: out[f"{scene}/{k}"] for k in SUITE_FAMILY}
+    rays = {k: r["n_rays"] for k, r in rows.items()}
+    check(rays["regenerationSK"] == rays["streamingSK"],
+          f"[{phase}] {scene}: the family's rows traced {rays}")
+    cap = RenderSettings().max_path_length
+    longest = rows["naiveSK"]["family_longest_lane"]
+    capped = longest is not None and longest >= cap
+    check(rays["naiveSK"] == rays["streamingSK"]
+          or (capped and rays["naiveSK"] < rays["streamingSK"]),
+          f"[{phase}] {scene}: the family's rows traced {rays}, naiveSK's "
+          f"longest lane {longest} bounces")
+    log(f"[{phase}] {scene}: the family's rows trace {rays} rays; naiveSK's "
+        f"longest lane {longest} bounces"
+        + (f" (its trace stops at max_path_length {cap}: "
+           f"{rays['streamingSK'] - rays['naiveSK']:.0f} rays fewer)"
+           if capped else ""))
+
+
+def all_keys(d) -> set:
+    keys = set()
+    for k, v in d.items():
+        keys.add(k)
+        if isinstance(v, dict):
+            keys |= all_keys(v)
+    return keys
+
+
+def driver_phase(phase: int, module: str, argv: list, tmp: str,
+                 card: str) -> dict:
+    """One driver's main at its published size: its JSON keys; every row
+    through its kernels (its counts set to 0 before the row and read after
+    it: a launch of the row's body kernel, the tail stage's drain where the
+    row opens the tail kernel's gate, no eager evaluation and no launch of
+    the eager loops' tail or tracking kernels); run_suite's family rows of
+    one scene the same n_rays.  Returns the result and its wall."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"cudavolumerenderer_tpu_torch.benchmarks.{module}")
+    tag = " ".join([module, *argv])
+    out_path = os.path.join(tmp, f"{module}{phase}.json")
+    writes = module not in PRINT_ONLY
+    t0 = time.perf_counter()
+    out = mod.main([*argv, *(["--out", out_path] if writes else [])])
+    wall = time.perf_counter() - t0
+    if writes:
+        with open(out_path) as f:
+            check(json.load(f) == json.loads(json.dumps(out)),
+                  f"[{phase}] {tag}: the JSON written differs from main's")
+    missing = mod.KEYS[" ".join(argv)] - all_keys(out)
+    check(not missing, f"[{phase}] {tag}: keys {missing} missing")
+    rows = list(driver_rows(out))
+    check(rows, f"[{phase}] {tag}: no rows")
+    for name, row in rows:
+        launched = {k: row[k] for k in row["kernels"]}
+        check(launched and all(launched.values()) and row["eager"] == 0
+              and row["tailpk"] == 0 and row["tracking"] == 0,
+              f"[{phase}] {tag} {name}: kernels {launched} launched, "
+              f"{row['eager']} eager evaluations, tail kernel "
+              f"{row['tailpk']}, tracking kernel {row['tracking']}")
+    if module == "run_suite" and not argv:
+        for scene in sorted({k.split("/")[0] for k in out}):
+            family_rays(phase, scene, out)
+    if module in ("micro_classes", "micro_medical"):
+        affine = {k: v["albedo_affine"] for k, v in out.items()
+                  if isinstance(v, dict) and "albedo_affine" in v}
+        affine = affine or {"medical": out["albedo_affine"]}
+        want = {k: k != "bucky" for k in affine}
+        check(affine == want, f"[{phase}] albedo_affine {affine}")
+    counts = {k: sum(r[k] for _, r in rows) for k in (
+        "fastbody", "familybody", "brickbody", "taildrain", "reads")}
+    log(f"[{phase}] {tag} at its published size: {len(rows)} rows, every "
+        f"row through its kernels, none eager ({counts}); {wall:.1f} s; "
+        f"card {card}")
+    for name, row in rows:
+        times = row.get("times_s") or [row.get("time_s", row.get("time"))]
+        log(f"[{phase}]   {name}: wall {min(times):.4f} s, n_rays "
+            f"{row.get('n_rays', row.get('rays'))}, fastbody "
+            f"{row['fastbody']}, familybody {row['familybody']}, brickbody "
+            f"{row['brickbody']}, taildrain {row['taildrain']}, host reads "
+            f"{row['reads']}")
+    return {"out": out, "wall": wall}
+
+
+def driver_overhead_device(card: str, walls: list) -> dict:
+    """Phase 35's direct render (bucky, 256^2 x 20, fastSK two-level) once
+    more under torch.profiler, started before the clock: its device
+    kernels and busy ms against its wall, beside the phase's direct walls
+    `walls`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    scene = sc.scene("bucky", "cuda")
+    res, iters = sc.size("bucky")
+    cam = sc.camera(res, "cuda")
+    off = torch.zeros(2, device="cuda")
+
+    def direct(seed):
+        _, nr = fast.render_tile(scene, cam, RenderSettings.from_flags(True),
+                                 (res, res), off, (res, res), iters, seed, 0,
+                                 two_level=True)
+        return float(nr)
+
+    direct(4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct(5)
+        wall = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    kernels = sum(e.count for e in on_card)
+    log(f"[35] the direct render under torch.profiler: {kernels} device "
+        f"kernels, device busy {busy:.3f} ms of {wall:.2f} ms wall (the "
+        f"phase's direct walls {[round(w * 1e3, 2) for w in walls]} ms); "
+        f"card {card}")
+    return {"device_kernels": kernels, "busy_ms": busy, "wall_ms": wall}
+
+
+def driver_total(driven: dict, kernel: str) -> int:
+    """A kernel's launches summed over every driver row of phases 30-41."""
+    return sum(row[kernel] for d in driven.values()
+               for _, row in driver_rows(d["out"]))
+
+
+def drivers(card: str) -> dict:
+    """Phases 30-41: every driver's main at its published size."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, module, argv in DRIVERS:
+            tag = " ".join([module, *argv])
+            out[tag] = driver_phase(phase, module, argv, tmp, card)
+            if module == "micro_driver_overhead":
+                out[tag]["device"] = driver_overhead_device(
+                    card, out[tag]["out"]["direct"]["times_s"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5979,6 +6210,12 @@ def main() -> int:
     t0 = time.perf_counter()
     nested = nested_replays(card)
     log(f"[29] phase 29 took {time.perf_counter() - t0:.1f} s")
+
+    # -- phases 30-41: the measurement drivers at their published sizes ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    driven = drivers(card)
+    log(f"[30-41] the drivers took {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
 
     def timed(ms, plain_ms, bound, bound_by):
@@ -6034,6 +6271,7 @@ def main() -> int:
         "stage_busy": stage5["busy"],
         "launches_config3": config3_launches,
         "launches_sharded": sharded_launches,
+        "launches_drivers": driver_total(driven, "taildrain"),
     }, {
         "name": "track", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/tracking.cu",
@@ -6055,6 +6293,7 @@ def main() -> int:
                   "the last block; a stage's evaluations enqueued in batches, "
                   "each launch gated on the stage's control words",
         "per_state": body["rows"], "launches_config2": body["launches"],
+        "launches_drivers": driver_total(driven, "fastbody"),
         "reads_config2": body["reads"], "walls_config2": body["walls"],
         "enqueue_us_config2": body["enqueue_us"],
         "stages_config2": body["stages"],

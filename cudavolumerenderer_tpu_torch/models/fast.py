@@ -1028,6 +1028,7 @@ def render_tile(
             while fastbody.pending_count(state, spp_per_lane) > thresh:
                 for _ in range(k_chain):
                     state = step(state, **kw)
+                fastbody.KERNEL.plain_evals += k_chain
         stage_rows.append(state.n_rows - rows_before)
         if last and not use_tailpk:
             img.index_add_(0, state.pix, state.accum)

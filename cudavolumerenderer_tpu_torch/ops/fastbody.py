@@ -291,13 +291,22 @@ def modes_of(ctx: BodyContext) -> tuple:
 class FastBodyKernel(stages.BodyKernel):
     """The CUDA body kernels, built from csrc/fastbody.cu at first use and
     counted (stages.BodyKernel, and by_mode); `last_drain` also holds the
-    drain's block size."""
+    drain's block size, and `plain_evals` counts render_tile's evaluations
+    of the eager body (the CPU's, or eager_body=True on the card)."""
 
     def __init__(self):
         super().__init__("fastbody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL),
                          drain_argtypes=(ctypes.c_int,))
+        self.reset()
+
+    def reset(self) -> None:
+        """Every count to 0."""
+        self.launches = self.captured = self.drain_launches = self.reads = 0
+        self.enqueue_s = 0.0
+        self.last_drain = None
         #: launches (one-evaluation and drain) of stages in each mode
         self.by_mode = dict.fromkeys(MODES, 0)
+        self.plain_evals = 0
 
     def _count_modes(self, ctx: BodyContext, before: int) -> None:
         """Add the launches made since `before` (launches + drain

@@ -6,9 +6,16 @@ deterministic stand-ins with the same shapes/statistics: a bucky-ball-like
 blob field for the 32^3 raw config and a smoke-like plume for the
 high-density streaming stress configs (BASELINE.md smoke scene,
 128x128x50 @ scale 800).
+
+The blob field is kept for the last few (resolution, n_blobs, seed): at
+256^3 with 40 blobs it takes seconds of numpy, and one process (a driver
+of benchmarks/, chip_smoke.py) often makes the same grid several times.
+Every call still returns an array of its own.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -17,6 +24,12 @@ def blob_volume(
     resolution=(32, 32, 32), n_blobs: int = 12, seed: int = 7
 ) -> np.ndarray:
     """Deterministic sum-of-Gaussians density in [0, 1], (Z, Y, X) layout."""
+    return _blob_field(tuple(resolution), n_blobs, seed).copy()
+
+
+@functools.lru_cache(maxsize=4)
+def _blob_field(resolution, n_blobs: int, seed: int) -> np.ndarray:
+    """blob_volume's field, kept read-only for the callers that share it."""
     nz, ny, nx = resolution[2], resolution[1], resolution[0]
     rs = np.random.RandomState(seed)
     z, y, x = np.meshgrid(
@@ -34,6 +47,7 @@ def blob_volume(
             / (2 * s * s)
         ).astype(np.float32)
     field /= field.max()
+    field.setflags(write=False)
     return field
 
 
@@ -70,7 +84,7 @@ def medical_volume(
     smoothstep(0.2, 0.6) (scripts/convert-mhd/mhd_to_vdb.py:7-10, same
     transform as scene/mhd.py), which zeroes soft tissue/air below the
     0.2 threshold — most of a manix/artifix volume is exactly empty."""
-    field = blob_volume(resolution, n_blobs=n_blobs, seed=seed)
+    field = _blob_field(tuple(resolution), n_blobs, seed)
     lo, hi = float(field.min()), float(field.max())
     x = (field - lo) / max(hi - lo, 1e-30)
     t = np.clip((x - 0.2) / 0.4, 0.0, 1.0)

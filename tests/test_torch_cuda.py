@@ -752,6 +752,15 @@ BODY_CASES = [
     ("champion", {}, {}, dict(two_level=True, res=48, table_bits=4,
                               max_bricks=512, cascade_factor=1.25,
                               min_width=64)),
+    # micro_smoke2's brick_size overrides (pick_brick's list bypassed; the
+    # kernel reads the brick counts at run time) and micro_ablate's GGX
+    # with RR off (paths end at the box or at max_path_length)
+    *((f"brick{''.join(map(str, b))}-res{r}", {}, {},
+       dict(two_level=True, brick_size=b, res=r))
+      for b in ((2, 2, 2), (2, 2, 4), (8, 8, 8)) for r in (24, 40)),
+    *((f"ggx-rr-off-{lv}-res{r}", {}, dict(russian_roulette=False),
+       dict(two_level=lv == "2l", res=r))
+      for lv in ("1l", "2l") for r in (24, 40)),
 ]
 
 
@@ -1179,11 +1188,12 @@ def test_white_furnace_through_body_kernel_modes(cuda, kw):
 # -- fastSK's tail stage as one drain (csrc/tailpk.cu's drain_kernel) --------
 
 def tail_stage_render(device, scene, settings, R, res=32, spp=4,
-                      eager=False):
-    """A fastSK render with the tail kernel on a pool of R lanes (K = 16),
-    keeping its tail stage's (context, a copy of the entry state, the
-    stage's result); with `eager` the stage runs its eager loop (the
-    eager_body=True path of the stage alone)."""
+                      eager=False, steps=16, **kw):
+    """A fastSK render with the tail kernel on a pool of R lanes (K =
+    `steps`; body_render's keywords `kw`), keeping its tail stage's
+    (context, a copy of the entry state, the stage's result); with `eager`
+    the stage runs its eager loop (the eager_body=True path of the stage
+    alone)."""
     import dataclasses
 
     kept, run = [], fast._run_tailpk_stage
@@ -1200,16 +1210,23 @@ def tail_stage_render(device, scene, settings, R, res=32, spp=4,
     try:
         out = body_render(device, scene, settings, res=res, spp=spp,
                           two_level=True, tail_pallas=True, tail_pk_width=R,
-                          tail_pk_steps=16)
+                          tail_pk_steps=steps, **kw)
     finally:
         fast._run_tailpk_stage = run
     assert len(kept) == 1
     return kept[0], out
 
 
-#: (id, pool width R, scene keywords, settings keywords)
+#: (id, pool width R, scene keywords, settings keywords[, tail_stage_render
+#: keywords])
 TAIL_DRAIN_CASES = [
     ("r128", 128, {}, {}),
+    # micro_medical2's tail rows: widths 256 and 512, 32 steps
+    ("r256-res24", 256, {}, {}, dict(res=24)),
+    # (the tail pool takes at most the last stage's width: 1,024 here)
+    ("r512-res40", 512, {}, {}, dict(res=40, min_width=1024)),
+    ("r128-k32-res24", 128, {}, {}, dict(res=24, steps=32)),
+    ("r256-k32-res40", 256, {}, {}, dict(res=40, steps=32)),
     # 40 is no power of two: power-of-two sizes can hide an indexing fault
     ("r40", 40, {}, {}),
     ("rr-off", 128, {}, dict(russian_roulette=False)),
@@ -1232,14 +1249,16 @@ def test_tail_drain_equals_eager_loop(cuda, case):
     (image, rays, rows, busy lanes, per-stage rows)."""
     from cudavolumerenderer_tpu_torch.ops import taildrain
 
-    _, R, scene_kw, settings_kw = case
+    _, R, scene_kw, settings_kw, *render_kw = case
+    render_kw = render_kw[0] if render_kw else {}
     scene = body_scene(cuda, **scene_kw)
     settings_kw = dict(settings_kw)
     settings = types.RenderSettings.from_flags(
         settings_kw.pop("mitsuba_comparable", True), **settings_kw)
     taildrain.KERNEL.reset()
     launches = tailpk.KERNEL.launches
-    (ctx, entry, got), out = tail_stage_render(cuda, scene, settings, R)
+    (ctx, entry, got), out = tail_stage_render(cuda, scene, settings, R,
+                                               **render_kw)
     assert entry.alive.shape[0] == R
     assert taildrain.KERNEL.drain_launches == taildrain.KERNEL.reads == 1
     assert tailpk.KERNEL.launches == launches
@@ -1250,7 +1269,7 @@ def test_tail_drain_equals_eager_loop(cuda, case):
     assert not state_mismatches(got, want)
     assert float(got.n_rows - entry.n_rows) == R * rounds
     (_, entry_e, _), want_out = tail_stage_render(cuda, scene, settings, R,
-                                                  eager=True)
+                                                  eager=True, **render_kw)
     assert not state_mismatches(entry_e, entry)
     assert_same_render(out, want_out)
     assert torch.isfinite(out[0]).all() and float(out[1]) > 0

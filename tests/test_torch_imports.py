@@ -33,7 +33,13 @@ def test_every_module_imports_without_jax():
                  "scene.vdb", "ops.camera_controller", "utils.profiling",
                  "benchmarks.baseline_configs", "parallel.mesh",
                  "parallel.shard", "scripts.run_multihost",
-                 "benchmarks.scaling_efficiency", "ops.fastbody"):
+                 "benchmarks.scaling_efficiency", "ops.fastbody",
+                 "benchmarks.scene_classes", "benchmarks.run_suite",
+                 "benchmarks.micro_classes", "benchmarks.micro_stats",
+                 "benchmarks.micro_ablate", "benchmarks.micro_driver_overhead",
+                 "benchmarks.micro_medical", "benchmarks.micro_medical2",
+                 "benchmarks.micro_smoke2", "benchmarks.micro_bucky_r5",
+                 "benchmarks.micro_config3", "benchmarks.micro_smoke_brick"):
         assert f"cudavolumerenderer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
