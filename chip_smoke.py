@@ -98,27 +98,27 @@ CPU or to a plain version on a CUDA tensor):
 11. the scheduler family (naiveSK, naiveMK with and without compaction,
    regenerationSK at levels 0/1/2, streamingSK, sortingSK, streamingMK,
    whose bodies run as csrc/familybody.cu's kernels, and fastQ one- and
-   two-level, whose loop runs as csrc/fastqbody.cu's), each through create_renderer(...).render() on the brickSK slice's
-   scene (thesis Table 6.2: smoke 128x128x50, scale 800, Mitsuba XML +
-   .vol, 400^2) at 1 iteration and one seed, through the kernels (their
-   counts set to 0 just before each render and read just after) and then
-   with eager_body=True (the eager bodies): wall seconds with the image
-   copied to the host, the wavefront passes (bounce or extend
-   evaluations of the loop; fastQ's iterations), kernel launches, host
-   reads, Mrays/s and Config.n_lanes of both; both give the same n_rays
-   and passes, the kernel render no eager evaluation, the eager render no
-   launch; every integrator-family row must give naiveSK's n_rays exactly
-   and an image allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean
-   and n_rays within 2% of naiveSK's; torch.profiler over streamingSK's
-   whole render through the kernels (the card's busy share); under
-   --boundary variable naiveSK, naiveMK and regenerationSK 0 at 400^2 x 1
-   through the kernels (the bounce's isosurface march; each naiveSK-
-   variable's n_rays exactly, images allclose at 1e-4), then each through
-   the kernels and with the eager bodies at VARIABLE_EAGER_RES^2 (the same
-   n_rays and passes, images within 1e-4), and the variable white furnace
-   exact through the kernels; the white furnace exact on the card through
-   every row; and each row's 16^2 render on the card against the same
-   render on the CPU;
+   two-level, whose loop runs as csrc/fastqbody.cu's), each through
+   create_renderer(...).render() on the brickSK slice's scene (thesis Table
+   6.2: smoke 128x128x50, scale 800, Mitsuba XML + .vol, 400^2) at 1
+   iteration and one seed, through the kernels (their counts set to 0 just
+   before each render and read just after) and then with eager_body=True
+   (the eager bodies): wall seconds with the image copied to the host, the
+   wavefront passes (bounce or extend evaluations of the loop; fastQ's
+   iterations), kernel launches, host reads, Mrays/s and Config.n_lanes of
+   both; both give the same n_rays and passes, the kernel render no eager
+   evaluation, the eager render no launch; every integrator-family row must
+   give naiveSK's n_rays exactly (FAMILY_RAYS, 287,887) and an image
+   allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays
+   within 2% of naiveSK's; torch.profiler over streamingSK's whole render
+   through the kernels (the card's busy share); under --boundary variable
+   naiveSK, naiveMK and regenerationSK 0 at 400^2 x 1 through the kernels
+   (the bounce's isosurface march; each naiveSK-variable's n_rays exactly,
+   images allclose at 1e-4), then each through the kernels and with the
+   eager bodies at VARIABLE_EAGER_RES^2 (the same n_rays and passes, images
+   within 1e-4), and the variable white furnace exact through the kernels;
+   the white furnace exact on the card through every row; and each row's
+   16^2 render on the card against the same render on the CPU;
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
    -i 4 -r 400 400, two trials (the first discarded), through the drain;
 13. the gradient on the card (the two-level replay through the replay
@@ -290,16 +290,21 @@ CPU or to a plain version on a CUDA tensor):
    memory; finite numbers, pass B as long as the primal, every replay
    through the kernels;
 25. the family's kernels (csrc/familybody.cu) on phase 11's scene: for
-   pools of 65,536, 16,384 and 4,096 lanes whose paths start at the
-   image's middle rows, kept after plain iterations (regenerationSK's
-   first iteration for the refill, and one more refill
-   for the bounce with the splat; streamingSK's sixth for the extend;
-   sortingSK's seventh, lanes pending, for the flush), one kernel evaluation against one eager evaluation (every lane field
-   equal bit for bit), the kernel's device time per evaluation (CUDA
-   events over replays of a graph of 16 out-of-place evaluations), the
-   eager function's (CUDA events, its input's copy included) and the
-   byte bound (ops/familybody.family_bytes from the eager function's
-   taps); then naiveSK's drain at 400^2 x 1 (160,000 lanes) twice by CUDA
+   pools of 65,536, 16,384 and 4,096 lanes (and 131,072 for the bounce)
+   whose paths start at the image's middle rows, kept after plain
+   iterations (regenerationSK's first iteration for the refill, and one
+   more refill for the bounce with the splat; streamingSK's sixth for the
+   extend; sortingSK's seventh, lanes pending, for the flush), one kernel
+   evaluation against one eager evaluation (every lane field equal bit for
+   bit), the kernel's device time per evaluation (CUDA events over
+   replays of a graph of 16 out-of-place evaluations), the eager
+   function's (CUDA events, its input's copy included) and the byte bound
+   (ops/familybody.family_bytes from the eager function's taps); for the
+   bounce also its lookahead group (G, M), the histogram of Woodcock steps
+   per lane (the eager taps) and the chain bound: the longest lane's steps
+   over G times one dependent load's latency on the card (a random cycle
+   through as many words as the density grid, familybody's chase); then
+   naiveSK's drain at 400^2 x 1 (160,000 lanes) twice by CUDA
    events around one launch, equal to trace's eager loop bit for bit,
    the longest lane L and the drain's us per bounce of it, the eager
    loop's wall and the drain's byte bound (every bounce's taps); fastQ
@@ -395,7 +400,9 @@ CPU or to a plain version on a CUDA tensor):
    the tail stage's drain where the row opens the tail kernel's gate), and
    made no eager evaluation and no launch of the eager loops' tail or
    tracking kernels; run_suite's naiveSK, regenerationSK and streamingSK rows of
-   each scene trace the same n_rays exactly; albedo_affine set for the
+   each scene trace the same n_rays exactly, SUITE_RAYS' counts, and
+   micro_ablate --regen-levels' three groups REGEN_RAYS each; albedo_affine
+   set for the
    smoke and medical classes and not for bucky; each row's wall, n_rays,
    launches and host reads printed.
 
@@ -427,6 +434,11 @@ GRAPH_CALLS = 16  # calls per timed CUDA graph
 SWEEP_STEPS = (1, 2, 4, 8, 16)  # K of phase 3's step sweep, at R = 128
 SLICE_RAYS = 6040005  # n_rays of the fastSK slice (phase 5), first tail kernel
 BRICK_RAYS = 1151411  # n_rays of the brickSK slice (phase 8), the eager loop's
+FAMILY_RAYS = 287887  # n_rays of every family row of phase 11
+# run_suite's family rows (phase 30): {scene: (naiveSK, the others)}
+SUITE_RAYS = {"bucky32": (3083670, 3083670), "smoke128": (1151269, 1151269),
+              "medical256": (2998848, 3000132)}
+REGEN_RAYS = 3084368  # micro_ablate --regen-levels' rows, every group (34)
 # phase 26: (label, tile w, h, tile offset, rounds run before each kept state)
 BRICK_STATES = (("160000", 400, 400, (0, 0), (0, 100, 600)),
                 ("1920", 48, 40, (176, 180), (0, 20, 100)))
@@ -471,6 +483,14 @@ FASTQ_LABELS = ("fastQ", "fastQ two-level")
 VARIABLE_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0")
 VARIABLE_EAGER_RES = 400  # their eager renders' width (a cut of the 400^2)
 FAMILY_WIDTHS = (65536, 16384, 4096)  # phase 25's pool widths
+BOUNCE_WIDTHS = (131072, *FAMILY_WIDTHS)  # and the bounce's (run_suite's 2^17)
+# the chain profile (family_profile): run_suite's medical256 rows, and the
+# regenerationSK evaluations and naiveSK bounces whose chains it histograms
+CHASE_STEPS = 100000  # phase 25: dependent loads timed for the chain bound
+PROFILE_ROWS = ("naiveSK", "regenerationSK")
+PROFILE_EVALS = (1, 16, 128, 512, 1024)
+PROFILE_BOUNCES = (0, 1, 2, 4, 8)
+TURN_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0")  # family_turns' rows
 FASTQ_ITS = {"refill": 12, "step": 13}  # phase 25's fastQ iterations
 LONG_MARCH = 0.05  # phase 25: a march threshold the smoke's edges stay under
 FASTQ_REPLACES = {"body": "cudavolumerenderer_tpu/models/fastq.py:148",
@@ -2158,6 +2178,8 @@ def check_family(rows: dict) -> None:
     and ray count, fastQ (stochastic tap: another estimator) is within 2%."""
     rows = rows["rows"]
     ref = rows["naiveSK"]
+    check(ref["n_rays"] == FAMILY_RAYS, f"[11] naiveSK traced "
+          f"{ref['n_rays']:.0f} rays, not {FAMILY_RAYS}")
     for label, row in rows.items():
         if label in FASTQ_LABELS:
             rel_mean = abs(row["img"].mean() - ref["img"].mean()) / ref["img"].mean()
@@ -4542,12 +4564,17 @@ def family_pool(fam, ctx, width: int, kind: str):
 
 
 def family_entry(fam, ctx, op: str, pool, card: str, width: int,
-                 label: str = None) -> dict:
+                 label: str = None, load_ms: float = None) -> dict:
     """Phase 25, one entry point on a kept pool: one kernel evaluation
     against one eager evaluation (every lane field bit for bit, the splat's
     image within 1e-5), the kernel's device time per evaluation over graph
     replays of 16 out-of-place evaluations, the eager function's (its
-    input's copy included) and the byte bound from its taps."""
+    input's copy included) and the byte bound from its taps.  For an AABB
+    bounce also its Woodcock steps per lane (woodcock_steps of the eager
+    taps), the lookahead group (G threads, M lanes: familybody.lookahead)
+    and,
+    given one dependent load's ms, the chain bound: the longest lane's
+    steps over G, times that load."""
     import torch
 
     from cudavolumerenderer_tpu_torch.ops.stages import lane_field
@@ -4602,9 +4629,21 @@ def family_entry(fam, ctx, op: str, pool, card: str, width: int,
         f"{ms * 1e3:8.2f} us per evaluation, eager {plain:8.3f} ms; bound "
         f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; "
         f"card {card}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": bound_by, "bytes": n_bytes, "alive": alive,
-            "max_abs_err": err}
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": bound_by, "bytes": n_bytes, "alive": alive,
+           "max_abs_err": err}
+    if op == "bounce" and ctx.settings.boundary != "variable":
+        g, m = fam.lookahead(width)
+        steps = woodcock_steps(taps)
+        row.update(steps=steps, G=g, M=m)
+        if load_ms is not None:
+            row["chain_ms"] = steps["max"] / g * load_ms
+            log(f"[25] bounce {width:6d} lanes, G = {g}, M = {m}: "
+                f"{steps_text(steps)}; chain bound {steps['max']} / {g} x "
+                f"{load_ms * 1e6:.1f} ns = {row['chain_ms'] * 1e3:.3f} us "
+                f"({row['chain_ms'] / ms:.1%} of the kernel's "
+                f"{ms * 1e3:.2f} us); card {card}")
+    return row
 
 
 def fastq_differs(a, b) -> list:
@@ -4765,7 +4804,6 @@ def family_kernels(xml: str, card: str) -> dict:
     from cudavolumerenderer_tpu_torch.config import Config
     from cudavolumerenderer_tpu_torch.models import naive
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
-    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 
     cfg = Config(scene_file=xml, iterations=1, resolution=(400, 400),
@@ -4775,11 +4813,19 @@ def family_kernels(xml: str, card: str) -> dict:
     zero = torch.zeros(2, device="cuda")
     ctx = fam.make_context(scene, settings, camera, (400, 400), zero,
                            (400, 400), 400 * 400, cfg.seed, 0)
+    # one dependent load's latency: a random cycle through as many words as
+    # the density grid holds
+    load_ms = fam.KERNEL.chase_ms(scene.medium.density.data.numel(),
+                                  CHASE_STEPS)
+    log(f"[25] one dependent load: {load_ms * 1e6:.1f} ns (a random cycle "
+        f"through {scene.medium.density.data.numel()} int32 words, "
+        f"{CHASE_STEPS} loads by one thread); card {card}")
     rows = {op: {} for op in fam.OPS}
-    for width in FAMILY_WIDTHS:
-        for op in fam.OPS:
+    for op in fam.OPS:
+        for width in BOUNCE_WIDTHS if op == "bounce" else FAMILY_WIDTHS:
             pool = family_pool(fam, ctx, width, op)
-            rows[op][width] = family_entry(fam, ctx, op, pool, card, width)
+            rows[op][width] = family_entry(fam, ctx, op, pool, card, width,
+                                           load_ms=load_ms)
 
     # naiveSK's drain: 160,000 lanes, each to its death in one launch
     _, s = naive.start_batch(camera, (400, 400), zero, (400, 400), 1,
@@ -4801,13 +4847,7 @@ def family_kernels(xml: str, card: str) -> dict:
     want = fam.trace(ctx, s, False)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bad = []
-    for n in fam.PATH_FIELDS:
-        x, y = lane_field(got, n), lane_field(want, n)
-        if x.dtype == torch.float32:
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        if not torch.equal(x, y):
-            bad.append(n)
+    bad = pool_differs(fam.PATH_FIELDS, got, want)
     check(not bad and float(got.n_rays) == float(want.n_rays),
           f"phase 25: the drain differs from trace's eager loop in {bad} "
           f"(n_rays {float(got.n_rays):.0f} / {float(want.n_rays):.0f})")
@@ -4822,7 +4862,8 @@ def family_kernels(xml: str, card: str) -> dict:
     bound, bound_by = bound_ms(n_bytes)
     ms = min(drains)
     log(f"[25] naiveSK drain, 160,000 lanes: {drains[0]:.3f} and "
-        f"{drains[1]:.3f} ms (one launch each), longest lane L = {length} "
+        f"{drains[1]:.3f} ms (one launch each; lookahead group "
+        f"{fam.lookahead(160000)}), longest lane L = {length} "
         f"bounces ({bounces} in the eager loop), {ms * 1e3 / length:.2f} us "
         f"per bounce of it; n_rays {float(got.n_rays):.0f} bit-equal to "
         f"trace's eager loop ({plain_ms:.1f} ms wall); bound {n_bytes} B = "
@@ -4905,12 +4946,481 @@ def march_iterations(fam, ctx, pool) -> int:
     return calls[0] - 1
 
 
+class TapRows(list):
+    """A taps list that keeps each entry's kind and its number of rows only
+    (woodcock_steps needs no more; a bounce's taps of 2^20 lanes would hold
+    gigabytes)."""
+
+    def append(self, tap):
+        kind, x = tap
+        super().append((kind, int(x.shape[0]) if hasattr(x, "shape") else 0))
+
+    def extend(self, taps):
+        for tap in taps:
+            self.append(tap)
+
+    def __iadd__(self, taps):
+        self.extend(taps)
+        return self
+
+
+def pool_differs(names, a, b) -> list:
+    """The per-lane fields `names` of two pools that differ bit for bit (NaN
+    equal to NaN)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    bad = []
+    for n in names:
+        x, y = lane_field(a, n), lane_field(b, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(n)
+    return bad
+
+
+def woodcock_steps(taps) -> dict:
+    """The Woodcock steps per bounce of one plain AABB bounce, from its taps
+    (woodcock_track adds one ("density", voxels) entry a step, a row per
+    lane still running, so the rows never grow): the lanes that tracked,
+    their mean steps, the longest chain and the lanes per power-of-two bin
+    of steps (1, 2-3, 4-7, ...)."""
+    running = [x if isinstance(x, int) else int(x.shape[0])
+               for kind, x in taps if kind == "density"]
+    running = [n for n in running if n]
+    if not running:
+        return {"lanes": 0, "mean": 0.0, "max": 0, "bins": {}}
+    longest = len(running)
+
+    def at_least(k):
+        return running[k - 1] if k <= longest else 0
+
+    bins, lo = {}, 1
+    while lo <= longest:
+        bins[f"{lo}-{2 * lo - 1}"] = at_least(lo) - at_least(2 * lo)
+        lo *= 2
+    return {"lanes": running[0], "mean": sum(running) / running[0],
+            "max": longest, "bins": bins}
+
+
+def steps_text(h: dict) -> str:
+    return (f"{h['lanes']} lanes tracked, mean {h['mean']:.2f} steps, "
+            f"longest {h['max']}; per bin "
+            + ", ".join(f"{k}: {v}" for k, v in h["bins"].items()))
+
+
+def family_profile(card: str, hist: bool = True) -> dict:
+    """The chain profile: run_suite's medical256 naiveSK and regenerationSK
+    rows (512^2 x 4, n_lanes 2^17, its settings) rendered once to warm up,
+    twice timed (wall with the image copy) and once under torch.profiler
+    (device ms and launches by kernel name, the card's busy share against
+    the least timed wall); then the Woodcock steps per bounce
+    (woodcock_steps) of plain bounces with taps: regenerationSK's 2^17-lane
+    pool at evaluations PROFILE_EVALS (reached through the kernels) and
+    naiveSK's 2^20-lane batch at bounces PROFILE_BOUNCES (unless not
+    `hist`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import integrator, naive
+    from cudavolumerenderer_tpu_torch.models import regeneration
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    dev = torch.device("cuda")
+    scene = sc.scene("medical", dev)
+    res, iters = sc.size("medical")
+    camera = sc.camera(res, dev)
+    settings = RenderSettings.from_flags(True)
+    out = {}
+    for kname in PROFILE_ROWS:
+        cfg = Config(kernel=Kernel.from_name(kname), iterations=iters,
+                     resolution=(res, res), n_lanes=run_suite.N_LANES,
+                     settings=settings)
+        renderer = create_renderer(scene, camera, cfg)
+        renderer.render()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renderer.render()
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            renderer.render()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for name in ("bounce_kernel", "refill_kernel", "drain_kernel"):
+                if name in e.key:
+                    ms, n = kernels.get(name, (0.0, 0))
+                    kernels[name] = (ms + e.self_device_time_total / 1e3,
+                                     n + e.count)
+        busy = busy_union_us(prof) / 1e3
+        wall = min(walls)
+        log(f"[profile] medical256/{kname} 512^2 x 4, n_lanes 2^17: walls "
+            f"{walls[0]:.4f} / {walls[1]:.4f} s, n_rays "
+            f"{renderer.n_rays:.0f}; under torch.profiler "
+            + ", ".join(f"{k} {ms:.3f} ms in {n} launches "
+                        f"({ms / n * 1e3:.2f} us each)"
+                        for k, (ms, n) in kernels.items())
+            + f"; the card busy {busy:.3f} ms ({busy / (wall * 1e3):.1%} of "
+            f"the least wall); card {card}")
+        out[kname] = {"walls": walls, "n_rays": renderer.n_rays,
+                      "kernels": kernels, "busy_ms": busy}
+
+    if not hist:
+        return out
+    zero = torch.zeros(2, device=dev)
+    seed = Config().seed
+    hists = {}
+    ctx = fam.make_context(scene, settings, camera, (res, res), zero,
+                           (res, res), res * res * iters, seed, 0)
+    width = run_suite.N_LANES
+    p = fam.own(integrator.PathState(**regeneration.empty_pool(width, seed,
+                                                              dev)))
+    img = torch.zeros(width, dtype=torch.int64, device=dev)
+    issued = torch.zeros((), dtype=torch.int64, device=dev)
+    accum = torch.zeros((res * res, 3), device=dev)
+    for e in range(max(PROFILE_EVALS) + 1):
+        p, img, issued = fam.run_body(ctx, "refill", p, image_id=img,
+                                      issued=issued)
+        if e in PROFILE_EVALS:
+            taps = TapRows()
+            fam.plain_body(ctx, "bounce", fam.own(p), taps=taps)
+            hists[f"regenerationSK evaluation {e}"] = woodcock_steps(taps)
+        p, _ = fam.run_body(ctx, "bounce", p, image_id=img, accum=accum)
+    nctx = fam.make_context(scene, settings)
+    _, s = naive.start_batch(camera, (res, res), zero, (res, res),
+                             Config().spp_per_launch, seed, 0)
+    s = fam.own(s)
+    for b in range(max(PROFILE_BOUNCES) + 1):
+        if b in PROFILE_BOUNCES:
+            taps = TapRows()
+            fam.plain_body(nctx, "bounce", fam.own(s), taps=taps)
+            hists[f"naiveSK bounce {b}"] = woodcock_steps(taps)
+        s, _ = fam.run_body(nctx, "bounce", s)
+    for key, h in hists.items():
+        log(f"[profile] medical256 {key}: {steps_text(h)}")
+    out["steps"] = hists
+    return out
+
+
+def family_turns(card: str, tag: str, suite: bool = False) -> dict:
+    """One turn of a comparison of two builds of csrc/familybody.cu (run
+    from a tree's root, so its package is the one imported): on phase 11's
+    scene the bounce per evaluation on phase 25's kept pools at
+    BOUNCE_WIDTHS (graph replays, each checked bit for bit against the
+    eager bounce), naiveSK's drain at 400^2 x 1 twice (CUDA events around
+    one launch, bit for bit against trace's eager loop), and phase 11's
+    TURN_ROWS rendered through the kernels (the least of three walls, with
+    the image copy), micro_ablate --regen-levels' rays and, with `suite`,
+    run_suite's family rows (their timed walls and n_rays).  Prints one
+    JSON line, tagged `tag`."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import naive
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+
+    out = {"tag": tag, "card": card, "bounce_us": {}, "rows_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = write_smoke_xml(tmp)
+        base = dict(scene_file=xml, iterations=1, resolution=(400, 400),
+                    n_tiles=(1, 1))
+        scene, camera = load_scene(Config(**base), device="cuda")
+        settings = Config(**base).settings
+        zero = torch.zeros(2, device="cuda")
+        ctx = fam.make_context(scene, settings, camera, (400, 400), zero,
+                               (400, 400), 400 * 400, Config(**base).seed, 0)
+        for width in BOUNCE_WIDTHS:
+            s, img, _, accum = family_pool(fam, ctx, width, "bounce")
+            got, _ = fam.run_body(ctx, "bounce", fam.own(s), image_id=img,
+                                  accum=accum.clone())
+            want, _ = fam.plain_body(ctx, "bounce", fam.own(s), image_id=img,
+                                     accum=accum.clone())
+            bad = pool_differs(fam.PATH_FIELDS, got, want)
+            check(not bad, f"[turns {tag}] bounce at {width}: {bad} differ")
+            src, dst, fixed = fam.own(s), fam.own(s), dict(
+                image_id=img.clone(), accum=accum.clone())
+            out["bounce_us"][width] = 1e3 * graph_ms([lambda: fam.run_body(
+                ctx, "bounce", src, out=dst, **fixed)] * GRAPH_CALLS)
+        _, s = naive.start_batch(camera, (400, 400), zero, (400, 400), 1,
+                                 Config(**base).seed, 0)
+        runs = []
+        for _ in range(2):
+            pool = fam.own(s)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            got = fam.KERNEL.drain(ctx, pool)
+            stop.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(stop))
+        length = fam.KERNEL.last_drain["L"]
+        want = fam.trace(ctx, s, False)
+        check(not pool_differs(fam.PATH_FIELDS, got, want)
+              and float(got.n_rays) == float(want.n_rays),
+              f"[turns {tag}] the drain differs from trace's eager loop")
+        out["drain_ms"], out["drain_L"] = runs, length
+        for label, kernel, fields, keywords in FAMILY_ROWS:
+            if label not in TURN_ROWS:
+                continue
+            renderer = create_renderer(scene, camera, Config(
+                kernel=Kernel.from_name(kernel), **base, **fields))
+            renderer.render()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                renderer.render()
+                walls.append(time.perf_counter() - t0)
+            out["rows_s"][label] = walls
+            out.setdefault("rows_rays", {})[label] = renderer.n_rays
+    from cudavolumerenderer_tpu_torch.benchmarks import micro_ablate
+
+    out["regen_rays"] = {k: v["rays"] for k, v in micro_ablate.regen_levels(
+        torch.device("cuda")).items()}
+    if suite:
+        from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+
+        rows = run_suite.main(["--kernels", *SUITE_FAMILY])
+        out["suite"] = {k: [r["time_s"], r["n_rays"]] for k, r in rows.items()
+                        if k.split("/")[1] in SUITE_FAMILY}
+    print("TURN " + json.dumps(out), flush=True)
+    return out
+
+
+def look_options(fam) -> list:
+    """Every lookahead group (G, M) the sweep times: each built G with M =
+    1, 2, 4, ... G lanes."""
+    return [(g, m) for g in fam.GROUPS for m in (1, 2, 4, 8, 16, 32)
+            if m <= g]
+
+
+@contextlib.contextmanager
+def forced_lookahead(fam, option):
+    """familybody.lookahead forced to (G, M) = option for every width."""
+    rule = fam.lookahead
+    fam.lookahead = lambda width: option
+    try:
+        yield
+    finally:
+        fam.lookahead = rule
+
+
+def sweep_bounce(fam, ctx, pool, tag: str) -> dict:
+    """The bounce on one kept pool at every look_options: bit for bit
+    against the eager bounce, then its device time per evaluation (graph
+    replays of 16 out-of-place evaluations); {(G, M): us}."""
+    import torch
+
+    s, img, _, accum = pool
+    want, _ = fam.plain_body(ctx, "bounce", fam.own(s), image_id=img,
+                             accum=accum.clone())
+    out = {}
+    for option in look_options(fam):
+        with forced_lookahead(fam, option):
+            got, _ = fam.run_body(ctx, "bounce", fam.own(s), image_id=img,
+                                  accum=accum.clone())
+            bad = pool_differs(fam.PATH_FIELDS, got, want)
+            check(not bad, f"[sweep] {tag} at {option}: {bad} differ")
+            src, dst = fam.own(s), fam.own(s)
+            fixed = dict(image_id=img.clone(), accum=accum.clone())
+            out[option] = 1e3 * graph_ms([lambda: fam.run_body(
+                ctx, "bounce", src, out=dst, **fixed)] * GRAPH_CALLS)
+    torch.cuda.synchronize()
+    return out
+
+
+def sweep_drain(fam, ctx, s, tag: str) -> dict:
+    """naiveSK's drain of one batch at every look_options, each twice (CUDA
+    events around one launch, a fresh copy each) and bit for bit against
+    the drain at G = 1; {(G, M): (ms, ms)} and the longest lane."""
+    import torch
+
+    out, ref = {}, None
+    for option in look_options(fam):
+        with forced_lookahead(fam, option):
+            runs = []
+            for _ in range(2):
+                pool = fam.own(s)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                got = fam.KERNEL.drain(ctx, pool)
+                stop.record()
+                torch.cuda.synchronize()
+                runs.append(start.elapsed_time(stop))
+        if ref is None:
+            ref = got
+        check(not pool_differs(fam.PATH_FIELDS, got, ref)
+              and float(got.n_rays) == float(ref.n_rays),
+              f"[sweep] {tag} drain at {option} differs from G = 1's")
+        out[option] = runs
+    return out, fam.KERNEL.last_drain["L"]
+
+
+def sweep_render(fam, renderer, tag: str, card: str) -> dict:
+    """One regenerationSK render at every look_options (warmed up once),
+    under torch.profiler: bounce_kernel's device ms over the render and its
+    launches; n_rays the same at every option.  {(G, M): (ms, launches)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out, rays = {}, set()
+    for g in look_options(fam):
+        with forced_lookahead(fam, g):
+            renderer.render()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                renderer.render()
+                torch.cuda.synchronize()
+        rays.add(renderer.n_rays)
+        ms, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "bounce_kernel" in e.key:
+                ms, n = ms + e.self_device_time_total / 1e3, n + e.count
+        out[g] = (ms, n)
+    check(len(rays) == 1, f"[sweep] {tag}: n_rays {rays} across G")
+    log(f"[sweep] render {tag}: bounce_kernel " + ", ".join(
+        f"G{g}/M{m} {ms:.3f} ms in {n}" for (g, m), (ms, n) in out.items())
+        + f"; n_rays {rays.pop():.0f}; card {card}")
+    return out
+
+
+def family_sweep(card: str, parts=("smoke", "medical", "drains",
+                                   "renders")) -> dict:
+    """The width rule's measurements: the bounce at every look_options on
+    phase 25's kept pools of phase 11's scene (BOUNCE_WIDTHS) and on
+    regenerationSK pools of run_suite's medical256 row (its settings, the
+    same widths, 16 evaluations in), and naiveSK's drain of phase 11's
+    160,000 lanes and of run_suite's bucky, smoke and medical batches (4
+    spp a launch).  Prints each option's time and one JSON line."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config
+    from cudavolumerenderer_tpu_torch.models import integrator, naive
+    from cudavolumerenderer_tpu_torch.models import regeneration
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.scene.loader import load_scene
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    dev = torch.device("cuda")
+    zero = torch.zeros(2, device=dev)
+    seed = Config().seed
+    result = {"bounce": {}, "drain": {}, "L": {}}
+
+    def show(kind, tag, times):
+        best = min(times, key=lambda o: min(np.atleast_1d(times[o])))
+        log(f"[sweep] {kind} {tag}: " + ", ".join(
+            f"G{g}/M{m} {np.min(t) * (1e3 if kind == 'drain' else 1):.2f}"
+            for (g, m), t in times.items())
+            + f" (us); best {best}; card {card}")
+        result[kind][tag] = {f"{g}/{m}": t for (g, m), t in times.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Config(scene_file=write_smoke_xml(tmp), iterations=1,
+                      resolution=(400, 400), n_tiles=(1, 1))
+        scene, camera = load_scene(base, device="cuda")
+    ctx = fam.make_context(scene, base.settings, camera, (400, 400), zero,
+                           (400, 400), 400 * 400, base.seed, 0)
+    for width in BOUNCE_WIDTHS if "smoke" in parts else ():
+        pool = family_pool(fam, ctx, width, "bounce")
+        show("bounce", f"smoke {width}", sweep_bounce(
+            fam, ctx, pool, f"smoke {width}"))
+    if "drains" in parts:
+        _, s = naive.start_batch(camera, (400, 400), zero, (400, 400), 1,
+                                 base.seed, 0)
+        times, result["L"]["smoke 160000"] = sweep_drain(
+            fam, ctx, fam.own(s), "smoke 160000")
+        show("drain", "smoke 160000", times)
+
+    settings = RenderSettings.from_flags(True)
+    for cls in ("medical", "bucky", "smoke"):
+        scene = sc.scene(cls, dev)
+        res, iters = sc.size(cls)
+        camera = sc.camera(res, dev)
+        if cls == "medical" and "medical" in parts:
+            mctx = fam.make_context(scene, settings, camera, (res, res), zero,
+                                    (res, res), res * res * iters, seed, 0)
+            for width in BOUNCE_WIDTHS:
+                p = fam.own(integrator.PathState(**regeneration.empty_pool(
+                    width, seed, dev)))
+                img = torch.zeros(width, dtype=torch.int64, device=dev)
+                issued = torch.zeros((), dtype=torch.int64, device=dev)
+                accum = torch.zeros((res * res, 3), device=dev)
+                for e in range(16):
+                    p, img, issued = fam.run_body(mctx, "refill", p,
+                                                  image_id=img, issued=issued)
+                    if e < 15:
+                        p, _ = fam.run_body(mctx, "bounce", p, image_id=img,
+                                            accum=accum)
+                tag = f"medical {width}"
+                show("bounce", tag, sweep_bounce(
+                    fam, mctx, (fam.own(p), img, issued, accum), tag))
+        if "drains" not in parts:
+            continue
+        nctx = fam.make_context(scene, settings)
+        spp = Config().spp_per_launch
+        _, s = naive.start_batch(camera, (res, res), zero, (res, res), spp,
+                                 seed, 0)
+        tag = f"{cls} {res * res * spp}"
+        times, result["L"][tag] = sweep_drain(fam, nctx, fam.own(s), tag)
+        show("drain", tag, times)
+    if "renders" in parts:
+        from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+        from cudavolumerenderer_tpu_torch.config import Kernel
+        from cudavolumerenderer_tpu_torch.models.renderer import (
+            create_renderer)
+
+        scene = sc.scene("medical", dev)
+        res, iters = sc.size("medical")
+        renderer = create_renderer(scene, sc.camera(res, dev), Config(
+            kernel=Kernel.REGENERATION_SK, iterations=iters,
+            resolution=(res, res), n_lanes=run_suite.N_LANES,
+            settings=settings))
+        result["render"] = {"medical256/regenerationSK": {
+            f"{g}/{m}": v for (g, m), v in sweep_render(
+                fam, renderer, "medical256/regenerationSK", card).items()}}
+        with tempfile.TemporaryDirectory() as tmp:
+            base = Config(scene_file=write_smoke_xml(tmp), iterations=1,
+                          resolution=(400, 400), n_tiles=(1, 1),
+                          kernel=Kernel.REGENERATION_SK)
+            scene, camera = load_scene(base, device="cuda")
+        result["render"]["smoke/regenerationSK"] = {
+            f"{g}/{m}": v for (g, m), v in sweep_render(
+                fam, create_renderer(scene, camera, base),
+                "phase 11's regenerationSK 0", card).items()}
+    print("SWEEP " + json.dumps(result), flush=True)
+    return result
+
+
 FAMILY_DESIGN = {
-    "bounce": "one thread per lane and evaluation, the whole Woodcock chain "
-              "in registers; the pool's tensors read and written in place; "
-              "counts reduced per block and by the last block; regeneration"
-              "SK's iterations enqueued in batches behind the refill, each "
-              "launch gated on the loop's control words",
+    "bounce": "lookahead groups of G threads holding M lanes (the width "
+              "rule familybody.lookahead): each Woodcock chain in rounds of "
+              "G steps by the whole group (jumped draws, the eager loop's "
+              "left-to-right t by shuffles, a first-stop ballot), the rest "
+              "of a lane's bounce by its G / M threads alike; the pool's "
+              "tensors read and written in place; counts reduced per block "
+              "and by the last block; regenerationSK's iterations enqueued "
+              "in batches behind the refill, each launch gated on the "
+              "loop's control words",
     "refill": "1,024 lanes per block (a refill group inside a block, its "
               "all-dead test a ballot); ranks by a block scan and a "
               "decoupled look-back over the blocks in start-ticket order; "
@@ -4994,9 +5504,9 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
             **{x: head[x] for x in ("ms", "plain_ms", "bound_ms",
                                     "bound_by")},
             "library_ms": None, "design": FAMILY_DESIGN[op],
-            "per_width": {w: {x: r[x] for x in ("ms", "plain_ms", "bound_ms",
-                                                "bytes", "alive")}
-                          for w, r in rows.items()},
+            "per_width": {w: {x: r[x] for x in (
+                "ms", "plain_ms", "bound_ms", "bytes", "alive", "G", "M",
+                "steps", "chain_ms") if x in r} for w, r in rows.items()},
         })
     d = k["drain"]
     lines.append({
@@ -5007,8 +5517,10 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
                              "bound_by", "L", "us_per_step", "ms_runs")},
         "library_ms": None, "launches_cli": cli_drains,
         "design": "naiveSK's trace in one launch: each lane bounces in "
-                  "registers until it dies; its bounce count into a "
-                  "histogram, folded into n_rays in order by the last block",
+                  "registers until it dies, a lookahead group bouncing "
+                  "together while one of its lanes goes on (the bounce's "
+                  "rounds); its bounce count into a histogram, folded into "
+                  "n_rays in order by the last block",
         "walls_400": {label: {x: row.get(x) for x in (
             "wall", "eager_wall", "passes", "launches", "reads",
             "eager_reads")} for label, row in family["rows"].items()
@@ -5803,6 +6315,11 @@ def family_rays(phase: int, scene: str, out: dict) -> None:
 
     rows = {k: out[f"{scene}/{k}"] for k in SUITE_FAMILY}
     rays = {k: r["n_rays"] for k, r in rows.items()}
+    naive_rays, queue_rays = SUITE_RAYS[scene]
+    check(rays == {k: naive_rays if k == "naiveSK" else queue_rays
+                   for k in SUITE_FAMILY},
+          f"[{phase}] {scene}: the family's rows traced {rays}, not "
+          f"{SUITE_RAYS[scene]}")
     check(rays["regenerationSK"] == rays["streamingSK"],
           f"[{phase}] {scene}: the family's rows traced {rays}")
     cap = RenderSettings().max_path_length
@@ -5864,6 +6381,11 @@ def driver_phase(phase: int, module: str, argv: list, tmp: str,
     if module == "run_suite" and not argv:
         for scene in sorted({k.split("/")[0] for k in out}):
             family_rays(phase, scene, out)
+    if module == "micro_ablate" and argv == ["--regen-levels"]:
+        rays = {k: v["rays"] for k, v in out.items()}
+        check(len(set(rays.values())) == 1 and REGEN_RAYS in rays.values(),
+              f"[{phase}] the refill groups traced {rays}, not {REGEN_RAYS}")
+        log(f"[{phase}] the refill groups trace {REGEN_RAYS} rays each")
     if module in ("micro_classes", "micro_medical"):
         affine = {k: v["albedo_affine"] for k, v in out.items()
                   if isinstance(v, dict) and "albedo_affine" in v}

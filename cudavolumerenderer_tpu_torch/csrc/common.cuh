@@ -1,6 +1,8 @@
 // common.cuh — device helpers shared by the kernels (tailpk.cu, tracking.cu,
 // fastbody.cu, replaybody.cu, familybody.cu, brickbody.cu, fastqbody.cu,
-// nestedreplay.cu): the PCG generator and masked draws, the path-id hash, a
+// nestedreplay.cu): the PCG generator and masked draws, the null-run
+// lookahead's jumps, shuffled sums and first-stop ballot (tailpk.cu,
+// familybody.cu), the path-id hash, a
 // path's stream and camera ray, NaN-propagating min/max, float3 sums in the
 // card's order, the flight draw, Henyey-Greenstein sampling, the turn of a
 // direction after a scatter, the box's slab test and a brick's DDA exit, the
@@ -153,6 +155,87 @@ __device__ __forceinline__ uint32_t draw_bits(uint32_t& rs, uint32_t inc) {
 __device__ __forceinline__ float draw_float(uint32_t& rs, uint32_t inc) {
   rs = pcg_next(rs, inc);
   return uniform(rs);
+}
+
+// ---- null-run lookahead (tailpk.cu's null runs, familybody.cu's chains) -----
+//
+// Between events a path's steps change only t, and each step takes W draws,
+// so the draws of its next steps are known before their densities are.  A
+// group of G threads (G a power of two up to 32, aligned in its warp) takes
+// up to G of them in one round: member j jumps to the step's first draw,
+// W j + 1, forms t_j as the serial loop's left-to-right sum over the steps
+// shared by shuffles (run_sum), and tests its step; a ballot finds the
+// first member whose step stops the run (first_stop).  Adding -0.0 leaves a
+// float unchanged (NaN stays NaN), so member j adds it for the steps after
+// its own; a tree scan would round differently.
+
+// The PCG state after m draws: A_m * state + G_m * inc, from
+// ops/rng.jump_constants's (2, n1) table.
+struct Jump {
+  uint32_t a, g;
+};
+__device__ __forceinline__ Jump jump_of(const int64_t* table, int n1, int m) {
+  return Jump{(uint32_t)table[m], (uint32_t)table[n1 + m]};
+}
+__device__ __forceinline__ uint32_t jumped(const Jump& J, uint32_t rs, uint32_t inc) {
+  return J.a * rs + J.g * inc;
+}
+// Member j's first draw in a null run of W draws a step.
+template <int W>
+__device__ __forceinline__ Jump null_jump(const int64_t* table, int n1, int j) {
+  return jump_of(table, n1, W * j + 1);
+}
+
+// The threads of this thread's group of G in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "a power of two up to 32");
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+}
+
+// Member src's v (every member of the group calls it).
+template <int G, typename T>
+__device__ __forceinline__ T group_shfl(unsigned mask, T v, int src) {
+  if constexpr (G == 1) {
+    return v;
+  } else {
+    return __shfl_sync(mask, v, src, G);
+  }
+}
+
+// t + step_0 + ... + step_j, left to right over the run's first D steps
+// (step: this member's own), as the serial loop adds them.
+template <int G>
+__device__ __forceinline__ float run_sum(unsigned mask, float t, float step, int j, int D) {
+  float tj = t;
+  for (int i = 0; i < D; ++i) {
+    const float si = group_shfl<G>(mask, step, i);
+    tj = tj + (i <= j ? si : -0.0f);
+  }
+  return tj;
+}
+
+// The group's members whose p holds, as bits from member 0 up.
+template <int G>
+__device__ __forceinline__ unsigned group_ballot(unsigned mask, bool p) {
+  if constexpr (G == 1) {
+    return p ? 1u : 0u;
+  } else {
+    unsigned b = __ballot_sync(mask, p) & mask;
+    if constexpr (G < 32) b >>= (threadIdx.x & 31) & ~(G - 1);
+    return b;
+  }
+}
+
+// The first of the group's first D members whose step stops the run, or -1.
+template <int G>
+__device__ __forceinline__ int first_stop(unsigned mask, int j, int D, bool stop) {
+  const unsigned b = group_ballot<G>(mask, j < D && stop);
+  return b ? __ffs(b) - 1 : -1;
 }
 
 // math3.dot on the card: torch's CUDA sum over a last dim of 3 splits it over

@@ -18,12 +18,13 @@
 //           (integrator.py:92 `variable_boundary_adjust`: up to 4,096 steps
 //           in registers, each a draw and a central-difference gradient of
 //           six density lookups); a miss adds throughput * Le and ends the
-//           path; inside the box the whole Woodcock chain in registers
-//           (flight, the density at o + t d, the acceptance test, until an
-//           event or the exit); a boundary event (GGX or the null BSDF) or
-//           an HG scatter with the albedo at o + d t - d eps; Russian
-//           roulette.  With the splat on (regenerationSK) a lane that died
-//           adds its radiance into accum[image_id] and zeroes it.
+//           path; inside the box the whole Woodcock chain in registers, in
+//           lookahead rounds (below: flight, the density at o + t d, the
+//           acceptance test, until an event or the exit); a boundary
+//           event (GGX or the null BSDF) or an HG scatter with the albedo
+//           at o + d t - d eps; Russian roulette.  With the splat on
+//           (regenerationSK) a lane that died adds its radiance into
+//           accum[image_id] and zeroes it.
 //   refill  (queue_refill with _regenerate's group rule and _refill's field
 //           resets): the k-th dead lane (a whole group of G lanes once all
 //           are dead; lanes past the last whole group one by one) takes path
@@ -42,17 +43,51 @@
 // is taken only under the eager function's mask, so each path's stream is
 // the plain version's; a dead lane is a fixed point of bounce and extend.
 //
+// What bounds the bounce on this card: each lane's chain of dependent Woodcock
+// steps (a flight draw and logf, eight taps at o + t d that cannot start before
+// t is known, the acceptance draw and test), not bytes. One thread per lane
+// running the whole chain took, on the H100, 35.4 / 36.5 / 61.0 / 143.7 us at
+// 4,096 / 16,384 / 65,536 / 131,072 lanes of phase 25's smoke pools against
+// byte bounds of 0.16 / 0.64 / 2.57 / 5.06 us, and 81-96 us per bounce of the
+// naiveSK drain's longest lane. Its time hardly grows from 4,096 to 16,384
+// lanes: the pool waits for its longest chain (55-214 steps there; ~66 a lane
+// on the medical class's first bounce, whose grid is 73% empty), and at 4,096
+// lanes 16 of the 132 SMs hold all of it. The rounds below took 10.3 / 19.6 /
+// 43.4 / 88.5 us and 55-59 us a drain bounce there (PERF.md).
+//
+// The design: lookahead rounds (tailpk.cu's null runs, common.cuh's jumps,
+// run_sum and first_stop).  A step's draws are known before its density
+// is, and every step of a chain is taken in full (the one crossing dist
+// too), so a lookahead group of G threads takes G steps of a chain at once:
+// member j jumps to draws 2 j + 1 and 2 j + 2 (ops/rng.jump_constants),
+// forms t_j as the eager loop's left-to-right sum over the steps shared by
+// shuffles, reads its eight taps and tests its step; a ballot finds the
+// first step that crosses or accepts, and the lane takes that step's t and
+// PCG state (a round without one goes on from its last step).  A group
+// holds M lanes, each computed alike by G / M threads, and takes their
+// chains in turn: M = 1 gives each lane all G threads (the least latency,
+// G / M-fold redundant work outside the chains), M = G one thread a lane
+// (no redundancy; the group's chains one after another).  The rest of the
+// bounce, the boundary event, the HG scatter, the albedo, Russian roulette
+// and the march, is computed by a lane's threads on the same values, and
+// its first thread splats, stores and counts the lane.  The width rule
+// (ops/familybody.lookahead, measured by chip_smoke.family_sweep) picks G
+// and M by the pool's width; PERF.md holds the times.
+//
 // Launches (ops/familybody.py):
-//   * bounce_kernel, extend_kernel: one evaluation of every lane, one thread
-//     per lane, the pool's tensors read and written in place (SoA; int64
-//     words holding the u32 RNG) or into another pool.  The counts (lanes
-//     alive at the start, or segment starts, for n_rays; lanes alive after)
-//     reduce per block with __syncthreads_count and across blocks with
-//     atomics; the last block adds n_rays once in float32 and writes the
-//     count.  Gated (a stage's control words given, common.cuh): each launch
-//     returns untouched where the host's loop would have stopped, and the
-//     last block advances the evaluation index and leaves the loop's count
-//     (lanes alive + paths not yet issued).
+//   * bounce_kernel: one evaluation of every lane in lookahead groups (G /
+//     M threads a lane), the pool's tensors read and written in place (SoA;
+//     int64 words holding the u32 RNG) or into another pool.
+//   * extend_kernel: one evaluation of every lane, one thread per lane, in
+//     place or into another pool.
+//   * For both, the counts (lanes alive at the start, or segment starts,
+//     for n_rays; lanes alive after) reduce per block with
+//     __syncthreads_count and across blocks with atomics; the last block
+//     adds n_rays once in float32 and writes the count.  Gated (a stage's
+//     control words given, common.cuh): each launch returns untouched
+//     where the host's loop would have stopped, and the last block
+//     advances the evaluation index and leaves the loop's count (lanes
+//     alive + paths not yet issued).
 //   * refill_kernel: 1,024 lanes per block, so a refill group (a power of
 //     two up to 1,024) lies inside a block and its all-dead test is a warp
 //     ballot or the block's ballots; the ranks are a block scan and a
@@ -63,7 +98,8 @@
 //     the bounce rewrites.
 //   * drain_kernel (naiveSK's trace): each lane loads once, runs bounce after
 //     bounce in registers until it dies or reaches max_path_length (a dead
-//     lane is a fixed point, so this is the loop), and stores once; each
+//     lane is a fixed point, so this is the loop; a lookahead group bounces
+//     together while one of its lanes goes on), and stores once; each
 //     lane's evaluation count goes into a histogram by warp-aggregated
 //     atomics, and the last block folds the live counts into n_rays in
 //     float32, one evaluation after another, as the loop adds them.
@@ -77,6 +113,11 @@ using namespace cvr;
 constexpr int THREADS = 256;
 constexpr int REFILL_THREADS = 1024;
 constexpr int DRAIN_THREADS = 64;
+// A lookahead group is G threads (ops/familybody.py GROUPS); a Woodcock
+// step takes 2 draws, so the jump table (ops/rng.jump_constants) holds m =
+// 0 .. 2 * GROUP_MAX.
+constexpr int GROUP_MAX = 16;
+constexpr int JUMP_N1 = 2 * GROUP_MAX + 1;
 // models/integrator.py _VB_MAX_ITERS: a variable-boundary march's cap
 constexpr int VB_MAX_ITERS = 4096;
 
@@ -102,6 +143,7 @@ enum {
   IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH,
   IP_THRESH, IP_CHAIN, IP_CAP,  // a stage's exit threshold, chain, drain cap
   IP_VARIABLE,                   // the variable boundary's isosurface march
+  IP_LOOK, IP_LANES,  // the bounce's lookahead group: G threads, M lanes
   N_IP,
 };
 
@@ -111,15 +153,16 @@ enum { OP_BOUNCE = 0, OP_REFILL, OP_EXTEND, OP_FLUSH };
 // Pointer slots (ops/familybody.py S_*): the per-lane fields (a PathState's
 // first seven, image_id, then StreamState's), the outputs (the same again),
 // n_rays in and out, the count, paths_issued in and out, the image, the
-// grids, the scratch, the refill's look-back words, a stage's control words
-// and the drain's histogram (null where a launch uses none).
+// grids, the scratch, the refill's look-back words, a stage's control words,
+// the drain's histogram and the bounce's jump table (null where a launch
+// uses none).
 enum {
   S_O = 0, S_D, S_TP, S_RAD, S_ALIVE, S_RS, S_RINC, S_IMG,
   S_TRACK, S_T, S_MAXT, S_NRM, S_PEND, S_PSCAT,
   N_LANE,
   S_OUT = N_LANE, S_NRAYS = S_OUT + N_LANE, S_NRAYS_OUT, S_COUNT,
   S_ISSUED, S_ISSUED_OUT, S_ACCUM, S_DENSITY, S_ALBEDO, S_SCRATCH, S_STATUS,
-  S_CTRL, S_HIST, N_S,
+  S_CTRL, S_HIST, S_JUMP, N_S,
 };
 
 // The scratch's uint64 words: the two counts, the last-block ticket, the
@@ -335,36 +378,92 @@ __device__ __forceinline__ void scatter(const Params& P, Lane& L, float t, float
   }
 }
 
-// integrator.bounce_step for a live lane (with the variable boundary's march
-// after the AABB test where IP_VARIABLE is set).
-__device__ __forceinline__ void bounce(const Params& P, const Ptrs& Q, Lane& L) {
-  const BoxHit h = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, L.o, L.d);
-  bool hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
-  bool inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
-  float dist = h.dist;
-  float nrm[3] = {h.nrm[0], h.nrm[1], h.nrm[2]};
-  if (P.i[IP_VARIABLE]) march(P, Q, L, hit, inside, dist, nrm);
-  if (!hit) {
-    for (int k = 0; k < 3; ++k) L.rad[k] = L.rad[k] + L.tp[k] * P.f[FP_LE + k];
-    L.alive = false;
-    return;
-  }
-  // woodcock_track: the whole chain of this lane
-  float t = 0.0f;
-  bool scattered = false;
-  if (inside) {
-    const float isig = P.f[FP_INV_SIGMAT], scale = P.f[FP_SCALE];
-    bool running = true;
-    while (running) {
-      const float t_new = t + flight(L.rs = pcg_next(L.rs, L.inc), isig);
-      const float rho = density_at(P, Q, L.o, L.d, t_new);
-      const float u2 = draw_float(L.rs, L.inc);
-      running = t_new <= dist && scale * rho * isig < u2;
-      t = t_new;
+// A lookahead group: G threads of a warp (G a power of two up to 16,
+// aligned) holding M lanes (IP_LANES, a power of two up to G), each lane on
+// R = G / M neighbouring threads that compute its bounce alike.  This
+// thread is member j, a replica of lane slot j / R, and takes step j of
+// every chain of the group: its jump to draw 2 j + 1.
+template <int G>
+struct Group {
+  unsigned mask;
+  int j, r;  // member, and threads per lane
+  Jump first;
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> group_of(const Params& P, const Ptrs& Q) {
+  const int j = (int)(threadIdx.x % G);
+  return Group<G>{group_mask<G>(), j, G / (int)P.i[IP_LANES],
+                  null_jump<2>((const int64_t*)Q.p[S_JUMP], JUMP_N1, j)};
+}
+
+// woodcock_track for the group's lanes with `need` (inside the box, up to
+// their dist): the whole group takes each such lane's chain in turn, in
+// rounds of G steps.  Member j takes step j (draws 2 j + 1 and 2 j + 2, by
+// jump-ahead), its t_j the eager loop's left-to-right sum (common.cuh
+// run_sum), its density at o + t_j d and its test; the first member whose
+// step crosses dist or accepts ends the chain, and a round without one
+// hands its last step on to the next.  Each lane (every replica) gets its
+// chain's t and its PCG state after it; every member calls this.
+template <int G>
+__device__ __forceinline__ float woodcock(const Params& P, const Ptrs& Q, const Group<G>& g,
+                                          Lane& L, bool need, float dist) {
+  const float isig = P.f[FP_INV_SIGMAT], scale = P.f[FP_SCALE];
+  float mine = 0.0f;
+  const unsigned firsts = group_ballot<G>(g.mask, need && g.j % g.r == 0);
+  for (unsigned todo = firsts; todo != 0u; todo &= todo - 1u) {
+    const int k = __ffs(todo) - 1;  // the first replica of the chain's lane
+    float o[3], d[3];
+    for (int a = 0; a < 3; ++a) {
+      o[a] = group_shfl<G>(g.mask, L.o[a], k);
+      d[a] = group_shfl<G>(g.mask, L.d[a], k);
     }
-    scattered = t < dist;
+    const float dk = group_shfl<G>(g.mask, dist, k);
+    const uint32_t inc = group_shfl<G>(g.mask, L.inc, k);
+    uint32_t rs = group_shfl<G>(g.mask, L.rs, k);
+    float t = 0.0f;
+    for (int src = -1; src < 0;) {
+      const uint32_t s1 = jumped(g.first, rs, inc);  // u1
+      const uint32_t s2 = pcg_next(s1, inc);          // u2
+      const float tj = run_sum<G>(g.mask, t, flight(s1, isig), g.j, G);
+      const float rho = density_at(P, Q, o, d, tj);
+      src = first_stop<G>(g.mask, g.j, G, !(tj <= dk && scale * rho * isig < uniform(s2)));
+      const int last = src < 0 ? G - 1 : src;
+      t = group_shfl<G>(g.mask, tj, last);
+      rs = group_shfl<G>(g.mask, s2, last);
+    }
+    if (g.j / g.r == k / g.r) {
+      mine = t;
+      L.rs = rs;
+    }
   }
-  if (!scattered) {
+  return mine;
+}
+
+// integrator.bounce_step for this thread's lane where `active` (with the
+// variable boundary's march after the AABB test where IP_VARIABLE is set).
+// Every member of the group calls it: the Woodcock chains are the group's.
+template <int G>
+__device__ __forceinline__ void bounce(const Params& P, const Ptrs& Q, const Group<G>& g,
+                                       Lane& L, bool active) {
+  bool hit = false, inside = false;
+  float dist = 0.0f, nrm[3] = {0.0f, 0.0f, 0.0f};
+  if (active) {
+    const BoxHit h = box_hit(P.f + FP_BMIN, P.f + FP_BMAX, L.o, L.d);
+    hit = h.smallest_tmax > h.largest_tmin && h.dist > 0.0f;
+    inside = sum3(h.nrm[0] * L.d[0], h.nrm[1] * L.d[1], h.nrm[2] * L.d[2]) > 0.0f;
+    dist = h.dist;
+    for (int k = 0; k < 3; ++k) nrm[k] = h.nrm[k];
+    if (P.i[IP_VARIABLE]) march(P, Q, L, hit, inside, dist, nrm);
+    if (!hit) {
+      for (int k = 0; k < 3; ++k) L.rad[k] = L.rad[k] + L.tp[k] * P.f[FP_LE + k];
+      L.alive = false;
+    }
+  }
+  const bool track = active && hit && inside;
+  const float t = woodcock<G>(P, Q, g, L, track, dist);
+  if (!active || !hit) return;
+  if (!(track && t < dist)) {
     boundary_event(P.i[IP_BSDF] != 0, ggx_of(P), nrm, dist, L.o, L.d, L.tp, L.rs, L.inc);
   } else {
     float os[3], alb[3];
@@ -487,7 +586,10 @@ __device__ __forceinline__ bool out_of_place(const Ptrs& Q) {
   return Q.p[S_OUT + S_ALIVE] != Q.p[S_ALIVE];
 }
 
-// One bounce of every lane; gated when S_CTRL is set.
+// One bounce of every lane, in lookahead groups (G threads, M lanes); gated
+// when S_CTRL is set.  A lane's first replica splats, stores and counts it;
+// threads past the pool take part in their group's chains.
+template <int G>
 __global__ void __launch_bounds__(THREADS) bounce_kernel(Params P, Ptrs Q, int width) {
   long long* ctrl = (long long*)Q.p[S_CTRL];
   long long e = 0;
@@ -495,23 +597,23 @@ __global__ void __launch_bounds__(THREADS) bounce_kernel(Params P, Ptrs Q, int w
     if (stage_stopped(ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])) return;
     e = ctrl[C_EVAL];
   }
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  bool was = false, alive = false;
+  const Group<G> g = group_of<G>(P, Q);
+  const int tid = blockIdx.x * THREADS + threadIdx.x;
+  const int i = tid / g.r;
+  const bool lead = tid % g.r == 0;
+  const bool copy = out_of_place(Q);
+  Lane L = {};
+  bool was = false;
   if (i < width) {
-    Lane L;
     L.alive = was = ((const bool*)Q.p[S_ALIVE])[i];
-    const bool copy = out_of_place(Q);
-    if (was || copy) {
-      load_lane(Q, i, false, L);
-      if (was) {
-        bounce(P, Q, L);
-        if (P.i[IP_SPLAT] && !L.alive) splat(Q, i, L);
-      }
-      store_lane(Q, i, false, copy, L);
-    }
-    alive = L.alive;
+    if (was || copy) load_lane(Q, i, false, L);
   }
-  reduce_counts(P, Q, was, alive, ctrl, e);
+  bounce<G>(P, Q, g, L, was);
+  if (lead && i < width && (was || copy)) {
+    if (was && P.i[IP_SPLAT] && !L.alive) splat(Q, i, L);
+    store_lane(Q, i, false, copy, L);
+  }
+  reduce_counts(P, Q, lead && was, lead && L.alive, ctrl, e);
 }
 
 // One extend (or, with OP_FLUSH, one flush) of every lane; gated when S_CTRL
@@ -637,39 +739,54 @@ __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q
 
 // ---- the drain (naiveSK's trace) ---------------------------------------------
 
-// Adds each lane's count j (where j > 0) to hist[j]: one atomic per group of a
-// warp's lanes at the same j.  Every thread of the warp calls it.
+// Adds each lane's count j (where j > 0; 0 from the threads that count no
+// lane) to hist[j]: one atomic per group of a warp's lanes at the same j.
+// Every thread of the warp calls it.
 __device__ __forceinline__ void warp_count(unsigned long long* hist, int j) {
   const unsigned same = __match_any_sync(0xffffffffu, j);
   if (j > 0 && (int)(threadIdx.x & 31) == __ffs(same) - 1)
     atomicAdd(hist + j, (unsigned long long)__popc(same));
 }
 
-// Every lane bounces until it dies or reaches max_path_length (or the cap).
+// Every lane bounces until it dies or reaches max_path_length (or the cap);
+// a lookahead group bounces together while one of its lanes goes on, and a
+// lane's first replica stores and counts it.
+template <int G>
 __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, int width) {
   unsigned long long* ctrl = (unsigned long long*)Q.p[S_CTRL];
   unsigned long long* hist = (unsigned long long*)Q.p[S_HIST];  // [cap + 1]
   unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
   const long long cap = P.i[IP_CAP], maxpath = P.i[IP_MAXPATH];
   const long long e0 = (long long)ctrl[C_EVAL];
-  const int i = blockIdx.x * DRAIN_THREADS + threadIdx.x;
+  const Group<G> g = group_of<G>(P, Q);
+  const int tid = blockIdx.x * DRAIN_THREADS + threadIdx.x;
+  const int i = tid / g.r;
+  const bool lead = tid % g.r == 0;
   int j = 0;  // this lane's evaluations in this launch
   bool left = false, finished = false;
-  if (i < width && ((const bool*)Q.p[S_ALIVE])[i] && e0 < maxpath) {
-    Lane L;
+  Lane L = {};
+  bool going = i < width && ((const bool*)Q.p[S_ALIVE])[i] && e0 < maxpath;
+  const bool ran = going;
+  if (ran) {
     L.alive = true;
     load_lane(Q, i, false, L);
-    do {
-      bounce(P, Q, L);
+  }
+  while (group_ballot<G>(g.mask, going) != 0u) {
+    bounce<G>(P, Q, g, L, going);
+    if (going) {
       ++j;
-    } while (L.alive && j < cap && e0 + j < maxpath);
+      going = L.alive && j < cap && e0 + j < maxpath;
+    }
+  }
+  if (ran && lead) {
     store_lane(Q, i, false, false, L);
     left = L.alive && e0 + j < maxpath;
     finished = !left;
   }
+  if (!lead) j = 0;  // a lane counts once
   warp_count(hist, j);
-  const int ran = __syncthreads_count(j > 0);
-  if (threadIdx.x == 0 && ran > 0) atomicAdd(scratch + SC_RAYS, (unsigned long long)ran);
+  const int n_ran = __syncthreads_count(j > 0);
+  if (threadIdx.x == 0 && n_ran > 0) atomicAdd(scratch + SC_RAYS, (unsigned long long)n_ran);
   DrainEnd end;
   if (!drain_end(ctrl, e0, 1, j, left, finished, end)) return;
   // the last block: every lane is in.  Evaluation e of this launch started
@@ -684,6 +801,21 @@ __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, 
   for (long long e = 1; e <= end.jmax; ++e) hist[e] = 0ull;
   scratch[SC_RAYS] = 0ull;
   drain_close(ctrl, e0, cap, end.left);
+}
+
+// One thread follows `steps` dependent loads through next[] (a cycle) and
+// writes where it ended: the latency of one dependent load, for phase 25's
+// chain bound (not on any render's path).
+__global__ void chase_kernel(const int* next, int steps, int* out) {
+  int k = 0;
+  for (int s = 0; s < steps; ++s) k = next[k];
+  *out = k;
+}
+
+// Whether IP_LANES (M) is a power of two that divides IP_LOOK (G).
+bool group_ok(const Params& P) {
+  const long long G = P.i[IP_LOOK], M = P.i[IP_LANES];
+  return M >= 1 && M <= G && G % M == 0 && (M & (M - 1)) == 0;
 }
 
 Params params_of(const float* fparams, const long long* iparams) {
@@ -720,9 +852,18 @@ extern "C" int familybody_launch(const float* fparams, int n_fp, const long long
   const Ptrs Q = ptrs_of(ptrs);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (P.i[IP_OP]) {
-    case OP_BOUNCE:
-      bounce_kernel<<<(width + THREADS - 1) / THREADS, THREADS, 0, st>>>(P, Q, width);
+    case OP_BOUNCE: {
+      if (!group_ok(P)) return -1;
+      const long long threads = width * (P.i[IP_LOOK] / P.i[IP_LANES]);
+      const int blocks = (int)((threads + THREADS - 1) / THREADS);
+      switch (P.i[IP_LOOK]) {
+        case 1: bounce_kernel<1><<<blocks, THREADS, 0, st>>>(P, Q, width); break;
+        case 8: bounce_kernel<8><<<blocks, THREADS, 0, st>>>(P, Q, width); break;
+        case 16: bounce_kernel<16><<<blocks, THREADS, 0, st>>>(P, Q, width); break;
+        default: return -1;
+      }
       break;
+    }
     case OP_REFILL:
       refill_kernel<<<(width + REFILL_THREADS - 1) / REFILL_THREADS, REFILL_THREADS, 0, st>>>(
           P, Q, width);
@@ -745,10 +886,26 @@ extern "C" int familybody_drain(const float* fparams, int n_fp, const long long*
                                 void* stream) {
   if (n_fp != N_FP || n_ip != N_IP || n_s != N_S) return -1;
   if (width > 0) {
-    const int blocks = (width + DRAIN_THREADS - 1) / DRAIN_THREADS;
-    drain_kernel<<<blocks, DRAIN_THREADS, 0, (cudaStream_t)stream>>>(
-        params_of(fparams, iparams), ptrs_of(ptrs), width);
+    const Params P = params_of(fparams, iparams);
+    const Ptrs Q = ptrs_of(ptrs);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (!group_ok(P)) return -1;
+    const long long threads = width * (P.i[IP_LOOK] / P.i[IP_LANES]);
+    const int blocks = (int)((threads + DRAIN_THREADS - 1) / DRAIN_THREADS);
+    switch (P.i[IP_LOOK]) {
+      case 1: drain_kernel<1><<<blocks, DRAIN_THREADS, 0, st>>>(P, Q, width); break;
+      case 8: drain_kernel<8><<<blocks, DRAIN_THREADS, 0, st>>>(P, Q, width); break;
+      case 16: drain_kernel<16><<<blocks, DRAIN_THREADS, 0, st>>>(P, Q, width); break;
+      default: return -1;
+    }
   }
+  return (int)cudaGetLastError();
+}
+
+// chase_kernel, one thread (the chain bound's load latency): next (n,) int32
+// on the card holding a cycle, out one int32.
+extern "C" int familybody_chase(const int* next, int steps, int* out, void* stream) {
+  chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, out);
   return (int)cudaGetLastError();
 }
 

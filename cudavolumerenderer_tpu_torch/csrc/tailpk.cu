@@ -24,14 +24,16 @@
 //
 // The design: one warp per path, and two kinds of round that each cover
 // many steps, because a path's next draws are known before its steps are.
-//  * Null run (lookahead).  Between events only t changes and each step
-//    draws u1, tap bits, u2.  Lane j takes draws 3j.. by PCG jump-ahead
-//    (state after m draws = A_m * s + G_m * inc, ops/rng.jump_constants)
-//    and makes step j: flight, crossing test, tap, load, acceptance.  t_j is
-//    the plain version's left-to-right sum t + step_0 + ... + step_j over
-//    the steps shared by __shfl_sync (adding -0.0 leaves a sum unchanged);
-//    no tree scan.  A ballot finds the first step that crosses or accepts;
-//    the steps before it were null collisions.  A scatter is left to:
+//  * Null run (lookahead; common.cuh's jumps, run_sum and first_stop, which
+//    familybody.cu's Woodcock chains share).  Between events only t changes
+//    and each step draws u1, tap bits, u2.  Lane j takes draws 3j.. by PCG
+//    jump-ahead (state after m draws = A_m * s + G_m * inc,
+//    ops/rng.jump_constants) and makes step j: flight, crossing test, tap,
+//    load, acceptance.  t_j is the plain version's left-to-right sum t +
+//    step_0 + ... + step_j over the steps shared by __shfl_sync (adding -0.0
+//    leaves a sum unchanged); no tree scan.  A ballot finds the first step
+//    that crosses or accepts; the steps before it were null collisions.  A
+//    scatter is left to:
 //  * Scatter run.  Lane k takes step k as if steps 0..k-1 all scattered and
 //    survived: each such step draws u1, tap bits, u2, e1, e2 and, with RR
 //    on, the RR uniform, so lane k starts at draw W*k (W = 6 or 5).  Each
@@ -223,53 +225,41 @@ __device__ __forceinline__ void set_window(Consts& c, const int worg[3], const f
   c.win = win;
 }
 
-// A lane's first draws in a null run (3 * lane + 1) and in a scatter run
-// (W * lane + 1): the jump table's (A_m, G_m).
+// A lane's first draws in a null run (3 * lane + 1: u1, tap bits, u2 a
+// step) and in a scatter run (W * lane + 1): the jump table's (A_m, G_m).
 struct Jumps {
-  uint32_t null_a, null_g, scat_a, scat_g;
+  Jump null_run, scat;
 };
 
 __device__ __forceinline__ Jumps lane_jumps(const int64_t* jump, int lane, bool rr_on) {
   const int W = rr_on ? 6 : 5;
-  Jumps J;
-  J.null_a = (uint32_t)jump[3 * lane + 1];
-  J.null_g = (uint32_t)jump[JUMPS + 3 * lane + 1];
-  J.scat_a = (uint32_t)jump[W * lane + 1];
-  J.scat_g = (uint32_t)jump[JUMPS + W * lane + 1];
-  return J;
+  return Jumps{null_jump<3>(jump, JUMPS, lane), jump_of(jump, JUMPS, W * lane + 1)};
 }
 
 // Up to n_steps tracking steps of the path `cur` (status RUN) in its window,
 // by the whole warp; afterwards every lane holds the path's new state.
 __device__ __forceinline__ void run_path(const Consts& c, const Jumps& J, int lane, Path& cur,
                                          uint32_t inc, float inv_sig, int n_steps) {
-  const uint32_t null_a = J.null_a, null_g = J.null_g;
-  const uint32_t scat_a = J.scat_a, scat_g = J.scat_g;
   int run = 0;  // links of the next scatter run; 0: the next round is a null run
   int done = 0;
   while (done < n_steps && cur.status == RUN) {
     if (run == 0) {
       // ---- null run: step j on lane j, draws 3j, 3j+1, 3j+2 --------------
       const int D = min(LANES, n_steps - done);
-      const uint32_t s1 = null_a * cur.rs + null_g * inc;
+      const uint32_t s1 = jumped(J.null_run, cur.rs, inc);
       const uint32_t s2 = pcg_next(s1, inc), s3 = pcg_next(s2, inc);
-      const float step = flight(s1, inv_sig);
-      float tj = cur.t;  // t + step_0 + ... + step_lane, left to right
-      for (int i = 0; i < D; ++i) {
-        const float si = __shfl_sync(FULL, step, i);
-        tj = tj + (i <= lane ? si : -0.0f);
-      }
+      // t + step_0 + ... + step_lane, left to right (common.cuh)
+      const float tj = run_sum<LANES>(FULL, cur.t, flight(s1, inv_sig), lane, D);
       const bool crossed = tj >= jmin(cur.bexit, cur.max_t);
       const float rho = tap(c, cur.o, cur.d, tj, pcg_bits(s2));
       const bool accepted = !(c.scale * rho * inv_sig < uniform(s3));
-      const unsigned events = __ballot_sync(FULL, lane < D && (crossed || accepted));
-      if (events == 0) {  // D null collisions
+      const int src = first_stop<LANES>(FULL, lane, D, crossed || accepted);
+      if (src < 0) {  // D null collisions
         cur.t = __shfl_sync(FULL, tj, D - 1);
         cur.rs = __shfl_sync(FULL, s3, D - 1);
         done += D;
         continue;
       }
-      const int src = __ffs(events) - 1;
       if (__shfl_sync(FULL, (int)crossed, src)) {
         // lands on the exit plane; EXIT_BOX parks at max_t
         const bool box_closer = cur.max_t <= cur.bexit;
@@ -293,7 +283,7 @@ __device__ __forceinline__ void run_path(const Consts& c, const Jumps& J, int la
 
     // ---- scatter run: link k on lane k assumes links 0..k-1 scattered ----
     const int C = min(run, n_steps - done);
-    const uint32_t a1 = scat_a * cur.rs + scat_g * inc;  // u1
+    const uint32_t a1 = jumped(J.scat, cur.rs, inc);  // u1
     const uint32_t a2 = pcg_next(a1, inc), a3 = pcg_next(a2, inc);  // tap, u2
     const uint32_t a4 = pcg_next(a3, inc), a5 = pcg_next(a4, inc);  // e1, e2
     const uint32_t a6 = pcg_next(a5, inc);                          // RR

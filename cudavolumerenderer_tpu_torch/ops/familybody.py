@@ -42,7 +42,7 @@ import torch
 
 from ..constants import EPSILON
 from . import stages
-from .rng import as_u32, mul32
+from .rng import as_u32, jump_constants, mul32
 from .stages import C_COUNT, DRAIN_CAP, N_CTRL, lane_field, own
 from .stages import f32 as _f32
 
@@ -75,7 +75,7 @@ N_FP = FP_THRESH + 1
 (IP_OP, IP_NX, IP_NY, IP_NZ, IP_AX, IP_AY, IP_AZ, IP_NCH, IP_NEAREST,
  IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_SPLAT, IP_DEFER, IP_GROUP,
  IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH, IP_THRESH,
- IP_CHAIN, IP_CAP, IP_VARIABLE, N_IP) = range(27)
+ IP_CHAIN, IP_CAP, IP_VARIABLE, IP_LOOK, IP_LANES, N_IP) = range(29)
 
 #: the entry points (IP_OP)
 OPS = ("bounce", "refill", "extend", "flush")
@@ -94,11 +94,43 @@ _DTYPES = dict(zip(LANE_FIELDS, (torch.float32,) * 4 + (torch.bool,)
 _VEC3 = ("o", "d", "throughput", "radiance", "normal", "p_scat")
 S_OUT = N_LANE
 (S_NRAYS, S_NRAYS_OUT, S_COUNT, S_ISSUED, S_ISSUED_OUT, S_ACCUM, S_DENSITY,
- S_ALBEDO, S_SCRATCH, S_STATUS, S_CTRL, S_HIST) = range(
-     S_OUT + N_LANE, S_OUT + N_LANE + 12)
-N_S = S_HIST + 1
+ S_ALBEDO, S_SCRATCH, S_STATUS, S_CTRL, S_HIST, S_JUMP) = range(
+     S_OUT + N_LANE, S_OUT + N_LANE + 13)
+N_S = S_JUMP + 1
 N_SCRATCH = 5  # csrc/familybody.cu SC_*
 REFILL_BLOCK = 1024  # lanes per refill block (its look-back word)
+#: the lookahead groups' sizes csrc/familybody.cu builds (threads): those
+#: the width rule takes (chip_smoke.family_sweep also timed 4 and 32)
+GROUPS = (1, 8, 16)
+GROUP_MAX = GROUPS[-1]
+
+
+def lookahead(width: int) -> tuple:
+    """(G, M): the bounce's lookahead group for a pool of `width` lanes
+    (bounce_kernel and the drain).  G threads hold M lanes, each lane on
+    G / M threads that compute its bounce alike, and take their lanes'
+    Woodcock chains in turn, G steps a round (csrc/familybody.cu).
+
+    Fewer threads a lane as the pool widens: measured on the H100 by
+    chip_smoke.family_sweep (PERF.md), G 16 with one lane at 4,096
+    lanes (smoke and medical pools both), then M doubling with every
+    doubling of the width up to 16 lanes at 131,072, where the medical
+    row's whole regenerationSK render needs no redundant thread (G 16 / M 8
+    took 23.1 ms of bounces against 19.8 ms at M 16 and 20.2 ms at one
+    thread without lookahead); G 8 / M 8 on the naiveSK drains of 160,000
+    to 640,000 lanes; and one thread a lane without lookahead above, where
+    the medical drain waits on a lane of 1,000 bounces that a group only
+    slows (5.25 ms at G 1 against 5.77-6.04 ms).  G 4 and 32 were never
+    the fastest, so the kernel builds 1, 8 and 16 (GROUPS)."""
+    if width <= 131072:
+        m = 1
+        while m < 16 and 2 * m * 8192 <= width:
+            m *= 2
+        return 16, m
+    if width <= 655360:
+        return 8, 8
+    return 1, 1
+
 
 #: the fields each entry point writes
 WRITES = {
@@ -306,6 +338,7 @@ class FamilyBodyKernel(stages.BodyKernel):
 
     def __init__(self):
         super().__init__("familybody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL))
+        self._jumps = {}
         self.reset()
 
     def reset(self) -> None:
@@ -377,6 +410,7 @@ class FamilyBodyKernel(stages.BodyKernel):
         iparams[IP_DEFER] = int(defer)
         iparams[IP_STREAM] = int(stream)
         iparams[IP_CHAIN], iparams[IP_CAP] = chain, cap
+        iparams[IP_LOOK], iparams[IP_LANES] = lookahead(width)
         ptrs = [0] * N_S
         for name, x in fields.items():
             ptrs[LANE_FIELDS.index(name)] = x.data_ptr()
@@ -393,11 +427,45 @@ class FamilyBodyKernel(stages.BodyKernel):
                                        dev)),
                 (S_STATUS, self.zeros("status", nblocks, torch.int64, dev)
                  if op == "refill" else None),
-                (S_CTRL, ctrl), (S_HIST, hist)):
+                (S_CTRL, ctrl), (S_HIST, hist),
+                (S_JUMP, self.jump_table(dev) if op == "bounce" else None)):
             ptrs[slot] = 0 if x is None else x.data_ptr()
         addresses = (ctypes.c_void_p * N_S)(*ptrs)
         return Prepared(op, self.args(fparams, iparams, addresses, width),
                         (fparams, iparams, addresses, density, albedo))
+
+    def jump_table(self, dev) -> torch.Tensor:
+        """The bounce's PCG jump table on `dev` (rng.jump_constants: the
+        state after m draws, m = 0 .. 2 * GROUP_MAX), made once."""
+        if dev not in self._jumps:
+            self._jumps[dev] = jump_constants(2 * GROUP_MAX).to(dev)
+        return self._jumps[dev]
+
+    def chase_ms(self, n: int, steps: int, seed: int = 0) -> float:
+        """Milliseconds per dependent load on the card: one thread follows
+        a random cycle through n int32 words (chase_kernel), `steps` loads
+        timed by CUDA events after a warm-up pass.  Not on a render's
+        path: phase 25's chain bound."""
+        dev = torch.device("cuda")
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        perm = torch.randperm(n, generator=g)
+        nxt = torch.empty(n, dtype=torch.int32)
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        nxt, out = nxt.to(dev), torch.empty(1, dtype=torch.int32, device=dev)
+        fn = self._entry(self.library(), "chase")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self._raise(fn(nxt.data_ptr(), n, out.data_ptr(), stream), "chase")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self._raise(fn(nxt.data_ptr(), steps, out.data_ptr(), stream),
+                    "chase")
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / steps
 
     def launch(self, prep: Prepared, dev) -> None:
         """One launch of a prepared entry point, counted."""

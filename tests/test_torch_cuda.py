@@ -1974,6 +1974,132 @@ def test_family_variable_white_furnace_through_kernels(cuda, label):
     assert torch.equal(img / 2, torch.ones_like(img))
 
 
+# -- the bounce's lookahead rounds (csrc/familybody.cu) ------------------------
+
+# lookahead groups (G threads, M lanes): every G familybody builds, one
+# lane a group (its bounce on G threads), one a thread, and between
+LOOK_CASES = [(1, 1), (8, 1), (8, 2), (8, 8), (16, 1), (16, 2), (16, 4),
+              (16, 8), (16, 16)]
+
+
+def thin_family_ctx(device, width, settings):
+    """family_ctx's queue on a thin, wide medium (0.03 x the blob over a
+    4 x 1 x 1 box): chains of tens of null collisions, many ending where
+    they cross the box in the middle of a lookahead round."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    tw, th, _ = FAMILY_TILES[width]
+    d = (0.03 * procedural.blob_volume()).astype(np.float32)
+    albedo = np.stack([d, 0.5 * np.ones_like(d), 1.0 - d], -1)
+    scene = types.make_scene(types.make_medium(
+        d, albedo, box_min=(-2.0, -0.5, -0.5), box_max=(2.0, 0.5, 0.5),
+        scale=40.0, max_density=1.0, device=device))
+    camera = make_camera(tw, th, device=device)
+    return familybody.make_context(
+        scene, settings, camera, (tw, th), torch.tensor([2.0, 1.0],
+                                                        device=device),
+        (tw + 4, th + 2), 3 * width, 9, 5)
+
+
+def look_ctx(device, medium, boundary, width=1600):
+    """family_ctx (medium "blob") or thin_family_ctx at 40^2 lanes, with
+    the default AABB settings or the variable boundary's."""
+    settings = (variable_settings() if boundary == "variable"
+                else family_settings("default"))
+    if medium == "thin":
+        return thin_family_ctx(device, width, settings)
+    return family_ctx(device, width, settings)
+
+
+def test_look_cases_cover_every_group():
+    from cudavolumerenderer_tpu_torch.ops.familybody import GROUPS
+
+    assert sorted({g for g, _ in LOOK_CASES}) == list(GROUPS)
+    assert all(g % m == 0 for g, m in LOOK_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", ["aabb", "variable"])
+@pytest.mark.parametrize("splat", [False, True], ids=["no-splat", "splat"])
+@pytest.mark.parametrize("look", LOOK_CASES, ids=lambda x: f"G{x[0]}-M{x[1]}")
+def test_family_bounce_groups_equal_eager(cuda, look, splat, boundary,
+                                          monkeypatch):
+    """bounce_kernel at each lookahead group (G threads, M lanes; forced
+    through familybody.lookahead) equals bounce_step in every lane field
+    and n_rays bit for bit, with regenerationSK's splat and without, under
+    both boundary models, on the blob and on the thin medium."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    monkeypatch.setattr(familybody, "lookahead", lambda width: look)
+    for medium in ("blob", "thin"):
+        ctx = look_ctx(cuda, medium, boundary)
+        s, img, _, accum = family_pool(ctx, 1600, False)
+        a_acc, b_acc = accum.clone(), accum.clone()
+        kw_a = dict(image_id=img, accum=a_acc) if splat else {}
+        kw_b = dict(image_id=img, accum=b_acc) if splat else {}
+        before = familybody.KERNEL.by_op["bounce"]
+        got = familybody.run_body(ctx, "bounce", familybody.own(s), **kw_a)
+        want = familybody.plain_body(ctx, "bounce", familybody.own(s), **kw_b)
+        assert familybody.KERNEL.by_op["bounce"] == before + 1
+        assert not family_mismatches(got[0], want[0],
+                                     familybody.PATH_FIELDS), medium
+        torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", ["aabb", "variable"])
+@pytest.mark.parametrize("look", LOOK_CASES, ids=lambda x: f"G{x[0]}-M{x[1]}")
+def test_family_drain_groups_equal_trace(cuda, look, boundary, monkeypatch):
+    """naiveSK's drain at each lookahead group equals trace's
+    loop of eager bounces in every lane field and n_rays bit for bit, on
+    the blob and on the thin medium."""
+    from cudavolumerenderer_tpu_torch.models import naive
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    monkeypatch.setattr(familybody, "lookahead", lambda width: look)
+    for medium in ("blob", "thin"):
+        ctx = look_ctx(cuda, medium, boundary)
+        _, s = naive.start_batch(ctx.camera, (40, 40), ctx.tile_offset,
+                                 ctx.full_resolution, 1, 9, 5)
+        got = familybody.trace(ctx, s, True)
+        want = familybody.trace(ctx, s, False)
+        assert not family_mismatches(got, want, familybody.PATH_FIELDS), medium
+
+
+@pytest.mark.cuda
+def test_thin_chains_cross_in_the_middle_of_a_run(cuda, monkeypatch):
+    """On the thin medium the chains of one bounce run past several rounds
+    of G = 8 steps and many end by crossing the box (no event) at a step
+    that is not the last of a round (8, 16, 24, ...).  The kernel equals
+    the eager bounce there, with a group of 8 lanes and of 2."""
+    from cudavolumerenderer_tpu_torch.ops import familybody, woodcock
+
+    ctx = look_ctx(cuda, "thin", "aabb")
+    s, _, _, _ = family_pool(ctx, 1600, False)
+    results, plain = [], woodcock.woodcock_track
+
+    def kept(*args, **kw):
+        results.append((plain(*args, **kw), args[9]))
+        return results[-1][0]
+
+    taps = []
+    monkeypatch.setattr(woodcock, "woodcock_track", kept)
+    want, _ = familybody.plain_body(ctx, "bounce", familybody.own(s),
+                                    taps=taps)
+    monkeypatch.setattr(woodcock, "woodcock_track", plain)
+    (res, active), = results
+    running = [int(x.shape[0]) for kind, x in taps if kind == "density"]
+    # the lanes whose chain ended at step k = 1, 2, ...
+    ended = [a - b for a, b in zip(running, running[1:] + [0])]
+    crossed = active & ~res.scattered
+    assert int(res.n_steps) > 16 and int(crossed.sum()) > 10
+    assert sum(n for k, n in enumerate(ended, 1) if k > 8 and k % 8) > 10
+    for look in [(8, 8), (8, 2)]:
+        monkeypatch.setattr(familybody, "lookahead", lambda width: look)
+        got, _ = familybody.run_body(ctx, "bounce", familybody.own(s))
+        assert not family_mismatches(got, want, familybody.PATH_FIELDS)
+
+
 # -- fastQ's body kernels (csrc/fastqbody.cu) -----------------------------------------
 
 FASTQ_TILES = {576: (24, 24), 1600: (40, 40)}

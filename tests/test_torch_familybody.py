@@ -37,7 +37,7 @@ from cudavolumerenderer_tpu_torch.models import (
     wavefront_mk,
 )
 from cudavolumerenderer_tpu_torch.ops import familybody as fam
-from cudavolumerenderer_tpu_torch.ops import stages, woodcock
+from cudavolumerenderer_tpu_torch.ops import rng, stages, woodcock
 from cudavolumerenderer_tpu_torch.scene import types as ttypes
 from test_torch_fastbody import enum_values
 from test_torch_schedulers import JAX_TOL, args_pair
@@ -569,6 +569,34 @@ def test_pointer_slots_hold_the_pool():
     with pytest.raises(ValueError, match="contiguous"):
         fam.KERNEL.prepare(ctx, "bounce",
                            p._replace(o=p.o.t().contiguous().t()))
+
+
+def test_kernel_builds_every_lookahead_group():
+    """csrc/familybody.cu launches bounce_kernel and drain_kernel at each G
+    of familybody.GROUPS and no other, its jump table row holds 2 x
+    GROUP_MAX draws, and a bounce's prepared launch carries the width
+    rule's group (G, M) and the jump table (rng.jump_constants); a refill
+    carries no table."""
+    src = SOURCE.read_text()
+    for kernel in ("bounce_kernel", "drain_kernel"):
+        cases = re.findall(rf"case (\d+): {kernel}<(\d+)><<<", src)
+        assert all(a == b for a, b in cases), kernel
+        assert tuple(int(a) for a, _ in cases) == fam.GROUPS, kernel
+    assert f"GROUP_MAX = {fam.GROUP_MAX};" in src
+    settings = ttypes.RenderSettings.from_flags(True)
+    scene, p, _ = pools(settings, n=40)
+    ctx = fam.make_context(scene, settings, args_pair(res=8)[0][1], (8, 8),
+                           torch.zeros(2), (8, 8), 64, 5, 0)
+    prep = fam.KERNEL.prepare(ctx, "bounce", p)
+    iparams, ptrs = prep.keep[1], ctypes_array(prep)
+    assert (iparams[fam.IP_LOOK], iparams[fam.IP_LANES]) == fam.lookahead(40)
+    table = fam.KERNEL.jump_table(torch.device("cpu"))
+    assert ptrs[fam.S_JUMP] == table.data_ptr()
+    assert torch.equal(table, rng.jump_constants(2 * fam.GROUP_MAX))
+    prep = fam.KERNEL.prepare(ctx, "refill", p,
+                              image_id=torch.arange(40),
+                              issued=torch.zeros((), dtype=torch.int64))
+    assert ctypes_array(prep)[fam.S_JUMP] == 0
 
 
 def ctypes_array(prep):
