@@ -241,17 +241,25 @@ CPU or to a plain version on a CUDA tensor):
    stage, stage, loop; wall with the image copy); (b) on each stage's
    entry state the per-evaluation loop against the stage path, in turns:
    every FastState field equal, wall, device kernels and busy ms
-   (torch.profiler), launches and host reads; (c) the drain at 32, 64,
-   128 and 256 threads per block, twice in turns (CUDA events around one
-   drain; bit-equal), the longest lane's L and the drain's us per step of
-   it, its plain version (the eager body's loop, timed) and its byte
-   bound (ops/fastbody.body_bytes over every evaluation's taps: each
-   lane's state read and written once, the distinct table entries and
-   brick rows read); (d) on each kept evaluation state, one kernel
-   evaluation and one eager evaluation give equal FastState fields (NaN
-   equal to NaN) and the same pending count; the kernel's device time per
-   evaluation from replays of a CUDA graph of 16 out-of-place evaluations
-   of the kept state, the eager body's by CUDA events, and the byte
+   (torch.profiler), launches and host reads; (c) the drain (drain_sweep):
+   in rounds from the start by a warp a lane, a thread a lane throughout,
+   at 32 and 128 threads a block, and the default (a thread a lane for
+   64, 256 or 1,024 evaluations, then rounds by a warp), twice in
+   turns (CUDA events around one drain; bit-equal), the longest lane's
+   L and the default's us per step of it, the longest lane's chain of
+   evaluations by kind and its runs (drain_chain, from its plain version,
+   the eager body's loop, timed), its rounds by kind and their clock64
+   cycles (drain_rounds), its byte bound (ops/fastbody.body_bytes over
+   every evaluation's taps: each lane's state read and written once, the
+   distinct table entries and brick rows read) and its chain bound (L
+   dependent loads, familybody's chase over the brick table's words, a
+   round of 32 evaluations at a time); (f) the same sweep on two other
+   kept last stages, smoke128/fastSK-2L's and the 32x32 tiling row's
+   middle tile (drain_stage_sweeps); (d) on each kept evaluation state,
+   one kernel evaluation and one eager evaluation give equal FastState
+   fields (NaN equal to NaN) and the same pending count; the kernel's
+   device time per evaluation from replays of a CUDA graph of 16
+   out-of-place evaluations of the kept state, the eager body's by CUDA events, and the byte
    bound; (e) the two modes' kept pools: config 2 as b16+spec16@512
    (the 512-lane stage's entry, spec_k 16) and at defer_ggx 4 (the
    16,384-lane stage, advanced to an evaluation that flushes with lanes
@@ -3495,6 +3503,345 @@ def per_evaluation_render(renderer, fb, keep_body=None, keep_stage=None):
         fb.run_stage, fb.run_body = run_stage, run_body
 
 
+# the drain's chain kinds, in the order an evaluation is classified
+CHAIN_KINDS = ("regeneration", "scatter", "boundary", "transit or probe",
+               "null", "other")
+CHAIN_GROUPS = (1, 8, 16, 32)  # groups whose rounds drain_chain counts
+
+
+def chain_rounds(kinds: list, group: int) -> int:
+    """The rounds a group of `group` threads takes over one lane's chain of
+    evaluation kinds: a run of null steps or of scatters G evaluations a
+    round (a null run's crossing that is a transit in its last round when
+    there is room), every other evaluation one round."""
+    rounds, i, n = 0, 0, len(kinds)
+    while i < n:
+        k = kinds[i]
+        if group > 1 and k in ("null", "scatter"):
+            r = i
+            while r < n and kinds[r] == k:
+                r += 1
+            runs = -(-(r - i) // group)
+            if k == "null" and r < n and kinds[r] == "transit" and (
+                    (r - i) % group):
+                r += 1
+            rounds, i = rounds + runs, r
+        else:
+            rounds, i = rounds + 1, i + 1
+    return rounds
+
+
+def drain_chain(taps) -> dict:
+    """The longest lane's chain in a drained stage, from the eager loop's
+    ("events", masks) taps, one per evaluation in order: its evaluations
+    by kind (CHAIN_KINDS; a scatter also split into the segment start's
+    links, the links that step from t with no probe, and the others), the
+    lengths of its runs of null steps and of scatters, and the rounds a
+    group of G takes (chain_rounds) for each G of CHAIN_GROUPS."""
+    import torch
+
+    ev = [x for k, x in taps if k == "events"]
+    cols = {k: torch.stack([e[k] for e in ev]) for k in ev[0]}
+    lane = int(cols["pending"].sum(0).argmax())
+    col = {k: v[:, lane].cpu().tolist() for k, v in cols.items()}
+    kinds, links = [], {"segment start": 0, "from t": 0, "after a probe": 0}
+    for e in range(len(ev)):
+        if not col["pending"][e]:
+            break
+        if col["regen"][e]:
+            kind = "regeneration"
+        elif col["scattered"][e]:
+            kind = "scatter"
+            links["segment start" if col["isect"][e] else "after a probe"
+                  if col["probe"][e] else "from t"] += 1
+        elif col["boundary"][e]:
+            kind = "boundary"
+        elif col["transit"][e] and not col["probe"][e]:
+            kind = "transit"
+        elif col["probe"][e] or col["transit"][e]:
+            kind = "transit or probe"
+        elif col["null"][e]:
+            kind = "null"
+        else:
+            kind = "other"
+        kinds.append(kind)
+    counts = {k: 0 for k in CHAIN_KINDS}
+    for k in kinds:
+        counts["transit or probe" if k == "transit" else k] += 1
+    runs = {"null": [], "scatter": []}
+    i = 0
+    while i < len(kinds):
+        r = i
+        while r < len(kinds) and kinds[r] == kinds[i]:
+            r += 1
+        if kinds[i] in runs:
+            runs[kinds[i]].append(r - i)
+        i = r
+    return {"lane": lane, "L": len(kinds), "counts": counts,
+            "scatter_links": links,
+            "runs": {k: {"n": len(v), "mean": sum(v) / max(len(v), 1),
+                         "max": max(v, default=0),
+                         "lengths": sorted(v, reverse=True)[:12]}
+                     for k, v in runs.items()},
+            "rounds": {g: chain_rounds(kinds, g) for g in CHAIN_GROUPS}}
+
+
+def log_chain(tag: str, chain: dict, card: str) -> None:
+    """Print drain_chain's result."""
+    runs = chain["runs"]
+    log(f"[22] {tag}: the longest lane (lane {chain['lane']}) runs "
+        f"L = {chain['L']} evaluations: " + ", ".join(
+            f"{v} {k}" for k, v in chain["counts"].items()) +
+        " (scatter links: " + ", ".join(
+            f"{v} {k}" for k, v in chain["scatter_links"].items()) +
+        "); " + "; ".join(
+            f"{k} runs {v['n']}, mean {v['mean']:.2f}, longest {v['max']} "
+            f"(longest 12: {v['lengths']})" for k, v in runs.items()) +
+        "; rounds of a group of G: " + ", ".join(
+            f"G {g} {r}" for g, r in chain["rounds"].items()) +
+        f"; card {card}")
+
+
+# phase 22: the drain's sweep: (split, threads a block), a thread a lane
+# throughout (split None) and in rounds from the start (split 0), then
+# rounds after a thread a lane for each DRAIN_SPLITS evaluations first
+DRAIN_SPLITS = (64, 256, 1024)
+
+
+def drain_sweep(ctx, s, k_chain: int, want, tag: str, card: str) -> dict:
+    """The drain of a kept last stage `s`: a thread a lane throughout and
+    in rounds from the start by fastbody.DRAIN_GROUP threads a lane, at 32
+    and 128 threads a block, and in rounds after DRAIN_SPLITS evaluations a
+    thread a lane (the default split among them), twice in turns (CUDA
+    events around one drain each, every run bit-equal to `want`, the
+    per-evaluation loop's state): {"runs": {(split, threads): [ms, ms]},
+    "ms": fastest of each, "L", "default": the default's key, "thread": a
+    thread a lane's key, "max_abs_err"}."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    combos = [(k, t) for k in (None, 0) for t in (32, 128)]
+    combos += [(k, fb.DRAIN_ROUND_THREADS) for k in DRAIN_SPLITS]
+    runs, err = {}, 0.0
+    for split, threads in combos + combos[::-1]:
+        t = clone_state(s)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got, _ = fb.KERNEL.drain(ctx, t, k_chain, threads=threads,
+                                 split=split)
+        stop.record()
+        torch.cuda.synchronize()
+        diff, e = state_diff(got, want)
+        err = max(err, e)
+        check(not diff, f"{tag} drain (split {split}, {threads} threads) "
+              f"differs from the per-evaluation loop in {diff}")
+        runs.setdefault((split, threads), []).append(start.elapsed_time(stop))
+    longest = fb.KERNEL.last_drain["L"]
+    log(f"[22] {tag} drain, L = {longest}: " + "; ".join(
+        f"split {k} / {t} threads: {v[0]:.3f} and {v[1]:.3f} ms"
+        for (k, t), v in runs.items()) + " (split: evaluations a thread a "
+        f"lane before rounds by G {fb.DRAIN_GROUP}, None a thread a lane "
+        f"throughout; CUDA events, one drain each, in turns; every run "
+        f"bit-equal); card {card}")
+    return {"runs": runs, "ms": {k: min(v) for k, v in runs.items()},
+            "L": longest, "max_abs_err": err,
+            "default": (fb.DRAIN_SPLIT, fb.DRAIN_ROUND_THREADS),
+            "thread": (None, fb.DRAIN_THREADS)}
+
+
+def drain_rounds(ctx, s, k_chain: int) -> dict:
+    """The drain's per-lane round counts (fastbody.ROUND_STATS) of the
+    longest lane and summed over the pool, from one drain in rounds from
+    the start by fastbody.DRAIN_GROUP threads a lane."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    width = s.alive.shape[0]
+    stats = torch.zeros(width, len(fb.ROUND_STATS), dtype=torch.int32,
+                        device=s.alive.device)
+    fb.KERNEL.drain(ctx, clone_state(s), k_chain, split=0, stats=stats)
+    stats = stats.long() & 0xFFFFFFFF
+    names = fb.ROUND_STATS
+    evals = sum(stats[:, names.index(k)]
+                for k in ("null_evals", "chain_evals", "one"))
+    lane = int(torch.argmax(evals))
+    return {"lane": lane,
+            "longest": dict(zip(names, stats[lane].tolist())),
+            "pool": dict(zip(names, stats.sum(0).tolist()))}
+
+
+def kept_last_stage(render, skip: int = 0) -> tuple:
+    """(ctx, the entry state, k_chain) of a last (drained) stage of the
+    fastSK render `render()` makes, kept where render_tile hands it to
+    fastbody.run_stage after `skip` drained stages (a tiled render drains
+    one a tile); the render stops there."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    class Kept(Exception):
+        pass
+
+    kept, run, seen = [], fb.run_stage, [0]
+
+    def keep(ctx, s, thresh, k_chain, last):
+        if last:
+            seen[0] += 1
+            if seen[0] > skip:
+                kept.append((ctx, clone_state(s), k_chain))
+                raise Kept
+        return run(ctx, s, thresh, k_chain, last)
+
+    fb.run_stage = keep
+    try:
+        render()
+    except Kept:
+        pass
+    finally:
+        fb.run_stage = run
+    check(len(kept) == 1, "no drained last stage kept")
+    return kept[0]
+
+
+def smoke_last_stage():
+    """run_suite's smoke128/fastSK-2L row (smoke 128x128x50, albedo 0.9 d,
+    scale 800, 400^2 x 4, fastSK two-level through render_tile, seed 1300):
+    its last stage."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.models import fast
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    scene = sc.scene("smoke", "cuda")
+    res, iters = sc.size("smoke")
+    off = torch.zeros(2, dtype=torch.float32, device="cuda")
+    return kept_last_stage(lambda: fast.render_tile(
+        scene, sc.camera(res, "cuda"), RenderSettings.from_flags(True),
+        (res, res), off, (res, res), iters, 1300, 0, two_level=True))
+
+
+def tile_last_stage():
+    """One tile of run_suite --tiling's 32x32 row (bucky 32^3, 1920^2 x 5,
+    fastSK two-level, 60^2 pixels a tile in one 3,600-lane stage): the
+    image's middle tile (16, 16), the renderer's tiles before it rendered
+    in turn."""
+    from cudavolumerenderer_tpu_torch.benchmarks import run_suite as rs
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    res, iters, _ = rs.TILING
+    renderer = create_renderer(
+        sc.scene("bucky", "cuda"), sc.camera(res, "cuda"), Config(
+            kernel=Kernel.FAST_SK, iterations=iters, resolution=(res, res),
+            n_tiles=(32, 32), two_level=True,
+            settings=RenderSettings.from_flags(True)))
+    return kept_last_stage(renderer.render, skip=16 * 32 + 16)
+
+
+DRAIN_SWEEPS = (("smoke128/fastSK-2L's 4,096-lane", smoke_last_stage),
+                ("the 32x32 tiling row's middle 3,600-lane tile",
+                 tile_last_stage))
+
+
+def drain_stage_sweeps(card: str) -> dict:
+    """Phase 22 (f): drain_sweep on the last stages of DRAIN_SWEEPS, each
+    run bit-equal to the per-evaluation loop (fastbody.loop_stage)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+
+    out = {}
+    for tag, make in DRAIN_SWEEPS:
+        ctx, s, k_chain = make()
+        want, _ = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
+        sweep = drain_sweep(ctx, s, k_chain, want, tag, card)
+        out[tag] = {"width": s.alive.shape[0], "L": sweep["L"],
+                    "ms_by_split": {f"{k}/{t}": v for (k, t), v in
+                                    sweep["runs"].items()},
+                    "max_abs_err": sweep["max_abs_err"]}
+    return out
+
+
+def drain_turns(card: str, tag: str) -> dict:
+    """One turn of a comparison of two builds of csrc/fastbody.cu (run from
+    a tree's root, so its package is the one imported; the parent's has no
+    rounds): config 2's 4,096-lane last stage drained by the tree's default
+    three times (CUDA events around one drain, bit-equal to the
+    per-evaluation loop), config 2's wall per image (the least of three
+    renders, with the image copy) and device time per image (torch.profiler
+    around one render), run_suite --tiling's 32x32 row and the smoke128
+    fastSK-2L row (their timed walls and n_rays), and the drain kernels'
+    ptxas lines.  Prints one JSON line, tagged `tag`."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import run_suite as rs
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import fastbody as fb
+    from cudavolumerenderer_tpu_torch.scene.mhd import load_mhd_scene
+
+    out = {"tag": tag, "card": card}
+    lib = fb.KERNEL.library()
+    out["ptxas"] = {k: ptxas_of(lib.log, k) for k in (
+        "12drain_kernel", "19thread_drain_kernel")}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, camera = load_mhd_scene(write_medical_mhd(tmp), device="cuda")
+    renderer = create_renderer(scene, camera, Config(
+        kernel=Kernel.FAST_SK, two_level=True, resolution=(512, 512),
+        iterations=4, n_tiles=(1, 1)))
+    ctx, s, k_chain = kept_last_stage(renderer.render)
+    want, _ = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
+    runs = []
+    for _ in range(3):
+        t = clone_state(s)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got, _ = fb.KERNEL.drain(ctx, t, k_chain)
+        stop.record()
+        torch.cuda.synchronize()
+        diff, _ = state_diff(got, want)
+        check(not diff, f"[turns {tag}] the drain differs in {diff}")
+        runs.append(start.elapsed_time(stop))
+    out["drain_ms"], out["drain_L"] = runs, fb.KERNEL.last_drain["L"]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render()
+        walls.append(time.perf_counter() - t0)
+    _, kernels, busy = device_time(renderer.render)
+    out["config2"] = {"wall_s": walls, "device_ms": busy,
+                      "device_kernels": kernels,
+                      "n_rays": float(renderer.n_rays)}
+    res, iters, _ = rs.TILING
+    row = rs.tiling_row(sc.scene("bucky", "cuda"), sc.camera(res, "cuda"),
+                        res, iters, 32)
+    out["tiling32"] = {k: row[k] for k in ("time_s", "n_rays", "fastbody",
+                                           "reads")}
+    scene = sc.scene("smoke", "cuda")
+    res, iters = sc.size("smoke")
+    row = rs.fast_2l_row(scene, sc.camera(res, "cuda"), res, iters)
+    out["smoke2l"] = {k: row[k] for k in ("time_s", "n_rays")}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def drain_load_ns(ctx) -> dict:
+    """One dependent load's latency on the card (familybody's chase: one
+    thread through a random cycle of CHASE_STEPS loads) over as many int32
+    words as the stage's brick table and its density table hold."""
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+
+    return {k: fam.KERNEL.chase_ms(int(x.numel()), CHASE_STEPS) * 1e6
+            for k, x in (("brick", ctx.brick_tab), ("density", ctx.table))}
+
+
 def body_states(scene, camera, card: str) -> dict:
     """Phase 22: config 2 (phase 5's scene and camera, 512^2 x 4, one tile,
     two-level, no tail kernel).  (a) Rendered through the per-evaluation
@@ -3624,28 +3971,13 @@ def body_states(scene, camera, card: str) -> dict:
             f"{st['reads']} reads, device {st['device_ms']} ms in "
             f"{st['device_kernels']} kernels; bit-equal; card {card}")
 
-    # -- (c) the drain: block sizes, and its plain version -----------------
+    # -- (c) the drain: its split and block sizes, the thread design, the chain and its plain version ------------------------------
     ctx, s, thresh, k_chain, _ = stages[-1]
     check(thresh == 0, "config 2's last stage does not drain")
     width = s.alive.shape[0]
     want, _ = fb.loop_stage(ctx, clone_state(s), 0, k_chain)
-    drain_ms, drain_err = {}, 0.0
-    for threads in DRAIN_BLOCKS + DRAIN_BLOCKS[::-1]:
-        t = clone_state(s)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        got, _ = fb.KERNEL.drain(ctx, t, k_chain, threads=threads)
-        stop.record()
-        torch.cuda.synchronize()
-        diff, err = state_diff(got, want)
-        drain_err = max(drain_err, err)
-        check(not diff, f"phase 22: the drain in blocks of {threads} differs "
-              f"from the per-evaluation loop in {diff}")
-        drain_ms.setdefault(threads, []).append(start.elapsed_time(stop))
-    longest = fb.KERNEL.last_drain["L"]
-    default = fb.DRAIN_THREADS
+    sweep = drain_sweep(ctx, s, k_chain, want, "config 2's 4,096-lane", card)
+    longest = sweep["L"]
     taps, t = [], clone_state(s)
     spp = int(ctx.iparams[fb.IP_SPP])
     torch.cuda.synchronize()
@@ -3657,23 +3989,40 @@ def body_states(scene, camera, card: str) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     diff, _ = state_diff(t, want)
     check(not diff, f"phase 22: the eager drain differs in {diff}")
+    chain = drain_chain(taps)
+    log_chain(f"the {width}-lane stage's drain", chain, card)
     n_bytes = fb.body_bytes(ctx, taps)
     bound, bound_by = bound_ms(n_bytes)
-    ms = min(drain_ms[default])
-    log(f"[22] drain of the {width}-lane stage: longest lane L = {longest} "
-        f"evaluations; " + ", ".join(
-            f"{k} threads {v[0]:.3f} / {v[1]:.3f} ms" for k, v in
-            drain_ms.items()) + f" (CUDA events, one launch each, in turns); "
-        f"at {default} threads {ms * 1e3 / longest:.3f} us per step of the "
-        f"longest lane; its plain version (the eager body's loop) "
-        f"{plain_ms:.1f} ms; bound {n_bytes} B = {bound * 1e3:.3f} us "
-        f"({bound / ms:.2%} of the drain); card {card}")
+    ms = sweep["ms"][sweep["default"]]
+    load_ns = drain_load_ns(ctx)
+    rounds = drain_rounds(ctx, s, k_chain)
+    chain_ms = longest * load_ns["brick"] * 1e-6 / fb.DRAIN_GROUP
+    log(f"[22] the {width}-lane stage's rounds (G {fb.DRAIN_GROUP} from the "
+        f"start): the longest lane (lane {rounds['lane']}) "
+        f"{rounds['longest']}; the pool {rounds['pool']}; card {card}")
+    log(f"[22] drain of the {width}-lane stage (a thread a lane for "
+        f"{fb.DRAIN_SPLIT} evaluations, then rounds by G {fb.DRAIN_GROUP}, "
+        f"{fb.DRAIN_ROUND_THREADS} threads a block): {ms:.3f} ms, "
+        f"{ms * 1e3 / longest:.3f} us per evaluation of the longest lane "
+        f"(L = {longest}); a thread a lane throughout "
+        f"{sweep['ms'][sweep['thread']]:.3f} ms; its "
+        f"plain version (the eager body's loop) {plain_ms:.1f} ms; bound "
+        f"{n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.2%} of the drain); "
+        f"chain bound L x {load_ns['brick']:.1f} ns (one dependent load over "
+        f"the brick table's words) / 32 = {chain_ms * 1e3:.2f} us "
+        f"({chain_ms / ms:.2%}), one dependent load over the density's words "
+        f"{load_ns['density']:.1f} ns; card {card}")
     drain = {"launches": drains, "ms": ms, "plain_ms": plain_ms,
-             "max_abs_err": drain_err,
+             "max_abs_err": sweep["max_abs_err"],
              "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
-             "L": longest, "E": info["E"], "threads": default,
-             "us_per_step": ms * 1e3 / longest,
-             "ms_by_threads": drain_ms}
+             "L": longest, "E": info["E"], "threads": fb.DRAIN_ROUND_THREADS,
+             "group": fb.DRAIN_GROUP, "us_per_step": ms * 1e3 / longest,
+             "thread_ms": sweep["ms"][sweep["thread"]],
+             "split": fb.DRAIN_SPLIT, "load_ns": load_ns,
+             "chain_bound_ms": chain_ms, "rounds": rounds,
+             "ms_by_split": {f"{k}/{t}": v for (k, t), v in
+                             sweep["runs"].items()},
+             "chain": chain}
 
     # -- (d) one evaluation: the kernel against the eager body -------------
     rows, max_err = {}, 0.0
@@ -6705,6 +7054,7 @@ def main() -> int:
     # -- phase 22: the body kernel against the eager body on kept states ----
     t0 = time.perf_counter()
     body = body_states(scene, camera, card)
+    body["drain"]["sweeps"] = drain_stage_sweeps(card)
     modes = mode_pools(scene, camera, card)
     log(f"[22] phase 22 took {time.perf_counter() - t0:.1f} s")
 
@@ -6825,12 +7175,18 @@ def main() -> int:
         "replaces": "cudavolumerenderer_tpu/models/fast.py:744",
         **{k: body["drain"][k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "L", "E", "threads",
-            "us_per_step", "ms_by_threads")},
+            "group", "split", "us_per_step", "thread_ms", "load_ns",
+            "chain_bound_ms", "rounds", "ms_by_split", "sweeps")},
         "library_ms": None,
-        "design": "the last stage without the tail kernel in one launch: each "
-                  "lane runs to its end in registers; per-evaluation counts "
-                  "by warp-aggregated atomics, folded in order by the last "
-                  "block",
+        "design": "the last stage without the tail kernel: a thread a lane "
+                  "for DRAIN_SPLIT evaluations (thread_drain_kernel), then "
+                  "the lanes left in rounds of up to 32 evaluations a warp "
+                  "(drain_kernel): null runs, chains of segment starts, "
+                  "probes, transits and scatters with every tap assumed to "
+                  "accept and the taps verified at once, a throughput "
+                  "chain; draws from a bank the members fill, a brick's "
+                  "inverse majorant and planes from tables; per-evaluation "
+                  "counts folded in order by the last block",
     }, *({
         "name": f"fastbody_{mode}", "route": "cuda",
         "source": "cudavolumerenderer_tpu_torch/csrc/fastbody.cu",

@@ -768,6 +768,7 @@ def render_tile(
                     scale * row_rho(row) * inv_sig_local < u2)
                 alb_hat = tap_albedo(row, flat, accepted)
                 advance, t_adv = inside, t_cand
+                null_step = inside & ~accepted
             else:
                 # speculative steps: keep the prefix up to the first
                 # acceptance or brick crossing (thinned steps are iid, so
@@ -779,6 +780,7 @@ def render_tile(
                 alb_hat = tap_albedo(row0, tap0, accepted)
                 # no stop within K valid steps: advance and keep tracking
                 advance = stepping & (accepted | ~any_stop)
+                null_step = stepping & ~any_stop
 
             overran_step = crossed_step & (max_t <= brick_exit)
             transit = crossed_step & ~overran_step
@@ -820,6 +822,7 @@ def render_tile(
             alb_hat = tap_albedo(row, flat, scattered)
             t = t_new
             tracking = tracking & ~terminated
+            null_step = step_mask & ~terminated
         else:
             # speculative single-level steps: no brick crossings, so every
             # candidate before the box exit is a valid Woodcock step
@@ -834,9 +837,11 @@ def render_tile(
             alb_hat = tap_albedo(row0, tap0, scattered)
             t = torch.where(step_mask, t_stop, t)
             tracking = tracking & ~terminated
+            null_step = step_mask & ~any_stop
 
         # --- boundary event ----------------------------------------------
         boundary = boundary_now | (terminated & overran)
+        boundary_at = boundary  # their boundary event now, or waiting
         pend_b = s.pend_b
         if defer_ggx > 0:
             # record the boundary distance and stall; flush_boundary runs
@@ -914,6 +919,15 @@ def render_tile(
                 reads["pend_b"] = live & ~s.tracking
             taps.append(("state", stages.lane_traffic(
                 s, new, reads, fastbody.state_fields(defer_ggx))))
+            # what each lane's evaluation did (the drain's chain statistics)
+            taps.append(("events", dict(
+                pending=s.alive | (s.samples_done < spp_per_lane),
+                regen=needs, isect=need_isect,
+                probe=need_brick if two else none,
+                empty=probe_empty if two else none,
+                null=null_step, transit=transit if two else none,
+                scattered=scattered, boundary=boundary_at,
+                ended=(s.alive | needs) & ~alive)))
         return new
 
     def evaluate(s: FastState, taps=None, **kw) -> FastState:

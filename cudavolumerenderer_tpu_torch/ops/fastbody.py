@@ -14,8 +14,10 @@ This module holds the gate (`route`), the flush schedule (`flush_due`),
 the kernel's parameter vectors (`make_context`, `stage_context`), the
 wrapper `run_body` (the plain version, the eager body, for CPU tensors;
 the kernel for CUDA tensors, or it raises), the stage runners
-(`loop_stage`, `run_stage`; gated chains and the drain in ops/stages.py)
-and the bound (`body_bytes`).  The kernel
+(`loop_stage`, `run_stage`; gated chains in ops/stages.py, the drain in
+FastBodyKernel.drain: a thread a lane for DRAIN_SPLIT evaluations, then
+rounds of up to 32 evaluations a lane, `rounds_mode`, `round_tables`) and
+the bound (`body_bytes`).  The kernel
 updates the state's per-lane tensors in place unless it is given `out`,
 and returns fresh 0-d counters (n_rays, n_rows, n_busy) and the pool's
 pending count.
@@ -32,8 +34,9 @@ import numpy as np
 import torch
 
 from . import stages
-from .rng import M32, as_u32, mul32
-from .stages import C_COUNT, DRAIN_CAP, GATED_BATCH, N_CTRL
+from .rng import M32, as_u32, jump_constants, mul32
+from .stages import (C_COUNT, C_LEFT, C_LMAX, C_TOTAL, DRAIN_CAP, GATED_BATCH,
+                     N_CTRL)
 from .stages import f32 as _f32
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastbody.cu"
@@ -66,7 +69,7 @@ N_FP = FP_INV_ETA + 1
  IP_NZ, IP_TWO_LEVEL, IP_TABLE, IP_BITS, IP_BRICK_MAJOR, IP_ALBEDO,
  IP_ALB_STRIDE, IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_NBX, IP_NBY,
  IP_HIX, IP_HIY, IP_HIZ, IP_THRESH, IP_CHAIN, IP_CAP, IP_SPEC, IP_DEFER,
- N_IP) = range(31)
+ IP_LOOK, N_IP) = range(32)
 
 # Pointer slots (csrc/fastbody.cu S_*): the per-lane fields the body
 # updates, in FastState's names, then the rest.  pend_b (S_PEND) is read
@@ -84,9 +87,14 @@ S_SLOT, S_NRAYS, S_NROWS, S_NBUSY = S_PIX + 1, S_PIX + 2, S_PIX + 3, S_PIX + 4
 S_OUT = S_NBUSY + 1
 S_COUNTS = S_OUT + N_LANE
 S_PENDING, S_SCRATCH = S_COUNTS + 1, S_COUNTS + 2
-(S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES, S_CTRL,
- S_EVALS) = range(S_SCRATCH + 1, S_SCRATCH + 8)
-N_S = S_EVALS + 1
+(S_TABLE, S_ALB_ROWS, S_BTAB, S_TILE_OFF, S_BASES, S_CTRL, S_EVALS,
+ S_JUMP, S_STATS, S_RISL, S_PLANES) = range(S_SCRATCH + 1, S_SCRATCH + 12)
+N_S = S_PLANES + 1
+#: the drain rounds' per-lane counts (csrc/fastbody.cu ST_*, S_STATS)
+ROUND_STATS = ("null_rounds", "null_evals", "chain_rounds", "chain_evals",
+               "one", "chain_stops", "chain_rejects", "chain_died",
+               "chain_steps", "cycles", "chain_cycles", "bank_cycles",
+               "tap_cycles", "tp_cycles")
 
 #: the most speculative steps per evaluation the kernel takes (it keeps no
 #: per-candidate array, so the limit only bounds an evaluation's work)
@@ -96,6 +104,50 @@ MAX_SPEC_K = 1024
 #: over the SMs (32, 64, 128 and 256 time alike on config 2's last pool,
 #: chip_smoke.py phase 22)
 DRAIN_THREADS = 32
+
+#: the drain rounds' threads a lane (csrc/fastbody.cu DRAIN_GROUP): a warp
+#: (groups of 8 and 16 lost to it on every stage timed, PERF.md)
+DRAIN_GROUP = 32
+#: the rounds' threads per block (blocks of 32 and 128 threads time within
+#: their spread on config 2's last pool, chip_smoke.py phase 22)
+DRAIN_ROUND_THREADS = 128
+#: the evaluations a lane runs a thread a lane (thread_drain_kernel) before
+#: the drain turns to rounds: a round costs several evaluations' time of a
+#: thread a lane (its bank, taps and throughput chain), which only long
+#: chains repay, and most lanes end within these (chip_smoke.py phase 22)
+DRAIN_SPLIT = 256
+#: the most draws an evaluation takes (u1, the tap bits, u2, e1, e2,
+#: Russian roulette's), so a round's: the jump table holds m = 0 ..
+#: BANK_DRAWS * 32
+BANK_DRAWS = 6
+
+
+def round_tables(ctx: "BodyContext", dev):
+    """The drain rounds' two-level tables on `dev`: each brick's inverse
+    majorant, and each axis's brick planes (x, y, then z: i = 0 .. the
+    last brick + 1), computed as render_tile's probe computes them
+    (`inv_new`, `bound_world` at bi + up = i, in float32), so the kernel
+    reads the eager body's values; (None, None) single-level.  The planes
+    are made on the host and go to `dev` in one copy with the scale."""
+    if not ctx.iparams[IP_TWO_LEVEL]:
+        return None, None
+    f, i = ctx.fparams, ctx.iparams
+    planes = [f[FP_BMIN + a] + f[FP_EXT + a] * (
+        np.arange(int(i[IP_HIX + a]) + 2, dtype=np.float32)
+        * f[FP_BSIZE + a]) / f[FP_RM1 + a] for a in range(3)]
+    host = torch.from_numpy(np.concatenate([*planes, f[FP_SCALE:FP_SCALE + 1]]))
+    host = host.to(dev)
+    rho_b = ctx.brick_tab[:, 0]
+    risl = torch.where(rho_b > 0.0, 1.0 / (host[-1] * torch.clamp(
+        rho_b, min=1e-30)), torch.inf).contiguous()
+    return risl, host[:-1]
+
+
+def rounds_mode(ctx: "BodyContext") -> bool:
+    """Whether a drained stage of `ctx` may turn to rounds (drain_kernel):
+    spec_k 1 and no deferred flush; the other modes keep a thread a lane
+    (thread_drain_kernel)."""
+    return ctx.iparams[IP_SPEC] == 1 and ctx.iparams[IP_DEFER] == 0
 
 # Table and albedo modes (IP_TABLE, IP_ALBEDO).
 TAB_F32, TAB_ROWS, TAB_PACKED = range(3)
@@ -297,7 +349,15 @@ class FastBodyKernel(stages.BodyKernel):
     def __init__(self):
         super().__init__("fastbody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL),
                          drain_argtypes=(ctypes.c_int,))
+        self._jumps = {}
         self.reset()
+
+    def jump_table(self, dev) -> torch.Tensor:
+        """The drain rounds' PCG jump table on `dev` (rng.jump_constants:
+        the state after m draws, m = 0 .. BANK_DRAWS * 32), made once."""
+        if dev not in self._jumps:
+            self._jumps[dev] = jump_constants(BANK_DRAWS * 32).to(dev)
+        return self._jumps[dev]
 
     def reset(self) -> None:
         """Every count to 0."""
@@ -316,7 +376,7 @@ class FastBodyKernel(stages.BodyKernel):
             self.by_mode[mode] += n
 
     def _pointers(self, ctx: BodyContext, s, out, counts, pending, ctrl=None,
-                  evals=None):
+                  evals=None, jumps=None, stats=None, tables=(None, None)):
         """The checked pointer array of launches on `s` that write `out`'s
         per-lane tensors, read s's counters (n_rays, n_rows, n_busy), write
         the new ones to the (3,) float32 `counts` and the pending count to
@@ -360,7 +420,9 @@ class FastBodyKernel(stages.BodyKernel):
         for slot_, x in ((S_TABLE, ctx.table), (S_ALB_ROWS, ctx.albedo_rows),
                          (S_BTAB, ctx.brick_tab), (S_TILE_OFF, ctx.tile_offset),
                          (S_BASES, ctx.bases), (S_CTRL, ctrl),
-                         (S_EVALS, evals)):
+                         (S_EVALS, evals), (S_JUMP, jumps),
+                         (S_STATS, stats), (S_RISL, tables[0]),
+                         (S_PLANES, tables[1])):
             ptrs[slot_] = 0 if x is None else x.data_ptr()
         return (ctypes.c_void_p * N_S)(*ptrs)
 
@@ -407,28 +469,62 @@ class FastBodyKernel(stages.BodyKernel):
         return s, n
 
     def drain(self, ctx: BodyContext, s, k_chain: int,
-              cap: int = DRAIN_CAP, threads: int = DRAIN_THREADS,
-              once: bool = False):
+              cap: int = DRAIN_CAP, threads: Optional[int] = None,
+              once: bool = False, split: Optional[int] = DRAIN_SPLIT,
+              stats: Optional[torch.Tensor] = None):
         """The last stage without the tail kernel (its loop exits at a
-        pending count of 0), drained (stages.BodyKernel.drain) in blocks of
-        `threads` (32, 64, 128 or 256); with `once` one launch, each lane
-        running at most `cap` evaluations.  Returns the state (its per-lane
-        tensors updated in place, its counters fresh) and the loop's
-        evaluations E (last_drain)."""
+        pending count of 0), drained like stages.BodyKernel.drain: a thread
+        a lane for its first `split` evaluations (thread_drain_kernel, at
+        DRAIN_THREADS a block; 0: none), then, with lanes left, in rounds by
+        DRAIN_GROUP threads a lane in blocks of `threads` (None:
+        DRAIN_ROUND_THREADS), at most `cap` evaluations a launch.  Where
+        `rounds_mode` allows no rounds, or with split None, a thread a lane
+        throughout, `threads` a block (None: DRAIN_THREADS).  With `once`
+        one launch; a zeroed (width, len(ROUND_STATS)) int32 `stats`
+        receives each lane's rounds (csrc/fastbody.cu ST_*; only such a
+        launch keeps them).  Returns the state (its per-lane tensors updated
+        in place, its counters fresh) and the loop's evaluations E
+        (last_drain, which also holds each launch's group and threads)."""
         dev = s.alive.device
+        width = s.alive.shape[0]
+        group = DRAIN_GROUP if split is not None and rounds_mode(ctx) else 0
         counts = torch.stack([s.n_rays, s.n_rows, s.n_busy])
         s = s._replace(n_rays=counts[0], n_rows=counts[1], n_busy=counts[2])
         ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
-        iparams = ctx.iparams.copy()
-        iparams[IP_CHAIN], iparams[IP_CAP] = k_chain, cap
-        addresses = self._pointers(ctx, s, s, counts, None, ctrl, self.zeros(
-            "evals", 2 * cap, torch.int32, dev))
+        evals = self.zeros("evals", 2 * max(cap, split or 0), torch.int32,
+                           dev)
+        plan = [(group, cap, threads or (
+            DRAIN_ROUND_THREADS if group else DRAIN_THREADS))]
+        if group and split > 0:  # a thread a lane first
+            plan.insert(0, (0, min(split, cap), DRAIN_THREADS))
+        fn = self._entry(self.library(), "drain")
+        stream = torch.cuda.current_stream(dev).cuda_stream
         before = self.launches + self.drain_launches
-        super().drain(self.args(ctx.fparams, iparams, addresses,
-                                s.alive.shape[0]), (threads,), ctrl, dev,
-                      once)
+        launched, tables = [], None
+        while True:
+            g, cap_k, threads_k = plan[min(len(launched), len(plan) - 1)]
+            iparams = ctx.iparams.copy()
+            iparams[IP_CHAIN], iparams[IP_CAP] = k_chain, cap_k
+            iparams[IP_LOOK] = g
+            if g and tables is None:
+                tables = round_tables(ctx, dev)
+            addresses = self._pointers(
+                ctx, s, s, counts, None, ctrl, evals,
+                self.jump_table(dev) if g else None, stats if g else None,
+                tables if g else (None, None))
+            with torch.cuda.device(dev):
+                self._raise(fn(*self.args(ctx.fparams, iparams, addresses,
+                                          width), threads_k, stream), "drain")
+            self.drain_launches += 1
+            launched.append((g, threads_k))
+            words = self.read(ctrl)
+            if words[C_LEFT] == 0 or once:
+                break
         self._count_modes(ctx, before)
-        self.last_drain["threads"] = threads
+        self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
+                           "launches": len(launched), "left": words[C_LEFT],
+                           "group": launched[-1][0],
+                           "threads": launched[-1][1], "plan": launched}
         return s, self.last_drain["E"]
 
 

@@ -758,6 +758,9 @@ BODY_CASES = [
     *((f"brick{''.join(map(str, b))}-res{r}", {}, {},
        dict(two_level=True, brick_size=b, res=r))
       for b in ((2, 2, 2), (2, 2, 4), (8, 8, 8)) for r in (24, 40)),
+    # bricks of 3 voxels: the drain's probe divides by the brick size
+    # (power-of-two sizes and extents multiply by their reciprocals)
+    ("brick333-2l", {}, {}, dict(two_level=True, brick_size=(3, 3, 3))),
     *((f"ggx-rr-off-{lv}-res{r}", {}, dict(russian_roulette=False),
        dict(two_level=lv == "2l", res=r))
       for lv in ("1l", "2l") for r in (24, 40)),
@@ -905,10 +908,15 @@ def kept_stages(device, scene, settings, **kw):
 @pytest.mark.cuda
 def test_drain_cap_and_block_sizes(cuda):
     """The drain on the last stage's state with caps of 1, 5 and the
-    default, in blocks of 32, 64, 128 and 256 threads, equals the
-    per-evaluation loop bit for bit; it launches ceil(L / cap) times (L
-    the longest lane's evaluations), reads the host once per launch, and
-    its evaluations E = k_chain * ceil(L / k_chain) are the loop's."""
+    default, in blocks of 32, 64, 128 and 256 threads, in rounds from its
+    first evaluation (split 0, DRAIN_GROUP threads a lane) and a thread a
+    lane throughout (split None), equals the per-evaluation loop bit for
+    bit; it launches ceil(L / cap) times (L the longest
+    lane's evaluations), reads the host once per launch, and its
+    evaluations E = k_chain * ceil(L / k_chain) are the loop's.  By default
+    (a thread a lane for DRAIN_SPLIT evaluations, then rounds by
+    DRAIN_GROUP threads a lane) it equals the loop too, in one launch or,
+    split after 3 evaluations, two."""
     from cudavolumerenderer_tpu_torch.ops import fastbody
 
     scene = body_scene(cuda)
@@ -920,16 +928,98 @@ def test_drain_cap_and_block_sizes(cuda):
     want, n_want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
     evals = float(want.n_rows - s.n_rows) / width
     assert n_want == evals
-    for cap in (1, 5, fastbody.DRAIN_CAP):
-        for threads in (32, 64, 128, 256):
-            reads = fastbody.KERNEL.reads
-            got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain,
-                                           cap=cap, threads=threads)
-            assert not state_mismatches(got, want), (cap, threads)
-            info = fastbody.KERNEL.last_drain
-            assert n == info["E"] == evals == k_chain * -(-info["L"] // k_chain)
-            assert info["launches"] == max(1, -(-info["L"] // cap))
-            assert fastbody.KERNEL.reads - reads == info["launches"]
+    for split in (None, 0):
+        for cap in (1, 5, fastbody.DRAIN_CAP):
+            for threads in (32, 64, 128, 256):
+                reads = fastbody.KERNEL.reads
+                got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain,
+                                               cap=cap, threads=threads,
+                                               split=split)
+                assert not state_mismatches(got, want), (split, cap, threads)
+                info = fastbody.KERNEL.last_drain
+                assert info["group"] == (0 if split is None
+                                         else fastbody.DRAIN_GROUP)
+                assert n == info["E"] == evals == k_chain * -(
+                    -info["L"] // k_chain)
+                assert info["launches"] == max(1, -(-info["L"] // cap))
+                assert fastbody.KERNEL.reads - reads == info["launches"]
+    for split in (fastbody.DRAIN_SPLIT, 3):
+        got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain,
+                                       split=split)
+        info = fastbody.KERNEL.last_drain
+        assert not state_mismatches(got, want) and n == n_want, split
+        launches = 1 + (info["L"] > split)
+        assert info["L"] > 3 and info["launches"] == launches, split
+        assert [g for g, _ in info["plan"]] == [
+            0, fastbody.DRAIN_GROUP][:launches], split
+
+
+def n_lanes_evals(ctx, s) -> int:
+    """The evaluations the stage's lanes run to their ends, summed over the
+    lanes (the eager body, one evaluation of the pool after another)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    spp = int(ctx.iparams[fastbody.IP_SPP])
+    s, n = clone_state(s), 0
+    while True:
+        pending = s.alive | (s.samples_done < spp)
+        if not bool(pending.any()):
+            return n
+        n += int(pending.sum())
+        s = ctx.plain(s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BODY_CASES, ids=[c[0] for c in BODY_CASES])
+def test_drain_rounds_equal_the_loop(cuda, case):
+    """The last stage of every mode the body kernels cover (one- and
+    two-level, GGX and null, RR on and off, every table layout and albedo
+    mode, multi-tile lanes through m = 2, brick sizes and extents that are
+    powers of two or not) drained in rounds by DRAIN_GROUP threads a lane,
+    from the first evaluation and after a thread a lane's first 2 or
+    DRAIN_SPLIT, and a thread a lane throughout, equals the per-evaluation
+    loop bit for bit in every FastState field and counter and in E,
+    relaunched at a cap of 3 and in one launch; one launch capped at 5
+    equals 5 eager evaluations; and the rounds' counts add up to the
+    lanes' evaluations, with rounds of more than one evaluation taken (a
+    chain among them two-level)."""
+    from cudavolumerenderer_tpu_torch.ops import fastbody
+
+    _, scene_kw, settings_kw, kw = case
+    scene = body_scene(cuda, **scene_kw)
+    settings_kw = dict(settings_kw)
+    settings = types.RenderSettings.from_flags(
+        settings_kw.pop("mitsuba_comparable", True), **settings_kw)
+    kept, _ = kept_stages(cuda, scene, settings, **kw)
+    ctx, s, thresh, k_chain = kept[-1]
+    assert thresh == 0 and fastbody.rounds_mode(ctx)
+    want, n_want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
+    five = clone_state(s)
+    for _ in range(5):
+        five = ctx.plain(five)
+    width = s.alive.shape[0]
+    for split, cap in ((None, 3), (None, fastbody.DRAIN_CAP), (0, 3),
+                       (0, fastbody.DRAIN_CAP), (2, 3),
+                       (fastbody.DRAIN_SPLIT, fastbody.DRAIN_CAP)):
+        got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain,
+                                       cap=cap, split=split)
+        diff = state_mismatches(got, want)
+        assert not diff and n == n_want, (split, cap, diff, n, n_want)
+    for split in (None, 0):
+        got, _ = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=5,
+                                       once=True, split=split)
+        assert fastbody.KERNEL.last_drain["left"] > 0
+        assert not state_mismatches(got, five), split
+    stats = torch.zeros(width, len(fastbody.ROUND_STATS), dtype=torch.int32,
+                        device=cuda)
+    fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, split=0, stats=stats)
+    total = dict(zip(fastbody.ROUND_STATS, stats.sum(0).tolist()))
+    evals = total["null_evals"] + total["chain_evals"] + total["one"]
+    assert evals == n_lanes_evals(ctx, s)
+    assert total["null_evals"] + total["chain_evals"] > 0
+    assert total["null_rounds"] + total["chain_rounds"] + total["one"] < evals
+    if ctx.iparams[fastbody.IP_TWO_LEVEL]:
+        assert total["chain_evals"] > 0
 
 
 @pytest.mark.cuda
@@ -1134,19 +1224,25 @@ def test_mode_drain_relaunches_and_single_launch(cuda, kw):
     """On the last stage's entry state in each mode: the drain relaunched
     at caps of 1 and 3 (the deferred flush's n_rows carried across the
     relaunches from the control words) equals the per-evaluation loop bit
-    for bit, and one launch capped at 5 equals 5 eager evaluations."""
+    for bit, a thread a lane even where rounds from the start are asked
+    for (split 0), and one launch capped at 5 equals 5 eager
+    evaluations."""
     from cudavolumerenderer_tpu_torch.ops import fastbody
 
     scene = body_scene(cuda)
     settings = types.RenderSettings.from_flags(True)
     kept, _ = kept_stages(cuda, scene, settings, two_level=True, **kw)
     ctx, s, thresh, k_chain = kept[-1]
-    assert thresh == 0
+    assert thresh == 0 and not fastbody.rounds_mode(ctx)
     want, n_want = fastbody.loop_stage(ctx, clone_state(s), 0, k_chain)
     for cap in (1, 3):
         got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=cap)
         assert not state_mismatches(got, want) and n == n_want, cap
         assert fastbody.KERNEL.last_drain["launches"] > 1
+        assert fastbody.KERNEL.last_drain["group"] == 0  # a thread a lane
+    got, n = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, split=0)
+    assert not state_mismatches(got, want) and n == n_want
+    assert fastbody.KERNEL.last_drain["group"] == 0
     got, _ = fastbody.KERNEL.drain(ctx, clone_state(s), k_chain, cap=5,
                                    once=True)
     assert fastbody.KERNEL.last_drain["left"] > 0
