@@ -118,7 +118,11 @@ CPU or to a plain version on a CUDA tensor):
    eager bodies at VARIABLE_EAGER_RES^2 (the same n_rays and passes, images
    within 1e-4), and the variable white furnace exact through the kernels;
    the white furnace exact on the card through every row; and each row's
-   16^2 render on the card against the same render on the CPU;
+   16^2 render on the card against the same render on the CPU; each
+   queue-fed row (regenerationSK 0/1/2, streamingSK, sortingSK) through
+   the kernels launches no refill past the iteration e0 at which every
+   path is issued beyond one batch's gated returns, and runs its tail in
+   drain launches (queue_split);
 12. naiveSK through the CLI's batch mode on the same scene: -k naiveSK
    -i 4 -r 400 400, two trials (the first discarded), through the drain;
 13. the gradient on the card (the two-level replay through the replay
@@ -328,7 +332,19 @@ CPU or to a plain version on a CUDA tensor):
    threshold LONG_MARCH (long marches), against integrator.bounce_step,
    timed and bound the same way (family_bytes counts the march's distinct
    voxels), beside the AABB bounce on the same pool and the eager march's
-   iterations.
+   iterations; then the queue-fed loops' tail drains (family_tails) on
+   pools kept at e0 (the kernels' queue stage) at phase 11's pool width
+   (131,072 lanes on the H100: the build its renders launch):
+   regenerationSK's (drain_kernel with the splat, no path bound) and
+   streamingSK's (extend_drain_kernel), each twice by CUDA events around
+   one call after an untimed one, bit for bit against the eager tail
+   (lane fields, n_rays, evaluations; the splat within 1e-5), the eager
+   tail's wall, the longest lane L and us per evaluation of it, the byte
+   bound (family_bytes over every bounce or extend of the tail) beside
+   the chain bound (L dependent loads); and the same on run_suite's
+   medical256 pools at e0 (2^17 lanes, the long tail), held bit for bit
+   against the tail as a refill and a bounce or extend launch an
+   iteration.
 26. (run right after phase 8, on its scene) brickSK's round kernels on
    rounds kept from the slice (400^2 x 4, 160,000 lanes: rounds 0, 100
    and 600) and from a 48x40 tile in its middle (1,920 lanes in 15 rows:
@@ -487,6 +503,13 @@ FAMILY_ROWS = (
     ("fastQ two-level", "fastQ", {"two_level": True}, {}),
 )
 FASTQ_LABELS = ("fastQ", "fastQ two-level")
+# the family's counts of launches by kind: the entry points, naiveSK's drain
+# and the queue-fed loops' tail drains (family_counts)
+FAMILY_KEYS = ("bounce", "refill", "extend", "flush", "drain", "tail_bounce",
+               "tail_extend")
+# the queue-fed schedulers and the entry point their tail drains
+QUEUE_TAILS = {"regenerationSK": "bounce", "streamingSK": "extend",
+               "sortingSK": "extend"}
 # phase 11's rows under --boundary variable (the bounce's isosurface march)
 VARIABLE_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0")
 VARIABLE_EAGER_RES = 400  # their eager renders' width (a cut of the 400^2)
@@ -1959,12 +1982,18 @@ def row_kernel_fn(kernel: str, fields: dict, keywords: dict):
 
 def family_counts(fam) -> dict:
     """The family kernels' counts since their last reset: launches per entry
-    point and of the drain, host reads, the loops' evaluations (passes)
-    and the plain versions' evaluations."""
+    point, of naiveSK's drain and of the queue-fed loops' tail drains
+    (tail_bounce, tail_extend), host reads, the loops' evaluations
+    (passes) and the plain versions' evaluations, and the last queue-fed
+    loop's e0 and trip count (split)."""
     k = fam.KERNEL
-    return {**k.by_op, "drain": k.drain_launches, "reads": k.reads,
-            "passes": k.evals, "plain": sum(k.plain_evals.values()),
-            "launches": sum(k.by_op.values()) + k.drain_launches}
+    tails = getattr(k, "tails", {})
+    return {**k.by_op, "drain": k.drain_launches - sum(tails.values()),
+            **{f"tail_{op}": n for op, n in tails.items()},
+            "reads": k.reads, "passes": k.evals,
+            "plain": sum(k.plain_evals.values()),
+            "launches": sum(k.by_op.values()) + k.drain_launches,
+            "split": getattr(k, "last_split", None)}
 
 
 def fastq_counts(fqb) -> dict:
@@ -1990,6 +2019,7 @@ def family_rows(xml: str, card: str) -> dict:
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops.stages import GATED_BATCH
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 
     base = dict(scene_file=xml, iterations=1, resolution=(400, 400),
@@ -2025,7 +2055,7 @@ def family_rows(xml: str, card: str) -> dict:
             check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
                   f"{label} ({mode}): image not finite or wrong shape")
             runs[mode] = dict(img=img, n_rays=n_rays, wall=wall, **counts)
-            ops = ("body", "drain") if fastq else (*fam.OPS, "drain")
+            ops = ("body", "drain") if fastq else FAMILY_KEYS
             log(f"[11] {label:22s} {mode:7s} 400^2 x 1: {wall:8.4f} s "
                 f"wall (incl. image copy), {counts['passes']:5d} passes, "
                 f"{counts['launches']:5d} kernel launches ("
@@ -2040,6 +2070,8 @@ def family_rows(xml: str, card: str) -> dict:
               f"evaluations and {got['launches']} launches")
         check(eager["launches"] == 0 and eager["plain"] > 0,
               f"{label}: the eager render launched a kernel")
+        if kernel in QUEUE_TAILS:
+            queue_split(label, kernel, got, GATED_BATCH)
         check(got["n_rays"] == eager["n_rays"]
               and got["passes"] == eager["passes"],
               f"{label}: kernels {got['n_rays']:.0f} rays in "
@@ -2053,8 +2085,9 @@ def family_rows(xml: str, card: str) -> dict:
                            wall=got["wall"], passes=got["passes"],
                            eager_wall=eager["wall"],
                            launches=got["launches"], reads=got["reads"],
-                           eager_reads=eager["reads"])
-        for key in ("body", "drain") if fastq else (*fam.OPS, "drain"):
+                           eager_reads=eager["reads"],
+                           split=got.get("split"))
+        for key in ("body", "drain") if fastq else FAMILY_KEYS:
             tkey = f"fastq_{key}" if fastq else key
             totals[tkey] = totals.get(tkey, 0) + got[key]
 
@@ -2079,6 +2112,26 @@ def family_rows(xml: str, card: str) -> dict:
             "variable": variable_rows(scene, camera, base, card)}
 
 
+def queue_split(label: str, kernel: str, got: dict, batch: int) -> None:
+    """A queue-fed row's kernel render (its counts set to 0 just before it):
+    no refill past the iteration e0 at which every path is issued beyond
+    one batch's gated returns (`batch` evaluations), no bounce or extend
+    launch beyond the refills, and its tail in drain launches."""
+    split = got["split"]
+    check(split is not None and 0 < split["e0"] <= split["E"],
+          f"{label}: no queue stage and tail ({split})")
+    tail = got[f"tail_{QUEUE_TAILS[kernel]}"]
+    check(split["e0"] <= got["refill"] < split["e0"] + batch
+          and got[QUEUE_TAILS[kernel]] == got["refill"] and tail >= 1,
+          f"{label}: {got['refill']} refills and "
+          f"{got[QUEUE_TAILS[kernel]]} {QUEUE_TAILS[kernel]} launches for "
+          f"e0 = {split['e0']}, {tail} tail drains")
+    log(f"[11] {label:22s} queue stage to e0 = {split['e0']} of "
+        f"{split['E']} evaluations: {got['refill']} refill launches (e0 + "
+        f"{got['refill'] - split['e0']} gated returns), the tail in {tail} "
+        f"drain launch(es)")
+
+
 def variable_rows(scene, camera, base: dict, card: str) -> dict:
     """Phase 11 under --boundary variable: naiveSK, naiveMK and
     regenerationSK 0 at 400^2 x 1 through the kernels (the bounce's
@@ -2098,7 +2151,7 @@ def variable_rows(scene, camera, base: dict, card: str) -> dict:
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
 
     settings = dataclasses.replace(Config().settings, boundary="variable")
-    rows, launches = {}, {**dict.fromkeys(fam.OPS, 0), "drain": 0}
+    rows, launches = {}, dict.fromkeys(FAMILY_KEYS, 0)
 
     def render(label, res, eager, scene_=scene, camera_=camera, sett=settings):
         _, kernel, fields, keywords = next(
@@ -5272,7 +5325,250 @@ def family_kernels(xml: str, card: str) -> dict:
             f"AABB pool's {rows['bounce'][width]['ms'] * 1e3:.2f} us), the "
             f"longest march {row['longest']} iterations of six density "
             f"lookups; card {card}")
-    return {"rows": rows, "drain": drain, "fastq": fq, "march": march}
+    tails = family_tails(fam, ctx, card, load_ms, queue_lanes(cfg, scene))
+    return {"rows": rows, "drain": drain, "fastq": fq, "march": march,
+            "tails": tails}
+
+
+def queue_pool_at_e0(fam, ctx, kind: str, width: int):
+    """A queue-fed pool of `width` lanes kept at e0, the iteration at which
+    every path of ctx's queue is issued, reached through the kernels' queue
+    stage: (pool, image_id or None, paths_issued, accum, e0) for
+    regenerationSK ("bounce", refill group 1) or streamingSK ("extend")."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import integrator, regeneration
+    from cudavolumerenderer_tpu_torch.models import streaming
+
+    dev = torch.device("cuda")
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=dev)
+    issued = torch.zeros((), dtype=torch.int64, device=dev)
+    if kind == "bounce":
+        p = integrator.PathState(**regeneration.empty_pool(width, ctx.seed,
+                                                           dev))
+        img = torch.zeros(width, dtype=torch.int64, device=dev)
+        p, img, issued, e0 = fam.regenerate_queue(ctx, p, img, issued, accum,
+                                                  True)
+        return p, img, issued, accum, e0
+    s = streaming.initial_stream_state(width, ctx.seed, dev)
+    s, issued, e0 = fam.stream_queue(ctx, s, issued, accum, sort_every=0,
+                                     defer=False,
+                                     check_every=streaming.CHECK_EVERY,
+                                     kernel=True)
+    return s, None, issued, accum, e0
+
+
+def queue_lanes(cfg, scene) -> int:
+    """The pool width of phase 11's queue-fed rows on this card (cfg its
+    Config but for the kernel, scene its scene): render_tile's n_lanes,
+    Config.n_lanes as create_renderer picks it (occupancy.pick_n_lanes;
+    131,072 on the H100) cut to the tile's paths."""
+    from cudavolumerenderer_tpu_torch.utils import occupancy
+
+    tw, th = cfg.tiling.tile_dim
+    n_lanes = cfg.n_lanes or occupancy.pick_n_lanes(
+        tw * th, cfg.iterations, tuple(scene.medium.density.data.shape),
+        device="cuda")
+    return min(n_lanes, tw * th * cfg.iterations)
+
+
+def tail_drain(fam, ctx, kind: str, pool, e0: int):
+    """One tail drain of a kept pool (a copy; the queue-fed loop's kernel
+    path from the words at e0, stages.BodyKernel.queued), timed by CUDA
+    events around the call: (pool, image, trip count, ms)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import streaming
+
+    p, img, issued, accum, _ = pool
+    q, acc, iss = fam.own(p), accum.clone(), issued.clone()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    if kind == "bounce":
+        _, total = fam.KERNEL.regenerate(ctx, q, img, iss, acc, e0)
+    else:
+        _, total = fam.KERNEL.stream(
+            ctx, q, iss, acc, sort_every=0, defer=False,
+            k_chain=streaming.CHECK_EVERY, reorder=None, e0=e0)
+    stop.record()
+    torch.cuda.synchronize()
+    return q, acc, total, start.elapsed_time(stop)
+
+
+def eager_tail(fam, ctx, kind: str, pool, e0: int):
+    """The eager tail of a kept pool (a copy): the loop of plain refills and
+    bounces or extends from e0 (familybody.regenerate_tail / stream_tail):
+    (pool, image, trip count, wall ms)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import streaming
+
+    p, img, issued, accum, _ = pool
+    acc = accum.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "bounce":
+        want, total = fam.regenerate_tail(ctx, fam.own(p), img,
+                                          issued.clone(), acc, e0, False)
+    else:
+        want, total = fam.stream_tail(
+            ctx, fam.own(p), issued.clone(), acc, e0, sort_every=0,
+            defer=False, check_every=streaming.CHECK_EVERY, kernel=False)
+    torch.cuda.synchronize()
+    return want, acc, total, (time.perf_counter() - t0) * 1e3
+
+
+def launch_loop_tail(fam, ctx, kind: str, pool, e0: int):
+    """The tail of a kept pool (a copy) as the parent's build of the loop
+    ran it: from e0 one refill_kernel and one bounce_kernel (or
+    extend_kernel) launch an iteration (familybody.run_body), the live
+    lanes read once a chain (1 iteration, or check_every for the extend),
+    as the eager loop reads them: (pool, image, trip count, wall ms)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.models import streaming
+
+    p, img, issued, accum, _ = pool
+    t, acc, iss = fam.own(p), accum.clone(), issued.clone()
+    ids = img.clone() if img is not None else None
+    chain = 1 if kind == "bounce" else streaming.CHECK_EVERY
+    n = e0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while int(torch.count_nonzero(t.alive)) > 0:
+        for _ in range(chain):
+            if kind == "bounce":
+                t, ids, iss = fam.run_body(ctx, "refill", t, image_id=ids,
+                                           issued=iss)
+                t, _ = fam.run_body(ctx, "bounce", t, image_id=ids,
+                                    accum=acc)
+            else:
+                t, _, iss = fam.run_body(ctx, "refill", t, issued=iss)
+                t, _ = fam.run_body(ctx, "extend", t, accum=acc)
+            n += 1
+    torch.cuda.synchronize()
+    return t, acc, n, (time.perf_counter() - t0) * 1e3
+
+
+def medical_queue_ctx(fam):
+    """The context of run_suite's medical256 queue-fed rows' first
+    render_tile call (scene_classes' medical class, 512^2 x 4 paths in one
+    queue, RenderSettings.from_flags(True), the default seed, refill group
+    1) and their pool width, run_suite.N_LANES (2^17)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    dev = torch.device("cuda")
+    res, iters = sc.size("medical")
+    ctx = fam.make_context(
+        sc.scene("medical", dev), RenderSettings.from_flags(True),
+        sc.camera(res, dev), (res, res), torch.zeros(2, device=dev),
+        (res, res), res * res * iters, Config().seed, 0)
+    return ctx, run_suite.N_LANES
+
+
+def family_tails(fam, ctx, card: str, load_ms: float, width: int) -> dict:
+    """Phase 25's tail drains on pools kept at e0, each reached through the
+    kernels' queue stage and drained through the render's own path
+    (tail_drain), twice by CUDA events around one call (fresh copies,
+    after a first call that loads the kernel):
+    regenerationSK's (drain_kernel with the splat, no path bound, the
+    group tail_lookahead picks at the width) and streamingSK's
+    (extend_drain_kernel).  On phase 11's scene at phase 11's pool width
+    (`width`, queue_lanes: the build its renders launch), bit for bit
+    against the eager tail (every lane field, n_rays and the loop's
+    evaluations; the splat's image within 1e-5) and the eager tail's wall,
+    the byte bound (family_bytes over the taps of every bounce or extend of
+    the tail, in order) beside the chain bound (L dependent loads: each
+    evaluation of the longest lane reads the density at a point its last
+    evaluation made), L the longest lane's tail evaluations and us per
+    evaluation of it.  Then on run_suite's medical256 pool at e0 (2^17
+    lanes: the long tail, ~1,600 bounces), bit for bit against the same
+    tail run as the parent's build ran it (launch_loop_tail: a refill and
+    a bounce or extend launch an iteration), whose wall it records; its
+    eager tail (~0.2 s an iteration on the card) and so its byte bound are
+    not run there."""
+    import torch
+
+    out = {}
+    mctx, mwidth = medical_queue_ctx(fam)
+    for kind in ("bounce", "extend"):
+        row = None
+        for tag, tctx, w in (("smoke", ctx, width),
+                             ("medical256", mctx, mwidth)):
+            pool = queue_pool_at_e0(fam, tctx, kind, w)
+            p, img, issued, accum, e0 = pool
+            alive = int(torch.count_nonzero(p.alive))
+            runs = []
+            for _ in range(3):  # the first loads the kernel (not kept)
+                got, acc, total, ms = tail_drain(fam, tctx, kind, pool, e0)
+                runs.append(ms)
+            runs = runs[1:]
+            info = fam.KERNEL.last_drain
+            length = info["L"] - e0
+            ref = eager_tail if tag == "smoke" else launch_loop_tail
+            want, want_acc, want_total, ref_ms = ref(fam, tctx, kind, pool,
+                                                     e0)
+            names = fam.PATH_FIELDS if kind == "bounce" else fam.LANE_FIELDS
+            bad = pool_differs(names, got, want)
+            err = float((acc - want_acc).abs().max())
+            what = "eager tail" if tag == "smoke" else "launch loop"
+            check(not bad and float(got.n_rays) == float(want.n_rays)
+                  and total == want_total
+                  and torch.allclose(acc, want_acc, rtol=1e-5, atol=1e-6),
+                  f"phase 25: the {tag} {kind} tail drain differs from the "
+                  f"{what} in {bad} (n_rays {float(got.n_rays):.0f} / "
+                  f"{float(want.n_rays):.0f}, E {total} / {want_total}, "
+                  f"image {err:.3g})")
+            look = (fam.tail_lookahead(w) if kind == "bounce" else (1, 1))
+            ms = min(runs)
+            entry = {"ms": ms, "ms_runs": runs, "chain_ms": length * load_ms,
+                     "L": length, "e0": e0, "E": total, "alive": alive,
+                     "width": w, "launches": info["launches"],
+                     "us_per_step": ms * 1e3 / length, "max_abs_err": err,
+                     "G": look[0], "M": look[1]}
+            if tag == "smoke":
+                # the bound: every bounce or extend of the tail, in order
+                traffic, t = fam.Traffic(ctx), fam.own(p)
+                scratch = accum.clone()
+                kw = dict(image_id=img) if kind == "bounce" else {}
+                while bool(torch.any(t.alive)):
+                    taps = []
+                    t, _ = fam.plain_body(ctx, kind, t, accum=scratch,
+                                          taps=taps, **kw)
+                    traffic.add(taps)
+                n_bytes = traffic.total()
+                bound, bound_by = bound_ms(n_bytes)
+                entry.update(plain_ms=ref_ms, bound_ms=bound,
+                             bound_by=bound_by, bytes=n_bytes)
+                text = (f"bit-equal to the eager tail ({ref_ms:.1f} ms "
+                        f"wall), image within {err:.3g}; bound {n_bytes} B "
+                        f"= {bound * 1e3:.3f} us ({bound / ms:.3%}), ")
+            else:
+                entry["launch_loop_ms"] = ref_ms
+                text = (f"bit-equal to the same tail as a refill and a "
+                        f"{kind} launch an iteration ({ref_ms:.1f} ms wall), "
+                        f"image within {err:.3g}; byte bound not measured, ")
+            log(f"[25] {tag} {kind} tail, {w} lanes at e0 = {e0} ({alive} "
+                f"alive), G {look[0]} M {look[1]}: {runs[0]:.3f} and "
+                f"{runs[1]:.3f} ms ({info['launches']} launch), longest lane "
+                f"L = {length} evaluations, {entry['us_per_step']:.2f} us "
+                f"per evaluation of it; E = {total}; " + text
+                + f"chain {length} x {load_ms * 1e6:.1f} ns = "
+                f"{entry['chain_ms'] * 1e3:.2f} us "
+                f"({entry['chain_ms'] / ms:.1%}); card {card}")
+            if row is None:
+                row = entry
+            else:
+                row[tag] = entry
+        out[kind] = row
+    return out
 
 
 def march_iterations(fam, ctx, pool) -> int:
@@ -5360,16 +5656,18 @@ def steps_text(h: dict) -> str:
             + ", ".join(f"{k}: {v}" for k, v in h["bins"].items()))
 
 
-def family_profile(card: str, hist: bool = True) -> dict:
-    """The chain profile: run_suite's medical256 naiveSK and regenerationSK
-    rows (512^2 x 4, n_lanes 2^17, its settings) rendered once to warm up,
-    twice timed (wall with the image copy) and once under torch.profiler
-    (device ms and launches by kernel name, the card's busy share against
-    the least timed wall); then the Woodcock steps per bounce
-    (woodcock_steps) of plain bounces with taps: regenerationSK's 2^17-lane
-    pool at evaluations PROFILE_EVALS (reached through the kernels) and
-    naiveSK's 2^20-lane batch at bounces PROFILE_BOUNCES (unless not
-    `hist`)."""
+# the family kernels' names under torch.profiler
+FAMILY_KERNEL_NAMES = ("bounce_kernel", "refill_kernel", "extend_kernel",
+                       "extend_drain_kernel", "drain_kernel")
+
+
+def profile_row(kname: str, scene, camera, card: str) -> dict:
+    """One medical256 row of the family (run_suite's: 512^2 x 4, n_lanes
+    2^17, its settings) through create_renderer: rendered once to warm up,
+    twice timed (wall with the image copy), once counted (the family
+    kernels' launches by kind and host reads, family_counts) and once under
+    torch.profiler (device ms and launches by kernel name, the card's busy
+    ms).  Works on any build of the package (a missing count is absent)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5377,9 +5675,72 @@ def family_profile(card: str, hist: bool = True) -> dict:
     from cudavolumerenderer_tpu_torch.benchmarks import run_suite
     from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
     from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
+
+    res, iters = sc.size("medical")
+    cfg = Config(kernel=Kernel.from_name(kname), iterations=iters,
+                 resolution=(res, res), n_lanes=run_suite.N_LANES,
+                 settings=RenderSettings.from_flags(True))
+    renderer = create_renderer(scene, camera, cfg)
+    renderer.render()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    fam.KERNEL.reset()
+    renderer.render()
+    counts = family_counts(fam)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        renderer.render()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        # the longest name first: drain_kernel is in extend_drain_kernel
+        name = next((n for n in sorted(FAMILY_KERNEL_NAMES, key=len,
+                                       reverse=True) if n in e.key), None)
+        if name is not None:
+            ms, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (ms + e.self_device_time_total / 1e3,
+                             n + e.count)
+    busy = busy_union_us(prof) / 1e3
+    wall = min(walls)
+    launches = {k: counts[k] for k in FAMILY_KEYS if counts.get(k)}
+    log(f"[profile] medical256/{kname} 512^2 x 4, n_lanes 2^17: walls "
+        f"{walls[0]:.4f} / {walls[1]:.4f} s, n_rays {renderer.n_rays:.0f}; "
+        f"a render's launches {launches}, {counts['reads']} host reads, "
+        f"{counts['passes']} passes (split {counts['split']}); under "
+        "torch.profiler " + ", ".join(
+            f"{k} {ms:.3f} ms in {n} launches ({ms / n * 1e3:.2f} us each)"
+            for k, (ms, n) in kernels.items())
+        + f"; the card busy {busy:.3f} ms ({busy / (wall * 1e3):.1%} of the "
+        f"least wall); card {card}")
+    return {"walls": walls, "n_rays": renderer.n_rays, "kernels": kernels,
+            "busy_ms": busy, "launches": launches, "reads": counts["reads"],
+            "passes": counts["passes"], "split": counts["split"]}
+
+
+def family_profile(card: str, hist: bool = True) -> dict:
+    """The chain profile: run_suite's medical256 naiveSK and regenerationSK
+    rows (profile_row); then the Woodcock steps per bounce
+    (woodcock_steps) of plain bounces with taps: regenerationSK's 2^17-lane
+    pool at evaluations PROFILE_EVALS (reached through the kernels) and
+    naiveSK's 2^20-lane batch at bounces PROFILE_BOUNCES (unless not
+    `hist`)."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+    from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+    from cudavolumerenderer_tpu_torch.config import Config
     from cudavolumerenderer_tpu_torch.models import integrator, naive
     from cudavolumerenderer_tpu_torch.models import regeneration
-    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.scene.types import RenderSettings
 
@@ -5388,45 +5749,8 @@ def family_profile(card: str, hist: bool = True) -> dict:
     res, iters = sc.size("medical")
     camera = sc.camera(res, dev)
     settings = RenderSettings.from_flags(True)
-    out = {}
-    for kname in PROFILE_ROWS:
-        cfg = Config(kernel=Kernel.from_name(kname), iterations=iters,
-                     resolution=(res, res), n_lanes=run_suite.N_LANES,
-                     settings=settings)
-        renderer = create_renderer(scene, camera, cfg)
-        renderer.render()
-        walls = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            renderer.render()
-            walls.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            renderer.render()
-            torch.cuda.synchronize()
-        kernels = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            for name in ("bounce_kernel", "refill_kernel", "drain_kernel"):
-                if name in e.key:
-                    ms, n = kernels.get(name, (0.0, 0))
-                    kernels[name] = (ms + e.self_device_time_total / 1e3,
-                                     n + e.count)
-        busy = busy_union_us(prof) / 1e3
-        wall = min(walls)
-        log(f"[profile] medical256/{kname} 512^2 x 4, n_lanes 2^17: walls "
-            f"{walls[0]:.4f} / {walls[1]:.4f} s, n_rays "
-            f"{renderer.n_rays:.0f}; under torch.profiler "
-            + ", ".join(f"{k} {ms:.3f} ms in {n} launches "
-                        f"({ms / n * 1e3:.2f} us each)"
-                        for k, (ms, n) in kernels.items())
-            + f"; the card busy {busy:.3f} ms ({busy / (wall * 1e3):.1%} of "
-            f"the least wall); card {card}")
-        out[kname] = {"walls": walls, "n_rays": renderer.n_rays,
-                      "kernels": kernels, "busy_ms": busy}
-
+    out = {kname: profile_row(kname, scene, camera, card)
+           for kname in PROFILE_ROWS}
     if not hist:
         return out
     zero = torch.zeros(2, device=dev)
@@ -5546,8 +5870,16 @@ def family_turns(card: str, tag: str, suite: bool = False) -> dict:
         from cudavolumerenderer_tpu_torch.benchmarks import run_suite
 
         rows = run_suite.main(["--kernels", *SUITE_FAMILY])
-        out["suite"] = {k: [r["time_s"], r["n_rays"]] for k, r in rows.items()
+        out["suite"] = {k: [r["time_s"], r["n_rays"], r["familybody"],
+                            r["reads"]] for k, r in rows.items()
                         if k.split("/")[1] in SUITE_FAMILY}
+        from cudavolumerenderer_tpu_torch.benchmarks import scene_classes as sc
+
+        dev = torch.device("cuda")
+        res, _ = sc.size("medical")
+        scene, camera = sc.scene("medical", dev), sc.camera(res, dev)
+        out["profile"] = {k: profile_row(k, scene, camera, card)
+                          for k in SUITE_PROFILE}
     print("TURN " + json.dumps(out), flush=True)
     return out
 
@@ -5623,6 +5955,37 @@ def sweep_drain(fam, ctx, s, tag: str) -> dict:
     return out, fam.KERNEL.last_drain["L"]
 
 
+def sweep_tail(fam, ctx, width: int, tag: str) -> dict:
+    """regenerationSK's tail drain of one pool kept at e0 at every
+    look_options (forced through familybody.tail_lookahead), each twice
+    (CUDA events around one call, a fresh copy each), bit for bit against
+    the drain at the first option; {(G, M): (ms, ms)}, and the pool's e0,
+    its live lanes and its longest lane's bounces."""
+    import torch
+
+    pool = queue_pool_at_e0(fam, ctx, "bounce", width)
+    e0 = pool[4]
+    out, ref, rule = {}, None, fam.tail_lookahead
+    for option in look_options(fam):
+        fam.tail_lookahead = lambda w: option
+        try:
+            runs = []
+            for _ in range(2):
+                got, acc, total, ms = tail_drain(fam, ctx, "bounce", pool, e0)
+                runs.append(ms)
+        finally:
+            fam.tail_lookahead = rule
+        if ref is None:
+            ref = got, total
+        check(not pool_differs(fam.PATH_FIELDS, got, ref[0])
+              and float(got.n_rays) == float(ref[0].n_rays)
+              and total == ref[1],
+              f"[sweep] {tag} tail at {option} differs from {look_options(fam)[0]}'s")
+        out[option] = runs
+    return out, {"e0": e0, "alive": int(torch.count_nonzero(pool[0].alive)),
+                 "L": ref[1] - e0}
+
+
 def sweep_render(fam, renderer, tag: str, card: str) -> dict:
     """One regenerationSK render at every look_options (warmed up once),
     under torch.profiler: bounce_kernel's device ms over the render and its
@@ -5652,8 +6015,8 @@ def sweep_render(fam, renderer, tag: str, card: str) -> dict:
     return out
 
 
-def family_sweep(card: str, parts=("smoke", "medical", "drains",
-                                   "renders")) -> dict:
+def family_sweep(card: str, parts=("smoke", "medical", "drains", "renders",
+                                   "tails")) -> dict:
     """The width rule's measurements: the bounce at every look_options on
     phase 25's kept pools of phase 11's scene (BOUNCE_WIDTHS) and on
     regenerationSK pools of run_suite's medical256 row (its settings, the
@@ -5673,7 +6036,7 @@ def family_sweep(card: str, parts=("smoke", "medical", "drains",
     dev = torch.device("cuda")
     zero = torch.zeros(2, device=dev)
     seed = Config().seed
-    result = {"bounce": {}, "drain": {}, "L": {}}
+    result = {"bounce": {}, "drain": {}, "L": {}, "tail": {}}
 
     def show(kind, tag, times):
         best = min(times, key=lambda o: min(np.atleast_1d(times[o])))
@@ -5682,6 +6045,16 @@ def family_sweep(card: str, parts=("smoke", "medical", "drains",
             for (g, m), t in times.items())
             + f" (us); best {best}; card {card}")
         result[kind][tag] = {f"{g}/{m}": t for (g, m), t in times.items()}
+
+    def show_tail(tag, times, info):
+        best = min(times, key=lambda o: min(times[o]))
+        log(f"[sweep] tail {tag} (e0 {info['e0']}, {info['alive']} lanes "
+            f"alive, L {info['L']}): " + ", ".join(
+                f"G{g}/M{m} {t[0]:.3f} / {t[1]:.3f}"
+                for (g, m), t in times.items())
+            + f" ms; best {best}; card {card}")
+        result["tail"][tag] = {**info, **{f"{g}/{m}": t
+                                          for (g, m), t in times.items()}}
 
     with tempfile.TemporaryDirectory() as tmp:
         base = Config(scene_file=write_smoke_xml(tmp), iterations=1,
@@ -5693,6 +6066,10 @@ def family_sweep(card: str, parts=("smoke", "medical", "drains",
         pool = family_pool(fam, ctx, width, "bounce")
         show("bounce", f"smoke {width}", sweep_bounce(
             fam, ctx, pool, f"smoke {width}"))
+    if "tails" in parts:
+        width = queue_lanes(base, scene)
+        tag = f"smoke {width}"
+        show_tail(tag, *sweep_tail(fam, ctx, width, tag))
     if "drains" in parts:
         _, s = naive.start_batch(camera, (400, 400), zero, (400, 400), 1,
                                  base.seed, 0)
@@ -5705,6 +6082,14 @@ def family_sweep(card: str, parts=("smoke", "medical", "drains",
         scene = sc.scene(cls, dev)
         res, iters = sc.size(cls)
         camera = sc.camera(res, dev)
+        if "tails" in parts:
+            from cudavolumerenderer_tpu_torch.benchmarks import run_suite
+
+            width = run_suite.N_LANES
+            tctx = fam.make_context(scene, settings, camera, (res, res), zero,
+                                    (res, res), res * res * iters, seed, 0)
+            tag = f"{cls} {width}"
+            show_tail(tag, *sweep_tail(fam, tctx, width, tag))
         if cls == "medical" and "medical" in parts:
             mctx = fam.make_context(scene, settings, camera, (res, res), zero,
                                     (res, res), res * res * iters, seed, 0)
@@ -5767,19 +6152,42 @@ FAMILY_DESIGN = {
               "left-to-right t by shuffles, a first-stop ballot), the rest "
               "of a lane's bounce by its G / M threads alike; the pool's "
               "tensors read and written in place; counts reduced per block "
-              "and by the last block; regenerationSK's iterations enqueued "
+              "and by the last block; regenerationSK's queue stage enqueued "
               "in batches behind the refill, each launch gated on the "
               "loop's control words",
     "refill": "1,024 lanes per block (a refill group inside a block, its "
               "all-dead test a ballot); ranks by a block scan and a "
               "decoupled look-back over the blocks in start-ticket order; "
-              "a separate gated launch before each bounce or extend",
+              "a separate gated launch before each bounce or extend of the "
+              "queue stage only (none once every path is issued)",
     "extend": "one thread per lane and step; the StreamState tensors read "
-              "and written in place; streamingSK's and sortingSK's "
-              "iterations enqueued in gated chains of 8, the Morton sort in "
+              "and written in place; streamingSK's and sortingSK's queue "
+              "stage enqueued in gated chains of 8, the Morton sort in "
               "torch between them",
     "flush": "sortingSK's deferred albedo fetches and roulette after each "
              "sort, a mode of the extend kernel",
+}
+
+
+# the JAX loops the tail drains replace, and their designs
+TAIL_REPLACES = {"bounce": "cudavolumerenderer_tpu/models/regeneration.py:176",
+                 "extend": "cudavolumerenderer_tpu/models/streaming.py:211"}
+TAIL_DESIGN = {
+    "bounce": "regenerationSK's loop from the iteration at which every path "
+              "is issued (enqueued behind each batch of the queue stage, "
+              "gated on its control words, from the card's e0): "
+              "drain_kernel with the splat and no path bound, "
+              "each lane bouncing to its death in registers in lookahead "
+              "groups (familybody.tail_lookahead); lanes' bounce counts into "
+              "a histogram folded into n_rays in order by the last block",
+    "extend": "streamingSK's loop from the chain boundary at which every "
+              "path is issued (enqueued as the bounce's tail is): "
+              "extend_drain_kernel, a thread a lane "
+              "extending to its death in registers, segment starts counted "
+              "per evaluation and folded in order by the last block, the "
+              "trip count rounded up to check_every; sortingSK's tail gated "
+              "chains of the sort, the flush and one capped segment a sort "
+              "interval",
 }
 
 
@@ -5875,6 +6283,21 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
             "eager_reads")} for label, row in family["rows"].items()
             if label not in FASTQ_LABELS},
     })
+    for op, tail in k["tails"].items():
+        lines.append({
+            "name": f"familybody_tail_{op}", "route": "cuda",
+            "source": source, "replaces": TAIL_REPLACES[op],
+            "launches": family["launches"][f"tail_{op}"],
+            **{x: tail[x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes", "chain_ms", "L", "e0", "E", "alive", "width", "G",
+                "M", "us_per_step", "ms_runs")},
+            "library_ms": None, "design": TAIL_DESIGN[op],
+            "medical256": tail["medical256"],
+            "splits_400": {label: row.get("split") for label, row in
+                           family["rows"].items()
+                           if row.get("split") is not None},
+        })
     march, var = k["march"], family["variable"]
     head = march[FAMILY_WIDTHS[0]]
     lines.append({
@@ -6639,6 +7062,8 @@ PRINT_ONLY = ("micro_classes", "micro_stats", "micro_ablate",
               "micro_driver_overhead", "micro_medical")
 #: run_suite's integrator-family rows, which trace the same paths
 SUITE_FAMILY = ("naiveSK", "regenerationSK", "streamingSK")
+#: the medical256 rows family_turns profiles (sortingSK's beside run_suite's)
+SUITE_PROFILE = (*SUITE_FAMILY, "sortingSK")
 
 
 def driver_rows(out: dict, path: str = ""):

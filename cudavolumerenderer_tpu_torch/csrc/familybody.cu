@@ -87,7 +87,7 @@
 //     control words given, common.cuh): each launch returns untouched
 //     where the host's loop would have stopped, and the last block
 //     advances the evaluation index and leaves the loop's count (lanes
-//     alive + paths not yet issued).
+//     alive + paths not yet issued; in a queue stage the paths alone).
 //   * refill_kernel: 1,024 lanes per block, so a refill group (a power of
 //     two up to 1,024) lies inside a block and its all-dead test is a warp
 //     ballot or the block's ballots; the ranks are a block scan and a
@@ -103,6 +103,21 @@
 //     lane's evaluation count goes into a histogram by warp-aggregated
 //     atomics, and the last block folds the live counts into n_rays in
 //     float32, one evaluation after another, as the loop adds them.
+//   * The queue-fed loops (regenerationSK, streamingSK, sortingSK) run as a
+//     queue stage and a tail.  The queue stage is gated chains of refill +
+//     bounce or extend whose count is the paths not yet issued, so it ends
+//     at the iteration e0 after the one that issued the last path.  From
+//     e0 a refill takes nothing, and every lane runs alone to its death:
+//     regenerationSK's tail is drain_kernel with the splat and no path
+//     bound, streamingSK's extend_drain_kernel (a thread a lane, segment
+//     starts counted per evaluation and folded in order), sortingSK's
+//     gated chains of the Morton sort, the flush and one extend_drain_kernel
+//     segment up to the next sort point.  A tail drain is enqueued behind
+//     every batch of the queue stage and opens on the card once the stage
+//     has stopped (tail_open), from the card's e0, so the host reads no
+//     more words than the gated chains did.  A tail launches no refill:
+//     what the refill's look-back and the near-empty launches of the
+//     loop's last ~1,000 iterations cost.
 //
 #include "common.cuh"
 
@@ -144,6 +159,8 @@ enum {
   IP_THRESH, IP_CHAIN, IP_CAP,  // a stage's exit threshold, chain, drain cap
   IP_VARIABLE,                   // the variable boundary's isosurface march
   IP_LOOK, IP_LANES,  // the bounce's lookahead group: G threads, M lanes
+  IP_QUEUE,    // a queue stage: the loop's count is the paths not yet issued
+  IP_SEGMENT,  // the extend drain as one gated segment of a tail's chain
   N_IP,
 };
 
@@ -168,6 +185,10 @@ enum {
 // The scratch's uint64 words: the two counts, the last-block ticket, the
 // refill's start ticket and its paths taken.  Zero before and after a launch.
 enum { SC_COUNT = 0, SC_RAYS, SC_TICKET, SC_START, SC_TAKES, N_SCRATCH };
+
+// A queue-fed loop's control words hold one more: the iteration e0 at which
+// its tail started (written by the tail's first drain launch).
+constexpr int C_E0 = N_CTRL;
 
 struct Params {
   float f[N_FP];
@@ -556,10 +577,12 @@ __device__ __forceinline__ void flush(const Params& P, const Ptrs& Q, Lane& L) {
 // ---- launches ----------------------------------------------------------------
 
 // The count the host's loop reads: lanes alive, plus paths not yet issued
-// where the pool is queue-fed.
+// where the pool is queue-fed; in a queue stage (IP_QUEUE) the paths not yet
+// issued alone, so the stage ends once the last path is issued.
 __device__ __forceinline__ long long loop_count(const Params& P, const Ptrs& Q, long long alive) {
   if (Q.p[S_ISSUED] == nullptr) return alive;
-  return alive + P.i[IP_NPATHS] - *(const long long*)Q.p[S_ISSUED];
+  const long long unissued = P.i[IP_NPATHS] - *(const long long*)Q.p[S_ISSUED];
+  return P.i[IP_QUEUE] ? unissued : alive + unissued;
 }
 
 // The counts of one evaluation over the grid; the last block adds n_rays and
@@ -737,7 +760,30 @@ __global__ void __launch_bounds__(REFILL_THREADS) refill_kernel(Params P, Ptrs Q
   for (unsigned k = 0; k < gridDim.x; ++k) status[k] = 0ull;
 }
 
-// ---- the drain (naiveSK's trace) ---------------------------------------------
+// ---- the drains (naiveSK's trace, the queue-fed loops' tails) -----------------
+
+// Whether a drain runs: always for naiveSK's trace; a queue-fed loop's tail
+// drain (IP_QUEUE), enqueued behind each batch of the queue stage's gated
+// chains, once the stage has stopped (every path issued, at a chain's
+// start) or an earlier launch left lanes at its cap, and until the tail has
+// ended.  Every block reads the same words (the last block of a drain
+// writes them after every block has read them).
+__device__ __forceinline__ bool tail_open(const Params& P, const unsigned long long* ctrl) {
+  if (!P.i[IP_QUEUE]) return true;
+  const long long* w = (const long long*)ctrl;
+  return w[C_TOTAL] == 0 &&
+         (w[C_LEFT] > 0 || stage_stopped(w, P.i[IP_CHAIN], P.i[IP_THRESH]));
+}
+
+// A tail drain's start, by thread 0 of each block before its ticket: the trip
+// count is at least e0 (C_LMAX), and the tail's first launch leaves e0 in
+// C_E0.
+__device__ __forceinline__ void tail_start(const Params& P, unsigned long long* ctrl,
+                                           long long e0) {
+  if (!P.i[IP_QUEUE] || threadIdx.x != 0) return;
+  atomicMax(ctrl + C_LMAX, (unsigned long long)e0);
+  if (ctrl[C_E0] == 0ull) ctrl[C_E0] = (unsigned long long)e0;
+}
 
 // Adds each lane's count j (where j > 0; 0 from the threads that count no
 // lane) to hist[j]: one atomic per group of a warp's lanes at the same j.
@@ -750,12 +796,15 @@ __device__ __forceinline__ void warp_count(unsigned long long* hist, int j) {
 
 // Every lane bounces until it dies or reaches max_path_length (or the cap);
 // a lookahead group bounces together while one of its lanes goes on, and a
-// lane's first replica stores and counts it.
+// lane's first replica stores and counts it.  With the splat on
+// (regenerationSK's tail, whose IP_MAXPATH bounds nothing) a lane's first
+// replica splats it where it dies, as bounce_kernel does.
 template <int G>
 __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, int width) {
   unsigned long long* ctrl = (unsigned long long*)Q.p[S_CTRL];
   unsigned long long* hist = (unsigned long long*)Q.p[S_HIST];  // [cap + 1]
   unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
+  if (!tail_open(P, ctrl)) return;
   const long long cap = P.i[IP_CAP], maxpath = P.i[IP_MAXPATH];
   const long long e0 = (long long)ctrl[C_EVAL];
   const Group<G> g = group_of<G>(P, Q);
@@ -771,10 +820,12 @@ __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, 
     L.alive = true;
     load_lane(Q, i, false, L);
   }
+  const bool splats = P.i[IP_SPLAT] != 0;
   while (group_ballot<G>(g.mask, going) != 0u) {
     bounce<G>(P, Q, g, L, going);
     if (going) {
       ++j;
+      if (splats && lead && !L.alive) splat(Q, i, L);
       going = L.alive && j < cap && e0 + j < maxpath;
     }
   }
@@ -787,6 +838,7 @@ __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, 
   warp_count(hist, j);
   const int n_ran = __syncthreads_count(j > 0);
   if (threadIdx.x == 0 && n_ran > 0) atomicAdd(scratch + SC_RAYS, (unsigned long long)n_ran);
+  tail_start(P, ctrl, e0);
   DrainEnd end;
   if (!drain_end(ctrl, e0, 1, j, left, finished, end)) return;
   // the last block: every lane is in.  Evaluation e of this launch started
@@ -800,6 +852,100 @@ __global__ void __launch_bounds__(DRAIN_THREADS) drain_kernel(Params P, Ptrs Q, 
   *(float*)Q.p[S_NRAYS_OUT] = n;
   for (long long e = 1; e <= end.jmax; ++e) hist[e] = 0ull;
   scratch[SC_RAYS] = 0ull;
+  drain_close(ctrl, e0, cap, end.left);
+}
+
+// Adds each lane's flag to counts[j], j its evaluation in this launch: one
+// atomic per group of the warp's active lanes at the same j (fastqbody.cu's).
+__device__ __forceinline__ void flag_count(unsigned long long* counts, int j, bool flag) {
+  const unsigned active = __activemask();
+  const unsigned same = __match_any_sync(active, j);
+  const unsigned votes = __ballot_sync(active, flag) & same;
+  if ((int)(threadIdx.x & 31) == __ffs(same) - 1 && votes != 0u)
+    atomicAdd(counts + j, (unsigned long long)__popc(votes));
+}
+
+// Whether a stream lane's next extend can change it: alive (or tracking,
+// which only a live lane is) and, with defer, not stalled on its albedo.
+__device__ __forceinline__ bool extends(const Lane& L, bool defer) {
+  return (L.alive || L.trk) && !(defer && L.pend);
+}
+
+// streamingSK's and sortingSK's tail, once every path is issued (a refill
+// then takes nothing): each lane extends in registers, a thread a lane,
+// until it dies (or, with defer, stalls pending its albedo) or runs IP_CAP
+// evaluations, splatting where it dies; its segment starts go into
+// hist[j] by evaluation j of the launch.  Free (the drain): the control
+// words as drain_kernel's, the trip count rounded up to IP_CHAIN (the
+// loop's check_every) and the launch repeated while lanes are left.  A
+// segment (IP_SEGMENT, sortingSK between two sort points): gated as an
+// extend launch is, IP_CAP the evaluations to the next sort point; the last
+// block advances C_EVAL by IP_CAP and leaves the loop's count (lanes alive,
+// pending ones included).  Either way the last block folds the
+// per-evaluation counts into n_rays in float32 in the loop's order.
+__global__ void __launch_bounds__(DRAIN_THREADS) extend_drain_kernel(Params P, Ptrs Q,
+                                                                      int width) {
+  unsigned long long* ctrl = (unsigned long long*)Q.p[S_CTRL];
+  unsigned long long* hist = (unsigned long long*)Q.p[S_HIST];  // [cap]
+  unsigned long long* scratch = (unsigned long long*)Q.p[S_SCRATCH];
+  const bool segment = P.i[IP_SEGMENT] != 0;
+  if (segment ? stage_stopped((const long long*)ctrl, P.i[IP_CHAIN], P.i[IP_THRESH])
+              : !tail_open(P, ctrl))
+    return;
+  const long long cap = P.i[IP_CAP];
+  const long long e0 = (long long)ctrl[C_EVAL];
+  const bool defer = P.i[IP_DEFER] != 0;
+  const int i = blockIdx.x * DRAIN_THREADS + threadIdx.x;
+  int j = 0;  // this lane's evaluations in this launch
+  bool left = false, finished = false, alive = false;
+  if (i < width) {
+    Lane L;
+    L.alive = ((const bool*)Q.p[S_ALIVE])[i];
+    L.trk = ((const bool*)Q.p[S_TRACK])[i];
+    L.pend = ((const bool*)Q.p[S_PEND])[i];
+    if (extends(L, defer)) {
+      load_lane(Q, i, true, L);
+      do {
+        const bool was = L.alive;
+        const bool isect = extend(P, Q, L, defer);
+        if (was && !L.alive) splat(Q, i, L);
+        flag_count(hist, j, isect);
+        ++j;
+      } while (j < cap && extends(L, defer));
+      store_lane(Q, i, true, false, L);
+      left = extends(L, defer);
+      finished = !left;
+    }
+    alive = L.alive;
+  }
+  if (segment) {
+    const int n_alive = __syncthreads_count(alive);
+    if (threadIdx.x != 0) return;
+    atomicAdd(scratch + SC_COUNT, (unsigned long long)n_alive);
+    if (!last_block(scratch + SC_TICKET)) return;  // the last block: every lane is in
+    float n = *(const float*)Q.p[S_NRAYS];
+    for (long long e = 0; e < cap; ++e) {
+      n = n + (float)__ldcg(hist + e);
+      hist[e] = 0ull;
+    }
+    *(float*)Q.p[S_NRAYS_OUT] = n;
+    const long long c = (long long)atomicAdd(scratch + SC_COUNT, 0ull);
+    ((long long*)ctrl)[C_COUNT] = loop_count(P, Q, c);
+    ctrl[C_EVAL] = (unsigned long long)(e0 + cap);
+    scratch[SC_COUNT] = scratch[SC_TICKET] = 0ull;
+    return;
+  }
+  tail_start(P, ctrl, e0);
+  DrainEnd end;
+  if (!drain_end(ctrl, e0, P.i[IP_CHAIN], j, left, finished, end)) return;
+  // the last block: every lane is in; evaluations past the longest lane's
+  // count nothing, and adding 0 leaves n_rays as it is
+  float n = *(const float*)Q.p[S_NRAYS];
+  for (long long e = 0; e < end.jmax; ++e) {
+    n = n + (float)__ldcg(hist + e);
+    hist[e] = 0ull;
+  }
+  *(float*)Q.p[S_NRAYS_OUT] = n;
   drain_close(ctrl, e0, cap, end.left);
 }
 
@@ -878,9 +1024,11 @@ extern "C" int familybody_launch(const float* fparams, int n_fp, const long long
   return (int)cudaGetLastError();
 }
 
-// drain_kernel: the control words zero at the trace's start, the histogram
-// (IP_CAP + 1 uint64) and the scratch zero before each launch (each launch
-// leaves them zero).
+// The drains, by IP_OP: drain_kernel (OP_BOUNCE) and extend_drain_kernel
+// (OP_EXTEND).  The control words zero at the drain's start but C_EVAL and
+// C_LMAX (the evaluation it starts at; a segment's words are its stage's),
+// the histogram (IP_CAP + 1 uint64) and the scratch zero before each launch
+// (each launch leaves them zero).
 extern "C" int familybody_drain(const float* fparams, int n_fp, const long long* iparams,
                                 int n_ip, void* const* ptrs, int n_s, int width,
                                 void* stream) {
@@ -889,7 +1037,12 @@ extern "C" int familybody_drain(const float* fparams, int n_fp, const long long*
     const Params P = params_of(fparams, iparams);
     const Ptrs Q = ptrs_of(ptrs);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (!group_ok(P)) return -1;
+    if (P.i[IP_OP] == OP_EXTEND) {
+      extend_drain_kernel<<<(width + DRAIN_THREADS - 1) / DRAIN_THREADS, DRAIN_THREADS, 0,
+                            st>>>(P, Q, width);
+      return (int)cudaGetLastError();
+    }
+    if (P.i[IP_OP] != OP_BOUNCE || !group_ok(P)) return -1;
     const long long threads = width * (P.i[IP_LOOK] / P.i[IP_LANES]);
     const int blocks = (int)((threads + DRAIN_THREADS - 1) / DRAIN_THREADS);
     switch (P.i[IP_LOOK]) {

@@ -14,26 +14,36 @@ lane of a pool per launch, bit for bit the eager function's on the card:
   bounce  integrator.bounce_step (with regenerationSK's fused splat; the
           variable boundary's isosurface march, integrator.py:92, in it),
           one launch per evaluation (naiveMK), in gated chains with the
-          refill (regenerationSK), or drained (naiveSK's trace: each lane
-          bounces until it dies, in one launch);
+          refill (regenerationSK's queue stage), or drained (naiveSK's
+          trace and regenerationSK's tail: each lane bounces until it
+          dies, in one launch);
   refill  regeneration.queue_refill with `_regenerate`'s group rule, and
           streaming._refill's field resets;
-  extend  streaming.extend_step (with `defer` sortingSK's stall), and
-          flush, streaming.flush_pending.
+  extend  streaming.extend_step (with `defer` sortingSK's stall), in gated
+          chains with the refill (the queue stage), or drained (the tail:
+          each lane extends until it dies, in one launch, or sortingSK's
+          segments between sort points), and flush, streaming.flush_pending.
+
+The queue-fed loops (regenerationSK, streamingSK, sortingSK) run in two
+parts: the queue stage while paths are unissued, and the tail from the
+iteration e0 at which every path is issued, where a refill takes nothing
+and each lane runs alone (`regenerate_tail`, `stream_tail`).
 
 This module holds the gate (`route`), the parameter vectors
 (`make_context`), the plain versions (`plain_body`, the eager functions),
 the wrapper `run_body` (the plain version for CPU tensors, the kernel for
 CUDA tensors, or it raises), the schedulers' loops (`regenerate_loop`,
 `stream_loop`: stages.loop_chains of the plain bodies, or gated chains of
-the kernels; `trace`, the drain) and the bound (`family_bytes`).  The
-kernels update a pool's per-lane tensors in place unless given `out`.
+the kernels and the tail drains; `trace`, the drain) and the bound
+(`family_bytes`).  The kernels update a pool's per-lane tensors in place
+unless given `out`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -43,7 +53,8 @@ import torch
 from ..constants import EPSILON
 from . import stages
 from .rng import as_u32, jump_constants, mul32
-from .stages import C_COUNT, DRAIN_CAP, N_CTRL, lane_field, own
+from .stages import (C_COUNT, C_EVAL, C_LEFT, C_LMAX, C_TOTAL, DRAIN_CAP,
+                     N_CTRL, lane_field, own)
 from .stages import f32 as _f32
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "familybody.cu"
@@ -75,10 +86,20 @@ N_FP = FP_THRESH + 1
 (IP_OP, IP_NX, IP_NY, IP_NZ, IP_AX, IP_AY, IP_AZ, IP_NCH, IP_NEAREST,
  IP_BSDF, IP_MITSUBA, IP_RR, IP_MAXPATH, IP_SPLAT, IP_DEFER, IP_GROUP,
  IP_STREAM, IP_NPATHS, IP_TW, IP_NPIX, IP_BASE, IP_SEEDH, IP_THRESH,
- IP_CHAIN, IP_CAP, IP_VARIABLE, IP_LOOK, IP_LANES, N_IP) = range(29)
+ IP_CHAIN, IP_CAP, IP_VARIABLE, IP_LOOK, IP_LANES, IP_QUEUE, IP_SEGMENT,
+ N_IP) = range(31)
+#: a queue-fed loop's control word after stages' N_CTRL: the iteration at
+#: which its tail started (csrc/familybody.cu C_E0)
+C_E0 = N_CTRL
+#: a tail drain's IP_MAXPATH: no bound (the queue-fed loops bound no path,
+#: and a tail lane's bounces are not the tail's evaluations)
+NO_BOUND = 1 << 62
 
 #: the entry points (IP_OP)
 OPS = ("bounce", "refill", "extend", "flush")
+#: the tail drains (regenerationSK's over the bounce, streamingSK's and
+#: sortingSK's over the extend)
+TAILS = ("bounce", "extend")
 
 # Pointer slots (csrc/familybody.cu S_*): the per-lane fields in PathState's
 # and StreamState's names (the RNG's two words split), the outputs, then
@@ -130,6 +151,30 @@ def lookahead(width: int) -> tuple:
     if width <= 655360:
         return 8, 8
     return 1, 1
+
+
+def tail_lookahead(width: int) -> tuple:
+    """(G, M): the lookahead group of regenerationSK's tail drain on a pool
+    of `width` lanes (drain_kernel from the iteration at which the queue is
+    empty).
+
+    The width rule's group below 2^17 lanes, and one thread a lane without
+    lookahead from 2^17 up.  The winner follows the tail's length, which
+    no launch knows before the tail has run; the width stands in for it,
+    and the rule loses on short tails at 2^17.  Measured on the H100 by
+    chip_smoke.family_sweep's tails (PERF.md), all at 2^17 lanes: the
+    medical class's tail (55,270 alive at e0, its longest lane 1,580
+    bounces) 4.85-4.89 ms at G 1 against 5.80-6.33 ms in every group (a
+    group only slows the one long lane, as in naiveSK's drain of 2^20
+    lanes); the short tails lose at G 1: bucky's (20 bounces) 0.41-0.48 ms
+    against 0.35-0.39 at G 16 M 16 or G 8 M 8, the smoke class's (6)
+    0.39-0.43 against 0.31-0.35 at G 16 M 16, and phase 11's rows, which
+    render at 131,072 lanes (occupancy.pick_n_lanes), 0.43 ms against
+    0.25-0.27 at G 8 M 4 or G 16 M 8 (6 bounces).  So G 1 gains ~1 ms on
+    the long tail and costs 0.06-0.18 ms on a short one."""
+    if width >= 131072:
+        return 1, 1
+    return lookahead(width)
 
 
 #: the fields each entry point writes
@@ -332,9 +377,12 @@ class FamilyBodyKernel(stages.BodyKernel):
     """The CUDA family kernels, built from csrc/familybody.cu at first use
     and counted (stages.BodyKernel): `by_op` counts each entry point's
     launches made now (a gated one may return untouched), `drain_launches`
-    the drain's, `plain_evals` each entry point's evaluations by its plain
-    version, `evals` the schedulers' loop evaluations (a bounce or an
-    extend of the pool: the host's wavefront passes), kernel or plain."""
+    the drains' (the tails' included), `tails` the tail drains' by
+    the entry point they drain, `plain_evals` each entry point's
+    evaluations by its plain version, `evals` the schedulers' loop
+    evaluations (a bounce or an extend of the pool: the host's wavefront
+    passes), kernel or plain; `last_split` holds the last queue-fed loop's
+    e0 and trip count E."""
 
     def __init__(self):
         super().__init__("familybody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL))
@@ -348,17 +396,25 @@ class FamilyBodyKernel(stages.BodyKernel):
         self.evals = 0
         self.by_op = dict.fromkeys(OPS, 0)
         self.plain_evals = dict.fromkeys(OPS, 0)
+        self.tails = dict.fromkeys(TAILS, 0)
+        self.last_split = None
 
     def prepare(self, ctx: FamilyContext, op: str, s, *, out=None,
                 image_id=None, accum=None, issued=None, issued_out=None,
                 n_rays_out=None, count=None, ctrl=None, hist=None,
-                defer: bool = False, chain: int = 1, cap: int = 0) -> Prepared:
+                defer: bool = False, chain: int = 1, cap: int = 0,
+                queue: bool = False, segment: bool = False,
+                bound: bool = True, look=None) -> Prepared:
         """The checked arguments of launches of `op` on the pool `s` (a
         PathState, with `image_id` for a refill or a splat, or a
         StreamState) that write `out`'s per-lane fields (s's when None),
         n_rays to `n_rays_out`, the count to `count` (0-d int64), and
         paths_issued from `issued` to `issued_out`; gated on `ctrl` when
-        given (chain `chain`, threshold 0); `hist` the drain's histogram."""
+        given (chain `chain`, threshold 0); `hist` the drain's histogram.
+        `queue`: the count is the paths not yet issued (a queue stage);
+        `segment`: the extend drain as a gated segment; `bound` False: the
+        drain bounds no path; `look`: the bounce's (G, M) (else
+        lookahead's)."""
         fparams, iparams0, density, albedo = ctx.params()
         out = s if out is None else out
         dev = s.alive.device
@@ -410,7 +466,10 @@ class FamilyBodyKernel(stages.BodyKernel):
         iparams[IP_DEFER] = int(defer)
         iparams[IP_STREAM] = int(stream)
         iparams[IP_CHAIN], iparams[IP_CAP] = chain, cap
-        iparams[IP_LOOK], iparams[IP_LANES] = lookahead(width)
+        iparams[IP_LOOK], iparams[IP_LANES] = look or lookahead(width)
+        iparams[IP_QUEUE], iparams[IP_SEGMENT] = int(queue), int(segment)
+        if not bound:
+            iparams[IP_MAXPATH] = NO_BOUND
         ptrs = [0] * N_S
         for name, x in fields.items():
             ptrs[LANE_FIELDS.index(name)] = x.data_ptr()
@@ -473,6 +532,16 @@ class FamilyBodyKernel(stages.BodyKernel):
         if not torch.cuda.is_current_stream_capturing():
             self.by_op[prep.op] += 1
 
+    def launch_segment(self, prep: Prepared, dev) -> None:
+        """One gated launch of a prepared extend drain segment, counted
+        (drain_launches, tails["extend"])."""
+        fn = self._entry(self.library(), "drain")
+        with torch.cuda.device(dev):
+            self._raise(fn(*prep.args, torch.cuda.current_stream(
+                dev).cuda_stream), "drain")
+        self.drain_launches += 1
+        self.tails["extend"] += 1
+
     def body(self, ctx: FamilyContext, op: str, s, *, out=None,
              image_id=None, accum=None, issued=None, defer: bool = False):
         """One evaluation of `op` on the pool `s` (updated in place, or into
@@ -511,44 +580,81 @@ class FamilyBodyKernel(stages.BodyKernel):
         super().drain(prep.args, (), ctrl, dev)
         return s
 
-    def regenerate_gated(self, ctx: FamilyContext, s, image_id, issued,
-                         accum) -> int:
-        """regeneration.render_tile's loop in gated chains of a refill and a
-        bounce with the splat: the pool, image_id, paths_issued and n_rays
-        updated in place; returns the evaluations."""
+    def _queue_ctrl(self, ctx: FamilyContext, issued, e0, dev):
+        """A queue-fed loop's control words (N_CTRL, then C_E0: the
+        iteration at which its tail started): from iteration 0, the count
+        the paths not yet issued (e0 None), or kept at e0, where the queue
+        stage has stopped."""
+        ctrl = torch.zeros(N_CTRL + 1, dtype=torch.int64, device=dev)
+        if e0 is None:
+            ctrl[C_COUNT] = ctx.n_paths - issued
+        else:
+            ctrl[C_EVAL] = e0
+        return ctrl
+
+    def _regen_chain(self, ctx: FamilyContext, s, image_id, issued, accum,
+                     ctrl):
+        """One iteration of regenerationSK's queue stage: a gated refill and
+        a gated bounce with the splat, which leaves the stage's count (the
+        paths not yet issued)."""
         dev = s.alive.device
-        ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
-        ctrl[C_COUNT] = torch.count_nonzero(s.alive) + (ctx.n_paths - issued)
         refill = self.prepare(ctx, "refill", s, image_id=image_id,
                               issued=issued, ctrl=ctrl)
         bounce = self.prepare(ctx, "bounce", s, image_id=image_id,
                               accum=accum, issued=issued,
-                              count=ctrl[C_COUNT], ctrl=ctrl)
+                              count=ctrl[C_COUNT], ctrl=ctrl, queue=True)
 
         def chain():
             self.launch(refill, dev)
             self.launch(bounce, dev)
 
+        return chain
+
+    def regenerate(self, ctx: FamilyContext, s, image_id, issued, accum,
+                   e0=None, cap: int = DRAIN_CAP) -> tuple:
+        """regeneration.render_tile's loop (stages.BodyKernel.queued): the
+        queue stage's gated chains of a refill and a bounce, the tail
+        drain (drain_kernel with the splat and no path bound) behind each
+        batch; or, on a pool kept at e0 (every path issued), the tail
+        alone.  The pool, image_id, paths_issued and n_rays updated in
+        place.  Returns (e0, the loop's trip count)."""
+        dev = s.alive.device
+        ctrl = self._queue_ctrl(ctx, issued, e0, dev)
+        chain = (None if e0 is not None else
+                 self._regen_chain(ctx, s, image_id, issued, accum, ctrl))
+        drain = self.prepare(
+            ctx, "bounce", s, image_id=image_id, accum=accum, ctrl=ctrl,
+            hist=self.zeros("hist", cap + 1, torch.int64, dev), cap=cap,
+            bound=False, queue=True, look=tail_lookahead(s.alive.shape[0]))
+        words = self.queued(chain, drain.args, ctrl, 1, dev)
+        self.tails["bounce"] += self.last_drain["launches"]
+        return words[C_E0], words[C_TOTAL]
+
+    def regenerate_queue(self, ctx: FamilyContext, s, image_id, issued,
+                         accum) -> int:
+        """regeneration.render_tile's queue stage alone (gated chains), the
+        pool kept at e0: the pool, image_id, paths_issued and n_rays
+        updated in place.  Returns e0 (read from the card)."""
+        dev = s.alive.device
+        ctrl = self._queue_ctrl(ctx, issued, None, dev)
+        chain = self._regen_chain(ctx, s, image_id, issued, accum, ctrl)
         return self.gated(chain, ctrl, 0, 1, dev)
 
-    def stream_gated(self, ctx: FamilyContext, s, issued, accum, *,
-                     sort_every: int, defer: bool, k_chain: int,
-                     reorder) -> int:
-        """streaming.render_tile's loop in gated chains of k_chain
-        evaluations, each a refill and an extend (after `reorder(s)`, the
-        Morton sort in place, and with `defer` a flush, on the host's
-        iteration counter every sort_every iterations): the pool,
-        paths_issued and n_rays updated in place; returns the evaluations."""
+    def _stream_chain(self, ctx: FamilyContext, s, issued, accum, ctrl, *,
+                      sort_every: int, defer: bool, k_chain: int, reorder):
+        """One chain of k_chain iterations of streaming's queue stage: each
+        a gated refill and a gated extend, which leaves the stage's count
+        (the paths not yet issued), after `reorder(s)` (the Morton sort in
+        place) and with `defer` a gated flush every sort_every iterations
+        of the host's counter."""
         dev = s.alive.device
-        ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
-        ctrl[C_COUNT] = torch.count_nonzero(s.alive) + (ctx.n_paths - issued)
         flush = self.prepare(ctx, "flush", s, accum=accum, ctrl=ctrl,
                              chain=k_chain)
         refill = self.prepare(ctx, "refill", s, issued=issued, ctrl=ctrl,
                               chain=k_chain)
         extend = self.prepare(ctx, "extend", s, accum=accum, issued=issued,
                               count=ctrl[C_COUNT], ctrl=ctrl, defer=defer,
-                              chain=k_chain)
+                              chain=k_chain, queue=True)
         it = 0
 
         def chain():
@@ -561,6 +667,87 @@ class FamilyBodyKernel(stages.BodyKernel):
                 self.launch(refill, dev)
                 self.launch(extend, dev)
                 it += 1
+
+        return chain
+
+    def stream(self, ctx: FamilyContext, s, issued, accum, *,
+               sort_every: int, defer: bool, k_chain: int, reorder,
+               e0=None, cap: int = DRAIN_CAP) -> tuple:
+        """streaming.render_tile's loop: without a sort, queued
+        (stages.BodyKernel.queued: the queue stage's gated chains, the
+        extend drain behind each batch); with one, the queue stage's gated
+        chains and then the sorted tail (_sorted_tail).  On a pool kept at
+        e0 (a multiple of k_chain, every path issued), the tail alone.  The
+        pool, paths_issued and n_rays updated in place.  Returns (e0, the
+        loop's trip count)."""
+        dev = s.alive.device
+        kw = dict(sort_every=sort_every, defer=defer, k_chain=k_chain,
+                  reorder=reorder)
+        if sort_every > 0:
+            if e0 is None:
+                e0 = self.stream_queue(ctx, s, issued, accum, **kw)
+            return e0, self._sorted_tail(ctx, s, accum, e0, **kw)
+        ctrl = self._queue_ctrl(ctx, issued, e0, dev)
+        chain = (None if e0 is not None else
+                 self._stream_chain(ctx, s, issued, accum, ctrl, **kw))
+        drain = self.prepare(
+            ctx, "extend", s, accum=accum, ctrl=ctrl,
+            hist=self.zeros("hist", cap + 1, torch.int64, dev), cap=cap,
+            chain=k_chain, defer=defer, queue=True)
+        words = self.queued(chain, drain.args, ctrl, k_chain, dev)
+        self.tails["extend"] += self.last_drain["launches"]
+        return words[C_E0], words[C_TOTAL]
+
+    def stream_queue(self, ctx: FamilyContext, s, issued, accum, *,
+                     sort_every: int, defer: bool, k_chain: int,
+                     reorder) -> int:
+        """streaming.render_tile's queue stage alone (gated chains of k_chain
+        iterations), the pool kept at e0: the pool, paths_issued and n_rays
+        updated in place.  Returns e0 (a multiple of k_chain, read from the
+        card)."""
+        dev = s.alive.device
+        ctrl = self._queue_ctrl(ctx, issued, None, dev)
+        chain = self._stream_chain(ctx, s, issued, accum, ctrl,
+                                   sort_every=sort_every, defer=defer,
+                                   k_chain=k_chain, reorder=reorder)
+        return self.gated(chain, ctrl, 0, k_chain, dev)
+
+    def _sorted_tail(self, ctx: FamilyContext, s, accum, e0: int, *,
+                     sort_every: int, defer: bool, k_chain: int,
+                     reorder) -> int:
+        """sortingSK's tail on a pool at e0 (a multiple of k_chain): gated
+        chains of k_chain evaluations whose sort points run `reorder(s)`
+        and the flush as the loop does, each run of evaluations up to the
+        next sort point one gated extend_drain_kernel segment.  The pool
+        and n_rays updated in place.  Returns the loop's trip count."""
+        dev = s.alive.device
+        ctrl = torch.zeros(N_CTRL + 1, dtype=torch.int64, device=dev)
+        ctrl[C_EVAL] = e0
+        ctrl[C_COUNT] = torch.count_nonzero(s.alive)
+        flush = self.prepare(ctx, "flush", s, accum=accum, ctrl=ctrl,
+                             chain=k_chain)
+        hist = self.zeros("hist", k_chain + 1, torch.int64, dev)
+        segments = {}
+        it = e0
+
+        def segment(n):
+            if n not in segments:
+                segments[n] = self.prepare(
+                    ctx, "extend", s, accum=accum, ctrl=ctrl, hist=hist,
+                    cap=n, chain=k_chain, defer=defer, segment=True)
+            return segments[n]
+
+        def chain():
+            nonlocal it
+            end = it + k_chain
+            while it < end:
+                if it % sort_every == 0:
+                    reorder(s)
+                    if defer:
+                        self.launch(flush, dev)
+                nxt = min(end, (it // sort_every + 1) * sort_every)
+                self.launch_segment(segment(nxt - it), dev)
+                it = nxt
 
         return self.gated(chain, ctrl, 0, k_chain, dev)
 
@@ -632,35 +819,84 @@ def trace(ctx: FamilyContext, s, kernel: bool):
     return s
 
 
-def _queue_count(ctx: FamilyContext, s, issued) -> int:
-    """The loop condition's count: lanes alive plus paths not yet issued
-    (one host read)."""
-    return int(torch.count_nonzero(s.alive) + (ctx.n_paths - issued))
+def _queue_count(ctx: FamilyContext, issued) -> int:
+    """A queue stage's count: the paths not yet issued (one host read)."""
+    return ctx.n_paths - int(issued)
+
+
+def _alive_count(s) -> int:
+    """A tail's count: the lanes alive (one host read)."""
+    return int(torch.count_nonzero(s.alive))
 
 
 def regenerate_loop(ctx: FamilyContext, s, image_id, issued, accum,
                     kernel: bool):
     """regeneration.render_tile's loop (refill, then a bounce that splats
-    the lanes it ends, while a lane is alive or a path unissued): gated
-    chains of the kernels when `kernel`, else stages.loop_chains of the
-    plain versions.  Returns (pool, evaluations)."""
+    the lanes it ends, while a lane is alive or a path unissued) as a queue
+    stage while paths are unissued and the tail from the iteration e0 at
+    which every path is issued (regenerate_tail): gated chains of the
+    kernels and the tail drain when `kernel`, else stages.loop_chains of
+    the plain versions.  On the card the tail drain is enqueued behind
+    each batch of the queue stage (stages.BodyKernel.queued).  Returns
+    (pool, evaluations)."""
     if kernel:
         s, image_id, issued = own(s), image_id.clone(), issued.clone()
-        n = KERNEL.regenerate_gated(ctx, s, image_id, issued, accum)
-        KERNEL.evals += n
-        return s, n
+        e0, n = KERNEL.regenerate(ctx, s, image_id, issued, accum)
+        KERNEL.last_split = {"e0": e0, "E": n}
+    else:
+        s, image_id, issued, e0 = regenerate_queue(ctx, s, image_id, issued,
+                                                   accum, False)
+        s, n = regenerate_tail(ctx, s, image_id, issued, accum, e0, False)
+    KERNEL.evals += n
+    return s, n
 
+
+def regenerate_queue(ctx: FamilyContext, s, image_id, issued, accum,
+                     kernel: bool):
+    """regeneration.render_tile's loop from iteration 0 while paths are
+    unissued: gated chains of the kernels when `kernel` (on copies of the
+    pool, image_id and paths_issued), else stages.loop_chains of the plain
+    versions.  Returns (pool, image_id, paths_issued, e0): e0 the iteration
+    after the one that issued the last path."""
+    if kernel:
+        s, image_id, issued = own(s), image_id.clone(), issued.clone()
+        e0 = KERNEL.regenerate_queue(ctx, s, image_id, issued, accum)
+        return s, image_id, issued, e0
+    (s, image_id, issued), e0 = stages.loop_chains(
+        KERNEL, (s, image_id, issued), lambda c: _queue_count(ctx, c[2]),
+        _regen_body(ctx, accum), 0, 1)
+    return s, image_id, issued, e0
+
+
+def regenerate_tail(ctx: FamilyContext, s, image_id, issued, accum, e0: int,
+                    kernel: bool):
+    """regeneration.render_tile's loop from iteration e0, at which every
+    path is issued (a refill then takes nothing, so each lane bounces alone
+    until it dies): the tail drain when `kernel` (s's tensors, which must
+    be its own, updated in place), else the eager loop of plain refills
+    and bounces while a lane is alive.  Returns (pool, the loop's trip
+    count)."""
+    if kernel:
+        _, n = KERNEL.regenerate(ctx, s, image_id, issued, accum, e0)
+        KERNEL.last_split = {"e0": e0, "E": n}
+        return s, n
+    (s, _, _), n = stages.loop_chains(
+        KERNEL, (s, image_id, issued), lambda c: _alive_count(c[0]),
+        _regen_body(ctx, accum), 0, 1)
+    KERNEL.last_split = {"e0": e0, "E": e0 + n}
+    return s, e0 + n
+
+
+def _regen_body(ctx: FamilyContext, accum):
+    """The eager loop's iteration on (pool, image_id, paths_issued): a
+    refill, then a bounce that splats the lanes it ends."""
     def body(c):
         p, img, iss = plain_body(ctx, "refill", c[0], image_id=c[1],
                                  issued=c[2])
         p, _ = plain_body(ctx, "bounce", p, image_id=img, accum=accum)
         return (p, img, iss), None
 
-    (s, _, _), n = stages.loop_chains(
-        KERNEL, (s, image_id, issued),
-        lambda c: _queue_count(ctx, c[0], c[2]), body, 0, 1)
-    KERNEL.evals += n
-    return s, n
+    return body
 
 
 def stream_loop(ctx: FamilyContext, s, issued, accum, *, sort_every: int,
@@ -668,25 +904,93 @@ def stream_loop(ctx: FamilyContext, s, issued, accum, *, sort_every: int,
     """streaming.render_tile's loop (chains of check_every iterations while
     a lane is alive or a path unissued; each iteration a refill and an
     extend, after the Morton sort and with `defer` the flush every
-    sort_every iterations of the host's counter): gated chains of the
-    kernels when `kernel`, else stages.loop_chains of the plain versions.
+    sort_every iterations of the host's counter) as a queue stage while
+    paths are unissued and the tail from the chain boundary e0 at which
+    every path is issued (stream_tail): gated chains of the kernels and the
+    tail's drains when `kernel`, else stages.loop_chains of the plain
+    versions.  On the card without a sort the tail drain is enqueued
+    behind each batch of the queue stage (stages.BodyKernel.queued).
     Returns (pool, evaluations)."""
+    kw = dict(sort_every=sort_every, defer=defer, check_every=check_every)
+    if kernel:
+        s, issued = own(s), issued.clone()
+        e0, n = KERNEL.stream(ctx, s, issued, accum, sort_every=sort_every,
+                              defer=defer, k_chain=check_every,
+                              reorder=_reorder(ctx))
+        KERNEL.last_split = {"e0": e0, "E": n}
+    else:
+        s, issued, e0 = stream_queue(ctx, s, issued, accum, kernel=False,
+                                     **kw)
+        s, n = stream_tail(ctx, s, issued, accum, e0, kernel=False, **kw)
+    KERNEL.evals += n
+    return s, n
+
+
+def stream_queue(ctx: FamilyContext, s, issued, accum, *, sort_every: int,
+                 defer: bool, check_every: int, kernel: bool):
+    """streaming.render_tile's loop from iteration 0 while paths are
+    unissued, in chains of check_every iterations: gated chains of the
+    kernels when `kernel` (on copies of the pool and paths_issued), else
+    stages.loop_chains of the plain versions.  Returns (pool,
+    paths_issued, e0): e0 the first chain boundary with every path
+    issued."""
+    if kernel:
+        s, issued = own(s), issued.clone()
+        e0 = KERNEL.stream_queue(ctx, s, issued, accum, sort_every=sort_every,
+                                 defer=defer, k_chain=check_every,
+                                 reorder=_reorder(ctx))
+        return s, issued, e0
+    (s, issued), e0 = stages.loop_chains(
+        KERNEL, (s, issued), lambda c: _queue_count(ctx, c[1]),
+        _stream_body(ctx, accum, 0, sort_every=sort_every, defer=defer), 0,
+        check_every)
+    return s, issued, e0
+
+
+def stream_tail(ctx: FamilyContext, s, issued, accum, e0: int, *,
+                sort_every: int, defer: bool, check_every: int,
+                kernel: bool):
+    """streaming.render_tile's loop from iteration e0 (a multiple of
+    check_every), at which every path is issued: the tail's drains when
+    `kernel` (s's tensors, which must be its own, updated in place; the
+    extend drain, or with a sort gated chains of the sort, the flush and
+    drain segments), else the eager loop's chains while a lane is alive.
+    Returns (pool, the loop's trip count)."""
+    if kernel:
+        _, n = KERNEL.stream(ctx, s, issued, accum, sort_every=sort_every,
+                             defer=defer, k_chain=check_every,
+                             reorder=_reorder(ctx), e0=e0)
+        KERNEL.last_split = {"e0": e0, "E": n}
+        return s, n
+    (s, _), n = stages.loop_chains(
+        KERNEL, (s, issued), lambda c: _alive_count(c[0]),
+        _stream_body(ctx, accum, e0, sort_every=sort_every, defer=defer),
+        0, check_every)
+    KERNEL.last_split = {"e0": e0, "E": e0 + n}
+    return s, e0 + n
+
+
+def _reorder(ctx: FamilyContext):
+    """The Morton sort of a pool in place (its tensors stay the kernels')."""
     from ..models import streaming  # noqa: PLC0415
 
     med = ctx.scene.medium
-    if kernel:
-        s, issued = own(s), issued.clone()
 
-        def reorder(p):
-            copy_lanes_(p, streaming._morton_reorder(p, med.box_min,
-                                                     med.box_max))
+    def reorder(p):
+        copy_lanes_(p, streaming._morton_reorder(p, med.box_min,
+                                                 med.box_max))
 
-        n = KERNEL.stream_gated(
-            ctx, s, issued, accum, sort_every=sort_every, defer=defer,
-            k_chain=check_every, reorder=reorder)
-        KERNEL.evals += n
-        return s, n
-    it = 0
+    return reorder
+
+
+def _stream_body(ctx: FamilyContext, accum, it: int, *, sort_every: int,
+                 defer: bool):
+    """The eager loop's iteration on (pool, paths_issued) from the host's
+    iteration counter `it`: the Morton sort (and with `defer` the flush)
+    every sort_every iterations, a refill, an extend."""
+    from ..models import streaming  # noqa: PLC0415
+
+    med = ctx.scene.medium
 
     def body(c):
         nonlocal it
@@ -700,11 +1004,7 @@ def stream_loop(ctx: FamilyContext, s, issued, accum, *, sort_every: int,
         it += 1
         return (p, iss), None
 
-    (s, _), n = stages.loop_chains(
-        KERNEL, (s, issued), lambda c: _queue_count(ctx, c[0], c[1]), body,
-        0, check_every)
-    KERNEL.evals += n
-    return s, n
+    return body
 
 
 # -- the bound -----------------------------------------------------------------

@@ -17,7 +17,10 @@ threshold.  On the card a stage runs in one of two ways:
 * the drain (the last stage, threshold 0, so no lane waits for another):
   each lane runs to its end in registers, `DRAIN_CAP` evaluations per
   launch at most; the host reads the words once per launch and launches
-  again while lanes are left (`BodyKernel.drain`).
+  again while lanes are left (`BodyKernel.drain`);
+* a queue-fed loop (a gated stage whose count is 0 at its end, then a drain
+  of the rest): the drain enqueued behind every batch of the gated chains,
+  opening on the card once the stage has stopped (`BodyKernel.queued`).
 
 `loop_chains` is the plain version of a stage, and both ways equal it.
 This module also holds the library loading and layout check, the checks of
@@ -362,6 +365,47 @@ class BodyKernel:
             words = self.read(ctrl)
             if words[C_LEFT] == 0 or once:
                 break
+        self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
+                           "launches": launches, "left": words[C_LEFT]}
+        return words
+
+    def queued(self, enqueue, args: tuple, ctrl: torch.Tensor, k_chain: int,
+               dev, batch: int = GATED_BATCH) -> list:
+        """A gated stage whose loop exits at a chain boundary once its count
+        is 0, then the drain of the rest: `enqueue` enqueues one whole chain
+        of gated launches on the control words `ctrl` (as gated's; None
+        where the words start where the stage has stopped: a pool kept
+        there), `args` launch the drain on the same words.  The drain is
+        enqueued behind every batch of chains and opens on the card once
+        the stage has stopped (from the card's words, so the host reads
+        them no more often than gated does) and returns untouched before;
+        the host launches it again while lanes are left at its cap.
+        Returns the last words read; last_drain as drain's."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{self.name}: a queue-fed loop reads the "
+                               "card; it cannot be captured")
+        fn = self._entry(self.library(), "drain")
+        n = -(-batch // k_chain)
+        launches = 0
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            words = None if enqueue is None else self.read(ctrl)
+            while True:
+                # the stage has stopped, or a drain left lanes
+                stopped = words is None or words[C_LEFT] > 0 or (
+                    words[C_EVAL] % k_chain == 0 and words[C_COUNT] <= 0)
+                if not stopped:
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        enqueue()
+                    self.enqueue_s += time.perf_counter() - t0
+                self._raise(fn(*args, stream), "drain")
+                self.drain_launches += 1
+                launches += 1
+                words = self.read(ctrl)
+                # the drain ended: behind the batch, or in a launch that ran
+                if words[C_TOTAL] > 0 or (stopped and words[C_LEFT] == 0):
+                    break
         self.last_drain = {"L": words[C_LMAX], "E": words[C_TOTAL],
                            "launches": launches, "left": words[C_LEFT]}
         return words

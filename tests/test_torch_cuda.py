@@ -1996,6 +1996,205 @@ def test_family_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
         assert sum(familybody.KERNEL.plain_evals.values()) == 0, label
 
 
+# -- the queue-fed loops' tails (csrc/familybody.cu) ---------------------------------
+
+QUEUE_LABELS = ["regenerationSK 0", "regenerationSK 1", "regenerationSK 2",
+                "streamingSK", "sortingSK"]
+
+
+def queue_op(label):
+    return "bounce" if label.startswith("regenerationSK") else "extend"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [24, 40])
+@pytest.mark.parametrize("label", QUEUE_LABELS)
+def test_family_queue_rows_refill_only_in_the_queue_stage(cuda, label, res):
+    """Each queue-fed row through the kernels launches no refill past the
+    iteration e0 at which every path is issued, beyond the last batch's
+    gated returns (fewer than GATED_BATCH), and no more bounces or extends
+    than refills: the tail runs in drains."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+    from cudavolumerenderer_tpu_torch.ops.stages import GATED_BATCH
+
+    family_render(cuda, label, res, False)
+    k = familybody.KERNEL
+    e0, total = k.last_split["e0"], k.last_split["E"]
+    assert 0 < e0 < total == k.evals
+    assert e0 <= k.by_op["refill"] < e0 + GATED_BATCH
+    assert k.by_op[queue_op(label)] == k.by_op["refill"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [24, 40])
+@pytest.mark.parametrize("label", QUEUE_LABELS)
+def test_family_queue_rows_drain_their_tails(cuda, label, res):
+    """Each queue-fed row through the kernels runs its tail in at least one
+    drain launch (sortingSK: one gated segment a sort interval at least),
+    and makes no eager evaluation."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    _, _, _, _, plain = family_render(cuda, label, res, False)
+    k = familybody.KERNEL
+    tails = k.tails[queue_op(label)]
+    assert plain == 0 and tails >= 1 and k.drain_launches == tails
+    if label == "sortingSK":
+        e0, total = k.last_split["e0"], k.last_split["E"]
+        assert tails >= (total - e0) // 8
+
+
+# (label, pool width, the tail's lookahead group forced or None, the drain's
+# cap): widths whose (G, M) is not (1, 1), groups 16/1 and 8/8 and one
+# thread a lane forced, and caps that relaunch
+TAIL_CASES = [
+    ("regenerationSK 0", 4096, None, None),
+    ("regenerationSK 0", 4096, (8, 8), None),
+    ("regenerationSK 0", 4096, (1, 1), None),
+    ("regenerationSK 0", 1600, (16, 4), 7),
+    ("regenerationSK 1", 1600, None, None),
+    ("regenerationSK 2", 1600, None, 5),
+    ("streamingSK", 4096, None, None),
+    ("streamingSK", 1600, None, 7),
+    ("sortingSK", 4096, None, None),
+    ("sorting every 3", 1600, None, None),
+]
+TAIL_ROWS = {
+    "regenerationSK 0": dict(group=1), "regenerationSK 1": dict(group=8),
+    "regenerationSK 2": dict(group=1024), "streamingSK": dict(sort_every=0),
+    "sortingSK": dict(sort_every=8, defer=True),
+    "sorting every 3": dict(sort_every=3, defer=True),
+}
+
+
+def family_at_e0(cuda, label, width):
+    """The row's pool at e0 on family_ctx's queue, through the kernels'
+    queue stage: (ctx, pool, image_id or None, paths_issued, accum, e0)."""
+    from cudavolumerenderer_tpu_torch.models import (
+        integrator, regeneration, streaming,
+    )
+    from cudavolumerenderer_tpu_torch.ops import familybody
+
+    row = TAIL_ROWS[label]
+    ctx = family_ctx(cuda, width, family_settings("default"),
+                     row.get("group", 1))
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=cuda)
+    issued = torch.zeros((), dtype=torch.int64, device=cuda)
+    if "group" in row:
+        p = integrator.PathState(**regeneration.empty_pool(width, ctx.seed,
+                                                           cuda))
+        img = torch.zeros(width, dtype=torch.int64, device=cuda)
+        p, img, issued, e0 = familybody.regenerate_queue(ctx, p, img, issued,
+                                                         accum, True)
+        return ctx, p, img, issued, accum, e0
+    s = streaming.initial_stream_state(width, ctx.seed, cuda)
+    s, issued, e0 = familybody.stream_queue(
+        ctx, s, issued, accum, sort_every=row["sort_every"],
+        defer=row.get("defer", False), check_every=8, kernel=True)
+    return ctx, s, None, issued, accum, e0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label, width, look, cap", TAIL_CASES, ids=[
+    f"{c[0]}-{c[1]}-{c[2]}-cap{c[3]}" for c in TAIL_CASES])
+def test_family_tail_drain_equals_eager_tail(cuda, label, width, look, cap,
+                                             monkeypatch):
+    """A pool kept at e0 (the kernels' queue stage), drained, equals the
+    eager tail (the loop of plain refills and bounces or extends from e0)
+    bit for bit in every lane field, n_rays and the loop's evaluations;
+    the splat's image to summation order; with a cap, in several
+    launches."""
+    from cudavolumerenderer_tpu_torch.ops import familybody
+    from cudavolumerenderer_tpu_torch.ops.stages import DRAIN_CAP
+
+    if look is not None:
+        monkeypatch.setattr(familybody, "tail_lookahead", lambda w: look)
+    ctx, s, img, issued, accum, e0 = family_at_e0(cuda, label, width)
+    row = TAIL_ROWS[label]
+    a_acc, b_acc = accum.clone(), accum.clone()
+    k = familybody.KERNEL
+    k.reset()
+    if img is not None:
+        got = familybody.own(s)
+        got_e0, total = k.regenerate(ctx, got, img, issued.clone(), a_acc,
+                                     e0, cap=cap or DRAIN_CAP)
+        want, want_total = familybody.regenerate_tail(
+            ctx, familybody.own(s), img, issued, b_acc, e0, False)
+        names = familybody.PATH_FIELDS
+    else:
+        got = familybody.own(s)
+        kw = dict(sort_every=row["sort_every"], defer=row.get("defer", False))
+        got_e0, total = k.stream(ctx, got, issued.clone(), a_acc, k_chain=8,
+                                 reorder=familybody._reorder(ctx), e0=e0,
+                                 cap=cap or DRAIN_CAP, **kw)
+        want, want_total = familybody.stream_tail(
+            ctx, familybody.own(s), issued, b_acc, e0, check_every=8,
+            kernel=False, **kw)
+        names = familybody.LANE_FIELDS
+    torch.cuda.synchronize()
+    assert total == want_total > e0 == got_e0
+    assert not family_mismatches(got, want, names)
+    assert k.drain_launches >= 1 and sum(k.by_op.values()) == (
+        k.by_op["flush"])
+    if cap is not None:
+        assert k.last_drain["launches"] > 1
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [3, None], ids=["cap-3", "no-cap"])
+@pytest.mark.parametrize("label", ["regenerationSK 0", "streamingSK"])
+def test_family_queued_loop_equals_eager_loop(cuda, label, cap):
+    """The whole loop on the card (the queue stage's batches, each followed
+    by the gated tail drain that starts from the card's e0), with the
+    drain capped at 3 evaluations a launch or not, equals the eager loop
+    bit for bit in every lane field, n_rays and the evaluations, and
+    reports the eager loop's e0."""
+    from cudavolumerenderer_tpu_torch.models import (
+        integrator, regeneration, streaming,
+    )
+    from cudavolumerenderer_tpu_torch.ops import familybody
+    from cudavolumerenderer_tpu_torch.ops.stages import DRAIN_CAP
+
+    width = 1600
+    ctx = family_ctx(cuda, width, family_settings("default"))
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=cuda)
+    issued = torch.zeros((), dtype=torch.int64, device=cuda)
+    a_acc, b_acc = accum.clone(), accum.clone()
+    k = familybody.KERNEL
+    k.reset()
+    if label.startswith("regenerationSK"):
+        p = integrator.PathState(**regeneration.empty_pool(width, ctx.seed,
+                                                           cuda))
+        img = torch.zeros(width, dtype=torch.int64, device=cuda)
+        got, got_img = familybody.own(p), img.clone()
+        e0, total = k.regenerate(ctx, got, got_img, issued.clone(), a_acc,
+                                 cap=cap or DRAIN_CAP)
+        want, want_img, want_issued, want_e0 = familybody.regenerate_queue(
+            ctx, p, img, issued, b_acc, False)
+        want, want_total = familybody.regenerate_tail(
+            ctx, want, want_img, want_issued, b_acc, want_e0, False)
+        names = familybody.PATH_FIELDS
+        assert torch.equal(got_img, want_img)
+    else:
+        s = streaming.initial_stream_state(width, ctx.seed, cuda)
+        got = familybody.own(s)
+        kw = dict(sort_every=0, defer=False)
+        e0, total = k.stream(ctx, got, issued.clone(), a_acc, k_chain=8,
+                             reorder=None, cap=cap or DRAIN_CAP, **kw)
+        want, want_issued, want_e0 = familybody.stream_queue(
+            ctx, s, issued, b_acc, check_every=8, kernel=False, **kw)
+        want, want_total = familybody.stream_tail(
+            ctx, want, want_issued, b_acc, want_e0, check_every=8,
+            kernel=False, **kw)
+        names = familybody.LANE_FIELDS
+    torch.cuda.synchronize()
+    assert (e0, total) == (want_e0, want_total) and 0 < e0 < total
+    assert not family_mismatches(got, want, names)
+    if cap is not None:
+        assert k.last_drain["launches"] > 1
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
 # -- the variable boundary's march in the family kernels (csrc/familybody.cu) --------
 
 def variable_settings(**kw):
