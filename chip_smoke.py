@@ -12,11 +12,12 @@ CPU or to a plain version on a CUDA tensor):
    rounded on 2^21 inputs (ops/math3.sqrt relies on it there), and the
    two rules of torch's CUDA ops the body kernel follows (a sum over 3 is
    (x0 + x2) + x1; x / c is x * float32(1 / c));
-2. build the nine kernel libraries, csrc/tailpk.cu (the tail kernel and
+2. build the ten kernel libraries, csrc/tailpk.cu (the tail kernel and
    the tail stage's drain), csrc/tracking.cu, csrc/pgather.cu,
    csrc/fastbody.cu, csrc/replaybody.cu, csrc/familybody.cu,
-   csrc/brickbody.cu, csrc/fastqbody.cu and csrc/nestedreplay.cu, with one
-   nvcc each, started
+   csrc/brickbody.cu, csrc/fastqbody.cu, csrc/nestedreplay.cu and
+   csrc/lanesort.cu (the stable sort of sortingSK's sort points and
+   brickSK's rounds), with one nvcc each, started
    together with g++ on the native data-path library (the repository's csrc/cvr_native.cpp
    and csrc/cvr_vdb.cpp), all into the package's ignored _build/
    directory; print the build times and ptxas registers and spills;
@@ -70,12 +71,15 @@ CPU or to a plain version on a CUDA tensor):
    -k brickSK -i 4 -r 400 400, one trial, timed with the image copy,
    brick.render_tile (the function make_kernel_fn returns) wrapped to count
    its rounds and keep its image: once through the round kernels (phase A,
-   torch's stable sort and the round launch per round, gated batches with
-   a host read per batch; the kernels' counts set to 0 just before and
-   read just after) and once with eager_body=True (the eager loop, the
-   tracking kernel once per round): both exactly 1,151,411 rays and the
-   same rounds, the images bit-equal; walls, launches, sorts and host
-   reads of both;
+   the lane sort's launches (csrc/lanesort.cu) and the round launch per
+   round, gated batches with a host read per batch; the kernels' counts
+   set to 0 just before and read just after: a lane sort every round) and
+   once with eager_body=True (the eager loop, the tracking kernel and
+   torch's sort once per round, no lane sort): both exactly 1,151,411 rays
+   and the same rounds, the images bit-equal; walls, launches, sorts and
+   host reads of both; then the kernel render under torch.profiler: no
+   aten::sort or aten::argsort, index_select once (the lanes put in
+   sorted order at the end), not a round;
 9. each of the five gather kernels (csrc/pgather.cu) against its plain
    torch version at the gather benchmark's published shapes (67 MB
    table, N = 262,144, S = 16): bit-equal outputs; the kernel, its plain
@@ -110,8 +114,12 @@ CPU or to a plain version on a CUDA tensor):
    evaluation, the eager render no launch; every integrator-family row must
    give naiveSK's n_rays exactly (FAMILY_RAYS, 287,887) and an image
    allclose to naiveSK's (rtol = atol = 1e-4), fastQ's mean and n_rays
-   within 2% of naiveSK's; torch.profiler over streamingSK's whole render
-   through the kernels (the card's busy share); under --boundary variable
+   within 2% of naiveSK's; sortingSK's kernel render sorts every sort
+   point through the lane sort (csrc/lanesort.cu), its eager render none;
+   torch.profiler over streamingSK's whole render through the kernels (the
+   card's busy share), and over sortingSK's (no aten::sort or
+   aten::argsort, fewer index_select than sort points; the profiler first
+   seen to record them in one plain sort point); under --boundary variable
    naiveSK, naiveMK and regenerationSK 0 at 400^2 x 1 through the kernels
    (the bounce's isosurface march; each naiveSK-variable's n_rays exactly,
    images allclose at 1e-4), then each through the kernels and with the
@@ -344,7 +352,13 @@ CPU or to a plain version on a CUDA tensor):
    the chain bound (L dependent loads); and the same on run_suite's
    medical256 pools at e0 (2^17 lanes, the long tail), held bit for bit
    against the tail as a refill and a bounce or extend launch an
-   iteration.
+   iteration; then sortingSK's sort point alone (sort_points) on pools kept
+   at e0 of its queue stage, at phase 11's pool width and run_suite's
+   medical256 (2^17 lanes): the lane sort bit for bit against the plain
+   sort point (every lane field), its device time (graphs of 16 restores
+   and sorts, less 16 restores), its kernels' times (torch.profiler), the
+   plain sort point's time, torch.argsort(stable=True) alone, and the
+   bound (ops/lanesort.sort_bytes).
 26. (run right after phase 8, on its scene) brickSK's round kernels on
    rounds kept from the slice (400^2 x 4, 160,000 lanes: rounds 0, 100
    and 600) and from a 48x40 tile in its middle (1,920 lanes in 15 rows:
@@ -354,14 +368,17 @@ CPU or to a plain version on a CUDA tensor):
    tracking round on the sorted keys (every lane field, pos), bit for bit;
    each kernel's device time per launch (CUDA events over replays of a
    graph of 16 out-of-place launches of the kept state), its plain
-   version's (CUDA events, the input's copy included), the stable sort's
-   (graph of 16), and the byte bound (ops/brickbody.brick_bytes from the
-   plain versions' taps); then 100 rounds of the 160,000-lane render
-   from round 601, in place as the render runs them, under
-   torch.profiler: each kernel's device time per launch, the sort's,
-   device kernels per round and the busy share, each kernel's byte bound
-   over the same rounds by the plain versions, whose state after them
-   must equal the kernels' bit for bit.
+   version's (CUDA events, the input's copy included), the lane sort's
+   (csrc/lanesort.cu; graph of 16) bit for bit against torch.sort's, and
+   the byte bound (ops/brickbody.brick_bytes from the plain versions'
+   taps; ops/lanesort.sort_bytes); then 100 rounds of the 160,000-lane
+   render from round 601, in place as the render runs them, under
+   torch.profiler: each kernel's device time per launch, the lane sort's
+   (and by kernel), device kernels per round and the busy share; the same
+   rounds with torch.sort in the lane sort's place (its time in place,
+   the same final state); each kernel's byte bound over the same rounds by
+   the plain versions, whose state after them must equal the kernels' bit
+   for bit.
 27. (run last, on phase 5's kept tail stage) the tail stage's drain on
    the state kept at its entry: two launches in turns, each timed by CUDA
    events around the launch and bit-equal to the eager loop's state; the
@@ -480,6 +497,29 @@ BRICK_DESIGN = {
              "usable lanes; the last block moves the loop's count into the "
              "control words",
 }
+# the lane sort (csrc/lanesort.cu): the JAX sort each mode replaces, its
+# kernels' names in a profiler trace, and the torch ops the plain sort points
+# run (none on the kernels' path)
+SORT_REPLACES = {"morton": "cudavolumerenderer_tpu/models/streaming.py:113",
+                 "brick": "cudavolumerenderer_tpu/models/brick.py:387"}
+SORT_KERNEL_NAMES = ("keys_kernel", "pass_kernel", "gather_kernel",
+                     "copy_back_kernel")
+TORCH_SORT_OPS = ("aten::sort", "aten::argsort", "aten::index_select")
+SORT_DESIGN = {
+    "morton": "an LSD radix sort of 8-bit digits: a keys launch (the Morton "
+              "code, 2^30 for a dead lane, and each tile's first-digit "
+              "histogram), 4 passes of one block per 2,048 keys (warp "
+              "__match_any_sync ranks among equal digits, the warps' counts "
+              "scanned in shared memory, the earlier tiles' counts summed "
+              "from the pass's histograms, each placed key counted in the "
+              "next pass's histogram by atomics), a gather of every field by "
+              "the order into a scratch pool and its copy back; 7 launches, "
+              "each gated on the loop's control words",
+    "brick": "the same radix sort on brickSK's int32 keys, the sentinel "
+             "mapped to n_bricks: a keys launch and a pass per 8 bits of "
+             "n_bricks, the last writing skeys and the int64 order; gated "
+             "on the rounds' control words",
+}
 WINDOW = (100, 60)  # phase 5's profiler window: first tail round, rounds
 NULL, SCATTER, DIED, CROSSED = 1, 2, 3, 4  # what a traced step did
 COLD = ("taa1", "taa0", "stream", "vmem", "binned")  # also timed on fresh indices
@@ -521,7 +561,8 @@ CHASE_STEPS = 100000  # phase 25: dependent loads timed for the chain bound
 PROFILE_ROWS = ("naiveSK", "regenerationSK")
 PROFILE_EVALS = (1, 16, 128, 512, 1024)
 PROFILE_BOUNCES = (0, 1, 2, 4, 8)
-TURN_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0")  # family_turns' rows
+# family_turns' rows
+TURN_ROWS = ("naiveSK", "naiveMK", "regenerationSK 0", "sortingSK")
 FASTQ_ITS = {"refill": 12, "step": 13}  # phase 25's fastQ iterations
 LONG_MARCH = 0.05  # phase 25: a march threshold the smoke's edges stay under
 FASTQ_REPLACES = {"body": "cudavolumerenderer_tpu/models/fastq.py:148",
@@ -1642,16 +1683,19 @@ def brick_furnace_and_small_render():
 def brick_slice(bcfg, dev, card: str) -> dict:
     """Phase 8: the brickSK slice through the CLI's batch mode, once
     through the round kernels (counts set to 0 just before and read just
-    after: rounds, launches, sorts, host reads) and once with
-    eager_body=True (the eager loop, one tracking-kernel launch a round);
-    brick.render_tile is wrapped to count rounds and keep the image.  Both
-    must give 1,151,411 rays, the same rounds and the same image bit for
-    bit."""
+    after: rounds, launches, sorts through the lane sort, host reads) and
+    once with eager_body=True (the eager loop, one tracking-kernel launch
+    and a torch sort a round); brick.render_tile is wrapped to count rounds
+    and keep the image.  Both must give 1,151,411 rays, the same rounds and
+    the same image bit for bit.  Then the kernel render once more under
+    torch.profiler: no torch sort or argsort, and index_select only once
+    (the lanes put in sorted order at the end), not a round."""
     import torch
 
     from cudavolumerenderer_tpu_torch import cli
     from cudavolumerenderer_tpu_torch.models import brick
     from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
     from cudavolumerenderer_tpu_torch.ops import tracking as tk
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
@@ -1668,6 +1712,7 @@ def brick_slice(bcfg, dev, card: str) -> dict:
 
         torch.cuda.synchronize()
         bb.KERNEL.reset()
+        ls.KERNEL.reset()
         tk.KERNEL.launches = 0
         brick.render_tile = counted
         t0 = time.perf_counter()
@@ -1689,7 +1734,8 @@ def brick_slice(bcfg, dev, card: str) -> dict:
             "mrays": n_rays / wall / 1e6, "mean": float(saved.mean()),
             "track_launches": tk.KERNEL.launches,
             "launches": dict(bb.KERNEL.by_op), "sorts": bb.KERNEL.sorts,
-            "reads": bb.KERNEL.reads,
+            "reads": bb.KERNEL.reads, "brick_sorts": ls.KERNEL.by_op["brick"],
+            "sort_launches": ls.KERNEL.launches,
             "image": img,
         }
         runs[label] = row
@@ -1697,7 +1743,9 @@ def brick_slice(bcfg, dev, card: str) -> dict:
             f"(incl. image copy; CLI {cli_wall:.2f} s in all), {n_rays:.0f} "
             f"rays, {row['mrays']:.4f} Mrays/s, {rounds} rounds, "
             f"{wall / rounds * 1e3:.4f} ms per round, round-kernel launches "
-            f"{row['launches']}, sorts {row['sorts']}, tracking-kernel "
+            f"{row['launches']}, sorts {row['sorts']} ({row['brick_sorts']} "
+            f"through the lane sort, {row['sort_launches']} launches), "
+            f"tracking-kernel "
             f"launches {row['track_launches']}, host reads {row['reads']}, "
             f"image mean {row['mean']:.5f}; card {card}")
     k, e = runs["kernels"], runs["eager"]
@@ -1721,6 +1769,18 @@ def brick_slice(bcfg, dev, card: str) -> dict:
           f"kernels in {e['rounds']} rounds")
     check(k["reads"] < k["rounds"] // 8,
           f"phase 8: {k['reads']} host reads in {k['rounds']} rounds")
+    check(k["brick_sorts"] == k["sorts"] >= k["rounds"]
+          and e["brick_sorts"] == 0,
+          f"phase 8: {k['brick_sorts']} lane sorts of {k['sorts']} in "
+          f"{k['rounds']} rounds (eager {e['brick_sorts']})")
+    ops = torch_sort_ops(lambda: cli.run_test(bcfg, dev))
+    check(ops["aten::sort"] == ops["aten::argsort"] == 0
+          and ops["aten::index_select"] < k["rounds"],
+          f"phase 8: the kernel render ran {ops} in {k['rounds']} rounds")
+    k["torch_sort_ops"] = ops
+    log(f"[8] brickSK slice through the kernels under torch.profiler: torch "
+        f"ops {ops} in {k['rounds']} rounds (index_select once at the end); "
+        f"card {card}")
     log(f"[8] brickSK slice: the kernels' image bit-equal to the eager "
         f"loop's, {BRICK_RAYS} rays and {k['rounds']} rounds each; wall "
         f"{k['wall']:.4f} s against {e['wall']:.3f} s "
@@ -1772,12 +1832,15 @@ def brick_state_row(ctx, s, pos, bufs, tag: str, card: str):
     kernel against its plain version (every lane field bit for bit, the
     keys, perm, count and pos), timed per launch by CUDA events over graph
     replays of 16 out-of-place launches, its plain version by CUDA events
-    (the input's copy included), the sort between them, and each kernel's
-    byte bound (ops/brickbody.brick_bytes).  Returns (row, the state after
-    the kernels' round, its pos, the largest float difference)."""
+    (the input's copy included), the sort between them (the lane sort bit
+    for bit against torch.sort, both timed by graph replays, and the sort's
+    byte bound, ops/lanesort.sort_bytes), and each kernel's byte bound
+    (ops/brickbody.brick_bytes).  Returns (row, the state after the
+    kernels' round, its pos, the largest float difference)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
 
     dev = torch.device("cuda")
     k = bb.KERNEL
@@ -1802,10 +1865,18 @@ def brick_state_row(ctx, s, pos, bufs, tag: str, card: str):
     plain_a = cuda_ms(lambda: bb.plain_phase_a(ctx, bb.own(s), pos), reps=3,
                       warmup=1)
     bytes_a = bb.brick_bytes(ctx, taps_a)
-    # the sort
-    bufs.sort()
+    # the sort: the lane sort against torch.sort
+    bufs.sort(n_bricks=ctx.n_bricks)
+    skeys, order = torch.sort(bufs.keys, stable=True)
+    check(torch.equal(bufs.skeys, skeys) and torch.equal(bufs.order, order),
+          f"phase 26, {tag}: the lane sort differs from torch.sort")
     spare.keys.copy_(bufs.keys)
-    sort_ms = graph_ms([spare.sort] * GRAPH_CALLS)
+    sort_ms = graph_ms([lambda: spare.sort(n_bricks=ctx.n_bricks)]
+                       * GRAPH_CALLS)
+    torch_sort_ms = graph_ms([lambda: torch.sort(
+        spare.keys, stable=True, out=(spare.skeys, spare.order))]
+        * GRAPH_CALLS)
+    sort_bound, _ = bound_ms(ls.sort_bytes(ctx.n_lanes, "brick"))
     # the tracking round
     base, bpos = want, pos
     got_r, got_pos = bb.round_(ctx, bb.own(base), bpos.clone(), bufs)
@@ -1830,7 +1901,8 @@ def brick_state_row(ctx, s, pos, bufs, tag: str, card: str):
                   & (key_rows[:, :1] != bb.SENTINEL)).sum())
     pending, tracking = int(wcount), int(want.tracking.sum())
     row = {"pending": pending, "tracking": tracking, "usable": usable,
-           "sort_ms": sort_ms}
+           "sort_ms": sort_ms, "torch_sort_ms": torch_sort_ms,
+           "sort_bound_ms": sort_bound}
     for op, ms, plain, n_bytes in (("phase_a", ms_a, plain_a, bytes_a),
                                    ("round", ms_r, plain_r, bytes_r)):
         bound, bound_by = bound_ms(n_bytes)
@@ -1840,9 +1912,45 @@ def brick_state_row(ctx, s, pos, bufs, tag: str, card: str):
             f"plain {plain:8.3f} ms; bound {n_bytes} B = "
             f"{bound * 1e3:.3f} us ({bound / ms:.1%}); bit-equal; card {card}")
     log(f"[26] {tag}: {pending} lanes pending, {tracking} tracking, "
-        f"{usable} usable in the round; the stable sort "
-        f"{sort_ms * 1e3:.2f} us per call; card {card}")
+        f"{usable} usable in the round; the lane sort "
+        f"{sort_ms * 1e3:.2f} us per call ({ls.passes_for(ctx.n_bricks)} "
+        f"passes for {ctx.n_bricks} bricks), bit-equal to torch.sort's "
+        f"{torch_sort_ms * 1e3:.2f} us; bound {sort_bound * 1e3:.3f} us "
+        f"({sort_bound / sort_ms:.1%}); card {card}")
     return row, got_r, got_pos, err
+
+
+def profiled_rounds(ctx, s, pos, n: int, lane_sort: bool):
+    """n rounds from (s, pos) (copies) by the gated runner's launches
+    (prepared once, in place, without the gate), the sort the lane sort's
+    or torch.sort's, under torch.profiler: (state, pos, the profiler, the
+    wall ms inside its window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
+
+    dev = torch.device("cuda")
+    ks, kpos = bb.own(s), pos.clone()
+    bufs = bb.RoundBuffers.make(ctx.n_lanes, dev)
+    phase = bb.KERNEL.prepare(ctx, "phase_a", ks, kpos, bufs)
+    sort = ls.KERNEL.prepare_brick(bufs, None, ctx.n_bricks)
+    rnd = bb.KERNEL.prepare(ctx, "round", ks, kpos, bufs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            bb.KERNEL.launch(phase, dev)
+            if lane_sort:
+                ls.KERNEL.launch(sort, dev)
+            else:
+                torch.sort(bufs.keys, stable=True,
+                           out=(bufs.skeys, bufs.order))
+            bb.KERNEL.launch(rnd, dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return ks, kpos, prof, wall
 
 
 def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
@@ -1850,31 +1958,20 @@ def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
     (s, pos) kept at round `first`: the gated runner's launches (prepared
     once, in place, without the gate) under torch.profiler, with the wall
     inside its window, each kernel's mean device time per launch there and
-    the sort's; then the same rounds by the plain versions from the same
-    state, whose taps give each kernel's mean byte bound per launch over
-    those rounds, and whose final state must equal the kernels' bit for
-    bit."""
+    the lane sort's; then the same rounds with torch.sort in its place
+    (its time in place, the same final state); then the same rounds by the
+    plain versions from the same state, whose taps give each kernel's mean
+    byte bound per launch over those rounds, and whose final state must
+    equal the kernels' bit for bit."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
 
-    dev = torch.device("cuda")
     n = BRICK_PROFILE_ROUNDS
-    ks, kpos = bb.own(s), pos.clone()
-    bufs = bb.RoundBuffers.make(ctx.n_lanes, dev)
-    phase = bb.KERNEL.prepare(ctx, "phase_a", ks, kpos, bufs)
-    rnd = bb.KERNEL.prepare(ctx, "round", ks, kpos, bufs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            bb.KERNEL.launch(phase, dev)
-            bufs.sort()
-            bb.KERNEL.launch(rnd, dev)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    ts, tpos, tprof, twall = profiled_rounds(ctx, s, pos, n, False)
+    ks, kpos, prof, wall = profiled_rounds(ctx, s, pos, n, True)
     on_card = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_card) / 1e3
@@ -1892,6 +1989,18 @@ def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
     ms = {"phase_a": per_launch("phase_a_kernel"),
           "round": per_launch("round_kernel")}
     sort_ms = busy / n - ms["phase_a"] - ms["round"]
+    sort_kernels = {name: sum(e.self_device_time_total for e in on_card
+                              if name in e.key) / 1e3 / n
+                    for name in SORT_KERNEL_NAMES}
+    t_card = [e for e in tprof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    t_busy = sum(e.self_device_time_total for e in t_card) / 1e3
+    torch_sort_ms = t_busy / n - sum(
+        e.self_device_time_total for e in t_card
+        if "phase_a_kernel" in e.key or "round_kernel" in e.key) / 1e3 / n
+    check(not brick_differs(ks, ts) and torch.equal(kpos, tpos),
+          f"phase 26: {n} rounds with the lane sort differ from {n} with "
+          "torch.sort")
     # the same rounds by the plain versions: their taps, and the state
     ps, ppos, n_bytes = bb.own(s), pos.clone(), {"phase_a": 0, "round": 0}
     for _ in range(n):
@@ -1906,10 +2015,14 @@ def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
                                    else ["pos"])
     check(not bad, f"phase 26: {n} kernel rounds differ from the plain "
           f"versions' in {bad}")
+    sort_bound, _ = bound_ms(ls.sort_bytes(ctx.n_lanes, "brick"))
     out = {"rounds": n, "first": first, "wall_ms": wall, "busy_ms": busy,
            "busy_share": busy / wall,
            "kernels_per_round": sum(e.count for e in on_card) / n,
-           "sort_ms": sort_ms, "pending_after": int(
+           "sort_ms": sort_ms, "sort_kernels_ms": sort_kernels,
+           "torch_sort_ms": torch_sort_ms, "torch_wall_ms": twall,
+           "torch_busy_ms": t_busy, "sort_bound_ms": sort_bound,
+           "pending_after": int(
                (ks.alive | (ks.samples_done < ctx.spp_per_lane)).sum())}
     for op in ("phase_a", "round"):
         bound, bound_by = bound_ms(n_bytes[op] / n)
@@ -1921,9 +2034,13 @@ def brick_profile(ctx, s, pos, first: int, card: str) -> dict:
             f"({bound / ms[op]:.1%}); card {card}")
     log(f"[26] 160000 lanes, rounds {first}-{first + n - 1}: {wall:.2f} ms "
         f"wall, {busy:.3f} ms of device time ({busy / wall:.1%} busy), "
-        f"{out['kernels_per_round']:.1f} device kernels a round, the sort "
-        f"and the rest {sort_ms * 1e3:.2f} us a round; bit-equal to the "
-        f"plain versions' {n} rounds; card {card}")
+        f"{out['kernels_per_round']:.1f} device kernels a round, the lane "
+        f"sort {sort_ms * 1e3:.2f} us a round in place ("
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sort_kernels.items())
+        + f" us) against torch.sort's {torch_sort_ms * 1e3:.2f} us in the "
+        f"same rounds ({twall:.2f} ms wall, {t_busy:.3f} ms of device time; "
+        f"the same final state), bound {sort_bound * 1e3:.3f} us; bit-equal "
+        f"to the plain versions' {n} rounds; card {card}")
     return out
 
 
@@ -2019,6 +2136,7 @@ def family_rows(xml: str, card: str) -> dict:
     from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
     from cudavolumerenderer_tpu_torch.ops.stages import GATED_BATCH
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
 
@@ -2047,11 +2165,14 @@ def family_rows(xml: str, card: str) -> dict:
             torch.cuda.synchronize()
             fam.KERNEL.reset()
             fqb.KERNEL.reset()
+            ls.KERNEL.reset()
             t0 = time.perf_counter()
             img = renderer.render()
             wall = time.perf_counter() - t0
             n_rays = renderer.n_rays
             counts = fastq_counts(fqb) if fastq else family_counts(fam)
+            counts.update(sorts=ls.KERNEL.by_op["morton"],
+                          sort_launches=ls.KERNEL.launches)
             check(img.shape == (400, 400, 3) and np.isfinite(img).all(),
                   f"{label} ({mode}): image not finite or wrong shape")
             runs[mode] = dict(img=img, n_rays=n_rays, wall=wall, **counts)
@@ -2061,6 +2182,9 @@ def family_rows(xml: str, card: str) -> dict:
                 f"{counts['launches']:5d} kernel launches ("
                 + ", ".join(f"{op} {counts[op]}" for op in ops
                             if counts[op])
+                + (f"; {counts['sorts']} sort points through the lane "
+                   f"sort, {counts['sort_launches']} launches"
+                   if counts["sorts"] else "")
                 + f"), {counts['reads']:4d} host reads, {n_rays:.0f} "
                 f"rays, {n_rays / wall / 1e6:.4f} Mrays/s, Config.n_lanes"
                 f" {cfg.n_lanes}, image mean {img.mean():.6f}; card {card}")
@@ -2072,6 +2196,11 @@ def family_rows(xml: str, card: str) -> dict:
               f"{label}: the eager render launched a kernel")
         if kernel in QUEUE_TAILS:
             queue_split(label, kernel, got, GATED_BATCH)
+        sorting = kernel == "sortingSK"
+        check((got["sorts"] >= got["passes"] // 8 > 0) == sorting
+              and eager["sorts"] == 0,
+              f"{label}: {got['sorts']} sorts through the lane sort in "
+              f"{got['passes']} passes (eager {eager['sorts']})")
         check(got["n_rays"] == eager["n_rays"]
               and got["passes"] == eager["passes"],
               f"{label}: kernels {got['n_rays']:.0f} rays in "
@@ -2086,10 +2215,12 @@ def family_rows(xml: str, card: str) -> dict:
                            eager_wall=eager["wall"],
                            launches=got["launches"], reads=got["reads"],
                            eager_reads=eager["reads"],
-                           split=got.get("split"))
+                           split=got.get("split"), sorts=got["sorts"],
+                           sort_launches=got["sort_launches"])
         for key in ("body", "drain") if fastq else FAMILY_KEYS:
             tkey = f"fastq_{key}" if fastq else key
             totals[tkey] = totals.get(tkey, 0) + got[key]
+        totals["sorts"] = totals.get("sorts", 0) + got["sorts"]
 
     # streamingSK through the kernels again, under torch.profiler
     cfg = Config(kernel=Kernel.STREAMING_SK, **base)
@@ -2108,8 +2239,61 @@ def family_rows(xml: str, card: str) -> dict:
             f"{n_kernels / passes:.1f} device kernels per pass; the card "
             f"{busy_ms / wall_ms:.1%} busy over the unprofiled render's "
             f"{wall_ms:.2f} ms; card {card}")
-    return {"rows": rows, "launches": totals,
+    sorting = sorting_torch_ops(scene, camera, base,
+                                rows["sortingSK"]["sorts"], card)
+    return {"rows": rows, "launches": totals, "sorting_ops": sorting,
             "variable": variable_rows(scene, camera, base, card)}
+
+
+def torch_sort_ops(fn) -> dict:
+    """The torch sort ops (TORCH_SORT_OPS) one call of fn() runs, counted
+    from torch.profiler's CPU events: {op: calls}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(TORCH_SORT_OPS, 0)
+    for e in prof.key_averages():
+        if e.key in counts:
+            counts[e.key] += e.count
+    return counts
+
+
+def sorting_torch_ops(scene, camera, base: dict, sorts: int,
+                      card: str) -> dict:
+    """Phase 11: sortingSK's render through the kernels once more under
+    torch.profiler: no torch sort or argsort, and no index_select a sort
+    point (the lane sort's launches instead); the profiler first shown to
+    see those ops in one plain sort point on a pool of 1,024 lanes."""
+    import torch
+
+    from cudavolumerenderer_tpu_torch.config import Config, Kernel
+    from cudavolumerenderer_tpu_torch.models import streaming
+    from cudavolumerenderer_tpu_torch.models.renderer import create_renderer
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
+
+    med = scene.medium
+    pool = streaming.initial_stream_state(1024, 0, torch.device("cuda"))
+    probe = torch_sort_ops(lambda: ls.plain_morton_reorder_(
+        med.box_min, med.box_max, pool))
+    check(probe["aten::argsort"] >= 1 and probe["aten::index_select"] >= 1,
+          f"[11] the profiler does not see a plain sort point's ops: {probe}")
+    renderer = create_renderer(scene, camera, Config(
+        kernel=Kernel.SORTING_SK, **base))
+    ls.KERNEL.reset()
+    ops = torch_sort_ops(renderer.render)
+    n = ls.KERNEL.by_op["morton"]
+    check(ops["aten::sort"] == ops["aten::argsort"] == 0
+          and ops["aten::index_select"] < max(n, 1) and n == sorts > 0,
+          f"[11] sortingSK's kernel render ran {ops} for its {n} sort "
+          f"points (the timed render {sorts})")
+    log(f"[11] sortingSK through the kernels under torch.profiler: {n} sort "
+        f"points through the lane sort ({ls.KERNEL.launches} launches), "
+        f"torch ops {ops} (a plain sort point runs {probe}); card {card}")
+    return {"sorts": n, "ops": ops, "probe": probe}
 
 
 def queue_split(label: str, kernel: str, got: dict, batch: int) -> None:
@@ -5326,15 +5510,110 @@ def family_kernels(xml: str, card: str) -> dict:
             f"longest march {row['longest']} iterations of six density "
             f"lookups; card {card}")
     tails = family_tails(fam, ctx, card, load_ms, queue_lanes(cfg, scene))
+    sorts = sort_points(fam, ctx, card, queue_lanes(cfg, scene))
     return {"rows": rows, "drain": drain, "fastq": fq, "march": march,
-            "tails": tails}
+            "tails": tails, "sorts": sorts}
+
+
+def sort_point_row(ctx, pool, tag: str, card: str) -> dict:
+    """One sortingSK sort point alone on a pool kept at it: the lane sort
+    (csrc/lanesort.cu, in place) bit for bit against the plain sort point
+    on the card (morton keys, stable argsort, a take of every field and
+    its copy back); its device time from a CUDA graph of 16 calls, each
+    after the pool's restore from the kept copy (14 copy_), less a graph of
+    16 restores alone; its kernels' device time under torch.profiler; the
+    plain sort point's time (CUDA events, the restore's taken off); the
+    yardstick torch.argsort(stable=True) of the pool's keys alone (a graph
+    of 16); and the bound (ops/lanesort.sort_bytes: every field read and
+    written once; with the passes' own traffic beside it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudavolumerenderer_tpu_torch.ops import familybody as fam
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
+    from cudavolumerenderer_tpu_torch.ops import morton
+    from cudavolumerenderer_tpu_torch.ops.stages import lane_field
+
+    dev = torch.device("cuda")
+    med = ctx.scene.medium
+    width = pool.alive.shape[0]
+    got, want = fam.own(pool), fam.own(pool)
+    ls.morton_reorder_(ctx, got)
+    ls.plain_morton_reorder_(med.box_min, med.box_max, want)
+    bad = pool_differs(fam.LANE_FIELDS, got, want)
+    check(not bad, f"phase 25, {tag}: the lane sort differs from the plain "
+          f"sort point in {bad}")
+    work = fam.own(pool)
+    prep = ls.KERNEL.prepare_morton(ctx, work)
+
+    def restore():
+        for name in fam.LANE_FIELDS:
+            lane_field(work, name).copy_(lane_field(pool, name))
+
+    def sort():
+        restore()
+        ls.KERNEL.launch(prep, dev)
+
+    restore_ms = graph_ms([restore] * GRAPH_CALLS)
+    ms = graph_ms([sort] * GRAPH_CALLS) - restore_ms
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_CALLS):
+            sort()
+        torch.cuda.synchronize()
+    kernels = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and name in e.key)
+               / 1e3 / GRAPH_CALLS for name in SORT_KERNEL_NAMES}
+
+    def plain():
+        restore()
+        ls.plain_morton_reorder_(med.box_min, med.box_max, work)
+
+    plain_ms = cuda_ms(plain, reps=8, warmup=2) - cuda_ms(restore, reps=8,
+                                                          warmup=2)
+    keys = morton.ray_sort_keys(pool.o, med.box_min, med.box_max, pool.alive)
+    library_ms = graph_ms([lambda: torch.argsort(keys, stable=True)]
+                          * GRAPH_CALLS)
+    n_bytes = ls.sort_bytes(width, "morton")
+    bound, bound_by = bound_ms(n_bytes)
+    passes_bound, _ = bound_ms(ls.sort_bytes(width, "morton", passes=4))
+    alive = int(torch.count_nonzero(pool.alive))
+    log(f"[25] {tag} sort point, {width} lanes ({alive} alive): the lane "
+        f"sort {ms * 1e3:.2f} us per call (7 launches: " + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in kernels.items())
+        + f" us), bit-equal to the plain sort point's {plain_ms * 1e3:.1f} "
+        f"us; torch.argsort(stable=True) alone {library_ms * 1e3:.2f} us; "
+        f"bound {n_bytes} B = {bound * 1e3:.3f} us ({bound / ms:.1%}), with "
+        f"the passes' traffic {passes_bound * 1e3:.3f} us; the restore "
+        f"{restore_ms * 1e3:.2f} us; card {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+            "passes_bound_ms": passes_bound, "kernels_ms": kernels,
+            "restore_ms": restore_ms, "width": width, "alive": alive,
+            "max_abs_err": 0.0}
+
+
+def sort_points(fam, ctx, card: str, width: int) -> dict:
+    """Phase 25's sort points alone (sort_point_row): on phase 11's scene at
+    phase 11's pool width and on run_suite's medical256 pool (2^17 lanes),
+    each sortingSK pool kept at e0 (a sort point) of the kernels' queue
+    stage."""
+    mctx, mwidth = medical_queue_ctx(fam)
+    out = {}
+    for tag, tctx, w in (("smoke", ctx, width), ("medical256", mctx, mwidth)):
+        pool, *_ = queue_pool_at_e0(fam, tctx, "sorting", w)
+        out[tag] = sort_point_row(tctx, pool, tag, card)
+    return out
 
 
 def queue_pool_at_e0(fam, ctx, kind: str, width: int):
     """A queue-fed pool of `width` lanes kept at e0, the iteration at which
     every path of ctx's queue is issued, reached through the kernels' queue
     stage: (pool, image_id or None, paths_issued, accum, e0) for
-    regenerationSK ("bounce", refill group 1) or streamingSK ("extend")."""
+    regenerationSK ("bounce", refill group 1), streamingSK ("extend") or
+    sortingSK ("sorting": a sort point and the deferred flush every 8
+    iterations, so e0 is a sort point)."""
     import torch
 
     from cudavolumerenderer_tpu_torch.models import integrator, regeneration
@@ -5350,9 +5629,11 @@ def queue_pool_at_e0(fam, ctx, kind: str, width: int):
         p, img, issued, e0 = fam.regenerate_queue(ctx, p, img, issued, accum,
                                                   True)
         return p, img, issued, accum, e0
+    sorting = kind == "sorting"
     s = streaming.initial_stream_state(width, ctx.seed, dev)
-    s, issued, e0 = fam.stream_queue(ctx, s, issued, accum, sort_every=0,
-                                     defer=False,
+    s, issued, e0 = fam.stream_queue(ctx, s, issued, accum,
+                                     sort_every=8 if sorting else 0,
+                                     defer=sorting,
                                      check_every=streaming.CHECK_EVERY,
                                      kernel=True)
     return s, None, issued, accum, e0
@@ -5693,8 +5974,16 @@ def profile_row(kname: str, scene, camera, card: str) -> dict:
         walls.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     fam.KERNEL.reset()
+    try:  # builds before the lane sort have no ops/lanesort.py
+        from cudavolumerenderer_tpu_torch.ops import lanesort as ls
+    except ImportError:
+        ls = None
+    if ls is not None:
+        ls.KERNEL.reset()
     renderer.render()
     counts = family_counts(fam)
+    if ls is not None:
+        counts["sorts"] = ls.KERNEL.by_op["morton"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         renderer.render()
@@ -5704,7 +5993,8 @@ def profile_row(kname: str, scene, camera, card: str) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         # the longest name first: drain_kernel is in extend_drain_kernel
-        name = next((n for n in sorted(FAMILY_KERNEL_NAMES, key=len,
+        name = next((n for n in sorted(FAMILY_KERNEL_NAMES
+                                       + SORT_KERNEL_NAMES, key=len,
                                        reverse=True) if n in e.key), None)
         if name is not None:
             ms, n = kernels.get(name, (0.0, 0))
@@ -5712,7 +6002,8 @@ def profile_row(kname: str, scene, camera, card: str) -> dict:
                              n + e.count)
     busy = busy_union_us(prof) / 1e3
     wall = min(walls)
-    launches = {k: counts[k] for k in FAMILY_KEYS if counts.get(k)}
+    launches = {k: counts[k] for k in (*FAMILY_KEYS, "sorts")
+                if counts.get(k)}
     log(f"[profile] medical256/{kname} 512^2 x 4, n_lanes 2^17: walls "
         f"{walls[0]:.4f} / {walls[1]:.4f} s, n_rays {renderer.n_rays:.0f}; "
         f"a render's launches {launches}, {counts['reads']} host reads, "
@@ -6322,6 +6613,49 @@ def family_lines(family: dict, k: dict, cli_drains: int) -> list:
             for label, row in var["rows"].items()},
     })
     return lines
+
+
+def sort_lines(family: dict, k: dict, bslice: dict, bkern: dict) -> list:
+    """The `kernels` JSON entries of csrc/lanesort.cu: launches (sorts; each
+    sort several CUDA launches, `cuda_launches`) from phase 11's sortingSK
+    kernel render and phase 8's kernel render (the main paths); the Morton
+    sort's times from phase 25's sort point on phase 11's pool (the
+    medical256 pool's beside it), the brick sort's in place over phase
+    26's 100 profiled rounds (torch.sort's in the same rounds its plain
+    version and library call, and its graph time on round 100's keys)."""
+    source = "cudavolumerenderer_tpu_torch/csrc/lanesort.cu"
+    row = family["rows"]["sortingSK"]
+    head = k["sorts"]["smoke"]
+    prof = bkern["profile"]
+    state = bkern["rows"]["160000"][100]
+    kb = bslice["kernels"]
+    return [{
+        "name": "lanesort_morton", "route": "cuda", "source": source,
+        "replaces": SORT_REPLACES["morton"], "launches": row["sorts"],
+        "cuda_launches": row["sort_launches"],
+        **{x: head[x] for x in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "library": "torch.argsort(keys, stable=True) of the pool's keys",
+        "design": SORT_DESIGN["morton"],
+        "per_pool": k["sorts"], "torch_sort_ops_render": family[
+            "sorting_ops"]["ops"],
+        "sortingSK_400": {x: row[x] for x in ("wall", "eager_wall",
+                                               "passes", "launches",
+                                               "reads")},
+    }, {
+        "name": "lanesort_brick", "route": "cuda", "source": source,
+        "replaces": SORT_REPLACES["brick"], "launches": kb["brick_sorts"],
+        "cuda_launches": kb["sort_launches"], "max_abs_err": 0.0,
+        "ms": prof["sort_ms"], "plain_ms": prof["torch_sort_ms"],
+        "bound_ms": prof["sort_bound_ms"], "bound_by": "bytes",
+        "library_ms": prof["torch_sort_ms"],
+        "library": "torch.sort(keys, stable=True), in place in the rounds",
+        "design": SORT_DESIGN["brick"],
+        "sort_kernels_ms": prof["sort_kernels_ms"],
+        "graph_ms_round_100": state["sort_ms"],
+        "torch_graph_ms_round_100": state["torch_sort_ms"],
+        "torch_sort_ops_render": kb["torch_sort_ops"],
+    }]
 
 
 def brick_lines(bslice: dict, bkern: dict) -> list:
@@ -7265,6 +7599,7 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.ops import familybody as fam
     from cudavolumerenderer_tpu_torch.ops import fastbody as fb
     from cudavolumerenderer_tpu_torch.ops import fastqbody as fqb
+    from cudavolumerenderer_tpu_torch.ops import lanesort as ls
     from cudavolumerenderer_tpu_torch.ops import nestedreplay as nr
     from cudavolumerenderer_tpu_torch.ops import pgather as pg
     from cudavolumerenderer_tpu_torch.ops import replaybody as rb
@@ -7274,12 +7609,12 @@ def main() -> int:
     from cudavolumerenderer_tpu_torch.scene.loader import load_scene
     from cudavolumerenderer_tpu_torch.utils.image import load_hdr
 
-    # -- phase 2: build the nine libraries, one nvcc each, started together,
+    # -- phase 2: build the ten libraries, one nvcc each, started together,
     # and the native data-path library (g++) beside them
     from cudavolumerenderer_tpu_torch.utils import native
 
     libraries = (tpk.KERNEL, tk.KERNEL, pg.LIBRARY, fb.KERNEL, rb.KERNEL,
-                 fam.KERNEL, bk.KERNEL, fqb.KERNEL, nr.KERNEL)
+                 fam.KERNEL, bk.KERNEL, fqb.KERNEL, nr.KERNEL, ls.KERNEL)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         native_build = pool.submit(native.load)
         builds = [pool.submit(k.library) for k in libraries]
@@ -7666,6 +8001,7 @@ def main() -> int:
                   "loop's E = k_chain * ceil(L / k_chain)",
         "launches_bench_1024": star["counts"]["drain_launches"],
     }, *family_lines(family, family_k, cli_drains),
+        *sort_lines(family, family_k, bslice, bkern),
         *fastq_lines(family, family_k, fq2), *nested_lines(nested),
         *gather_lines]}))
     print(card)

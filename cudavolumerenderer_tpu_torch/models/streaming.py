@@ -25,8 +25,10 @@ lax.cond on `it % sort_every` is a Python `if` on the host's iteration
 counter, so the sort and the deferred flush fall on the JAX package's
 iterations; the three argsorts are stable, as jnp.argsort is.  On the card
 each iteration is a refill and an extend (and the flush) of
-csrc/familybody.cu, in gated chains read once per batch, the sort in torch
-between them (ops/familybody.stream_loop).
+csrc/familybody.cu, in gated chains read once per batch, and each sort
+point csrc/lanesort.cu's gated radix sort of the pool in place
+(ops/familybody.stream_loop, ops/lanesort.py); `_morton_reorder` below
+stays the plain version, which the CPU and `eager_body=True` run.
 """
 
 from __future__ import annotations

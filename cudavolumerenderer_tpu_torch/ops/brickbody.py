@@ -5,13 +5,16 @@ one device program (cudavolumerenderer_tpu/models/brick.py:464: `phase_a`
 :185, `kernel_round` :365 around the Pallas tracking kernel, the argsort
 :387 and the packed permutation :388).  The port's eager loop
 (models/brick.py `eager_loop`) runs a round as ~1,150 torch launches and a
-host read of the loop condition; here a round is three launches and no
-read:
+host read of the loop condition; here a round is a handful of launches and
+no read:
 
   phase_a  one thread per lane: models/brick.phase_a and the lane's sort
            key (round_keys), the lane written in place, the key in
            position order;
-  sort     torch.sort(keys, stable=True), as JAX's argsort was an XLA op;
+  sort     the stable sort of the keys into skeys and order
+           (ops/lanesort.brick_sort_, csrc/lanesort.cu: a keys launch and
+           a radix pass per 8 bits of n_bricks), what torch.sort(keys,
+           stable=True) gives, as JAX's argsort was an XLA op;
   round    one block per row of 128 sorted positions: models/brick's
            track_rows (K tracking steps in the row's brick, tracking.cu's
            loop), the lane found through the order.
@@ -23,10 +26,11 @@ lane's new position.  The keys are sorted in position order, so the stable
 sort's ties, the rows, the rounds and every path equal the eager loop's.
 
 On the card `run_rounds` enqueues rounds `stages.GATED_BATCH` at a time
-and reads the loop's control words once per batch; both launches of a
-round return untouched once the loop's count (lanes alive or with samples
-left, left by phase A and moved into the words by the round) is 0, and
-the sort between them then reorders stale keys that no launch reads.
+and reads the loop's control words once per batch; every launch of a
+round, the sort's too, returns untouched once the loop's count (lanes
+alive or with samples left, left by phase A and moved into the words by
+the round) is 0.  The eager loop (`run_rounds` without the kernels) keeps
+torch.sort.
 
 This module holds the gate (`route`), the parameter and pointer layout
 (checked against the C layout at load), the plain versions in this
@@ -47,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import stages
+from . import lanesort, stages
 from .rng import as_u32, mul32
 from .stages import C_COUNT, N_CTRL, lane_field, own
 from .stages import f32 as _f32
@@ -245,9 +249,11 @@ class RoundBuffers:
         return cls(e(torch.int64, n), e(torch.int32, n), e(torch.int32, n),
                    e(torch.int64, n), e(torch.int64))
 
-    def sort(self) -> None:
-        """The stable sort of the keys into skeys and order."""
-        torch.sort(self.keys, stable=True, out=(self.skeys, self.order))
+    def sort(self, ctrl=None, n_bricks=None) -> None:
+        """The stable sort of the keys into skeys and order
+        (lanesort.brick_sort_: torch.sort on the CPU, the kernels on the
+        card, gated on `ctrl` when given; n_bricks bounds the keys)."""
+        lanesort.brick_sort_(self, ctrl, n_bricks)
 
 
 @dataclasses.dataclass
@@ -330,7 +336,7 @@ class BrickBodyKernel(stages.BodyKernel):
     and counted (stages.BodyKernel): `by_op` counts each entry point's
     launches made now (a gated one may return untouched), `plain_evals`
     each one's evaluations by its plain version, `sorts` the sorts the
-    gated runner enqueued."""
+    gated runner enqueued (their launches count in lanesort.KERNEL)."""
 
     def __init__(self):
         super().__init__("brickbody", _SOURCE, (N_FP, N_IP, N_S, N_CTRL),
@@ -433,11 +439,12 @@ class BrickBodyKernel(stages.BodyKernel):
         ctrl = torch.zeros(N_CTRL, dtype=torch.int64, device=dev)
         ctrl[C_COUNT] = brick.pending_count(ctx, s)
         phase = self.prepare(ctx, "phase_a", s, pos, bufs, ctrl=ctrl)
+        sort = lanesort.KERNEL.prepare_brick(bufs, ctrl, ctx.n_bricks)
         rnd = self.prepare(ctx, "round", s, pos, bufs, ctrl=ctrl)
 
         def chain():
             self.launch(phase, dev)
-            bufs.sort()
+            lanesort.KERNEL.launch(sort, dev)
             self.sorts += 1
             self.launch(rnd, dev)
 
@@ -507,7 +514,7 @@ def one_round(ctx, s, pos, bufs: RoundBuffers):
         bufs.perm, bufs.keys, bufs.count = perm, keys, count
         bufs.skeys, bufs.order = torch.sort(keys, stable=True)
     else:
-        bufs.sort()
+        bufs.sort(n_bricks=ctx.n_bricks)
     return round_(ctx, s, pos, bufs)
 
 

@@ -24,6 +24,10 @@ lane of a pool per launch, bit for bit the eager function's on the card:
           each lane extends until it dies, in one launch, or sortingSK's
           segments between sort points), and flush, streaming.flush_pending.
 
+sortingSK's sort points (streaming._morton_reorder) run between them as
+ops/lanesort.py's gated radix sort (csrc/lanesort.cu), the pool permuted in
+place so the prepared launches' pointers stay valid.
+
 The queue-fed loops (regenerationSK, streamingSK, sortingSK) run in two
 parts: the queue stage while paths are unissued, and the tail from the
 iteration e0 at which every path is issued, where a refill takes nothing
@@ -34,7 +38,7 @@ This module holds the gate (`route`), the parameter vectors
 the wrapper `run_body` (the plain version for CPU tensors, the kernel for
 CUDA tensors, or it raises), the schedulers' loops (`regenerate_loop`,
 `stream_loop`: stages.loop_chains of the plain bodies, or gated chains of
-the kernels and the tail drains; `trace`, the drain) and the bound
+the kernels, the sort and the tail drains; `trace`, the drain) and the bound
 (`family_bytes`).  The kernels update a pool's per-lane tensors in place
 unless given `out`.
 """
@@ -644,10 +648,11 @@ class FamilyBodyKernel(stages.BodyKernel):
                       sort_every: int, defer: bool, k_chain: int, reorder):
         """One chain of k_chain iterations of streaming's queue stage: each
         a gated refill and a gated extend, which leaves the stage's count
-        (the paths not yet issued), after `reorder(s)` (the Morton sort in
-        place) and with `defer` a gated flush every sort_every iterations
-        of the host's counter."""
+        (the paths not yet issued), after the gated Morton sort in place
+        (`reorder(s, ctrl, k_chain)` prepares it) and with `defer` a gated
+        flush every sort_every iterations of the host's counter."""
         dev = s.alive.device
+        sort = reorder(s, ctrl, k_chain) if sort_every > 0 else None
         flush = self.prepare(ctx, "flush", s, accum=accum, ctrl=ctrl,
                              chain=k_chain)
         refill = self.prepare(ctx, "refill", s, issued=issued, ctrl=ctrl,
@@ -661,7 +666,7 @@ class FamilyBodyKernel(stages.BodyKernel):
             nonlocal it
             for _ in range(k_chain):
                 if sort_every > 0 and it % sort_every == 0:
-                    reorder(s)
+                    sort()
                     if defer:
                         self.launch(flush, dev)
                 self.launch(refill, dev)
@@ -716,14 +721,16 @@ class FamilyBodyKernel(stages.BodyKernel):
                      sort_every: int, defer: bool, k_chain: int,
                      reorder) -> int:
         """sortingSK's tail on a pool at e0 (a multiple of k_chain): gated
-        chains of k_chain evaluations whose sort points run `reorder(s)`
-        and the flush as the loop does, each run of evaluations up to the
-        next sort point one gated extend_drain_kernel segment.  The pool
-        and n_rays updated in place.  Returns the loop's trip count."""
+        chains of k_chain evaluations whose sort points run the gated
+        Morton sort (`reorder(s, ctrl, k_chain)` prepares it) and the flush
+        as the loop does, each run of evaluations up to the next sort point
+        one gated extend_drain_kernel segment.  The pool and n_rays updated
+        in place.  Returns the loop's trip count."""
         dev = s.alive.device
         ctrl = torch.zeros(N_CTRL + 1, dtype=torch.int64, device=dev)
         ctrl[C_EVAL] = e0
         ctrl[C_COUNT] = torch.count_nonzero(s.alive)
+        sort = reorder(s, ctrl, k_chain)
         flush = self.prepare(ctx, "flush", s, accum=accum, ctrl=ctrl,
                              chain=k_chain)
         hist = self.zeros("hist", k_chain + 1, torch.int64, dev)
@@ -742,7 +749,7 @@ class FamilyBodyKernel(stages.BodyKernel):
             end = it + k_chain
             while it < end:
                 if it % sort_every == 0:
-                    reorder(s)
+                    sort()
                     if defer:
                         self.launch(flush, dev)
                 nxt = min(end, (it // sort_every + 1) * sort_every)
@@ -971,14 +978,16 @@ def stream_tail(ctx: FamilyContext, s, issued, accum, e0: int, *,
 
 
 def _reorder(ctx: FamilyContext):
-    """The Morton sort of a pool in place (its tensors stay the kernels')."""
-    from ..models import streaming  # noqa: PLC0415
+    """The Morton sort of a pool in place on the card (its tensors stay the
+    kernels'): reorder(pool, ctrl, k_chain) prepares the sort, gated on the
+    loop's control words, once, and returns the function that launches it
+    (ops/lanesort.py)."""
+    from . import lanesort  # noqa: PLC0415
 
-    med = ctx.scene.medium
-
-    def reorder(p):
-        copy_lanes_(p, streaming._morton_reorder(p, med.box_min,
-                                                 med.box_max))
+    def reorder(p, ctrl, k_chain):
+        prep = lanesort.KERNEL.prepare_morton(ctx, p, ctrl, k_chain)
+        dev = p.alive.device
+        return lambda: lanesort.KERNEL.launch(prep, dev)
 
     return reorder
 

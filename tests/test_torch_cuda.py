@@ -53,7 +53,11 @@ and two-level, f32, packed-4 and 'split' tables) and their deferred GGX
 flush (defer_ggx 1 and 4, GGX and null, one tile and multi-tile) equal the
 eager body bit for bit per evaluation, per stage (gated and drained) and
 per render at 24^2 and 40^2, and the white furnace is exact through each
-mode.
+mode.  The lane sort (csrc/lanesort.cu: sortingSK's Morton sort point and
+brickSK's sort by brick) equals its plain versions bit for bit at 2^17,
+160,000 and odd widths, leaves everything untouched once its loop has
+stopped, and sortingSK's loop and render and brickSK's rounds through it
+equal the eager ones without a torch sort (`-k sort`).
 
 These tests need a CUDA card and skip without one.  This file imports no
 jax, so on a machine with a card and no jax it runs on its own:
@@ -64,6 +68,7 @@ It also holds the kernel-input helper that tests/test_torch_tailpk.py
 uses against the JAX kernel.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -2954,3 +2959,309 @@ def test_one_level_backward_never_reaches_the_eager_loop(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         backward()
     assert nestedreplay.KERNEL.plain_passes == 0
+
+
+# -- the lane sort (csrc/lanesort.cu): sortingSK's sort points, brickSK's sort --
+
+SORT_WIDTHS = [131072, 160000, 4097, 1000, 1]
+SORT_BOXES = {"unit": ((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5)),
+              "skewed": ((-0.3, -0.7, -0.11), (0.9, 0.2, 0.4))}
+
+
+def sort_box(device, box):
+    """What a sort reads of a FamilyContext: the medium's box."""
+    from types import SimpleNamespace
+
+    med = SimpleNamespace(box_min=torch.tensor(box[0], device=device),
+                          box_max=torch.tensor(box[1], device=device))
+    return SimpleNamespace(scene=SimpleNamespace(medium=med))
+
+
+def sort_pool(device, width, seed, box, dead=0.3):
+    """A StreamState of `width` lanes from a seed (numpy): positions in and
+    around the box, a third of them on a Morton cell's face or an ulp
+    either side, a fifth copied from other lanes (tied keys), a share
+    dead; every other field random."""
+    from cudavolumerenderer_tpu_torch.models import streaming
+    from cudavolumerenderer_tpu_torch.ops.rng import RngState
+
+    rs = np.random.default_rng(seed)
+    bmin, bmax = (np.asarray(b, np.float32) for b in box)
+    ext = bmax - bmin
+    o = bmin + rs.uniform(-0.05, 1.05, (width, 3)).astype(np.float32) * ext
+    cells = rs.integers(0, 1025, (width, 3)).astype(np.float32) / np.float32(
+        1024)
+    face = (bmin + cells * ext).astype(np.float32)
+    nudge = rs.integers(-1, 2, (width, 3))
+    face = np.where(nudge < 0, np.nextafter(face, -np.inf),
+                    np.where(nudge > 0, np.nextafter(face, np.inf), face))
+    o = np.where((rs.random(width) < 0.3)[:, None], face, o).astype(
+        np.float32)
+    copied = rs.random(width) < 0.2
+    o[copied] = o[rs.integers(0, width, int(copied.sum()))]
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def f3():
+        return t(rs.normal(size=(width, 3)).astype(np.float32))
+
+    return streaming.StreamState(
+        o=t(o), d=f3(), throughput=f3(), radiance=f3(),
+        alive=t(rs.random(width) >= dead), tracking=t(rs.random(width) < 0.5),
+        t=t(rs.random(width).astype(np.float32)),
+        max_t=t(rs.random(width).astype(np.float32)), normal=f3(),
+        image_id=t(rs.integers(0, 1 << 20, width)),
+        rng=RngState(t(rs.integers(0, 1 << 32, width)),
+                     t(rs.integers(0, 1 << 31, width) * 2 + 1)),
+        n_rays=torch.tensor(7.0, device=device),
+        pending=t(rs.random(width) < 0.3), p_scat=f3())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", list(SORT_BOXES))
+@pytest.mark.parametrize("width", SORT_WIDTHS)
+def test_morton_sort_kernel_equals_plain(cuda, width, box):
+    """One sort point through the kernels (7 launches, the pool permuted in
+    place, its tensors kept) equals the plain version (morton keys, stable
+    argsort, a take of every field) on the card and on the CPU, bit for
+    bit in every lane field."""
+    from cudavolumerenderer_tpu_torch.ops import familybody, lanesort, stages
+
+    ctx = sort_box(cuda, SORT_BOXES[box])
+    pool = sort_pool(cuda, width, width % 97, SORT_BOXES[box])
+    med = ctx.scene.medium
+    want = stages.own(pool)
+    lanesort.plain_morton_reorder_(med.box_min, med.box_max, want)
+    on_cpu = type(pool)(*(v.cpu() if isinstance(v, torch.Tensor)
+                          else type(v)(*(x.cpu() for x in v)) for v in pool))
+    lanesort.plain_morton_reorder_(med.box_min.cpu(), med.box_max.cpu(),
+                                   on_cpu)
+    got = stages.own(pool)
+    ptrs = [stages.lane_field(got, n).data_ptr()
+            for n in familybody.LANE_FIELDS]
+    lanesort.KERNEL.reset()
+    lanesort.morton_reorder_(ctx, got)
+    torch.cuda.synchronize()
+    assert lanesort.KERNEL.by_op == {"morton": 1, "brick": 0}
+    assert lanesort.KERNEL.launches == 7
+    assert ptrs == [stages.lane_field(got, n).data_ptr()
+                    for n in familybody.LANE_FIELDS]
+    assert not family_mismatches(got, want, familybody.LANE_FIELDS)
+    for n in familybody.LANE_FIELDS:
+        x = stages.lane_field(got, n).cpu()
+        y = stages.lane_field(on_cpu, n)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bricks", [None, 1, 300, 4096])
+@pytest.mark.parametrize("width", [160000, 131072, 1920, 4097, 1])
+def test_brick_sort_kernel_equals_torch_sort(cuda, width, n_bricks):
+    """brickSK's sort through the kernels (a keys launch and a pass per 8
+    bits of n_bricks; 31 bits without it) writes torch.sort(keys,
+    stable=True)'s skeys and order, the sentinel last."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort
+
+    rs = np.random.default_rng(width)
+    keys = rs.integers(0, n_bricks or (1 << 30), width)
+    keys[rs.random(width) < 0.3] = bb.SENTINEL
+    bufs = bb.RoundBuffers.make(width, cuda)
+    bufs.keys.copy_(torch.from_numpy(keys.astype(np.int32)))
+    lanesort.KERNEL.reset()
+    bufs.sort(n_bricks=n_bricks)
+    torch.cuda.synchronize()
+    passes = lanesort.passes_for(n_bricks or bb.SENTINEL)
+    assert lanesort.KERNEL.by_op == {"morton": 0, "brick": 1}
+    assert lanesort.KERNEL.launches == 1 + passes
+    skeys, order = torch.sort(bufs.keys, stable=True)
+    assert torch.equal(bufs.skeys, skeys)
+    assert torch.equal(bufs.order, order)
+
+
+@pytest.mark.cuda
+def test_gated_sort_after_the_loop_ends_leaves_everything_untouched(cuda):
+    """A gated sort whose loop has stopped (at a chain's start with the
+    count at 0) returns untouched: the pool's every field, and brickSK's
+    skeys and order; mid-chain it sorts as the plain version does."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import familybody, lanesort, stages
+
+    ctx = sort_box(cuda, SORT_BOXES["skewed"])
+    pool = sort_pool(cuda, 5000, 3, SORT_BOXES["skewed"])
+    got = stages.own(pool)
+    ctrl = torch.zeros(stages.N_CTRL + 1, dtype=torch.int64, device=cuda)
+    ctrl[stages.C_EVAL] = 16
+    lanesort.morton_reorder_(ctx, got, ctrl, 8)
+    bufs = bb.RoundBuffers.make(5000, cuda)
+    bufs.keys.copy_(torch.randint(0, 50, (5000,), device=cuda,
+                                  dtype=torch.int32))
+    bufs.skeys.fill_(-1)
+    bufs.order.fill_(-1)
+    brick_ctrl = torch.zeros(stages.N_CTRL, dtype=torch.int64, device=cuda)
+    brick_ctrl[stages.C_EVAL] = 3
+    bufs.sort(brick_ctrl, n_bricks=50)
+    torch.cuda.synchronize()
+    assert not family_mismatches(got, pool, familybody.LANE_FIELDS)
+    assert bool((bufs.skeys == -1).all() and (bufs.order == -1).all())
+    ctrl[stages.C_EVAL] = 17
+    lanesort.morton_reorder_(ctx, got, ctrl, 8)
+    brick_ctrl[stages.C_COUNT] = 1
+    bufs.sort(brick_ctrl, n_bricks=50)
+    want = stages.own(pool)
+    med = ctx.scene.medium
+    lanesort.plain_morton_reorder_(med.box_min, med.box_max, want)
+    torch.cuda.synchronize()
+    assert not family_mismatches(got, want, familybody.LANE_FIELDS)
+    skeys, order = torch.sort(bufs.keys, stable=True)
+    assert torch.equal(bufs.skeys, skeys) and torch.equal(bufs.order, order)
+
+
+def no_torch_sort(monkeypatch):
+    """torch.sort and torch.argsort raise from here on (the kernels' path
+    must not reach them)."""
+    def refused(*a, **k):
+        raise AssertionError("a torch sort on the kernels' path")
+
+    monkeypatch.setattr(torch, "sort", refused)
+    monkeypatch.setattr(torch, "argsort", refused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1600, 4096])
+@pytest.mark.parametrize("sort_every", [8, 3])
+def test_sorting_loop_through_the_sort_kernel_equals_eager(cuda, sort_every,
+                                                           width,
+                                                           monkeypatch):
+    """sortingSK's whole loop on the card (the queue stage's gated chains,
+    then the sorted tail), every sort point through the gated sort kernels
+    and no torch sort, equals the eager loop (its sort points
+    streaming._morton_reorder) bit for bit in every lane field, n_rays, e0
+    and the evaluations, the image within 1e-5."""
+    from cudavolumerenderer_tpu_torch.models import streaming
+    from cudavolumerenderer_tpu_torch.ops import familybody, lanesort
+
+    ctx = family_ctx(cuda, width, family_settings("default"))
+    accum = torch.zeros((ctx.tile_dim[0] * ctx.tile_dim[1], 3), device=cuda)
+    issued = torch.zeros((), dtype=torch.int64, device=cuda)
+    a_acc, b_acc = accum.clone(), accum.clone()
+    s = streaming.initial_stream_state(width, ctx.seed, cuda)
+    kw = dict(sort_every=sort_every, defer=True)
+    want, want_issued, want_e0 = familybody.stream_queue(
+        ctx, s, issued, b_acc, check_every=8, kernel=False, **kw)
+    want, want_total = familybody.stream_tail(
+        ctx, want, want_issued, b_acc, want_e0, check_every=8, kernel=False,
+        **kw)
+    got = familybody.own(s)
+    lanesort.KERNEL.reset()
+    with monkeypatch.context() as m:
+        no_torch_sort(m)
+        e0, total = familybody.KERNEL.stream(
+            ctx, got, issued.clone(), a_acc, k_chain=8,
+            reorder=familybody._reorder(ctx), **kw)
+        torch.cuda.synchronize()
+    assert (e0, total) == (want_e0, want_total) and 0 < e0 < total
+    assert not family_mismatches(got, want, familybody.LANE_FIELDS)
+    assert lanesort.KERNEL.by_op["morton"] >= -(-total // sort_every)
+    torch.testing.assert_close(a_acc, b_acc, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [24, 40])
+def test_sorting_render_through_the_sort_kernel_equals_eager(cuda, res,
+                                                             monkeypatch):
+    """sortingSK's render through the kernels reaches no torch sort, sorts
+    through the lane sort, and gives the eager_body=True render's n_rays
+    and evaluations, its image within 1e-5."""
+    from cudavolumerenderer_tpu_torch.ops import lanesort
+
+    lanesort.KERNEL.reset()
+    with monkeypatch.context() as m:
+        no_torch_sort(m)
+        img, n_rays, evals, launches, plain = family_render(
+            cuda, "sortingSK", res, False)
+    sorts = lanesort.KERNEL.by_op["morton"]
+    want, want_rays, want_evals, _, _ = family_render(cuda, "sortingSK", res,
+                                                      True)
+    assert sorts >= -(-evals // 8) and plain == 0 and launches > 0
+    assert lanesort.KERNEL.by_op["morton"] == sorts  # eager: none
+    assert n_rays == want_rays and evals == want_evals
+    torch.testing.assert_close(img, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["48x40", "48x40-full", "400x400"])
+def test_brick_rounds_through_the_sort_kernel_equal_torch_sort(cuda, case,
+                                                              monkeypatch):
+    """brickSK's rounds with the sort kernels equal the rounds with
+    torch.sort between the same phase A and round kernels, round by round
+    (skeys, order, every lane field and pos), and the gated runner (no
+    torch sort) equals the eager loop's rounds, fields and pos."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import lanesort
+
+    ctx = brick_ctx(cuda, case, spp=1 if case == "400x400" else 4)
+    s0 = bb.own(brick.initial_state(ctx))
+    s1, s2 = bb.own(s0), bb.own(s0)
+    pos1 = torch.arange(ctx.n_lanes, device=cuda)
+    pos2 = pos1.clone()
+    b1 = bb.RoundBuffers.make(ctx.n_lanes, cuda)
+    b2 = bb.RoundBuffers.make(ctx.n_lanes, cuda)
+    for _ in range(60):
+        s1, pos1 = bb.one_round(ctx, s1, pos1, b1)
+        s2, *_ = bb.phase_a(ctx, s2, pos2, b2)
+        torch.sort(b2.keys, stable=True, out=(b2.skeys, b2.order))
+        s2, pos2 = bb.round_(ctx, s2, pos2, b2)
+        torch.cuda.synchronize()
+        assert torch.equal(b1.skeys, b2.skeys)
+        assert torch.equal(b1.order, b2.order)
+        assert not brick_mismatches(s1, s2) and torch.equal(pos1, pos2)
+    lanesort.KERNEL.reset()
+    with monkeypatch.context() as m:
+        no_torch_sort(m)
+        got, got_pos, rounds = bb.run_rounds(ctx, bb.own(s0), True)
+        torch.cuda.synchronize()
+    want, want_pos, want_rounds = bb.run_rounds(ctx, bb.own(s0), False)
+    assert rounds == want_rounds > 60
+    assert lanesort.KERNEL.by_op["brick"] >= rounds
+    assert not brick_mismatches(got, want) and torch.equal(got_pos, want_pos)
+    assert got.n_rays.view(torch.int32) == want.n_rays.view(torch.int32)
+
+
+@pytest.mark.cuda
+def test_sort_wrapper_runs_kernel_or_raises(cuda, monkeypatch):
+    """The sort's wrappers check their tensors, and a failed build of
+    csrc/lanesort.cu raises out of sortingSK's and brickSK's renders, with
+    no fallback to torch's sort."""
+    from cudavolumerenderer_tpu_torch.ops import brickbody as bb
+    from cudavolumerenderer_tpu_torch.ops import familybody, lanesort
+    from cudavolumerenderer_tpu_torch.utils import cuda_build
+
+    ctx = sort_box(cuda, SORT_BOXES["unit"])
+    pool = sort_pool(cuda, 100, 0, SORT_BOXES["unit"])
+    with pytest.raises(ValueError, match="t must be"):
+        lanesort.morton_reorder_(ctx, pool._replace(t=pool.t.double()))
+    bufs = bb.RoundBuffers.make(256, cuda)
+    with pytest.raises(ValueError, match="keys must be"):
+        lanesort.brick_sort_(dataclasses.replace(bufs, keys=bufs.order))
+    familybody.KERNEL.library()
+    bb.KERNEL.library()
+
+    def broken(source):
+        raise RuntimeError(f"nvcc failed on {source.name}")
+
+    monkeypatch.setattr(lanesort, "KERNEL", lanesort.LaneSortKernel())
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    with monkeypatch.context() as m:
+        no_torch_sort(m)
+        with pytest.raises(RuntimeError, match="nvcc failed on lanesort"):
+            family_render(cuda, "sortingSK", 24, False)
+        bctx = brick_ctx(cuda, "48x40")
+        with pytest.raises(RuntimeError, match="nvcc failed on lanesort"):
+            brick.render_tile(bctx.scene, bctx.camera, bctx.settings,
+                              bctx.tile_dim, torch.zeros(2, device=cuda),
+                              bctx.full_resolution, 4, 5, 7)
+    assert lanesort.KERNEL.by_op == {"morton": 0, "brick": 0}
